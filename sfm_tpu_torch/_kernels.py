@@ -1,0 +1,131 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled at first use by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, which is
+loaded with ``ctypes``. The library is keyed by a hash of the sources and
+flags, so an edited kernel is rebuilt and a stale one never loads. The
+build directory (``sfm_tpu_torch/_build``) is listed in ``.gitignore``.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises when that is not 0 and only
+then adds one to the kernel's launch count. Tensors are checked by the
+callers (:func:`check_tensor`) before any pointer is taken.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each kernel entry point (all return int = cudaError_t);
+# the last argument is always the cudaStream_t.
+SIGNATURES = {
+    "sfm_match_top2": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "sfm_fmat_score_select": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "sfm_dog_extrema": [_P, _I, _I, _I, _I, _F, _P, _P],
+    "sfm_sift_describe": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _P, _F, _F, _P, _P, _P],
+}
+KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe")
+
+_launches = {k: 0 for k in KERNELS}
+_lib = None
+build_info: dict = {}
+
+
+def launch_counts() -> dict:
+    return dict(_launches)
+
+
+def reset_launch_counts():
+    for k in _launches:
+        _launches[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def load_library():
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    so = BUILD_DIR / f"libsfm_kernels_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        (BUILD_DIR / "ptxas.log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, args in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.sfm_error_string.argtypes = [ctypes.c_int]
+    lib.sfm_error_string.restype = ctypes.c_char_p
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["library"] = str(so)
+    _lib = lib
+    return lib
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def launch(kernel: str, device: torch.device, *args):
+    """Call ``sfm_<kernel>`` on ``device``'s current stream; raise on a CUDA error.
+
+    Tensor arguments are passed as their data pointers and must stay alive
+    for the call (they are referenced by ``args``).
+    """
+    lib = load_library()
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"sfm_{kernel}")(*c_args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel}: CUDA error {rc} ({lib.sfm_error_string(rc).decode()})")
+    _launches[kernel] += 1

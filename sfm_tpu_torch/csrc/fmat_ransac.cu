@@ -1,0 +1,126 @@
+// Kernel K2: score every F-RANSAC hypothesis of a batch of pairs and pick the winner.
+//
+// Replaces the scoring + selection part of sfm_tpu/estimators/fundamental.py::
+// estimate_fundamental_ransac (the vmapped symmetric_epipolar_distance over an
+// (iters, N_score) error matrix, then ransac.py::ransac_select). There the error
+// matrix (512 x 256 f32 per pair) is written to device memory and reduced by
+// separate passes; here each hypothesis's count and error sum stay in registers.
+//
+// What bounds it on the H100: float32 arithmetic and the one division/sqrt pair
+// per point and line (~45 FLOP per hypothesis and point: 5.9 MFLOP per pair at
+// H = 512, N = 256); the inputs are a few KB per pair, so memory is no limit.
+// With one block per pair, a 32-pair chunk fills 32 of the 132 SMs.
+//
+// Design (simple first): one block per pair; the scoring subset (N points, two
+// images, valid flag) sits in shared memory; one thread per hypothesis walks the
+// points and accumulates count and error sum; a block argmax picks the winner.
+//
+// Semantics (ransac_select): inliers are valid rows with error < threshold; the
+// score is count - mean_inlier_error / max(threshold, 1e-6); the first index wins
+// a tie. The error follows epipolar.py::symmetric_epipolar_distance term for term.
+#include <climits>
+
+#include "sfm_common.cuh"
+
+namespace {
+
+constexpr int NT = 256;
+
+struct Cand {
+  float score;
+  int h;
+  int count;
+};
+
+__device__ __forceinline__ Cand cand_max(const Cand& a, const Cand& b) {
+  const bool b_wins = b.score > a.score || (b.score == a.score && b.h < a.h);
+  return b_wins ? b : a;
+}
+
+__global__ void __launch_bounds__(NT) fmat_score_select_kernel(
+    const float* __restrict__ Fs, const float* __restrict__ pts1,
+    const float* __restrict__ pts2, const uint8_t* __restrict__ valid, int H,
+    int N, float thr, int* __restrict__ best_out, int* __restrict__ count_out) {
+  extern __shared__ float sm[];
+  float* sx1 = sm;
+  float* sy1 = sm + N;
+  float* sx2 = sm + 2 * N;
+  float* sy2 = sm + 3 * N;
+  int* sv = reinterpret_cast<int*>(sm + 4 * N);
+  __shared__ Cand warp_best[NT / 32];
+
+  const int b = blockIdx.x;
+  for (int n = threadIdx.x; n < N; n += NT) {
+    const size_t o = (size_t)b * N + n;
+    sx1[n] = pts1[2 * o];
+    sy1[n] = pts1[2 * o + 1];
+    sx2[n] = pts2[2 * o];
+    sy2[n] = pts2[2 * o + 1];
+    sv[n] = valid[o] != 0;
+  }
+  __syncthreads();
+
+  const float score_div = fmaxf(thr, 1e-6f);
+  Cand best{-INFINITY, INT_MAX, 0};
+  for (int h = threadIdx.x; h < H; h += NT) {
+    const float* F = Fs + ((size_t)b * H + h) * 9;
+    float f[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) f[i] = F[i];
+    int count = 0;
+    float err_sum = 0.f;
+    for (int n = 0; n < N; ++n) {
+      if (!sv[n]) continue;
+      const float x = sx1[n], y = sy1[n], u = sx2[n], v = sy2[n];
+      // l1 = F^T x2 (lines in image 1), l2 = F x1 (lines in image 2).
+      const float l10 = f[0] * u + f[3] * v + f[6];
+      const float l11 = f[1] * u + f[4] * v + f[7];
+      const float l12 = f[2] * u + f[5] * v + f[8];
+      const float l20 = f[0] * x + f[1] * y + f[2];
+      const float l21 = f[3] * x + f[4] * y + f[5];
+      const float l22 = f[6] * x + f[7] * y + f[8];
+      const float d1 = fabsf(l10 * x + l11 * y + l12) /
+                       fmaxf(sqrtf(l10 * l10 + l11 * l11), 1e-12f);
+      const float d2 = fabsf(l20 * u + l21 * v + l22) /
+                       fmaxf(sqrtf(l20 * l20 + l21 * l21), 1e-12f);
+      const float err = 0.5f * (d1 + d2);
+      if (err < thr) {
+        ++count;
+        err_sum += err;
+      }
+    }
+    const float mean_err = err_sum / (float)max(count, 1);
+    best = cand_max(best, Cand{(float)count - mean_err / score_div, h, count});
+  }
+
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Cand o;
+    o.score = __shfl_xor_sync(0xffffffffu, best.score, off);
+    o.h = __shfl_xor_sync(0xffffffffu, best.h, off);
+    o.count = __shfl_xor_sync(0xffffffffu, best.count, off);
+    best = cand_max(best, o);
+  }
+  if (threadIdx.x % 32 == 0) warp_best[threadIdx.x / 32] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    Cand w = warp_best[0];
+    for (int i = 1; i < NT / 32; ++i) w = cand_max(w, warp_best[i]);
+    best_out[b] = w.h == INT_MAX ? 0 : w.h;
+    count_out[b] = w.count;
+  }
+}
+
+}  // namespace
+
+SFM_API int sfm_fmat_score_select(const void* Fs, const void* pts1,
+                                  const void* pts2, const void* valid, int B,
+                                  int H, int N, float thr, void* best,
+                                  void* count, void* stream) {
+  const size_t smem = (size_t)N * 5 * sizeof(float);
+  fmat_score_select_kernel<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(Fs), static_cast<const float*>(pts1),
+      static_cast<const float*>(pts2), static_cast<const uint8_t*>(valid), H, N,
+      thr, static_cast<int*>(best), static_cast<int*>(count));
+  return static_cast<int>(cudaGetLastError());
+}

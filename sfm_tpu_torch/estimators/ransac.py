@@ -1,0 +1,62 @@
+"""Fixed-budget RANSAC machinery: masked sampling and hypothesis selection.
+
+Counterpart of ``sfm_tpu/estimators/ransac.py``. Draws come from an explicit
+``torch.Generator`` (seeded from ``SfMConfig.seed`` by the callers), so they
+differ from ``jax.random``'s; every estimator therefore also accepts
+precomputed sample indices, which lets a test hand both packages the same
+hypotheses.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` on the last axis: largest first, ties to the lower index.
+
+    ``torch.topk`` promises no order among ties; a stable descending sort
+    does.
+    """
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def ransac_sample_indices(valid, iters: int, sample_size: int,
+                          generator: torch.Generator, prefix: bool = False):
+    """Draw ``iters`` samples of ``sample_size`` valid row indices.
+
+    valid: (..., N) bool. Returns (..., iters, sample_size) int64.
+    prefix=True (valid rows form a leading prefix, as in best-first match
+    tables): uniform integers in [0, n_valid), with replacement.
+    prefix=False: uniform noise over valid rows, top-k per hypothesis (a
+    without-replacement sample).
+    """
+    lead = valid.shape[:-1]
+    if prefix:
+        n_valid = torch.clamp(valid.sum(-1, dtype=torch.int32), min=1)[..., None, None]
+        u = torch.rand(lead + (iters, sample_size), generator=generator,
+                       device=valid.device)
+        return torch.minimum((u * n_valid).to(torch.int32), n_valid - 1).long()
+    noise = torch.rand(lead + (iters, valid.shape[-1]), generator=generator,
+                       device=valid.device)
+    noise = torch.where(valid[..., None, :], noise, -torch.inf)
+    return top_k(noise, sample_size)[1]
+
+
+def ransac_select(errors, valid, threshold: float):
+    """Best hypothesis of an (..., H, N) error matrix.
+
+    Inliers are valid rows with error < threshold; the winner maximizes the
+    count, with mean inlier error as the tie-breaker, first index on exact
+    ties. Returns (best (...,), inlier mask (..., N), count (...,)).
+    """
+    inl = (errors < threshold) & valid[..., None, :]
+    counts = inl.sum(-1)
+    err_sum = torch.where(inl, errors, 0.0).sum(-1)
+    mean_err = err_sum / torch.clamp(counts, min=1)
+    score = counts.to(torch.float32) - mean_err / max(threshold, 1e-6)
+    best = torch.argmax(score, dim=-1)
+    pick = lambda t: torch.gather(t, -1, best[..., None])[..., 0]
+    best_inl = torch.gather(inl, -2, best[..., None, None].expand(
+        best.shape + (1, inl.shape[-1])))[..., 0, :]
+    return best, best_inl, pick(counts)

@@ -1,0 +1,104 @@
+"""Two-view epipolar geometry used by F-RANSAC.
+
+Counterpart of ``sfm_tpu/geometry/epipolar.py``: ``normalize_points``,
+``eight_point`` and ``symmetric_epipolar_distance``, batched over any
+leading dimensions. Convention: ``x2^T F x1 = 0`` for homogeneous pixel
+coordinates (OpenCV's). Estimators take a ``weights`` vector instead of a
+boolean gather, so a row with weight 0 is excluded without changing shapes.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from sfm_tpu_torch.utils.linalg import smallest_eigvec
+
+_EPS = 1e-12
+
+
+def _homog(pts):
+    return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+
+
+def normalize_points(pts, weights=None):
+    """Hartley normalization: centroid to the origin, mean norm to sqrt(2).
+
+    pts: (..., N, 2); weights: (..., N) or None.
+    Returns (pts_norm (..., N, 2), T (..., 3, 3)) with x_norm = T @ x_homog.
+    """
+    if weights is None:
+        weights = torch.ones(pts.shape[:-1], dtype=pts.dtype, device=pts.device)
+    w = weights[..., None]
+    wsum = torch.clamp(w.sum(-2, keepdim=True), min=_EPS)
+    centroid = (pts * w).sum(-2, keepdim=True) / wsum
+    centered = pts - centroid
+    mean_dist = (torch.linalg.vector_norm(centered, dim=-1, keepdim=True) * w).sum(
+        -2, keepdim=True) / wsum
+    scale = math.sqrt(2.0) / torch.clamp(mean_dist, min=_EPS)
+    pts_norm = centered * scale
+
+    s = scale[..., 0, 0]
+    cx = centroid[..., 0, 0]
+    cy = centroid[..., 0, 1]
+    zero = torch.zeros_like(s)
+    one = torch.ones_like(s)
+    T = torch.stack(
+        [
+            torch.stack([s, zero, -s * cx], dim=-1),
+            torch.stack([zero, s, -s * cy], dim=-1),
+            torch.stack([zero, zero, one], dim=-1),
+        ],
+        dim=-2,
+    )
+    return pts_norm, T
+
+
+def eight_point(pts1, pts2, weights=None, enforce_rank2: bool = True,
+                null_iters: int = 8, null_fallback: bool = True):
+    """Weighted normalized eight-point estimate of F, unit Frobenius norm.
+
+    pts1, pts2: (..., N, 2); weights: (..., N). ``enforce_rank2=False``
+    skips the 3x3 SVD (hypothesis scoring is first-order insensitive to it).
+    """
+    if weights is None:
+        weights = torch.ones(pts1.shape[:-1], dtype=pts1.dtype, device=pts1.device)
+    n1, T1 = normalize_points(pts1, weights)
+    n2, T2 = normalize_points(pts2, weights)
+
+    x1, y1 = n1[..., 0], n1[..., 1]
+    x2, y2 = n2[..., 0], n2[..., 1]
+    ones = torch.ones_like(x1)
+    # Row layout matches F.reshape(9): x2^T F x1 = A @ vec(F).
+    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, ones], dim=-1)
+    A = A * weights[..., None]
+
+    AtA = A.mT @ A
+    f = smallest_eigvec(AtA, iters=null_iters, fallback=null_fallback)
+    F = f.reshape(f.shape[:-1] + (3, 3))
+
+    if enforce_rank2:
+        U, S, Vh = torch.linalg.svd(F)
+        S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
+        F = U @ (S[..., :, None] * Vh)
+
+    # Denormalize: x2n^T Fn x1n = (T2 x2)^T Fn (T1 x1) -> F = T2^T Fn T1.
+    F = T2.mT @ F @ T1
+    return F / torch.clamp(torch.linalg.matrix_norm(F, keepdim=True), min=_EPS)
+
+
+def symmetric_epipolar_distance(F, pts1, pts2):
+    """Mean of the two point-to-epipolar-line distances, in pixels.
+
+    F: (..., 3, 3); pts1, pts2: (..., N, 2), broadcast against F's leading
+    dimensions. Lines in image 1 are F^T x2, in image 2 F x1.
+    """
+    x1 = _homog(pts1)
+    x2 = _homog(pts2)
+    l1 = x2 @ F       # (..., N, 3): F^T x2
+    l2 = x1 @ F.mT    # (..., N, 3): F x1
+    d1 = torch.abs((l1 * x1).sum(-1)) / torch.clamp(
+        torch.linalg.vector_norm(l1[..., :2], dim=-1), min=_EPS)
+    d2 = torch.abs((l2 * x2).sum(-1)) / torch.clamp(
+        torch.linalg.vector_norm(l2[..., :2], dim=-1), min=_EPS)
+    return 0.5 * (d1 + d2)

@@ -1,0 +1,132 @@
+"""Time the port's preprocess stage warm, then trace one run on the card.
+
+    python -m sfm_tpu_torch.profile_preprocess --data_dir D --output_dir O [--runs 5]
+
+Runs ``python -m sfm_tpu_torch preprocess --device cuda --no_mask`` on ``D``
+once cold and ``--runs`` times warm in this process, printing each run's stage
+seconds from ``metrics.json``. Then it runs once more with ``--trace_dir`` (the
+CLI's own ``torch.profiler`` capture) and reads the Chrome trace:
+
+- device busy time: the union of the kernel, memcpy and memset intervals;
+- for the traced window and for the ``detect`` and ``sweep`` spans, the share
+  of the span in which the device was idle;
+- the kernel count and the device time by kernel name.
+
+The profiler slows the host, so the traced window is longer than a warm run
+and overstates the idle share; the script also prints the idle share of the
+warm median stage time, given the traced busy time. The last line is a JSON
+object of these numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+from collections import defaultdict
+from pathlib import Path
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _union_us(intervals, lo: float, hi: float) -> float:
+    """Length of the union of (start, end) intervals clipped to [lo, hi]."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((max(s, lo), min(e, hi)) for s, e in intervals):
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def trace_summary(trace_path: Path) -> dict:
+    """Device busy time, idle shares per span, kernel count and device time
+    by kernel name, from a torch.profiler Chrome trace."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events if e.get("cat") in _DEVICE_CATS]
+    iv = [(e["ts"], e["ts"] + e["dur"]) for e in dev]
+    spans = {"window": (min(e["ts"] for e in events),
+                        max(e["ts"] + e["dur"] for e in events))}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in ("detect", "sweep"):
+            spans[e["name"]] = (e["ts"], e["ts"] + e["dur"])
+    out = {"kernels": sum(e["cat"] == "kernel" for e in dev)}
+    for name, (lo, hi) in spans.items():
+        busy = _union_us(iv, lo, hi)
+        out[name] = {"span_s": (hi - lo) / 1e6, "device_busy_s": busy / 1e6,
+                     "idle_share": 1.0 - busy / (hi - lo)}
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in dev:
+        key = e["name"] if e["cat"] == "kernel" else e["cat"]
+        by_name[key][0] += 1
+        by_name[key][1] += e["dur"]
+    out["by_name"] = sorted(([n, c, us / 1e3] for n, (c, us) in by_name.items()),
+                            key=lambda r: -r[2])
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--data_dir", required=True, help="dataset root (images/)")
+    ap.add_argument("--output_dir", required=True, help="artifacts and the trace")
+    ap.add_argument("--runs", type=int, default=5, help="warm runs after the cold one")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from sfm_tpu_torch import cli
+
+    out = Path(args.output_dir)
+
+    def run(*extra) -> dict:
+        rc = cli.main(["--log_level", "WARNING", "--log_dir", str(out / "logs"), "preprocess",
+                       "--data_dir", args.data_dir, "--output_dir", str(out),
+                       "--device", "cuda", "--no_mask", *extra])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"preprocess returned {rc}")
+        recs = json.loads((out / "metrics.json").read_text())
+        return {r["name"].split("/")[1]: r["value"] for r in recs
+                if r["name"].startswith("stage/")}
+
+    rows = []
+    for i in range(1 + args.runs):
+        t0 = time.perf_counter()
+        m = run()
+        print(f"run {i} ({'cold' if i == 0 else 'warm'}): wall {time.perf_counter() - t0:.4f} s"
+              f" stage {m['preprocess']:.4f} detect {m['detect']:.4f} sweep {m['sweep']:.4f}",
+              flush=True)
+        rows.append(m)
+    warm = {k: statistics.median(r[k] for r in rows[1:]) for k in rows[0]}
+    print("warm median: " + ", ".join(f"{k} {v:.4f} s" for k, v in warm.items()))
+
+    run("--trace_dir", str(out / "trace"))
+    s = trace_summary(out / "trace" / "trace.json")
+    for name in ("window", "detect", "sweep"):
+        if name in s:
+            r = s[name]
+            print(f"traced {name}: span {r['span_s']:.4f} s, device busy "
+                  f"{r['device_busy_s']:.4f} s, idle {r['idle_share']:.1%}")
+    busy = s["window"]["device_busy_s"]
+    s["warm_median_s"] = warm
+    s["idle_share_of_warm_stage"] = 1.0 - busy / warm["preprocess"]
+    print(f"device busy {busy:.4f} s against the warm median stage "
+          f"{warm['preprocess']:.4f} s: idle {s['idle_share_of_warm_stage']:.1%}")
+    print(f"{s['kernels']} kernels; device time by name (count, ms):")
+    for n, c, ms in s["by_name"][:20]:
+        print(f"  {ms:10.3f} ms  {c:6d}  {n[:90]}")
+    s["by_name"] = s["by_name"][:20]
+    print(json.dumps(s))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,114 @@
+"""The port's preprocess stage end to end, held against the JAX package.
+
+Renders the 8-view textured corridor of ``tests/test_pixel_pipeline.py``, runs
+``python -m sfm_tpu_torch preprocess`` on the CPU (plain twins), compares the
+accepted pairs with ``sfm_tpu``'s ImageMatcher on the same pixels, and then
+runs ``sfm_tpu``'s reconstruct stage on the port's ``pair_table.pkl`` under
+the pixel pipeline's quality gates.
+"""
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from torch_parity import REPO, render_scene
+
+from sfm_tpu.config import BAConfig, FeatureConfig, SfMConfig, TriangulationConfig
+
+N_IMAGES = 8
+# Same frontend and sweep settings as the reference run; a smaller detection
+# batch only bounds the CPU working set.
+PORT_CONFIG = SfMConfig(features=FeatureConfig(detect_batch=2))
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    return render_scene(tmp_path_factory.mktemp("slice") / "scene", N_IMAGES)
+
+
+@pytest.fixture(scope="module")
+def port_out(scene, tmp_path_factory):
+    from sfm_tpu_torch import cli
+
+    out = tmp_path_factory.mktemp("port_preprocess")
+    cfg = out / "port_config.json"
+    PORT_CONFIG.to_json(cfg)
+    rc = cli.main(["--log_dir", str(out / "logs"), "preprocess", "--data_dir", str(scene),
+                   "--output_dir", str(out), "--device", "cpu", "--no_mask",
+                   "--config", str(cfg)])
+    assert rc == 0
+    return out
+
+
+def _borderline(table, p, gate_inliers=15, gate_ratio=0.3):
+    """JAX's inlier count lies within 2 of the count or ratio gate."""
+    n_inl, n_m = int(table.num_inliers[p]), int(table.num_matches[p])
+    return abs(n_inl - gate_inliers) <= 2 or abs(n_inl - gate_ratio * n_m) <= 2
+
+
+def test_port_accepts_the_pairs_jax_accepts(scene, port_out, tmp_path):
+    from sfm_tpu.matching.api import ImageMatcher
+
+    ref = ImageMatcher(scene, SfMConfig(), output_dir=tmp_path).process_image_range(
+        use_mask=False)
+    blob = pickle.loads((port_out / "pair_table.pkl").read_bytes())
+    got = blob["table"]
+    np.testing.assert_array_equal(got.pairs, ref.pairs)
+    differ = np.nonzero(got.accept != ref.accept)[0]
+    unexplained = [tuple(ref.pairs[p]) for p in differ if not _borderline(ref, p)]
+    assert not unexplained, f"accept differs away from the gates: {unexplained}"
+    assert len(differ) <= 2, [tuple(ref.pairs[p]) for p in differ]
+    assert ref.accept.sum() >= N_IMAGES - 1
+    # The artifacts: numpy only, descriptors f16, one CSV row per accepted pair.
+    assert blob["desc"].dtype == np.float16 and blob["desc"].shape[:2] == blob["valid"].shape
+    assert all(isinstance(blob[k], np.ndarray) for k in ("xy", "valid", "desc"))
+    assert (blob["valid"].sum(1) >= 500).all()
+    rows = (port_out / "matching_results.csv").read_text().strip().splitlines()
+    assert len(rows) == 1 + int(got.accept.sum())
+    i, j = got.pairs[got.accepted()[0]]
+    assert (port_out / "correspondences" / f"pair_{i}_{j}_pts1.npy").exists()
+    assert (port_out / "fundamental" / f"pair_{i}_{j}_F.npz").exists()
+
+
+def test_port_pair_table_unpickles_without_torch(port_out):
+    # The reconstruct stage may run where torch is absent: the pickle must
+    # need numpy and the port's source only. Block torch and read it back.
+    code = (
+        "import importlib.abc, pickle, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('torch', 'jax', 'sfm_tpu'):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "blob = pickle.loads(open(sys.argv[1], 'rb').read())\n"
+        "t = blob['table']\n"
+        "print(t.num_pairs, len(t.accepted()), len(t.to_records()))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code, str(port_out / "pair_table.pkl")],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    blob = pickle.loads((port_out / "pair_table.pkl").read_bytes())
+    n_acc = len(blob["table"].accepted())
+    assert res.stdout.split() == [str(blob["table"].num_pairs), str(n_acc), str(n_acc)]
+
+
+def test_jax_reconstruct_consumes_port_artifacts(scene, port_out):
+    from sfm_tpu.pipeline import PipelineArgs, SfMPipeline
+
+    args = PipelineArgs(data_dir=str(scene), output_dir=str(port_out), use_mask=False,
+                        num_images=N_IMAGES, export_colmap=False, export_meshlab=False)
+    cfg = SfMConfig(
+        ba=BAConfig(max_iterations=12, cg_iters=30, optimize_intrinsics=False,
+                    prune_multiplier=3.0),
+        triangulation=TriangulationConfig(cadence=2),
+    )
+    pipe = SfMPipeline(args, cfg)
+    assert pipe.run_reconstruction()
+    s = pipe.result.stats
+    assert s["num_cameras"] == N_IMAGES, s["num_cameras"]
+    assert s["num_points"] > 200, s["num_points"]
+    assert s["mean_reprojection_error"] < 0.6, s["mean_reprojection_error"]
+    assert s["gt_rot_err_deg_median"] < 1.0, s["gt_rot_err_deg_median"]
+    assert s["gt_ate_rel"] < 0.05, s["gt_ate_rel"]
