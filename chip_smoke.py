@@ -16,6 +16,13 @@
    per image, every image in an accepted pair, the artifacts written, and the
    accepted pairs' inliers consistent with the rendered cameras' ground-truth
    epipolar geometry.
+5. Runs the port's reconstruct stage on those artifacts in this process,
+   ``python -m sfm_tpu_torch reconstruct --device cuda --no_mask`` with the
+   default SfMConfig and ``pnp.guided=false``, every launch counter reset
+   just before, and checks it: every reconstruct kernel launched, all but at
+   most one camera registered, > 1,000 points, < 0.6 px mean reprojection
+   error, ground-truth rotation median < 1 deg and ATE < 5% of the scene,
+   the model and the COLMAP export written.
 
 Prints the card (nvidia-smi), per-kernel and stage numbers, a JSON line of
 the kernels and, last, ``{"ok": true, "device": {...}}``. Any failure raises;
@@ -36,14 +43,26 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 KERNELS = {
-    # name: (source, the JAX program it replaces)
-    "match_top2": ("sfm_tpu_torch/csrc/match_top2.cu", "sfm_tpu/matching/core.py:51"),
-    "fmat_score_select": ("sfm_tpu_torch/csrc/fmat_ransac.cu",
+    # name: (C entry points, source, the JAX program it replaces)
+    "match_top2": (("match_top2",), "sfm_tpu_torch/csrc/match_top2.cu",
+                   "sfm_tpu/matching/core.py:51"),
+    "fmat_score_select": (("fmat_score_select",), "sfm_tpu_torch/csrc/fmat_ransac.cu",
                           "sfm_tpu/estimators/fundamental.py:20"),
-    "dog_extrema": ("sfm_tpu_torch/csrc/dog_extrema.cu", "sfm_tpu/features/detect.py:23"),
-    "sift_describe": ("sfm_tpu_torch/csrc/sift_describe.cu",
+    "dog_extrema": (("dog_extrema",), "sfm_tpu_torch/csrc/dog_extrema.cu",
+                    "sfm_tpu/features/detect.py:23"),
+    "sift_describe": (("sift_describe",), "sfm_tpu_torch/csrc/sift_describe.cu",
                       "sfm_tpu/features/descriptor.py:371"),
+    "pnp_ransac": (("p3p_solve", "pnp_score_select"), "sfm_tpu_torch/csrc/pnp_ransac.cu",
+                   "sfm_tpu/estimators/pnp.py:228"),
+    "triangulate_tracks": (("triangulate_tracks", "reproj_stats"),
+                           "sfm_tpu_torch/csrc/triangulate_tracks.cu",
+                           "sfm_tpu/reconstruction/incremental.py:48"),
+    "ba_linearize": (("ba_linearize", "ba_cost"), "sfm_tpu_torch/csrc/ba_linearize.cu",
+                     "sfm_tpu/ba/residuals.py:68"),
+    "schur_coupling": (("schur_coupling",), "sfm_tpu_torch/csrc/schur_coupling.cu",
+                       "sfm_tpu/ba/schur.py:348"),
 }
+PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe")
 
 
 def log(msg: str):
@@ -234,6 +253,280 @@ def phase_describe(torch, dev, image, cfg):
     return err, ms, plain_ms
 
 
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def ba_scene(torch, np, dev, n_cams=100, n_pts=20000, obs_per_cam=2000, seed=0):
+    """bench.py's BA scene (100 cams / 20k pts / 200k obs): projections + 0.5 px
+    noise, points perturbed by 1 cm so that LM has work; camera 0 at rvec = 0."""
+    from sfm_tpu_torch.ba.residuals import residuals
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-3, 3, (n_pts, 3)).astype(np.float32)
+    pts[:, 2] += 10.0
+    rvec = (0.02 * rng.normal(size=(n_cams, 3))).astype(np.float32)
+    rvec[0] = 0.0
+    tvec = np.concatenate([rng.uniform(-2, 2, (n_cams, 2)), np.zeros((n_cams, 1))],
+                          1).astype(np.float32)
+    obs_cam = np.repeat(np.arange(n_cams, dtype=np.int32), obs_per_cam)
+    obs_point = rng.integers(0, n_pts, n_cams * obs_per_cam).astype(np.int32)
+    T = lambda a: torch.as_tensor(a, device=dev)
+    intr = T(np.array([1200.0, 1200.0, 512.0, 384.0], np.float32))
+    xy = residuals(T(rvec), T(tvec), intr, T(pts), T(obs_cam), T(obs_point),
+                   torch.zeros((len(obs_cam), 2), device=dev))
+    xy = xy + T(rng.normal(scale=0.5, size=xy.shape).astype(np.float32))
+    pts = pts + rng.normal(scale=0.01, size=pts.shape).astype(np.float32)
+    return T(rvec), T(tvec), intr, T(pts), T(obs_cam), T(obs_point), xy.contiguous()
+
+
+def phase_ba(torch, np, dev):
+    """K8+K9 (linearize + cost) and K10 (Schur coupling) on the 100-camera scene."""
+    from sfm_tpu_torch.ba.residuals import total_huber_cost_cuda, total_huber_cost_plain
+    from sfm_tpu_torch.ba.schur import (
+        coobs_pairs, damp_operator, linearize_cuda, linearize_plain, schur_matrix_cuda,
+        schur_matrix_plain)
+
+    rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = ba_scene(torch, np, dev)
+    C, P, O = rvec.shape[0], pts.shape[0], obs_cam.shape[0]
+    perm, pvm = coobs_pairs(obs_point.cpu().numpy(), np.ones(O, bool))
+    perm, pvm = torch.as_tensor(perm, device=dev), torch.as_tensor(pvm, device=dev)
+    obs_w = torch.ones(O, device=dev)
+    cam_free = torch.ones(C, device=dev)
+    cam_free[0] = 0.0
+    Hreg = torch.eye(4, device=dev)
+    greg = torch.zeros(4, device=dev)
+    args = (rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy, obs_w, cam_free,
+            torch.ones(P, dtype=torch.bool, device=dev), perm, pvm, 2.0, True, Hreg, greg)
+    lk = linearize_cuda(*args)
+    lp = linearize_plain(*args)
+    torch.cuda.synchronize()
+    # Tolerance: the analytic Jacobians against torch.func.jacrev (an
+    # independent derivation), 1e-4 of each tensor's largest entry; the
+    # reductions (float atomics, another order) 1e-3.
+    for name in lk._fields:
+        x = getattr(lk, name)
+        if x.is_floating_point():
+            check(bool(torch.isfinite(x).all()), f"K8: {name} not finite")
+    errs = {f: _rel(getattr(lk, f), getattr(lp, f))
+            for f in ("Jc", "Jk", "Jp", "rw", "V", "g_p", "U", "g_c", "Uk", "g_k")}
+    for f, e in errs.items():
+        check(e <= (1e-4 if f in ("Jc", "Jk", "Jp", "rw") else 1e-3), f"K8/K9: {f} rel err {e}")
+    cargs = (rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy, obs_w, 2.0)
+    ck, cp = total_huber_cost_cuda(*cargs), total_huber_cost_plain(*cargs)
+    cost_err = abs(float(ck) - float(cp)) / float(cp)
+    check(cost_err <= 1e-5, f"K8 ba_cost: rel err {cost_err}")
+    log("K8+K9 ba_linearize: rel err " + ", ".join(f"{f} {e:.2g}" for f, e in errs.items())
+        + f"; ba_cost rel err {cost_err:.2g} ({O} obs, {C} cams, {P} points)")
+    ms = time_ms(torch, lambda: linearize_cuda(*args))
+    plain_ms = time_ms(torch, lambda: linearize_plain(*args))
+    cost_ms = time_ms(torch, lambda: total_huber_cost_cuda(*cargs))
+    cost_plain_ms = time_ms(torch, lambda: total_huber_cost_plain(*cargs))
+    log(f"  ba_cost: {cost_ms:.4f} ms (plain torch {cost_plain_ms:.4f} ms)")
+    k89 = (max(errs.values()), ms, plain_ms)
+
+    op, rhs_c, rhs_k = damp_operator(lk, 1e-3)
+    Sk = schur_matrix_cuda(lk, op, perm, pvm)
+    Sp = schur_matrix_plain(lk, op, perm, pvm)
+    torch.cuda.synchronize()
+    rhs = torch.cat([rhs_c.reshape(-1), rhs_k])[:, None]
+    solve = lambda S: torch.cholesky_solve(rhs, torch.linalg.cholesky(S))[:, 0]
+    s_err = _rel(Sk, Sp)
+    x_err = _rel(solve(Sk), solve(Sp))
+    # Tolerance: S within 1e-4 of its largest entry (float atomics sum the
+    # coupling in another order); the solved step within 1e-2, since S's
+    # condition number (100 cameras + the intrinsics column) multiplies that
+    # difference (on an H100, a 5e-6 difference in S moved the step by 1.1e-3).
+    check(bool(torch.isfinite(Sk).all()), "K10: S not finite")
+    check(s_err <= 1e-4 and x_err <= 1e-2, f"K10: S rel err {s_err}, step rel err {x_err}")
+    log(f"K10 schur_coupling: S ({Sk.shape[0]}^2) rel err {s_err:.2g}, solved step rel err "
+        f"{x_err:.2g} (grouping {tuple(perm.shape)})")
+    ms = time_ms(torch, lambda: schur_matrix_cuda(lk, op, perm, pvm))
+    plain_ms = time_ms(torch, lambda: schur_matrix_plain(lk, op, perm, pvm))
+    return k89, (s_err, ms, plain_ms)
+
+
+def track_scene(torch, np, dev, T, V=36, C=36, seed=0):
+    """T synthetic track rows over C ring cameras: 2-12 views each, 0.5 px
+    noise, 10% outlier observations, 4 cameras unregistered."""
+    from sfm_tpu_torch.geometry.rotations import rotation_to_rvec
+
+    rng = np.random.default_rng(seed)
+    Rs, ts = [], []
+    for k in range(C):
+        a = 2 * math.pi * k / C
+        c = np.array([6 * math.sin(a), 0.3 * (k % 3), -6 * math.cos(a)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        Rs.append(R)
+        ts.append(-R @ c)
+    Rs, ts = np.stack(Rs), np.stack(ts)
+    K = np.array([[1228.0, 0, 512.0], [0, 1228.0, 384.0], [0, 0, 1]])
+    X = rng.uniform(-1, 1, (T, 3))
+    view_img = np.full((T, V), -1, np.int32)
+    view_xy = np.zeros((T, V, 2), np.float32)
+    for t in range(T):
+        L = rng.integers(2, 13)
+        cams = np.sort(rng.choice(C, L, replace=False))
+        x = (X[t] @ Rs[cams].transpose(0, 2, 1) + ts[cams]) @ K.T
+        xy = x[:, :2] / x[:, 2:] + rng.normal(0, 0.5, (L, 2))
+        out = rng.random(L) < 0.1
+        xy[out] = rng.uniform([0, 0], [1024, 768], (out.sum(), 2))
+        view_img[t, :L], view_xy[t, :L] = cams, xy
+    registered = np.ones(C, bool)
+    registered[rng.choice(C, 4, replace=False)] = False
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    rvec = rotation_to_rvec(f32(Rs))
+    return (torch.as_tensor(view_img, device=dev), f32(view_xy),
+            torch.as_tensor(registered, device=dev), rvec, f32(ts), f32(K))
+
+
+def phase_triangulate(torch, np, dev):
+    """K7 on a 2048-row bucket (seed pairs off) and a 1024-row bucket (seed
+    pairs on, 8 seed views), then reproj_stats on the 2048-row table."""
+    from sfm_tpu_torch.reconstruction.incremental import (
+        reproj_stats_cuda, reproj_stats_plain, triangulate_tracks_cuda,
+        triangulate_tracks_plain)
+
+    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    for T, seed_on in ((2048, False), (1024, True)):
+        view_img, view_xy, registered, rvec, tvec, K = track_scene(torch, np, dev, T, seed=T)
+        use = (view_img >= 0) & registered[view_img.long().clamp(min=0)]
+        active = torch.ones(T, dtype=torch.bool, device=dev)
+        args = (view_img, view_xy, use, active, rvec, tvec, K, 4.0, 0.0, 1, seed_on, 8)
+        pk, ok_k = triangulate_tracks_cuda(*args)
+        pp, ok_p = triangulate_tracks_plain(*args)
+        torch.cuda.synchronize()
+        # Tolerance: ok equal in >= 99.5% of rows (another summation order
+        # moves rows that sit on a gate); points of rows ok in both within 1e-3
+        # relative.
+        both = ok_k & ok_p
+        mism = int((ok_k != ok_p).sum())
+        err = float(((pk - pp).norm(dim=-1) / pp.norm(dim=-1).clamp(min=1.0))[both].max())
+        check(mism <= 0.005 * T, f"K7: ok differs in {mism} of {T} rows")
+        check(err <= 1e-3, f"K7: point rel err {err}")
+        log(f"K7 triangulate_tracks T={T} seed_pairs={seed_on}: {int(ok_p.sum())} ok, "
+            f"{mism} rows differ in ok, point rel err {err:.2g}")
+        worst = max(worst, err)
+        ms += time_ms(torch, lambda: triangulate_tracks_cuda(*args))
+        plain_ms += time_ms(torch, lambda: triangulate_tracks_plain(*args))
+        if T == 2048:
+            rargs = (view_img, view_xy, view_img >= 0, rvec, tvec, registered, K, pp, ok_p)
+            ek, uk = reproj_stats_cuda(*rargs)
+            ep, up = reproj_stats_plain(*rargs)
+            torch.cuda.synchronize()
+            e_err = float((ek - ep).abs().max())
+            check(torch.equal(uk, up) and e_err <= 1e-3, f"K7 reproj_stats: err {e_err}")
+            log(f"  reproj_stats: use equal, max abs err {e_err:.3g} px; "
+                f"{time_ms(torch, lambda: reproj_stats_cuda(*rargs)):.4f} ms (plain torch "
+                f"{time_ms(torch, lambda: reproj_stats_plain(*rargs)):.4f} ms)")
+    return worst, ms, plain_ms
+
+
+def phase_pnp(torch, np, dev):
+    """K6 at B = 8 candidates x 2048 P3P samples (8192 hypotheses) x N = 2048."""
+    from sfm_tpu_torch.estimators.pnp import (
+        p3p_candidates, p3p_solve_cuda, pnp_score_select_cuda, pnp_score_select_plain)
+    from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
+    from sfm_tpu_torch.geometry.projection import project
+    from sfm_tpu_torch.geometry.rotations import rodrigues
+
+    B, N, iters, thr = 8, 2048, 2048, 8.0
+    rng = np.random.default_rng(3)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    K = f32([[1228.0, 0, 512.0], [0, 1228.0, 384.0], [0, 0, 1]])
+    R = rodrigues(f32(rng.normal(0, 0.3, (B, 3))))
+    t = f32(rng.uniform([-1, -1, 4], [1, 1, 6], (B, 3)))
+    p3 = f32(rng.uniform(-2, 2, (B, N, 3)))
+    p2, _ = project(p3, R[:, None], t[:, None], K)
+    p2 = p2 + f32(rng.normal(0, 0.5, (B, N, 2)))
+    out = torch.as_tensor(rng.random((B, N)) < 0.3, device=dev)
+    p2 = torch.where(out[..., None], f32(rng.uniform([0, 0], [1024, 768], (B, N, 2))), p2)
+    valid = torch.as_tensor(np.arange(N)[None] < rng.integers(300, N + 1, (B, 1)), device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    idx = ransac_sample_indices(valid, iters, 3, g, prefix=True).reshape(B, -1)
+    pn = (torch.cat([p2, torch.ones_like(p2[..., :1])], -1) @ torch.linalg.inv(K).mT)[..., :2]
+    take = lambda x: torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1])).reshape(
+        B, iters, 3, x.shape[-1]).contiguous()
+    s3, s2n = take(p3), take(pn)
+    Rk, tk, okk = p3p_solve_cuda(s3, s2n)
+    Rp, tp, okp = p3p_candidates(s3, s2n)
+    torch.cuda.synchronize()
+    # P3P in f32: the Durand-Kerner roots may come out in another order and
+    # an ill-conditioned sample's poses move with rounding, so the candidate
+    # slots are not compared one to one. Held: the count of valid candidates
+    # within 1% of the twin's; each side's valid candidates interpolate their
+    # own sample (max reprojection error of the 3 points <= 1 px) as often as
+    # the twin's do, within 1 point of percentage; in >= 90% of the samples,
+    # every valid pose of either side has one on the other within 1e-2; and
+    # below, the selected pose and its inlier count.
+    def interp_ok(Rc, tc, okc):
+        pr, dep = project(s3[:, :, None], Rc[:, :, :, None], tc[:, :, :, None], K)
+        px = take(p2)[:, :, None]                                     # (B, S, 1, 3, 2)
+        e = ((pr - px).norm(dim=-1).amax(-1))                         # (B, S, 4)
+        return float((e[okc] <= 1.0).float().mean()), int(okc.sum())
+
+    (fk, nk_ok), (fp, np_ok) = interp_ok(Rk, tk, okk), interp_ok(Rp, tp, okp)
+    check(fk >= fp - 0.01, f"K6 p3p_solve: {fk:.4f} of kernel candidates interpolate their "
+          f"sample, twin {fp:.4f}")
+    d = ((Rk[:, :, :, None] - Rp[:, :, None]).flatten(-2).norm(dim=-1)
+         + (tk[:, :, :, None] - tp[:, :, None]).norm(dim=-1)
+         / tp[:, :, None].norm(dim=-1).clamp(min=1.0))              # (B, S, 4k, 4p)
+    big = torch.full_like(d, float("inf"))
+    dk = torch.where(okp[:, :, None], d, big).amin(-1)
+    dp = torch.where(okk[..., None], d, big).amin(-2)
+    agree = {tol: float((torch.where(okk, dk <= tol, True).all(-1)
+                         & torch.where(okp, dp <= tol, True).all(-1)).float().mean())
+             for tol in (1e-3, 1e-2)}
+    check(abs(nk_ok - np_ok) <= 0.01 * np_ok,
+          f"K6 p3p_solve: {nk_ok} valid candidates, twin {np_ok}")
+    check(agree[1e-2] >= 0.9, f"K6 p3p_solve: candidate sets agree within 1e-2 in "
+          f"{agree[1e-2]:.4f} of the samples")
+    # Tolerance, scoring (on the twin's hypotheses): the same winner, or one
+    # whose score is within 1e-3 of the plain winner's (a tie up to the error
+    # sum's order).
+    H = iters * 4
+    hyp = (Rp.reshape(B, H, 3, 3), tp.reshape(B, H, 3), okp.reshape(B, H))
+    sargs = (*hyp, p3, p2, valid, K, thr)
+    bk, ck = pnp_score_select_cuda(*sargs)
+    bp, cp = pnp_score_select_plain(*sargs)
+    pick = lambda h: (hyp[0][torch.arange(B), h], hyp[1][torch.arange(B), h])
+
+    def score(h):
+        Rh, th = pick(h)
+        proj, depth = project(p3, Rh[:, None], th[:, None], K)
+        e = (proj - p2).norm(dim=-1)
+        inl = (e < thr) & (depth > 0) & valid & hyp[2][torch.arange(B), h][:, None]
+        n = inl.sum(-1)
+        return n.float() - torch.where(inl, e, 0.0).sum(-1) / n.clamp(min=1) / thr, n
+
+    (sk, nk), (sp, _) = score(bk), score(bp)
+    gap = float((sp - sk).abs().max())
+    check(gap <= 1e-3 and torch.equal(nk, ck), f"K6 pnp_score_select: score gap {gap}")
+    # End to end, kernel P3P + kernel scoring against twin + twin: the selected
+    # rotations within 1e-2 rad of each other (both come from some all-inlier
+    # sample under 0.5 px noise) and inlier counts within 1%.
+    bk2, ck2 = pnp_score_select_cuda(Rk.reshape(B, H, 3, 3), tk.reshape(B, H, 3),
+                                     okk.reshape(B, H), p3, p2, valid, K, thr)
+    Rsel_k = Rk.reshape(B, H, 3, 3)[torch.arange(B), bk2]
+    Rsel_p = hyp[0][torch.arange(B), bp]
+    cos = ((Rsel_k * Rsel_p).sum((-2, -1)) - 1.0) / 2.0
+    ang = float(torch.arccos(cos.clamp(-1.0, 1.0)).max())
+    dn = float(((ck2 - cp).abs().float() / cp.float().clamp(min=1)).max())
+    check(ang <= 1e-2 and dn <= 0.01, f"K6 end to end: rotation {ang} rad, count {dn}")
+    log(f"K6 pnp_ransac: p3p valid candidates kernel {nk_ok} / twin {np_ok}, interpolating "
+        f"their sample {fk:.4%} / {fp:.4%}; candidate sets agree in {agree[1e-3]:.2%} (1e-3) / "
+        f"{agree[1e-2]:.2%} (1e-2) of {B * iters} samples; scoring: same winner "
+        f"in {int((bk == bp).sum())}/{B} candidates, max score gap {gap:.3g}; end to end: "
+        f"selected rotations within {ang:.3g} rad, inlier counts within {100 * dn:.3g}%")
+    ms = time_ms(torch, lambda: (p3p_solve_cuda(s3, s2n), pnp_score_select_cuda(*sargs)))
+    plain_ms = time_ms(torch, lambda: (p3p_candidates(s3, s2n), pnp_score_select_plain(*sargs)))
+    return gap, ms, plain_ms
+
+
 # ---------------------------------------------------------------- ground truth
 
 def _load_projection(np, path: Path):
@@ -292,7 +585,11 @@ def main(argv=None) -> int:
                 log("  ptxas: " + line.split("ptxas info    : ")[-1])
 
         results = {"match_top2": phase_match_top2(torch, dev),
-                   "fmat_score_select": phase_fmat(torch, np, dev)}
+                   "fmat_score_select": phase_fmat(torch, np, dev),
+                   "pnp_ransac": phase_pnp(torch, np, dev),
+                   "triangulate_tracks": phase_triangulate(torch, np, dev)}
+        results["ba_linearize"], results["schur_coupling"] = phase_ba(torch, np, dev)
+        torch.cuda.empty_cache()
         check(render.wait(timeout=900) == 0, "rendering the scene failed")
         cfg = SfMConfig()
         img0 = sorted((scene / "images").glob("*.pgm"))[0]
@@ -302,7 +599,7 @@ def main(argv=None) -> int:
         del image
         torch.cuda.empty_cache()
 
-        # ---- the main path: python -m sfm_tpu_torch preprocess --device cuda
+        # ---- the main path, 1: python -m sfm_tpu_torch preprocess --device cuda
         from sfm_tpu_torch import cli
 
         _kernels.reset_launch_counts()
@@ -315,16 +612,42 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
         launches = _kernels.launch_counts()
         check(rc == 0, f"preprocess returned {rc}")
-        for name in KERNELS:
-            check(launches[name] > 0, f"kernel {name} was not launched by the main path")
+        for name in PREPROCESS_KERNELS:
+            for entry in KERNELS[name][0]:
+                check(launches[entry] > 0, f"kernel {entry} was not launched by preprocess")
         peak = torch.cuda.max_memory_allocated()
+        metrics = {r["name"]: r["value"]
+                   for r in json.loads((out / "metrics.json").read_text())}
+
+        # ---- the main path, 2: python -m sfm_tpu_torch reconstruct --device cuda
+        # (default SfMConfig with pnp.guided=false: guided registration is not
+        # ported yet)
+        from sfm_tpu_torch._shared import PnPConfig
+
+        rec_cfg = work / "reconstruct_config.json"
+        SfMConfig(pnp=PnPConfig(guided=False)).to_json(rec_cfg)
+        _kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(["--log_level", "WARNING", "--log_dir", str(work / "logs"),
+                       "reconstruct", "--data_dir", str(scene), "--output_dir", str(out),
+                       "--device", "cuda", "--no_mask", "--config", str(rec_cfg)])
+        torch.cuda.synchronize()
+        rec_wall = time.perf_counter() - t0
+        rec_launches = _kernels.launch_counts()
+        check(rc == 0, f"reconstruct returned {rc}")
+        for name in KERNELS:
+            if name in PREPROCESS_KERNELS:
+                continue
+            for entry in KERNELS[name][0]:
+                launches[entry] = rec_launches[entry]
+                check(rec_launches[entry] > 0, f"kernel {entry} was not launched by reconstruct")
+        rec_peak = torch.cuda.max_memory_allocated()
     finally:
         if render.poll() is None:
             render.kill()
             render.wait()
 
-    metrics = {r["name"]: r["value"]
-               for r in json.loads((out / "metrics.json").read_text())}
     blob = pickle.loads((out / "pair_table.pkl").read_bytes())
     table, valid = blob["table"], blob["valid"]
     n_img = len(blob["image_paths"])
@@ -355,7 +678,26 @@ def main(argv=None) -> int:
     med = np.asarray(med)
     check(np.median(med) <= 1.0 and med.max() <= 3.0,
           f"GT epipolar error of inliers: median {np.median(med)}, worst pair {med.max()}")
+
+    # The reconstruction: cameras, points, reprojection error, ground truth.
+    st = json.loads((out / "reconstruction" / "stats.json").read_text())
+    check(st["num_cameras"] >= n_img - 1, f"{st['num_cameras']}/{n_img} cameras registered")
+    check(st["num_points"] > 1000, f"{st['num_points']} points")
+    check(st["mean_reprojection_error"] < 0.6, f"mean reprojection {st['mean_reprojection_error']}")
+    check(st.get("gt_rot_err_deg_median", 99.0) < 1.0,
+          f"GT rotation median {st.get('gt_rot_err_deg_median')} deg")
+    check(st.get("gt_ate_rel", 1.0) < 0.05, f"GT ATE {st.get('gt_ate_rel')} of the scene")
+    for f in ("reconstruction/poses.json", "reconstruction/points3D.json",
+              "reconstruction/reconstruction.ply", "exports/colmap/cameras.txt",
+              "exports/colmap/images.txt", "exports/colmap/points3D.txt", "exports/meshlab.ply"):
+        check((out / f).exists(), f"{f} missing")
     check("jax" not in sys.modules and "sfm_tpu" not in sys.modules, "JAX was imported")
+    rec_records = json.loads((out / "metrics.json").read_text())
+    engine = {}
+    for r in rec_records:
+        if r["name"].startswith("engine/"):
+            engine[r["name"]] = engine.get(r["name"], 0.0) + r["value"]
+    rec_stage = next(r["value"] for r in rec_records if r["name"] == "stage/reconstruct")
 
     det_s, sweep_s = metrics["stage/detect"], metrics["stage/sweep"]
     log(f"preprocess: {n_img} images, {table.num_pairs} pairs, {len(acc)} accepted, "
@@ -365,13 +707,21 @@ def main(argv=None) -> int:
         f"| cli wall {wall:.3f} s | peak device memory {peak / 2**30:.2f} GiB")
     log(f"GT check: median inlier epipolar error per pair, median {np.median(med):.3f} px, "
         f"worst {med.max():.3f} px")
+    log(f"reconstruct: {st['num_cameras']}/{n_img} cameras, {st['num_points']} points, "
+        f"{st['num_observations']} observations, mean reprojection "
+        f"{st['mean_reprojection_error']:.4f} px, GT rotation median "
+        f"{st['gt_rot_err_deg_median']:.4f} deg, ATE {100 * st['gt_ate_rel']:.3f}% of the scene")
+    log(f"reconstruct stage {rec_stage:.3f} s | cli wall {rec_wall:.3f} s | peak device memory "
+        f"{rec_peak / 2**30:.2f} GiB | engine: "
+        + ", ".join(f"{k.split('/')[1]} {v:.3f} s" for k, v in sorted(engine.items())))
+    log("launches by entry: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (entries, source, replaces) in KERNELS.items():
         err, ms, plain_ms = results[name]
-        log(f"{name}: {ms:.4f} ms (plain torch {plain_ms:.4f} ms), "
-            f"{launches[name]} launches in the main path")
+        n = sum(launches[e] for e in entries)
+        log(f"{name}: {ms:.4f} ms (plain torch {plain_ms:.4f} ms), {n} launches in the main path")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": n,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled at first use by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, which is
-loaded with ``ctypes``. The library is keyed by a hash of the sources and
-flags, so an edited kernel is rebuilt and a stale one never loads. The
+``sm_90a`` -- one ``nvcc -c`` per source, all started together -- and the
+objects are linked into one shared library with a plain C interface, which
+is loaded with ``ctypes``. The library is keyed by a hash of the sources
+and flags, so an edited kernel is rebuilt and a stale one never loads. The
 build directory (``sfm_tpu_torch/_build``) is listed in ``.gitignore``.
 
 Each C entry point launches on the stream it is given and returns
@@ -26,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel entry point (all return int = cudaError_t);
@@ -37,8 +38,17 @@ SIGNATURES = {
     "sfm_dog_extrema": [_P, _I, _I, _I, _I, _F, _P, _P],
     "sfm_sift_describe": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _I, _P, _F, _F, _P, _P, _P],
+    "sfm_ba_linearize": [_P] * 12 + [_I] * 5 + [_F, _I] + [_P] * 10 + [_P],
+    "sfm_ba_cost": [_P] * 8 + [_I, _F, _P] + [_P],
+    "sfm_schur_coupling": [_P] * 8 + [_I] * 3 + [_P] + [_P],
+    "sfm_triangulate_tracks": [_P] * 9 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P, _P] + [_P],
+    "sfm_reproj_stats": [_P] * 9 + [_I] * 3 + [_P, _P] + [_P],
+    "sfm_p3p_solve": [_P, _P, _I, _P, _P, _P] + [_P],
+    "sfm_pnp_score_select": [_P] * 7 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
 }
-KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe")
+KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
+           "ba_linearize", "ba_cost", "schur_coupling", "triangulate_tracks",
+           "reproj_stats", "p3p_solve", "pnp_score_select")
 
 _launches = {k: 0 for k in KERNELS}
 _lib = None
@@ -79,13 +89,26 @@ def load_library():
     t0 = time.perf_counter()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src.name, p.returncode, log)
+                  for src, p, log in zip(sources, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        (BUILD_DIR / "ptxas.log").write_text("".join(logs))
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        res = subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                              "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        (BUILD_DIR / "ptxas.log").write_text(res.stdout + res.stderr)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n"
+                               f"{res.stderr}")
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, args in SIGNATURES.items():

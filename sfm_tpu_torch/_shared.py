@@ -1,11 +1,12 @@
 """Host code shared with the JAX package, loaded by file path.
 
 ``sfm_tpu/__init__.py`` imports ``jax`` (compilation-cache setup), so
-``import sfm_tpu.config`` would pull JAX into the port's process. The two
-numpy-only modules the preprocess stage needs -- the config schema and the
-image/mask decoders -- are therefore executed straight from their files and
-registered under private names. One ``--config`` JSON then means the same
-thing to both packages.
+``import sfm_tpu.config`` would pull JAX into the port's process. The
+numpy-only modules the port shares -- the config schema, the image/mask
+decoders, the track builder and the ground-truth evaluator -- are
+therefore executed straight from their files and registered under private
+names. One ``--config`` JSON then means the same thing to both packages,
+and one track builder and one GT evaluator serve both.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ def _load(relpath: str, name: str):
 
 config = _load("config.py", "_sfm_shared_config")
 images = _load("io/images.py", "_sfm_shared_images")
+tracks = _load("reconstruction/tracks.py", "_sfm_shared_tracks")
+calib = _load("io/calib.py", "_sfm_shared_calib")
 
 SfMConfig = config.SfMConfig
 FeatureConfig = config.FeatureConfig
@@ -44,7 +47,15 @@ MatchConfig = config.MatchConfig
 VerifyConfig = config.VerifyConfig
 RetrievalConfig = config.RetrievalConfig
 CameraConfig = config.CameraConfig
+PnPConfig = config.PnPConfig
+BAConfig = config.BAConfig
+SelectConfig = config.SelectConfig
 effective_match_config = config.effective_match_config
 
 load_image_gray_u8 = images.load_image_gray_u8
 load_mask = images.load_mask
+
+TrackTable = tracks.TrackTable
+build_tracks = tracks.build_tracks
+
+evaluate_result_against_gt = calib.evaluate_result_against_gt

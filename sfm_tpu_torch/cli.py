@@ -1,10 +1,13 @@
-"""Command-line interface of the port: the ``preprocess`` subcommand.
+"""Command-line interface of the port.
 
-    python -m sfm_tpu_torch preprocess --data_dir D [--device cuda] [flags]
+    python -m sfm_tpu_torch {preprocess|reconstruct|pipeline} --data_dir D
+        [--device cuda] [flags]
 
-Counterpart of ``sfm_tpu/cli.py`` for the stages ported so far; the flags
-mean what they mean there, plus ``--device`` (default ``cuda``; asking for
-CUDA without a card raises).
+Counterpart of ``sfm_tpu/cli.py``; the subcommands and flags mean what they
+mean there, plus ``--device`` (default ``cuda``; asking for CUDA without a
+card raises). Flags of parts not ported yet (``--global_init``,
+``--polish``, ``--checkpoint_dir`` / ``--resume_checkpoint``,
+``--visualize``) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -50,6 +53,25 @@ def _add_common(p: argparse.ArgumentParser):
                    help="JSON file of SfMConfig overrides (the sfm_tpu schema)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
+    p.add_argument("--global_init", action="store_true",
+                   help="global SfM (not ported yet: raises)")
+    p.add_argument("--polish", action="store_true",
+                   help="pose-graph drift correction (not ported yet: raises)")
+
+
+def _add_recon_flags(p: argparse.ArgumentParser):
+    p.add_argument("--num_images", type=int, default=1000)
+    p.add_argument("--min_matches", type=int, default=20)
+    for name, default, help_ in (
+            ("export_colmap", True, "COLMAP text model + database"),
+            ("export_meshlab", True, "MeshLab PLY"),
+            ("export_bundler", False, "Bundler v0.3 bundle.out + list.txt"),
+            ("export_nvm", False, "VisualSFM NVM_V3 model")):
+        p.add_argument(f"--{name}", action=argparse.BooleanOptionalAction,
+                       default=default, help=help_)
+    p.add_argument("--checkpoint_dir", default=None, help="not ported yet: raises")
+    p.add_argument("--checkpoint_every", type=int, default=0)
+    p.add_argument("--resume_checkpoint", default=None, help="not ported yet: raises")
 
 
 def _add_match_mode(p: argparse.ArgumentParser):
@@ -73,7 +95,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     _add_common(pre)
     pre.add_argument("--start_idx", type=int, default=0)
     pre.add_argument("--end_idx", type=int, default=999)
+    pre.add_argument("--visualize", action="store_true", help="not ported yet: raises")
     _add_match_mode(pre)
+
+    rec = sub.add_parser("reconstruct",
+                         help="incremental reconstruction from saved artifacts")
+    _add_common(rec)
+    _add_recon_flags(rec)
+
+    full = sub.add_parser("pipeline", help="preprocess + reconstruct")
+    _add_common(full)
+    full.add_argument("--start_idx", type=int, default=0)
+    full.add_argument("--end_idx", type=int, default=999)
+    full.add_argument("--visualize", action="store_true", help="not ported yet: raises")
+    _add_recon_flags(full)
+    _add_match_mode(full)
     return ap.parse_args(argv)
 
 
@@ -87,25 +123,51 @@ def main(argv=None) -> int:
 
     log.info("python %s | torch %s (cuda %s) | numpy %s", sys.version.split()[0],
              torch.__version__, torch.version.cuda, numpy.__version__)
+    if args.global_init:
+        raise NotImplementedError(
+            "--global_init (global SfM) is not ported yet (ROADMAP queue 1, item 12)")
+    if args.polish:
+        raise NotImplementedError(
+            "--polish (pose-graph drift correction) is not ported yet "
+            "(ROADMAP queue 1, item 12)")
+    opt = lambda name, default: getattr(args, name, default)
     pargs = PipelineArgs(
         data_dir=args.data_dir,
         output_dir=args.output_dir,
-        start_idx=args.start_idx,
-        end_idx=args.end_idx,
+        start_idx=opt("start_idx", 0),
+        end_idx=opt("end_idx", 999),
+        num_images=opt("num_images", 1000),
+        min_matches=opt("min_matches", 20),
         use_mask=not args.no_mask,
+        export_colmap=opt("export_colmap", True),
+        export_meshlab=opt("export_meshlab", True),
+        export_bundler=opt("export_bundler", False),
+        export_nvm=opt("export_nvm", False),
+        visualize=opt("visualize", False),
         trace_dir=args.trace_dir,
+        checkpoint_dir=opt("checkpoint_dir", None),
+        checkpoint_every=opt("checkpoint_every", 0),
+        resume_checkpoint=opt("resume_checkpoint", None),
         device=args.device,
     )
     try:
         cfg = SfMConfig.from_json(args.config_json) if args.config_json else SfMConfig()
-        if args.match_mode:
+        if pargs.min_matches != 20:
+            cfg = cfg.replace(pnp=dataclasses.replace(cfg.pnp, min_matches=pargs.min_matches))
+        if opt("match_mode", None):
             cfg = cfg.replace(
                 retrieval=dataclasses.replace(cfg.retrieval, mode=args.match_mode))
-        if args.feature_kind:
+        if opt("feature_kind", None):
             cfg = cfg.replace(
                 features=dataclasses.replace(cfg.features, kind=args.feature_kind))
         pipe = SfMPipeline(pargs, cfg)
-        return 0 if pipe.run_preprocessing() else 1
+        if args.command == "preprocess":
+            ok = pipe.run_preprocessing()
+        elif args.command == "reconstruct":
+            ok = pipe.run_reconstruction()
+        else:
+            ok = pipe.run_full_pipeline()
+        return 0 if ok else 1
     except KeyboardInterrupt:
         log.error("interrupted")
         return 130

@@ -15,9 +15,8 @@
 // images, valid flag) sits in shared memory; one thread per hypothesis walks the
 // points and accumulates count and error sum; a block argmax picks the winner.
 //
-// Semantics (ransac_select): inliers are valid rows with error < threshold; the
-// score is count - mean_inlier_error / max(threshold, 1e-6); the first index wins
-// a tie. The error follows epipolar.py::symmetric_epipolar_distance term for term.
+// Semantics: ransac_select's (sfm_common.cuh, shared with K6). The error follows
+// epipolar.py::symmetric_epipolar_distance term for term.
 #include <climits>
 
 #include "sfm_common.cuh"
@@ -25,17 +24,6 @@
 namespace {
 
 constexpr int NT = 256;
-
-struct Cand {
-  float score;
-  int h;
-  int count;
-};
-
-__device__ __forceinline__ Cand cand_max(const Cand& a, const Cand& b) {
-  const bool b_wins = b.score > a.score || (b.score == a.score && b.h < a.h);
-  return b_wins ? b : a;
-}
 
 __global__ void __launch_bounds__(NT) fmat_score_select_kernel(
     const float* __restrict__ Fs, const float* __restrict__ pts1,
@@ -47,7 +35,6 @@ __global__ void __launch_bounds__(NT) fmat_score_select_kernel(
   float* sx2 = sm + 2 * N;
   float* sy2 = sm + 3 * N;
   int* sv = reinterpret_cast<int*>(sm + 4 * N);
-  __shared__ Cand warp_best[NT / 32];
 
   const int b = blockIdx.x;
   for (int n = threadIdx.x; n < N; n += NT) {
@@ -60,8 +47,7 @@ __global__ void __launch_bounds__(NT) fmat_score_select_kernel(
   }
   __syncthreads();
 
-  const float score_div = fmaxf(thr, 1e-6f);
-  Cand best{-INFINITY, INT_MAX, 0};
+  SfmCand best{-INFINITY, INT_MAX, 0};
   for (int h = threadIdx.x; h < H; h += NT) {
     const float* F = Fs + ((size_t)b * H + h) * 9;
     float f[9];
@@ -89,25 +75,12 @@ __global__ void __launch_bounds__(NT) fmat_score_select_kernel(
         err_sum += err;
       }
     }
-    const float mean_err = err_sum / (float)max(count, 1);
-    best = cand_max(best, Cand{(float)count - mean_err / score_div, h, count});
+    best = sfm_cand_max(best, SfmCand{sfm_ransac_score(count, err_sum, thr), h, count});
   }
-
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    Cand o;
-    o.score = __shfl_xor_sync(0xffffffffu, best.score, off);
-    o.h = __shfl_xor_sync(0xffffffffu, best.h, off);
-    o.count = __shfl_xor_sync(0xffffffffu, best.count, off);
-    best = cand_max(best, o);
-  }
-  if (threadIdx.x % 32 == 0) warp_best[threadIdx.x / 32] = best;
-  __syncthreads();
+  best = sfm_block_best<NT>(best);
   if (threadIdx.x == 0) {
-    Cand w = warp_best[0];
-    for (int i = 1; i < NT / 32; ++i) w = cand_max(w, warp_best[i]);
-    best_out[b] = w.h == INT_MAX ? 0 : w.h;
-    count_out[b] = w.count;
+    best_out[b] = best.h == INT_MAX ? 0 : best.h;
+    count_out[b] = best.count;
   }
 }
 

@@ -1,1 +1,1 @@
-"""Port of ``sfm_tpu/estimators`` (the parts the preprocess stage runs)."""
+"""Port of ``sfm_tpu/estimators`` (the parts the main path runs)."""

@@ -1,0 +1,288 @@
+"""Perspective-n-Point: P3P RANSAC + Gauss-Newton polish, batched over candidates.
+
+Counterpart of ``sfm_tpu/estimators/pnp.py`` on the path the default config
+runs (``PnPConfig.sample_size = 3``, minimal P3P). Kernel K6
+(``csrc/pnp_ransac.cu``) has two entries: ``p3p_solve`` (Grunert's quartic
+by Durand-Kerner, up to 4 poses per sample) and ``pnp_score_select``
+(reprojection error + cheirality of every hypothesis over every
+correspondence, then ``ransac_select``'s winner). Their plain twins are
+:func:`p3p_candidates` and :func:`pnp_score_select_plain`. The two 10-step
+Gauss-Newton refits on the consensus set (:func:`refine_pose_gn`) are plain
+torch on the device (ROADMAP). Samples come from a ``torch.Generator`` or
+are injected (``indices``), so a test can hand both packages the same draws.
+"""
+from __future__ import annotations
+
+import torch
+
+from sfm_tpu_torch import _kernels
+from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
+from sfm_tpu_torch.geometry.projection import intrinsics_vector, project
+from sfm_tpu_torch.geometry.rotations import rodrigues, rotation_to_rvec
+
+_EPS = 1e-12
+# One block holds a candidate's correspondences in shared memory (6 floats a row).
+_K6_MAX_POINTS = 8192
+# Hypotheses scored at once by the plain twin: bounds its (B, chunk, N) errors.
+_SCORE_CHUNK = 1024
+
+
+def _quartic_roots_dk(c4, c3, c2, c1, c0, iters: int = 30):
+    """All four roots of c4 z^4 + ... + c0 (complex64, (..., 4)) by
+    Durand-Kerner: a fixed-point iteration, no eigensolver."""
+    scale = torch.where(c4.abs() > 1e-12, c4,
+                        torch.where(c4 >= 0, torch.full_like(c4, 1e-12),
+                                    torch.full_like(c4, -1e-12)))
+    a3, a2, a1, a0 = c3 / scale, c2 / scale, c1 / scale, c0 / scale
+    base = complex(0.4, 0.9)
+    seed = torch.tensor([base**k for k in range(4)], dtype=torch.complex64, device=c4.device)
+    z = seed * ((1.0 + a0.abs()) ** 0.25)[..., None].to(torch.complex64)
+    a3, a2, a1, a0 = (a[..., None].to(torch.complex64) for a in (a3, a2, a1, a0))
+    eye = torch.eye(4, dtype=torch.complex64, device=c4.device)
+    for _ in range(iters):
+        denom = torch.prod(z[..., :, None] - z[..., None, :] + eye, dim=-1)
+        p = (((z + a3) * z + a2) * z + a1) * z + a0
+        denom = torch.where(denom.abs() > 1e-20, denom, torch.full_like(denom, 1e-20))
+        z = z - p / denom
+    return z
+
+
+def _triad(Q):
+    """Orthonormal frame of 3 points (..., 3, 3): columns e1, e2, e3."""
+    e1 = Q[..., 1, :] - Q[..., 0, :]
+    e1 = e1 / torch.clamp(torch.linalg.vector_norm(e1, dim=-1, keepdim=True), min=_EPS)
+    e2 = Q[..., 2, :] - Q[..., 0, :]
+    e2 = e2 - (e2 * e1).sum(-1, keepdim=True) * e1
+    n2 = torch.linalg.vector_norm(e2, dim=-1, keepdim=True)
+    e2 = e2 / torch.clamp(n2, min=_EPS)
+    e3 = torch.linalg.cross(e1, e2)
+    return torch.stack([e1, e2, e3], dim=-1), n2[..., 0] > 1e-9
+
+
+def p3p_candidates(s3, s2n):
+    """Grunert's P3P (plain twin of K6's ``p3p_solve``).
+
+    s3: (..., 3, 3) world points; s2n: (..., 3, 2) normalized image coords.
+    Returns (Rs (..., 4, 3, 3), ts (..., 4, 3), ok (..., 4)); a masked
+    candidate is (I, 0).
+    """
+    f = torch.cat([s2n, torch.ones_like(s2n[..., :1])], dim=-1)
+    f = f / torch.clamp(torch.linalg.vector_norm(f, dim=-1, keepdim=True), min=_EPS)
+    P1, P2, P3 = s3[..., 0, :], s3[..., 1, :], s3[..., 2, :]
+    f1, f2, f3 = f[..., 0, :], f[..., 1, :], f[..., 2, :]
+    a2 = ((P2 - P3) ** 2).sum(-1)
+    b2 = torch.clamp(((P1 - P3) ** 2).sum(-1), min=_EPS)
+    c2 = ((P1 - P2) ** 2).sum(-1)
+    cos_a, cos_b, cos_c = (f2 * f3).sum(-1), (f1 * f3).sum(-1), (f1 * f2).sum(-1)
+    q = (a2 - c2) / b2
+    A4 = (q - 1.0) ** 2 - 4.0 * c2 / b2 * cos_a**2
+    A3 = 4.0 * (q * (1.0 - q) * cos_b
+                - (1.0 - (a2 + c2) / b2) * cos_a * cos_c
+                + 2.0 * c2 / b2 * cos_a**2 * cos_b)
+    A2 = 2.0 * (q**2 - 1.0 + 2.0 * q**2 * cos_b**2
+                + 2.0 * (b2 - c2) / b2 * cos_a**2
+                - 4.0 * (a2 + c2) / b2 * cos_a * cos_b * cos_c
+                + 2.0 * (b2 - a2) / b2 * cos_c**2)
+    A1 = 4.0 * (-q * (1.0 + q) * cos_b
+                + 2.0 * a2 / b2 * cos_c**2 * cos_b
+                - (1.0 - (a2 + c2) / b2) * cos_a * cos_c)
+    A0 = (1.0 + q) ** 2 - 4.0 * a2 / b2 * cos_c**2
+
+    roots = _quartic_roots_dk(A4, A3, A2, A1, A0)            # (..., 4)
+    v = roots.real
+    root_ok = (roots.imag.abs() < 1e-4 * (1.0 + v.abs())) & (v > _EPS)
+    q_, cb, cc, ca = q[..., None], cos_b[..., None], cos_c[..., None], cos_a[..., None]
+    num = (-1.0 + q_) * v * v - 2.0 * q_ * cb * v + 1.0 + q_
+    den = 2.0 * (cc - v * ca)
+    u = num / torch.where(den.abs() > 1e-9, den, torch.full_like(den, 1e-9))
+    s = 1.0 + v * v - 2.0 * v * cb
+    ok = root_ok & (u > _EPS) & (s > _EPS) & (den.abs() > 1e-9)
+    d1 = torch.sqrt(b2[..., None] / torch.clamp(s, min=_EPS))     # (..., 4)
+    Pc = torch.stack([d1[..., None] * f1[..., None, :],
+                      (u * d1)[..., None] * f2[..., None, :],
+                      (v * d1)[..., None] * f3[..., None, :]], dim=-2)  # (..., 4, 3, 3)
+    Tw, w_ok = _triad(s3)
+    Tc, c_ok = _triad(Pc)
+    Rs = Tc @ Tw[..., None, :, :].mT
+    ts = Pc[..., 0, :] - (Rs @ P1[..., None, :, None])[..., 0]
+    ok = (ok & c_ok & w_ok[..., None] & torch.isfinite(Rs).all(-1).all(-1)
+          & torch.isfinite(ts).all(-1))
+    eye = torch.eye(3, dtype=Rs.dtype, device=Rs.device)
+    Rs = torch.where(ok[..., None, None], Rs, eye)
+    ts = torch.where(ok[..., None], ts, 0.0)
+    return Rs, ts, ok
+
+
+def p3p_solve_cuda(s3, s2n):
+    B, H = s3.shape[:2]
+    dev = s3.device
+    _kernels.check_tensor(s3, "s3", torch.float32, (B, H, 3, 3), dev)
+    _kernels.check_tensor(s2n, "s2n", torch.float32, (B, H, 3, 2), dev)
+    Rs = torch.empty((B, H, 4, 3, 3), dtype=torch.float32, device=dev)
+    ts = torch.empty((B, H, 4, 3), dtype=torch.float32, device=dev)
+    ok = torch.empty((B, H, 4), dtype=torch.bool, device=dev)
+    _kernels.launch("p3p_solve", dev, s3, s2n, B * H, Rs, ts, ok)
+    return Rs, ts, ok
+
+
+def p3p_solve(s3, s2n):
+    """Kernel K6 ``p3p_solve`` on CUDA tensors, :func:`p3p_candidates` on CPU."""
+    if s3.is_cuda:
+        return p3p_solve_cuda(s3, s2n)
+    if s3.device.type == "cpu":
+        return p3p_candidates(s3, s2n)
+    raise ValueError(f"p3p_solve: unsupported device {s3.device}")
+
+
+def pnp_score_select_plain(Rs, ts, cand_ok, pts3d, pts2d, valid, K, threshold: float):
+    """Reprojection errors of (B, H) hypotheses over (B, N) correspondences
+    (behind the camera or a masked candidate = inf), then ``ransac_select``'s
+    winner. Returns (best (B,), count (B,))."""
+    scores, counts = [], []
+    for h0 in range(0, Rs.shape[1], _SCORE_CHUNK):
+        sl = slice(h0, h0 + _SCORE_CHUNK)
+        R, t, ok = Rs[:, sl], ts[:, sl], cand_ok[:, sl]
+        proj, depth = project(pts3d[:, None], R[:, :, None], t[:, :, None], K)
+        errors = torch.linalg.vector_norm(proj - pts2d[:, None], dim=-1)
+        errors = torch.where((depth > 0) & ok[..., None], errors, torch.inf)
+        inl = (errors < threshold) & valid[:, None]
+        count = inl.sum(-1)
+        mean_err = torch.where(inl, errors, 0.0).sum(-1) / torch.clamp(count, min=1)
+        scores.append(count.to(torch.float32) - mean_err / max(threshold, 1e-6))
+        counts.append(count)
+    score, count = torch.cat(scores, dim=1), torch.cat(counts, dim=1)
+    best = torch.argmax(score, dim=-1)
+    return best, torch.gather(count, 1, best[:, None])[:, 0]
+
+
+def pnp_score_select_cuda(Rs, ts, cand_ok, pts3d, pts2d, valid, K, threshold: float):
+    B, H = Rs.shape[:2]
+    N = pts3d.shape[1]
+    dev = Rs.device
+    if N > _K6_MAX_POINTS:
+        raise ValueError(f"pnp_score_select: N={N} exceeds {_K6_MAX_POINTS}")
+    _kernels.check_tensor(Rs, "Rs", torch.float32, (B, H, 3, 3), dev)
+    _kernels.check_tensor(ts, "ts", torch.float32, (B, H, 3), dev)
+    _kernels.check_tensor(cand_ok, "cand_ok", torch.bool, (B, H), dev)
+    _kernels.check_tensor(pts3d, "pts3d", torch.float32, (B, N, 3), dev)
+    _kernels.check_tensor(pts2d, "pts2d", torch.float32, (B, N, 2), dev)
+    _kernels.check_tensor(valid, "valid", torch.bool, (B, N), dev)
+    nblk = (H + 255) // 256
+    part = torch.empty((B, nblk, 3), dtype=torch.float32, device=dev)
+    best = torch.empty((B,), dtype=torch.int32, device=dev)
+    count = torch.empty((B,), dtype=torch.int32, device=dev)
+    _kernels.launch("pnp_score_select", dev, Rs, ts, cand_ok, pts3d, pts2d, valid,
+                    intrinsics_vector(K), B, H, N, float(threshold), part, best, count)
+    return best.long(), count.long()
+
+
+def pnp_score_select(Rs, ts, cand_ok, pts3d, pts2d, valid, K, threshold: float):
+    """Kernel K6 ``pnp_score_select`` on CUDA tensors, its twin on CPU."""
+    args = (Rs, ts, cand_ok, pts3d, pts2d, valid, K, threshold)
+    if Rs.is_cuda:
+        return pnp_score_select_cuda(*args)
+    if Rs.device.type == "cpu":
+        return pnp_score_select_plain(*args)
+    raise ValueError(f"pnp_score_select: unsupported device {Rs.device}")
+
+
+def refine_pose_gn(R, t, pts3d, pts2d, K, weights, iters: int = 10):
+    """Gauss-Newton refinement of (B) poses on weighted reprojection error.
+
+    R (B, 3, 3), t (B, 3), pts3d (B, N, 3), pts2d (B, N, 2), weights (B, N).
+    Each step: J from ``torch.func.jacfwd`` (as the reference's jacfwd),
+    (J^T J + 1e-6 I) delta = J^T r.
+    """
+    def residual(params, p3, p2, w):
+        proj, _ = project(p3, rodrigues(params[:3]), params[3:], K)
+        return ((proj - p2) * w[:, None]).reshape(-1)
+
+    jac = torch.func.vmap(torch.func.jacfwd(residual))
+    res = torch.func.vmap(residual)
+    params = torch.cat([rotation_to_rvec(R), t], dim=-1)
+    eye = 1e-6 * torch.eye(6, dtype=params.dtype, device=params.device)
+    for _ in range(iters):
+        J = jac(params, pts3d, pts2d, weights)                   # (B, 2N, 6)
+        r = res(params, pts3d, pts2d, weights)
+        delta = torch.linalg.solve(J.mT @ J + eye, (J.mT @ r[..., None]))[..., 0]
+        params = params - delta
+    return rodrigues(params[:, :3]), params[:, 3:]
+
+
+def pnp_ransac_batch(pts3d, pts2d, valid, K, min_inliers, iters: int = 1024,
+                     threshold: float = 8.0, refine_iters: int = 10, sample_size: int = 3,
+                     generator: torch.Generator | None = None, indices=None):
+    """Robust registration of B candidates from padded 2D-3D correspondences.
+
+    pts3d: (B, N, 3); pts2d: (B, N, 2) pixels; valid: (B, N) bool, a leading
+    prefix; K: (3, 3); min_inliers: (B,) consensus gates. ``indices``
+    (B, iters, 3) replaces the draw from ``generator``. Returns a dict of
+    R (B,3,3), rvec, t, inliers (B,N), num_inliers, errors, ok.
+    """
+    if sample_size != 3:
+        raise NotImplementedError(
+            f"pnp.sample_size={sample_size}: only the P3P path (3) is ported; the DLT + "
+            "per-hypothesis GN path is on ROADMAP queue 1, item 6")
+    pts3d = pts3d.to(torch.float32)
+    pts2d = pts2d.to(torch.float32)
+    valid = valid.to(torch.bool)
+    K = K.to(torch.float32)
+    B, N = valid.shape
+    dev = pts3d.device
+    pn = (torch.cat([pts2d, torch.ones_like(pts2d[..., :1])], dim=-1)
+          @ torch.linalg.inv(K).mT)[..., :2]
+    if indices is None:
+        if generator is None:
+            raise ValueError("pnp_ransac_batch needs a generator or indices")
+        indices = ransac_sample_indices(valid, iters, sample_size, generator, prefix=True)
+    flat = indices.reshape(B, -1).long()
+    take = lambda p: torch.gather(p, 1, flat[..., None].expand(-1, -1, p.shape[-1])).reshape(
+        indices.shape + p.shape[-1:])
+    Rs, ts, cand_ok = p3p_solve(take(pts3d).contiguous(), take(pn).contiguous())
+    H = Rs.shape[1] * 4
+    Rs, ts, cand_ok = Rs.reshape(B, H, 3, 3), ts.reshape(B, H, 3), cand_ok.reshape(B, H)
+    best, _ = pnp_score_select(Rs, ts, cand_ok, pts3d.contiguous(), pts2d.contiguous(),
+                               valid.contiguous(), K, threshold)
+
+    ar = torch.arange(B, device=dev)
+    R0, t0, ok0 = Rs[ar, best], ts[ar, best], cand_ok[ar, best]
+    proj0, depth0 = project(pts3d, R0[:, None], t0[:, None], K)
+    err0 = torch.linalg.vector_norm(proj0 - pts2d, dim=-1)
+    w = ((err0 < threshold) & (depth0 > 0) & valid & ok0[:, None]).to(torch.float32)
+    R, t = refine_pose_gn(R0, t0, pts3d, pts2d, K, w, iters=refine_iters)
+    proj1, depth1 = project(pts3d, R[:, None], t[:, None], K)
+    err1 = torch.linalg.vector_norm(proj1 - pts2d, dim=-1)
+    w2 = ((err1 < threshold) & (depth1 > 0) & valid).to(torch.float32)
+    R, t = refine_pose_gn(R, t, pts3d, pts2d, K, w2, iters=refine_iters)
+
+    projf, depthf = project(pts3d, R[:, None], t[:, None], K)
+    err_f = torch.linalg.vector_norm(projf - pts2d, dim=-1)
+    inliers = (err_f < threshold) & (depthf > 0) & valid
+    num = inliers.sum(-1, dtype=torch.int32)
+    min_inliers = torch.as_tensor(min_inliers, device=dev)
+    ok = num >= min_inliers
+    # Outputs are finite even for degenerate input; callers gate on ``ok``.
+    finite = torch.isfinite(R).all(-1).all(-1) & torch.isfinite(t).all(-1)
+    R = torch.where(finite[:, None, None], R, torch.eye(3, dtype=R.dtype, device=dev))
+    t = torch.where(finite[:, None], t, 0.0)
+    return {
+        "R": R,
+        "rvec": rotation_to_rvec(R),
+        "t": t,
+        "inliers": inliers & finite[:, None],
+        "num_inliers": torch.where(finite, num, 0),
+        "errors": torch.where(torch.isfinite(err_f), err_f, torch.inf),
+        "ok": ok & finite,
+    }
+
+
+def pnp_ransac(pts3d, pts2d, valid, K, iters: int = 1024, threshold: float = 8.0,
+               min_inliers: int = 15, refine_iters: int = 10, sample_size: int = 3,
+               generator: torch.Generator | None = None, indices=None):
+    """One candidate: :func:`pnp_ransac_batch` with B = 1, unbatched outputs."""
+    out = pnp_ransac_batch(
+        pts3d[None], pts2d[None], valid[None], K,
+        torch.tensor([min_inliers], device=pts3d.device), iters=iters, threshold=threshold,
+        refine_iters=refine_iters, sample_size=sample_size, generator=generator,
+        indices=None if indices is None else indices[None])
+    return {k: v[0] for k, v in out.items()}

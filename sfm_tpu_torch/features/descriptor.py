@@ -97,8 +97,10 @@ def _sample(gxp, gyp, xr, yr):
     coordinates; returns (vx, vy, ok)."""
     P = gxp.shape[-1]
     ok = (xr >= 0) & (xr <= P - 1.001) & (yr >= 0) & (yr <= P - 1.001)
-    xc = torch.clamp(xr, 0.0, P - 1.001)
-    yc = torch.clamp(yr, 0.0, P - 1.001)
+    # A NaN coordinate is masked by ``ok``; it must still index inside the
+    # patch (XLA clamps a gather index, torch.gather raises).
+    xc = torch.clamp(torch.nan_to_num(xr), 0.0, P - 1.001)
+    yc = torch.clamp(torch.nan_to_num(yr), 0.0, P - 1.001)
     x0 = torch.floor(xc)
     y0 = torch.floor(yc)
     fx = xc - x0

@@ -1,1 +1,1 @@
-"""Port of ``sfm_tpu/geometry`` (the parts the preprocess stage runs)."""
+"""Port of ``sfm_tpu/geometry`` (the parts the main path runs)."""

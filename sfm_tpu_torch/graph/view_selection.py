@@ -1,0 +1,243 @@
+"""Graph-guided next-best-view selection (host numpy).
+
+Counterpart of ``sfm_tpu/graph/view_selection.py``: what the engine calls
+(``from_pair_table``, ``find_next_best_images`` and the centralities behind
+them); ``visualize_graph`` (the connectivity PNG) is not ported (ROADMAP),
+nor the reference's CSV loader and per-candidate score breakdown. It is a
+copy rather than a load by path: the reference module imports
+``sfm_tpu.config`` by package name, and ``sfm_tpu/__init__.py`` imports
+JAX. Betweenness centrality is Brandes' algorithm.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from sfm_tpu_torch._shared import SelectConfig
+
+
+class SfMGraphSelector:
+    """Undirected weighted image-connectivity graph + view scoring.
+
+    Nodes are image ids; an edge is a verified pair with attributes
+    num_matches / num_inliers / inlier_ratio / reprojection_error
+    (ref image_selector.py:22-45). Scoring weights come from
+    :class:`~sfm_tpu.config.SelectConfig` (defaults = the reference's
+    constants, image_selector.py:71-75, :146-151).
+    """
+
+    def __init__(self, records: Iterable[dict], select: SelectConfig = SelectConfig()):
+        """records: dicts with image1, image2, num_matches, num_inliers,
+        inlier_ratio, reprojection_error — `PairTable.to_records()` output or
+        rows read from a matching_results.csv."""
+        self.select = select
+        self.edges: Dict[Tuple[int, int], dict] = {}
+        nodes = set()
+        for r in records:
+            i, j = int(r["image1"]), int(r["image2"])
+            if i > j:
+                i, j = j, i
+            nodes.add(i)
+            nodes.add(j)
+            self.edges[(i, j)] = {
+                "num_matches": int(r["num_matches"]),
+                "num_inliers": int(r["num_inliers"]),
+                "inlier_ratio": float(r["inlier_ratio"]),
+                "reprojection_error": float(r["reprojection_error"]),
+            }
+        self.nodes: List[int] = sorted(nodes)
+        self._index = {n: k for k, n in enumerate(self.nodes)}
+        n = len(self.nodes)
+        self.adj: List[List[int]] = [[] for _ in range(n)]
+        for (i, j) in self.edges:
+            self.adj[self._index[i]].append(self._index[j])
+            self.adj[self._index[j]].append(self._index[i])
+
+    @classmethod
+    def from_pair_table(cls, table, select: SelectConfig = SelectConfig()) -> "SfMGraphSelector":
+        return cls(table.to_records(), select=select)
+
+    # -- centralities -------------------------------------------------------
+
+    def degree_centrality(self) -> np.ndarray:
+        n = len(self.nodes)
+        if n <= 1:
+            return np.zeros(n)
+        return np.array([len(a) for a in self.adj]) / (n - 1)
+
+    def betweenness_centrality(self) -> np.ndarray:
+        """Brandes' algorithm, unweighted, normalized like networkx.
+
+        Dispatches to the all-sources vectorized form above ~200 nodes: the
+        per-source Python loop costs ~1 s at 100 nodes and minutes at 1000
+        (round-1 weakness); the vectorized form runs all sources as (N, N)
+        matrix ops, one per BFS level."""
+        n = len(self.nodes)
+        if n > 200:
+            return self._betweenness_vectorized()
+        bc = np.zeros(n)
+        for s in range(n):
+            stack = []
+            preds: List[List[int]] = [[] for _ in range(n)]
+            sigma = np.zeros(n)
+            sigma[s] = 1.0
+            dist = np.full(n, -1)
+            dist[s] = 0
+            q = deque([s])
+            while q:
+                v = q.popleft()
+                stack.append(v)
+                for w in self.adj[v]:
+                    if dist[w] < 0:
+                        dist[w] = dist[v] + 1
+                        q.append(w)
+                    if dist[w] == dist[v] + 1:
+                        sigma[w] += sigma[v]
+                        preds[w].append(v)
+            delta = np.zeros(n)
+            while stack:
+                w = stack.pop()
+                for v in preds[w]:
+                    delta[v] += sigma[v] / sigma[w] * (1.0 + delta[w])
+                if w != s:
+                    bc[w] += delta[w]
+        if n > 2:
+            bc /= (n - 1) * (n - 2)  # undirected pairs counted twice -> *2/2
+        return bc
+
+    def _betweenness_vectorized(self) -> np.ndarray:
+        """All-sources Brandes as dense matrix ops.
+
+        Forward: multi-source BFS where level-l frontiers and path counts
+        sigma propagate through one (N, N) @ (N, N) product per level.
+        Backward: dependencies delta accumulate level-by-level through the
+        same adjacency product. O(diameter) matmuls total.
+        """
+        n = len(self.nodes)
+        A = np.zeros((n, n), np.float64)
+        for v in range(n):
+            A[v, self.adj[v]] = 1.0
+        dist = np.full((n, n), -1, np.int32)      # dist[s, v]
+        np.fill_diagonal(dist, 0)
+        sigma = np.eye(n)                          # sigma[s, v] path counts
+        frontier = np.eye(n)
+        level = 0
+        levels = [frontier.astype(bool)]
+        while True:
+            level += 1
+            # Paths arriving at unvisited nodes through the current frontier.
+            arrive = (sigma * frontier) @ A        # (S, N)
+            new = (arrive > 0) & (dist < 0)
+            if not new.any():
+                break
+            dist[new] = level
+            sigma = np.where(new, arrive, sigma)
+            frontier = new.astype(np.float64)
+            levels.append(new)
+        delta = np.zeros((n, n))
+        for lev in range(len(levels) - 1, 0, -1):
+            w_mask = levels[lev]                   # nodes at this level
+            # contribution each w at this level sends to its predecessors:
+            coef = np.where(w_mask, (1.0 + delta) / np.maximum(sigma, 1.0), 0.0)
+            pred_mask = levels[lev - 1]
+            delta = delta + np.where(pred_mask, sigma * (coef @ A.T), 0.0)
+        # bc[w] = sum over sources s != w of delta[s, w].
+        bc = delta.sum(axis=0) - np.diag(delta)
+        if n > 2:
+            bc /= (n - 1) * (n - 2)
+        return bc
+
+    def compute_node_importance(self) -> Dict[int, float]:
+        """importance = w_degree*degree + w_betweenness*betweenness
+        + w_inliers*norm-avg-inliers (SelectConfig; ref defaults
+        image_selector.py:47-77). Cached: the graph is static, and
+        Brandes at 100 nodes costs ~1 s in Python — recomputing it per
+        registration dominated the 100-image reconstruction loop."""
+        if getattr(self, "_importance_cache", None) is not None:
+            return self._importance_cache
+        n = len(self.nodes)
+        deg = self.degree_centrality()
+        btw = self.betweenness_centrality()
+        avg_inl = np.zeros(n)
+        for k, node in enumerate(self.nodes):
+            vals = [
+                e["num_inliers"]
+                for (i, j), e in self.edges.items()
+                if i == node or j == node
+            ]
+            avg_inl[k] = np.mean(vals) if vals else 0.0
+        if avg_inl.max() > 0:
+            avg_inl = avg_inl / avg_inl.max()
+        w = self.select
+        scores = w.w_degree * deg + w.w_betweenness * btw + w.w_inliers * avg_inl
+        self._importance_cache = {
+            node: float(scores[k]) for k, node in enumerate(self.nodes)
+        }
+        return self._importance_cache
+
+    # -- next-best-view -----------------------------------------------------
+
+    def _edge_matrices(self):
+        """Dense (N, N) adjacency / inliers / per-edge quality — built once.
+        At 1000 nodes these are ~4 MB each and turn per-round candidate
+        scoring from a Python loop (measured 925 s total across a 1000-image
+        reconstruction) into three masked matmul-sized reductions."""
+        if getattr(self, "_mat_cache", None) is not None:
+            return self._mat_cache
+        n = len(self.nodes)
+        A = np.zeros((n, n), bool)
+        I = np.zeros((n, n), np.float32)
+        Q = np.zeros((n, n), np.float32)
+        max_inl = max((e["num_inliers"] for e in self.edges.values()), default=1)
+        for (i, j), e in self.edges.items():
+            a, b = self._index[i], self._index[j]
+            A[a, b] = A[b, a] = True
+            I[a, b] = I[b, a] = e["num_inliers"]
+            q = 0.6 * e["num_inliers"] / max_inl + 0.4 * e["inlier_ratio"]
+            Q[a, b] = Q[b, a] = q
+        self._mat_cache = (A, I, Q)
+        return self._mat_cache
+
+    def find_next_best_images(
+        self, constructed: Sequence[int], top_k: Optional[int] = None
+    ) -> List[Tuple[int, float]]:
+        """Rank unconstructed images connected to the constructed set.
+
+        score = w_importance*importance + w_connection_quality*avg-quality
+                + w_breadth*breadth + w_visibility*visibility
+        (SelectConfig; ref defaults image_selector.py:146-151 — the
+        visibility term here actually varies with the candidate, bug fix).
+        Vectorized over all candidates; identical to score_components.
+        """
+        if top_k is None:
+            top_k = self.select.top_k
+        cons = sorted({int(c) for c in constructed} & set(self._index))
+        if not cons:
+            return []
+        importance = self.compute_node_importance()
+        A, I, Q = self._edge_matrices()
+        ci = np.array([self._index[c] for c in cons])
+        Ac = A[:, ci]                              # (N, C)
+        n_links = Ac.sum(axis=1)
+        quality = (Q[:, ci] * Ac).sum(axis=1) / np.maximum(n_links, 1)
+        breadth = n_links / max(len(cons), 1)
+        seen_inl = I[:, ci].sum(axis=1)
+        total_inl = I.sum(axis=1)
+        visibility = np.divide(
+            seen_inl, total_inl, out=np.zeros_like(seen_inl),
+            where=total_inl > 0)
+        imp = np.array([importance.get(nd, 0.0) for nd in self.nodes])
+        w = self.select
+        score = (
+            w.w_importance * imp
+            + w.w_connection_quality * quality
+            + w.w_breadth * breadth
+            + w.w_visibility * visibility
+        )
+        eligible = (n_links > 0)
+        eligible[ci] = False
+        cand = np.nonzero(eligible)[0]
+        order = cand[np.argsort(-score[cand], kind="stable")][:top_k]
+        return [(self.nodes[k], float(score[k])) for k in order]

@@ -59,3 +59,34 @@ class PairTable:
                 }
             )
         return rows
+
+
+def rescue_disconnected(table: PairTable, num_images: int,
+                        min_inliers: int = 8, min_ratio: float = 0.15) -> int:
+    """Second-chance acceptance for images with no verified pair.
+
+    Counterpart of ``sfm_tpu/matching/sweep.py::rescue_disconnected``: for
+    each image with no accepted pair, re-admit its best pair (most inliers)
+    that clears the relaxed gates. Mutates ``table.accept`` in place and
+    returns the number of rescued pairs.
+    """
+    deg = np.zeros(num_images, np.int64)
+    for p in table.accepted():
+        i, j = table.pairs[p]
+        deg[i] += 1
+        deg[j] += 1
+    if not table.accept.flags.writeable:
+        table.accept = table.accept.copy()
+    rescued = 0
+    for img in np.nonzero(deg == 0)[0]:
+        rows = np.nonzero(
+            ((table.pairs[:, 0] == img) | (table.pairs[:, 1] == img))
+            & ~table.accept
+            & (table.num_inliers >= min_inliers)
+            & (table.inlier_ratio >= min_ratio)
+        )[0]
+        if len(rows) == 0:
+            continue
+        table.accept[rows[np.argmax(table.num_inliers[rows])]] = True
+        rescued += 1
+    return rescued

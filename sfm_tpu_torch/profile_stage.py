@@ -1,15 +1,19 @@
-"""Time the port's preprocess stage warm, then trace one run on the card.
+"""Time one stage of the port warm, then trace one run on the card.
 
-    python -m sfm_tpu_torch.profile_preprocess --data_dir D --output_dir O [--runs 5]
+    python -m sfm_tpu_torch.profile_stage --data_dir D --output_dir O [--runs 5]
+        [--stage preprocess|reconstruct] [--config C]
 
-Runs ``python -m sfm_tpu_torch preprocess --device cuda --no_mask`` on ``D``
-once cold and ``--runs`` times warm in this process, printing each run's stage
-seconds from ``metrics.json``. Then it runs once more with ``--trace_dir`` (the
-CLI's own ``torch.profiler`` capture) and reads the Chrome trace:
+Runs ``python -m sfm_tpu_torch <stage> --device cuda --no_mask`` on ``D``
+once cold and ``--runs`` times warm in this process, printing each run's
+stage seconds from ``metrics.json`` (reconstruct reads ``O/pair_table.pkl``,
+so run preprocess into ``O`` first; ``--config`` is passed through). Then it
+runs once more with ``--trace_dir`` (the CLI's own ``torch.profiler``
+capture) and reads the Chrome trace:
 
 - device busy time: the union of the kernel, memcpy and memset intervals;
-- for the traced window and for the ``detect`` and ``sweep`` spans, the share
-  of the span in which the device was idle;
+- for the traced window and for the stage's spans (``detect`` and ``sweep``;
+  the engine's ``sfm/<name>`` spans, summed over their calls), the share of
+  the span in which the device was idle;
 - the kernel count and the device time by kernel name.
 
 The profiler slows the host, so the traced window is longer than a warm run
@@ -27,6 +31,11 @@ from collections import defaultdict
 from pathlib import Path
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SPANS = {
+    "preprocess": ("detect", "sweep"),
+    "reconstruct": ("sfm/init", "sfm/select", "sfm/pnp", "sfm/triangulate", "sfm/assemble",
+                    "sfm/ba", "sfm/prune", "sfm/stats"),
+}
 
 
 def _union_us(intervals, lo: float, hi: float) -> float:
@@ -46,23 +55,26 @@ def _union_us(intervals, lo: float, hi: float) -> float:
     return total
 
 
-def trace_summary(trace_path: Path) -> dict:
-    """Device busy time, idle shares per span, kernel count and device time
-    by kernel name, from a torch.profiler Chrome trace."""
+def trace_summary(trace_path: Path, span_names=SPANS["preprocess"]) -> dict:
+    """Device busy time, idle shares per span (summed over a span's
+    occurrences), kernel count and device time by kernel name, from a
+    torch.profiler Chrome trace."""
     events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
               if e.get("ph") == "X" and "dur" in e]
     dev = [e for e in events if e.get("cat") in _DEVICE_CATS]
     iv = [(e["ts"], e["ts"] + e["dur"]) for e in dev]
-    spans = {"window": (min(e["ts"] for e in events),
-                        max(e["ts"] + e["dur"] for e in events))}
+    spans = defaultdict(list)
+    spans["window"].append((min(e["ts"] for e in events),
+                            max(e["ts"] + e["dur"] for e in events)))
     for e in events:
-        if e.get("cat") == "user_annotation" and e["name"] in ("detect", "sweep"):
-            spans[e["name"]] = (e["ts"], e["ts"] + e["dur"])
+        if e.get("cat") == "user_annotation" and e["name"] in span_names:
+            spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
     out = {"kernels": sum(e["cat"] == "kernel" for e in dev)}
-    for name, (lo, hi) in spans.items():
-        busy = _union_us(iv, lo, hi)
-        out[name] = {"span_s": (hi - lo) / 1e6, "device_busy_s": busy / 1e6,
-                     "idle_share": 1.0 - busy / (hi - lo)}
+    for name, occ in spans.items():
+        span = sum(hi - lo for lo, hi in occ)
+        busy = sum(_union_us(iv, lo, hi) for lo, hi in occ)
+        out[name] = {"span_s": span / 1e6, "device_busy_s": busy / 1e6,
+                     "idle_share": 1.0 - busy / span, "calls": len(occ)}
     by_name = defaultdict(lambda: [0, 0.0])
     for e in dev:
         key = e["name"] if e["cat"] == "kernel" else e["cat"]
@@ -78,6 +90,8 @@ def main(argv=None) -> int:
     ap.add_argument("--data_dir", required=True, help="dataset root (images/)")
     ap.add_argument("--output_dir", required=True, help="artifacts and the trace")
     ap.add_argument("--runs", type=int, default=5, help="warm runs after the cold one")
+    ap.add_argument("--stage", default="preprocess", choices=sorted(SPANS))
+    ap.add_argument("--config", default=None, help="SfMConfig JSON passed to the CLI")
     args = ap.parse_args(argv)
 
     import torch
@@ -85,41 +99,43 @@ def main(argv=None) -> int:
     from sfm_tpu_torch import cli
 
     out = Path(args.output_dir)
+    extra_cfg = ["--config", args.config] if args.config else []
 
     def run(*extra) -> dict:
-        rc = cli.main(["--log_level", "WARNING", "--log_dir", str(out / "logs"), "preprocess",
+        rc = cli.main(["--log_level", "WARNING", "--log_dir", str(out / "logs"), args.stage,
                        "--data_dir", args.data_dir, "--output_dir", str(out),
-                       "--device", "cuda", "--no_mask", *extra])
+                       "--device", "cuda", "--no_mask", *extra_cfg, *extra])
         torch.cuda.synchronize()
         if rc != 0:
-            raise RuntimeError(f"preprocess returned {rc}")
-        recs = json.loads((out / "metrics.json").read_text())
-        return {r["name"].split("/")[1]: r["value"] for r in recs
-                if r["name"].startswith("stage/")}
+            raise RuntimeError(f"{args.stage} returned {rc}")
+        totals = defaultdict(float)
+        for r in json.loads((out / "metrics.json").read_text()):
+            if r["name"].split("/")[0] in ("stage", "engine"):
+                totals[r["name"].split("/")[1]] += r["value"]
+        return dict(totals)
 
     rows = []
     for i in range(1 + args.runs):
         t0 = time.perf_counter()
         m = run()
-        print(f"run {i} ({'cold' if i == 0 else 'warm'}): wall {time.perf_counter() - t0:.4f} s"
-              f" stage {m['preprocess']:.4f} detect {m['detect']:.4f} sweep {m['sweep']:.4f}",
-              flush=True)
+        print(f"run {i} ({'cold' if i == 0 else 'warm'}): wall {time.perf_counter() - t0:.4f} s "
+              + " ".join(f"{k} {v:.4f}" for k, v in m.items()), flush=True)
         rows.append(m)
     warm = {k: statistics.median(r[k] for r in rows[1:]) for k in rows[0]}
     print("warm median: " + ", ".join(f"{k} {v:.4f} s" for k, v in warm.items()))
 
     run("--trace_dir", str(out / "trace"))
-    s = trace_summary(out / "trace" / "trace.json")
-    for name in ("window", "detect", "sweep"):
+    s = trace_summary(out / "trace" / "trace.json", SPANS[args.stage])
+    for name in ("window", *SPANS[args.stage]):
         if name in s:
             r = s[name]
-            print(f"traced {name}: span {r['span_s']:.4f} s, device busy "
+            print(f"traced {name}: span {r['span_s']:.4f} s ({r['calls']} calls), device busy "
                   f"{r['device_busy_s']:.4f} s, idle {r['idle_share']:.1%}")
     busy = s["window"]["device_busy_s"]
     s["warm_median_s"] = warm
-    s["idle_share_of_warm_stage"] = 1.0 - busy / warm["preprocess"]
+    s["idle_share_of_warm_stage"] = 1.0 - busy / warm[args.stage]
     print(f"device busy {busy:.4f} s against the warm median stage "
-          f"{warm['preprocess']:.4f} s: idle {s['idle_share_of_warm_stage']:.1%}")
+          f"{warm[args.stage]:.4f} s: idle {s['idle_share_of_warm_stage']:.1%}")
     print(f"{s['kernels']} kernels; device time by name (count, ms):")
     for n, c, ms in s["by_name"][:20]:
         print(f"  {ms:10.3f} ms  {c:6d}  {n[:90]}")

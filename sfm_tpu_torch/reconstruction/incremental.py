@@ -1,0 +1,703 @@
+"""The incremental SfM engine on one named device.
+
+Counterpart of ``sfm_tpu/reconstruction/incremental.py`` on the path the
+default config runs: seed pair, batched P3P registration, triangulation of
+every active track, periodic and final LM BA on the flat dense-Schur path,
+and pruning. State is host numpy (poses, points, the track table), as in
+the reference; every device program reads it as tensors on ``device``:
+
+* :func:`triangulate_tracks` -- kernel K7 (``csrc/triangulate_tracks.cu``,
+  entry ``triangulate_tracks``), plain twin :func:`triangulate_tracks_plain`;
+* :func:`reproj_stats` -- K7's entry ``reproj_stats``, twin
+  :func:`reproj_stats_plain`;
+* PnP (K6, :mod:`sfm_tpu_torch.estimators.pnp`), BA (K8-K10,
+  :mod:`sfm_tpu_torch.ba`), seed scoring (K14, plain torch).
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
+global initialization, pose-graph polish, guided 2D-3D registration,
+windowed local BA, checkpoints, and the BA routes off the dense path.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+import math
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sfm_tpu_torch import _kernels
+from sfm_tpu_torch._shared import SfMConfig, TrackTable, build_tracks
+from sfm_tpu_torch.ba.lm import check_ba_config, run_ba
+from sfm_tpu_torch.ba.problem import build_problem
+from sfm_tpu_torch.estimators.pnp import pnp_ransac, pnp_ransac_batch
+from sfm_tpu_torch.geometry.projection import intrinsics_vector, project
+from sfm_tpu_torch.geometry.rotations import rodrigues, rotation_to_rvec
+from sfm_tpu_torch.geometry.triangulation import triangulate_multiview, triangulate_two_view
+from sfm_tpu_torch.graph.view_selection import SfMGraphSelector
+from sfm_tpu_torch.matching.pair_table import rescue_disconnected
+from sfm_tpu_torch.reconstruction.seed import find_best_initial_pair
+from sfm_tpu_torch.utils.observability import Metrics
+
+logger = logging.getLogger(__name__)
+
+# Kernel K7 keeps a track row's usable-view set in 8 words of bits and the
+# seed-pair views' slots in a 32-entry register array.
+_K7_MAX_VIEWS = 256
+_K7_MAX_SEED_VIEWS = 32
+_GUIDED_MSG = "guided registration is not ported yet (ROADMAP); set pnp.guided=false"
+
+
+# ------------------------------------------------------------- K7: triangulation
+
+def _seed_pairs(n_seed: int):
+    return [(a, b) for a in range(n_seed) for b in range(a + 1, n_seed)]
+
+
+def triangulate_tracks_plain(view_img, view_xy, use, active, rvec, tvec, K, max_err,
+                             min_parallax_deg, robust_rounds, seed_pairs_on, n_seed):
+    """Triangulate every active track row from its usable views (twin of K7).
+
+    view_img (T, V) int32 (-1 = none); view_xy (T, V, 2); use (T, V) bool
+    (valid slot of a registered camera); active (T,); rvec/tvec (C, 3);
+    K (3, 3). Returns (points (T, 3), ok (T,)). A row is ok when >= 2 views
+    are used, all of them see the point in front of the camera, and the
+    max reprojection error over them is <= max_err (and the widest ray
+    angle reaches min_parallax_deg, when that is > 0).
+    """
+    C = rvec.shape[0]
+    T, V = view_img.shape
+    Rs = rodrigues(rvec)
+    P_all = K @ torch.cat([Rs, tvec[..., None]], dim=-1)
+    img = view_img.long().clamp(0, C - 1)
+    Ps, R_v, t_v = P_all[img], Rs[img], tvec[img]
+
+    def score_of(X, use_rows):
+        """X (T, *, 3) -> inliers / errors / depths (T, *, V) over use_rows."""
+        proj, depth = project(X[..., None, :], R_v.reshape((T,) + (1,) * (X.dim() - 2) +
+                                                           (V, 3, 3)),
+                              t_v.reshape((T,) + (1,) * (X.dim() - 2) + (V, 3)), K)
+        xy = view_xy.reshape((T,) + (1,) * (X.dim() - 2) + (V, 2))
+        err = torch.linalg.vector_norm(proj - xy, dim=-1)
+        u = use_rows.reshape((T,) + (1,) * (X.dim() - 2) + (V,))
+        return u & (depth > 0) & (err <= max_err), err, depth
+
+    X = triangulate_multiview(Ps, view_xy, use)
+    inl_all, err, depth = score_of(X, use)
+    n_seed = min(n_seed, V)
+    if robust_rounds > 0 and seed_pairs_on and n_seed >= 2:
+        ord_valid = torch.sort((~use).to(torch.int8), dim=-1, stable=True).indices
+        n_use0 = use.sum(-1)
+        k = torch.arange(n_seed, device=use.device)
+        sidx = torch.clamp((k[None] * torch.clamp(n_use0, min=1)[:, None]) // n_seed, 0, V - 1)
+        stride = torch.gather(ord_valid, 1, sidx)                  # (T, n_seed)
+        pairs = torch.tensor(_seed_pairs(n_seed), device=use.device)
+        a, b = stride[:, pairs[:, 0]], stride[:, pairs[:, 1]]       # (T, H)
+        g = lambda x, i: torch.gather(x, 1, i.reshape(i.shape + (1,) * (x.dim() - 2)).expand(
+            i.shape + x.shape[2:]))
+        Xp = triangulate_two_view(g(Ps, a), g(Ps, b), g(view_xy, a)[:, :, None],
+                                  g(view_xy, b)[:, :, None])[:, :, 0]   # (T, H, 3)
+        inls, _, _ = score_of(Xp, use)                               # (T, H, V)
+        scores = inls.sum(-1)
+        best = torch.argmax(scores, dim=-1)
+        top = torch.gather(scores, 1, best[:, None])[:, 0]
+        use_best = (top > inl_all.sum(-1)) & (top >= 3)
+        best_inl = torch.gather(inls, 1, best[:, None, None].expand(-1, 1, V))[:, 0]
+        use = torch.where(use_best[:, None], best_inl, use)
+        X = triangulate_multiview(Ps, view_xy, use)
+        _, err, depth = score_of(X, use)
+    for _ in range(max(robust_rounds, 0)):
+        keep = use & (depth > 0) & (err <= max_err)
+        use = torch.where((keep.sum(-1) >= 2)[:, None], keep, use)
+        X = triangulate_multiview(Ps, view_xy, use)
+        _, err, depth = score_of(X, use)
+    ok = ((use.sum(-1) >= 2) & torch.where(use, depth > 0, True).all(-1)
+          & (torch.where(use, err, 0.0).amax(-1) <= max_err))
+    if min_parallax_deg > 0.0:
+        centers = -(Rs.mT @ tvec[..., None])[..., 0]
+        rays = X[:, None, :] - centers[img]
+        rays = rays / torch.clamp(torch.linalg.vector_norm(rays, dim=-1, keepdim=True),
+                                  min=1e-12)
+        cosang = rays @ rays.mT
+        pair_ok = use[:, :, None] & use[:, None, :]
+        min_cos = torch.where(pair_ok, cosang, 1.0).amin(-1).amin(-1)
+        max_ang = torch.arccos(torch.clamp(min_cos, -1.0, 1.0)) * (180.0 / math.pi)
+        ok = ok & (max_ang >= min_parallax_deg)
+    return X, ok & active
+
+
+def triangulate_tracks_cuda(view_img, view_xy, use, active, rvec, tvec, K, max_err,
+                            min_parallax_deg, robust_rounds, seed_pairs_on, n_seed):
+    T, V = view_img.shape
+    C = rvec.shape[0]
+    dev = view_img.device
+    if V > _K7_MAX_VIEWS:
+        raise ValueError(f"triangulate_tracks: V={V} exceeds {_K7_MAX_VIEWS}")
+    n_seed = min(n_seed, V)
+    if seed_pairs_on and n_seed > _K7_MAX_SEED_VIEWS:
+        raise ValueError(f"triangulate_tracks: {n_seed} seed-pair views exceed "
+                         f"{_K7_MAX_SEED_VIEWS} (triangulation.seed_pair_views)")
+    _kernels.check_tensor(view_img, "view_img", torch.int32, (T, V), dev)
+    _kernels.check_tensor(view_xy, "view_xy", torch.float32, (T, V, 2), dev)
+    _kernels.check_tensor(use, "use", torch.bool, (T, V), dev)
+    _kernels.check_tensor(active, "active", torch.bool, (T,), dev)
+    Rs = rodrigues(rvec)
+    P_all = (K @ torch.cat([Rs, tvec[..., None]], dim=-1)).contiguous()
+    centers = (-(Rs.mT @ tvec[..., None])[..., 0]).contiguous()
+    pts = torch.empty((T, 3), dtype=torch.float32, device=dev)
+    ok = torch.empty((T,), dtype=torch.bool, device=dev)
+    _kernels.launch("triangulate_tracks", dev, view_img, view_xy, use, active, P_all,
+                    Rs.contiguous(), tvec.contiguous(), centers, intrinsics_vector(K), T, V, C,
+                    float(max_err), float(min_parallax_deg), int(robust_rounds),
+                    int(bool(seed_pairs_on)), int(n_seed), pts, ok)
+    return pts, ok
+
+
+def triangulate_tracks(view_img, view_xy, use, active, rvec, tvec, K, *, max_err=4.0,
+                       min_parallax_deg=0.0, robust_rounds=1, seed_pairs_on=True, n_seed=8):
+    """Kernel K7 on CUDA tensors, :func:`triangulate_tracks_plain` on CPU."""
+    args = (view_img, view_xy, use, active, rvec, tvec, K, max_err, min_parallax_deg,
+            robust_rounds, seed_pairs_on, n_seed)
+    if view_img.is_cuda:
+        return triangulate_tracks_cuda(*args)
+    if view_img.device.type == "cpu":
+        return triangulate_tracks_plain(*args)
+    raise ValueError(f"triangulate_tracks: unsupported device {view_img.device}")
+
+
+def reproj_stats_plain(view_img, view_xy, view_valid, rvec, tvec, registered, K, points,
+                       point_valid):
+    """Per-slot reprojection error over the whole reconstruction; returns
+    (err (T, V), use (T, V)) with err 0 where not used."""
+    C = rvec.shape[0]
+    img = view_img.long().clamp(0, C - 1)
+    use = view_valid & registered[img] & point_valid[:, None]
+    Rs = rodrigues(rvec)
+    proj, _ = project(points[:, None, :], Rs[img], tvec[img], K)
+    err = torch.linalg.vector_norm(proj - view_xy, dim=-1)
+    return torch.where(use, err, 0.0), use
+
+
+def reproj_stats_cuda(view_img, view_xy, view_valid, rvec, tvec, registered, K, points,
+                      point_valid):
+    T, V = view_img.shape
+    C = rvec.shape[0]
+    dev = view_img.device
+    _kernels.check_tensor(view_img, "view_img", torch.int32, (T, V), dev)
+    _kernels.check_tensor(view_xy, "view_xy", torch.float32, (T, V, 2), dev)
+    _kernels.check_tensor(view_valid, "view_valid", torch.bool, (T, V), dev)
+    _kernels.check_tensor(registered, "registered", torch.bool, (C,), dev)
+    _kernels.check_tensor(points, "points", torch.float32, (T, 3), dev)
+    _kernels.check_tensor(point_valid, "point_valid", torch.bool, (T,), dev)
+    err = torch.empty((T, V), dtype=torch.float32, device=dev)
+    use = torch.empty((T, V), dtype=torch.bool, device=dev)
+    _kernels.launch("reproj_stats", dev, view_img, view_xy, view_valid, registered,
+                    rodrigues(rvec).contiguous(), tvec.contiguous(), intrinsics_vector(K), points,
+                    point_valid, T, V, C, err, use)
+    return err, use
+
+
+def reproj_stats(*args):
+    """Kernel K7's ``reproj_stats`` entry on CUDA tensors, its twin on CPU."""
+    if args[0].is_cuda:
+        return reproj_stats_cuda(*args)
+    if args[0].device.type == "cpu":
+        return reproj_stats_plain(*args)
+    raise ValueError(f"reproj_stats: unsupported device {args[0].device}")
+
+
+# ------------------------------------------------------------------- host helpers
+
+def _stratified_order(xy, quality, width, height, grid: int = 8):
+    """Round-robin-over-grid-cells order: any prefix covers the image before
+    it deepens any one cell; best quality first within a cell."""
+    n = len(quality)
+    cx = np.clip((xy[:, 0] / max(width, 1) * grid).astype(np.int64), 0, grid - 1)
+    cy = np.clip((xy[:, 1] / max(height, 1) * grid).astype(np.int64), 0, grid - 1)
+    cell = cy * grid + cx
+    ord0 = np.lexsort((-quality, cell))
+    cell_s = cell[ord0]
+    new_run = np.r_[True, cell_s[1:] != cell_s[:-1]]
+    run_start = np.maximum.accumulate(np.where(new_run, np.arange(n), 0))
+    rank = np.arange(n) - run_start
+    return ord0[np.lexsort((cell_s, rank))]
+
+
+def check_config(config: SfMConfig, num_images: int):
+    """Raise on a configuration that would route off the ported path."""
+    if config.global_init.enabled:
+        raise NotImplementedError(
+            "global_init.enabled (global SfM) is not ported yet (ROADMAP queue 1, item 12)")
+    if config.global_init.polish:
+        raise NotImplementedError(
+            "global_init.polish is not ported yet (ROADMAP queue 1, item 12)")
+    if config.ba.local_window > 0:
+        raise NotImplementedError(
+            "ba.local_window > 0 (windowed local BA) is not ported yet "
+            "(ROADMAP queue 1, item 10)")
+    if config.features.kind != "sift":
+        raise NotImplementedError(
+            f"features.kind={config.features.kind!r} is not ported yet "
+            "(ROADMAP queue 1, item 11)")
+    check_ba_config(config.ba, num_images)
+
+
+@dataclasses.dataclass
+class ReconstructionResult:
+    """Final scene: poses, cloud, per-track observations, stats (the
+    reference's fields and dtypes)."""
+
+    image_ids: np.ndarray          # (R,) int64 registered image ids, in order
+    rotations: np.ndarray          # (R, 3, 3) float32 world->cam
+    translations: np.ndarray       # (R, 3) float32
+    intrinsics: np.ndarray         # (4,) float32 fx fy cx cy
+    points3d: np.ndarray           # (M, 3) float32
+    track_ids: np.ndarray          # (M,) int64 track id of each point
+    obs_img: np.ndarray            # (M, V) int32 image ids per point (-1 = none)
+    obs_xy: np.ndarray             # (M, V, 2) float32
+    stats: dict
+
+
+class StructureFromMotion:
+    """Incremental reconstruction driver on ``device``.
+
+    table: the verified-pair table (``PairTable``); xy: (N, K, 2) keypoint
+    coords of all images.
+    """
+
+    def __init__(self, table, xy, config: SfMConfig = SfMConfig(), *, device,
+                 metrics: Optional[Metrics] = None, desc=None, feat_valid=None):
+        self.device = torch.device(device)
+        self.metrics = metrics if metrics is not None else Metrics()
+        self.table = table
+        self.xy = np.asarray(xy, np.float32)
+        self.desc = None if desc is None else np.asarray(desc)
+        self.feat_valid = None if feat_valid is None else np.asarray(feat_valid, bool)
+        self.config = config
+        self.num_images = self.xy.shape[0]
+        check_config(config, self.num_images)
+        self.K = config.camera.K()
+        if config.verify.rescue_disconnected:
+            n_rescued = rescue_disconnected(
+                table, self.num_images, min_inliers=config.verify.rescue_min_inliers,
+                min_ratio=config.verify.rescue_min_ratio)
+            if n_rescued:
+                logger.info("rescued %d sub-gate pairs for pairless images", n_rescued)
+        self.selector = SfMGraphSelector.from_pair_table(table, select=config.select)
+        self.tracks: TrackTable = build_tracks(table, self.xy, self.num_images)
+        logger.info("tracks: %d (max length %d)", self.tracks.num_tracks,
+                    int(self.tracks.length.max(initial=0)))
+        C = self.num_images
+        T = max(self.tracks.num_tracks, 1)
+        self.rvec = np.zeros((C, 3), np.float32)
+        self.tvec = np.zeros((C, 3), np.float32)
+        self.registered = np.zeros(C, bool)
+        self.reg_order: list[int] = []
+        self.points = np.zeros((T, 3), np.float32)
+        self.point_valid = np.zeros(T, bool)
+        self.view_valid = self.tracks.view_img >= 0
+        self.intr = np.array([config.camera.fx, config.camera.fy, config.camera.cx,
+                              config.camera.cy], np.float32)
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self._ba_calls = 0
+
+    # ------------------------------------------------------------------ utils
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """Engine stage wall-clock into ``self.metrics`` (``engine/<name>``,
+        the reference's names) and a profiler annotation ``sfm/<name>``."""
+        t0 = time.time()
+        with torch.profiler.record_function(f"sfm/{name}"):
+            yield
+        self.metrics.log(f"engine/{name}", time.time() - t0, unit="s")
+
+    @property
+    def stage_s(self) -> Dict[str, float]:
+        return {k.split("/", 1)[1]: v for k, v in self.metrics.totals().items()
+                if k.startswith("engine/")}
+
+    def _t(self, a, dtype=None):
+        a = np.ascontiguousarray(a)
+        if dtype is None and a.dtype == np.float64:
+            a = a.astype(np.float32)
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _camera_matrix(self):
+        fx, fy, cx, cy = self.intr
+        return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+
+    # ----------------------------------------------------------------- stages
+
+    def initialize(self) -> Tuple[int, int]:
+        """Seed-pair two-view initialization."""
+        with self._stage("init"):
+            row, R, t, score = find_best_initial_pair(self.table, self._camera_matrix(),
+                                                      device=self.device)
+        i, j = (int(v) for v in self.table.pairs[row])
+        logger.info("seed pair (%d, %d) score %.1f", i, j, score)
+        self.rvec[i] = 0.0
+        self.tvec[i] = 0.0
+        self.rvec[j] = rotation_to_rvec(torch.as_tensor(R)).numpy()
+        self.tvec[j] = t
+        self.registered[[i, j]] = True
+        self.reg_order += [i, j]
+        self._triangulate()
+        return i, j
+
+    def _triangulate_rows(self, rows, pose_args, seed_pairs_on, common):
+        """K7 over the track rows ``rows`` (all of them when None)."""
+        sel = slice(None) if rows is None else rows
+        view_img = self._t(self.tracks.view_img[sel])
+        registered, rvec, tvec, K = pose_args
+        use = self._t(self.view_valid[sel]) & registered[
+            view_img.long().clamp(0, self.num_images - 1)]
+        return triangulate_tracks(view_img, self._t(self.tracks.view_xy[sel]), use,
+                                  common.pop("active"), rvec, tvec, K,
+                                  seed_pairs_on=seed_pairs_on, **common)
+
+    def _triangulate(self, max_err_mult: float = 1.0):
+        """(Re)triangulate all tracks that lack a point but are now viewable.
+
+        Row buckets as in the reference: the active rows in buckets of 2048
+        when they are few, the full table otherwise; with seed_pair_scope
+        "failed", a second pass over the failures in buckets of 1024 with
+        seed-pair consensus on.
+        """
+        cfg_t = self.config.triangulation
+        scope = cfg_t.seed_pair_scope
+        if max_err_mult > 1.0 or cfg_t.seed_pair_views < 2 or cfg_t.robust_rounds < 1:
+            scope = "off"
+        with self._stage("triangulate"):
+            active = ~self.point_valid & (self.tracks.length >= cfg_t.min_views)
+            if not active.any():
+                return 0
+            common = dict(max_err=cfg_t.max_reproj_error * max_err_mult,
+                          min_parallax_deg=cfg_t.min_parallax_deg,
+                          robust_rounds=cfg_t.robust_rounds, n_seed=cfg_t.seed_pair_views)
+            pose_args = (self._t(self.registered), self._t(self.rvec), self._t(self.tvec),
+                         self._t(self._camera_matrix()))
+            T = self.tracks.view_img.shape[0]
+            n_active = int(active.sum())
+
+            def buckets(idx, B, seed_pairs_on):
+                for c0 in range(0, len(idx), B):
+                    sub = idx[c0:c0 + B]
+                    rows = np.concatenate([sub, np.zeros(B - len(sub), np.int64)])
+                    sub_active = np.zeros(B, bool)
+                    sub_active[: len(sub)] = True
+                    p, o = self._triangulate_rows(
+                        rows, pose_args, seed_pairs_on,
+                        dict(common, active=self._t(sub_active)))
+                    yield sub, p.cpu().numpy()[: len(sub)], o.cpu().numpy()[: len(sub)]
+
+            B = 2048
+            if n_active + B <= T // 2:
+                pts = np.zeros((T, 3), np.float32)
+                ok = np.zeros(T, bool)
+                for sub, p, o in buckets(np.nonzero(active)[0], B, scope == "all"):
+                    pts[sub], ok[sub] = p, o
+            else:
+                p, o = self._triangulate_rows(None, pose_args, scope == "all",
+                                              dict(common, active=self._t(active)))
+                pts, ok = p.cpu().numpy(), o.cpu().numpy()
+            if scope == "failed":
+                idx = np.nonzero(active & ~ok)[0]
+                for sub, p, o in buckets(idx, 1024, True):
+                    pts[sub[o]] = p[o]
+                    ok[sub[o]] = True
+            self.points[ok] = pts[ok]
+            self.point_valid |= ok
+        return int(ok.sum())
+
+    def _pnp_correspondences(self, img: int):
+        """2D-3D pairs for an unregistered image, from the track table, in
+        stratified-quality order (callers truncate at pnp.budget)."""
+        t_ids, v_ids = np.nonzero((self.tracks.view_img == img) & self.view_valid)
+        has_pt = self.point_valid[t_ids]
+        t_ids, v_ids = t_ids[has_pt], v_ids[has_pt]
+        pts3d = self.points[t_ids]
+        xy = self.tracks.view_xy[t_ids, v_ids]
+        if len(t_ids) > 1:
+            order = _stratified_order(xy, self.tracks.length[t_ids].astype(np.float32),
+                                      self.config.camera.width, self.config.camera.height)
+            t_ids, pts3d, xy = t_ids[order], pts3d[order], xy[order]
+        return t_ids, pts3d, xy
+
+    def _pnp_kwargs(self):
+        c = self.config.pnp
+        return dict(iters=c.ransac_iters, threshold=c.reproj_threshold,
+                    refine_iters=c.refine_iters, sample_size=c.sample_size,
+                    generator=self.generator)
+
+    def register_image(self, img: int, weak: bool = False) -> bool:
+        """PnP-register one image; ``weak`` lowers the gate (bounded below)
+        for an image whose whole pool cannot reach it (last resort)."""
+        with self._stage("pnp"):
+            t_ids, pts3d, xy = self._pnp_correspondences(img)
+            n = len(t_ids)
+            gate = self.config.pnp.min_inliers
+            pool_floor = max(gate, self.config.pnp.min_matches)
+            if weak and n < pool_floor:
+                gate = max(self.config.pnp.min_inliers_floor, int(0.8 * n))
+                pool_floor = gate
+            if n < pool_floor:
+                return False
+            budget = self.config.pnp.budget
+            p3 = np.zeros((budget, 3), np.float32)
+            p2 = np.zeros((budget, 2), np.float32)
+            valid = np.zeros(budget, bool)
+            m = min(n, budget)
+            p3[:m], p2[:m], valid[:m] = pts3d[:m], xy[:m], True
+            out = pnp_ransac(self._t(p3), self._t(p2), self._t(valid),
+                             self._t(self._camera_matrix()), min_inliers=gate,
+                             **self._pnp_kwargs())
+            n_inl = int(out["num_inliers"])
+            ratio_ok = n_inl >= self.config.pnp.min_inlier_ratio * min(n, budget)
+            if not (bool(out["ok"]) and (ratio_ok or weak)):
+                return False
+        self.rvec[img] = out["rvec"].cpu().numpy()
+        self.tvec[img] = out["t"].cpu().numpy()
+        self.registered[img] = True
+        self.reg_order.append(img)
+        logger.info("registered image %d (%d/%d PnP inliers)", img, n_inl, n)
+        return True
+
+    def register_candidates(self, candidates, max_accept: int) -> int:
+        """PnP the candidate slate in one batched call; register the passers
+        in candidate-score order, at most ``max_accept``."""
+        with self._stage("pnp"):
+            B = self.config.pnp.candidate_batch
+            pool_floor = max(self.config.pnp.min_inliers, self.config.pnp.min_matches)
+            slate = []
+            for img, _score in candidates:
+                if len(slate) >= B:
+                    break
+                t_ids, pts3d, xy = self._pnp_correspondences(int(img))
+                if len(t_ids) >= pool_floor:
+                    slate.append((int(img), len(t_ids), pts3d, xy))
+            if not slate:
+                return 0
+            budget = self.config.pnp.budget
+            # One lane per slate entry (the reference pads to candidate_batch
+            # lanes so that its jitted program keeps one shape).
+            B = len(slate)
+            p3 = np.zeros((B, budget, 3), np.float32)
+            p2 = np.zeros((B, budget, 2), np.float32)
+            valid = np.zeros((B, budget), bool)
+            gates = np.full(B, self.config.pnp.min_inliers, np.int32)
+            for a, (_img, n, pts3d, xy) in enumerate(slate):
+                m = min(n, budget)
+                p3[a, :m], p2[a, :m], valid[a, :m] = pts3d[:m], xy[:m], True
+            out = pnp_ransac_batch(self._t(p3), self._t(p2), self._t(valid),
+                                   self._t(self._camera_matrix()), self._t(gates),
+                                   **self._pnp_kwargs())
+            rvecs, ts, nums, oks = (out[k].cpu().numpy()
+                                    for k in ("rvec", "t", "num_inliers", "ok"))
+        n_registered = 0
+        for a, (img, n, _p3, _xy) in enumerate(slate):
+            if n_registered >= max_accept:
+                break
+            n_inl = int(nums[a])
+            if not bool(oks[a]) or n_inl < self.config.pnp.min_inlier_ratio * min(n, budget):
+                continue
+            self.rvec[img] = rvecs[a]
+            self.tvec[img] = ts[a]
+            self.registered[img] = True
+            self.reg_order.append(img)
+            n_registered += 1
+            logger.info("registered image %d (%d/%d PnP inliers)", img, n_inl, n)
+        return n_registered
+
+    # ------------------------------------------------------- guided rescue
+
+    def guided_register(self, img: int) -> bool:
+        """Guided 2D-3D registration: not ported. A no-op where the
+        reference's is one (no descriptors, pnp.guided off, or the image is
+        already registered); raises where it would do work."""
+        if self.desc is None or not self.config.pnp.guided or self.registered[img]:
+            return False
+        raise NotImplementedError(_GUIDED_MSG)
+
+    def _guided_sweep(self, limit: int) -> int:
+        """The final guided pass: a no-op when every image is registered (the
+        reference's sweep then tries nothing); raises where it would try."""
+        if self.desc is None or not self.config.pnp.guided or self.registered.all():
+            return 0
+        raise NotImplementedError(_GUIDED_MSG)
+
+    # -------------------------------------------------------------------- BA
+
+    def _ba_problem_arrays(self):
+        """Every (track, view) slot as one BA observation row (point-major:
+        obs_point = repeat(arange(T), V)). The reference's compaction and
+        ``max_obs`` cap apply past 1.25M rows (ROADMAP); below that it keeps
+        the raw table too."""
+        T, V = self.tracks.view_img.shape
+        obs_cam = np.clip(self.tracks.view_img.reshape(-1), 0,
+                          self.num_images - 1).astype(np.int32)
+        obs_point = np.repeat(np.arange(T, dtype=np.int32), V)
+        obs_xy = self.tracks.view_xy.reshape(-1, 2)
+        obs_valid = (self.view_valid.reshape(-1) & self.registered[obs_cam]
+                     & self.point_valid[obs_point])
+        max_obs = self.config.ba.max_obs
+        n_valid = int(obs_valid.sum())
+        if (max_obs > 0 and n_valid > max_obs) or (
+                obs_valid.shape[0] > 1_250_000 and n_valid <= 0.6 * obs_valid.shape[0]):
+            raise NotImplementedError(
+                f"BA observation table of {obs_valid.shape[0]} rows ({n_valid} valid): "
+                "compaction and the max_obs cap are not ported yet (ROADMAP queue 1, "
+                "item 10)")
+        return obs_cam, obs_point, obs_xy, obs_valid
+
+    def bundle_adjust(self, final: bool = False):
+        """LM on the flat table with the exact dense-Schur solve."""
+        cfg = self.config.ba
+        cam_fixed = np.zeros(self.num_images, bool)
+        if self.reg_order:
+            cam_fixed[self.reg_order[0]] = True
+        with self._stage("assemble"):
+            obs_cam, obs_point, obs_xy, obs_valid = self._ba_problem_arrays()
+        prob = build_problem(
+            rvec=self.rvec, tvec=self.tvec, cam_valid=self.registered, intr=self.intr,
+            points=self.points, point_valid=self.point_valid, obs_cam=obs_cam,
+            obs_point=obs_point, obs_xy=obs_xy, obs_valid=obs_valid, cam_fixed=cam_fixed,
+            device=self.device)
+        with self._stage("ba"):
+            out, stats = run_ba(prob, cfg, optimize_intrinsics=cfg.optimize_intrinsics)
+            self._unpack_ba(out, stats)
+        self.metrics.log("ba/rms_px", float(stats["rms_px"]), call=self._ba_calls)
+        if cfg.prune_multiplier > 0:
+            self.prune_observations(cfg.prune_multiplier
+                                    * self.config.triangulation.max_reproj_error)
+        return stats
+
+    def _unpack_ba(self, out, stats):
+        self._ba_calls += 1
+        logger.info("BA #%d: cost %.1f -> %.1f (%d its, rms %.3f px)", self._ba_calls,
+                    stats["initial_cost"], stats["final_cost"], stats["iterations"],
+                    stats["rms_px"])
+        self.rvec = out.rvec.cpu().numpy()[: self.num_images]
+        self.tvec = out.tvec.cpu().numpy()[: self.num_images]
+        self.intr = out.intr.cpu().numpy()
+        self.points = out.points.cpu().numpy()[: self.points.shape[0]]
+
+    def _reproj_stats(self):
+        return reproj_stats(self._t(self.tracks.view_img), self._t(self.tracks.view_xy),
+                            self._t(self.view_valid), self._t(self.rvec), self._t(self.tvec),
+                            self._t(self.registered), self._t(self._camera_matrix()),
+                            self._t(self.points), self._t(self.point_valid))
+
+    def prune_observations(self, threshold: float = None):
+        """Mask observations whose reprojection error exceeds the gate;
+        points left with < 2 live views are invalidated."""
+        if threshold is None:
+            threshold = self.config.triangulation.max_reproj_error * 2.0
+        with self._stage("prune"):
+            err, use = (x.cpu().numpy() for x in self._reproj_stats())
+            bad = use & (err > threshold)
+        if not bad.any():
+            return 0
+        self.view_valid &= ~bad
+        live = (self.view_valid & self.registered[
+            np.clip(self.tracks.view_img, 0, self.num_images - 1)]).sum(axis=1)
+        dead = self.point_valid & (live < 2)
+        self.point_valid &= ~dead
+        logger.info("pruned %d observations, dropped %d points", int(bad.sum()),
+                    int(dead.sum()))
+        return int(bad.sum())
+
+    # ------------------------------------------------------------------- run
+
+    def run_reconstruction(self, num_images: Optional[int] = None) -> ReconstructionResult:
+        """The incremental loop (the reference's incremental branch)."""
+        t_start = time.time()
+        limit = num_images or self.num_images
+        if not self.reg_order:
+            self.initialize()
+        retried_after_ba = False
+        freq = max(1, self.config.ba.frequency)
+        while len(self.reg_order) < limit:
+            with self._stage("select"):
+                candidates = self.selector.find_next_best_images(
+                    list(self.reg_order), top_k=self.num_images)
+            if not candidates:
+                logger.info("no more connected candidates")
+                break
+            to_boundary = freq - (len(self.reg_order) % freq)
+            max_accept = min(limit - len(self.reg_order), to_boundary)
+            n_new = self.register_candidates(candidates, max_accept)
+            progressed = n_new > 0
+            if progressed and (self.config.triangulation.cadence == 1
+                               or len(self.reg_order) % self.config.triangulation.cadence == 0):
+                self._triangulate()
+            if not progressed:
+                if retried_after_ba:
+                    for img, _score in candidates:
+                        if self.guided_register(int(img)):
+                            self._triangulate()
+                            progressed = True
+                            break
+                    if not progressed:
+                        for img, _score in candidates:
+                            if self.register_image(int(img), weak=True):
+                                self._triangulate()
+                                progressed = True
+                                break
+                    if not progressed:
+                        logger.info("no candidate registered; stopping")
+                        break
+                    retried_after_ba = False
+                    continue
+                logger.info("all candidates failed; running BA and retrying")
+                self.bundle_adjust()
+                self._triangulate()
+                retried_after_ba = True
+                continue
+            retried_after_ba = False
+            if len(self.reg_order) % self.config.ba.frequency == 0:
+                self.bundle_adjust()
+                self._triangulate()
+
+        if 2 <= len(self.reg_order) < limit:
+            n_guided = self._guided_sweep(limit)
+            if n_guided:
+                logger.info("guided sweep registered %d extra image(s)", n_guided)
+        if len(self.reg_order) >= 2:
+            self.bundle_adjust(final=True)
+        stats = self.compute_stats()
+        stats["wall_clock_s"] = time.time() - t_start
+        stats["stage_s"] = {k: round(v, 2) for k, v in self.stage_s.items()}
+        logger.info("reconstruction: %s", stats)
+        return self._result(stats)
+
+    # ----------------------------------------------------------------- output
+
+    def compute_stats(self) -> dict:
+        """Mean/max reprojection error, track lengths, counts."""
+        with self._stage("stats"):
+            err, use = (x.cpu().numpy() for x in self._reproj_stats())
+            n_obs = int(use.sum())
+            lengths = use.sum(axis=1)[self.point_valid]
+        return {
+            "num_cameras": int(self.registered.sum()),
+            "num_points": int(self.point_valid.sum()),
+            "num_observations": n_obs,
+            "mean_reprojection_error": float(err[use].mean()) if n_obs else 0.0,
+            "max_reprojection_error": float(err[use].max()) if n_obs else 0.0,
+            "mean_track_length": float(lengths.mean()) if len(lengths) else 0.0,
+            "max_track_length": int(lengths.max()) if len(lengths) else 0,
+        }
+
+    def _result(self, stats) -> ReconstructionResult:
+        reg = np.array(self.reg_order, np.int64)
+        Rs = rodrigues(torch.as_tensor(self.rvec[reg])).numpy()
+        sel = self.point_valid
+        return ReconstructionResult(
+            image_ids=reg, rotations=Rs, translations=self.tvec[reg].copy(),
+            intrinsics=self.intr.copy(), points3d=self.points[sel].copy(),
+            track_ids=np.nonzero(sel)[0], obs_img=self.tracks.view_img[sel].copy(),
+            obs_xy=self.tracks.view_xy[sel].copy(), stats=stats)

@@ -34,6 +34,14 @@ class Metrics:
     def save(self, path):
         Path(path).write_text(json.dumps(self.records, indent=1))
 
+    def totals(self) -> Dict[str, float]:
+        """Sum of the numeric values logged under each name."""
+        out: Dict[str, float] = {}
+        for r in self.records:
+            if isinstance(r["value"], (int, float)):
+                out[r["name"]] = out.get(r["name"], 0.0) + r["value"]
+        return out
+
 
 @contextlib.contextmanager
 def stage(name: str, metrics: Metrics):

@@ -30,9 +30,21 @@ SLICE_MODULES = [
     "sfm_tpu_torch.features.detect",
     "sfm_tpu_torch.features.descriptor",
     "sfm_tpu_torch.features.frontend",
+    "sfm_tpu_torch.geometry.rotations",
+    "sfm_tpu_torch.geometry.projection",
+    "sfm_tpu_torch.geometry.triangulation",
+    "sfm_tpu_torch.estimators.pnp",
+    "sfm_tpu_torch.ba.problem",
+    "sfm_tpu_torch.ba.residuals",
+    "sfm_tpu_torch.ba.schur",
+    "sfm_tpu_torch.ba.lm",
+    "sfm_tpu_torch.graph.view_selection",
+    "sfm_tpu_torch.reconstruction.seed",
+    "sfm_tpu_torch.reconstruction.incremental",
+    "sfm_tpu_torch.io.export",
     "sfm_tpu_torch.pipeline",
     "sfm_tpu_torch.cli",
-    "sfm_tpu_torch.profile_preprocess",
+    "sfm_tpu_torch.profile_stage",
 ]
 
 
@@ -144,7 +156,7 @@ def test_retrieval_on_raises_instead_of_sweeping(tmp_path):
 
 
 def test_trace_summary_counts_overlapping_device_work_once(tmp_path):
-    from sfm_tpu_torch.profile_preprocess import trace_summary
+    from sfm_tpu_torch.profile_stage import trace_summary
 
     ev = lambda cat, name, ts, dur: {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
     trace = {"traceEvents": [
@@ -165,3 +177,22 @@ def test_trace_summary_counts_overlapping_device_work_once(tmp_path):
     assert s["detect"]["idle_share"] == pytest.approx(0.5)
     assert s["sweep"]["idle_share"] == pytest.approx(0.75)
     assert [r[0] for r in s["by_name"]] == ["k_a", "k_b", "gpu_memcpy"]
+
+
+def test_trace_summary_sums_repeated_spans(tmp_path):
+    from sfm_tpu_torch.profile_stage import SPANS, trace_summary
+
+    ev = lambda cat, name, ts, dur: {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+    trace = {"traceEvents": [
+        ev("user_annotation", "sfm/ba", 0, 40), ev("user_annotation", "sfm/pnp", 40, 20),
+        ev("user_annotation", "sfm/ba", 60, 40),
+        ev("kernel", "ba_obs_kernel", 10, 10), ev("kernel", "ba_obs_kernel", 70, 30),
+    ]}
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps(trace))
+    s = trace_summary(path, SPANS["reconstruct"])
+    assert s["sfm/ba"]["calls"] == 2
+    assert s["sfm/ba"]["span_s"] == pytest.approx(80e-6)
+    assert s["sfm/ba"]["idle_share"] == pytest.approx(0.5)
+    assert s["sfm/pnp"]["idle_share"] == pytest.approx(1.0)
+    assert s["by_name"][0][:2] == ["ba_obs_kernel", 2]

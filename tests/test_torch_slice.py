@@ -1,12 +1,16 @@
-"""The port's preprocess stage end to end, held against the JAX package.
+"""The port's stages end to end, held against the JAX package.
 
 Renders the 8-view textured corridor of ``tests/test_pixel_pipeline.py``, runs
 ``python -m sfm_tpu_torch preprocess`` on the CPU (plain twins), compares the
 accepted pairs with ``sfm_tpu``'s ImageMatcher on the same pixels, and then
-runs ``sfm_tpu``'s reconstruct stage on the port's ``pair_table.pkl`` under
-the pixel pipeline's quality gates.
+runs ``sfm_tpu``'s reconstruct stage and the port's own on the port's
+``pair_table.pkl``, and the port's whole ``pipeline``, under the pixel
+pipeline's quality gates (8/8 cameras, > 200 points, < 0.6 px, GT rotation
+median < 1 deg, ATE < 5%). The port runs the pixel pipeline's config with
+``pnp.guided=false`` (guided registration is not ported).
 """
 import pickle
+import shutil
 import subprocess
 import sys
 
@@ -15,12 +19,27 @@ import pytest
 
 from torch_parity import REPO, render_scene
 
-from sfm_tpu.config import BAConfig, FeatureConfig, SfMConfig, TriangulationConfig
+from sfm_tpu.config import BAConfig, FeatureConfig, PnPConfig, SfMConfig, TriangulationConfig
 
 N_IMAGES = 8
 # Same frontend and sweep settings as the reference run; a smaller detection
 # batch only bounds the CPU working set.
 PORT_CONFIG = SfMConfig(features=FeatureConfig(detect_batch=2))
+# tests/test_pixel_pipeline.py's reconstruct settings.
+RECON_CONFIG = SfMConfig(
+    ba=BAConfig(max_iterations=12, cg_iters=30, optimize_intrinsics=False, prune_multiplier=3.0),
+    triangulation=TriangulationConfig(cadence=2),
+)
+PORT_RECON_CONFIG = RECON_CONFIG.replace(pnp=PnPConfig(guided=False),
+                                         features=FeatureConfig(detect_batch=2))
+
+
+def assert_pixel_gates(s):
+    assert s["num_cameras"] == N_IMAGES, s["num_cameras"]
+    assert s["num_points"] > 200, s["num_points"]
+    assert s["mean_reprojection_error"] < 0.6, s["mean_reprojection_error"]
+    assert s["gt_rot_err_deg_median"] < 1.0, s["gt_rot_err_deg_median"]
+    assert s["gt_ate_rel"] < 0.05, s["gt_ate_rel"]
 
 
 @pytest.fixture(scope="module")
@@ -94,21 +113,55 @@ def test_port_pair_table_unpickles_without_torch(port_out):
     assert res.stdout.split() == [str(blob["table"].num_pairs), str(n_acc), str(n_acc)]
 
 
-def test_jax_reconstruct_consumes_port_artifacts(scene, port_out):
+@pytest.fixture(scope="module")
+def jax_result(scene, port_out):
+    """``sfm_tpu``'s reconstruct stage on the port's ``pair_table.pkl``."""
     from sfm_tpu.pipeline import PipelineArgs, SfMPipeline
 
     args = PipelineArgs(data_dir=str(scene), output_dir=str(port_out), use_mask=False,
                         num_images=N_IMAGES, export_colmap=False, export_meshlab=False)
-    cfg = SfMConfig(
-        ba=BAConfig(max_iterations=12, cg_iters=30, optimize_intrinsics=False,
-                    prune_multiplier=3.0),
-        triangulation=TriangulationConfig(cadence=2),
-    )
-    pipe = SfMPipeline(args, cfg)
+    pipe = SfMPipeline(args, RECON_CONFIG)
     assert pipe.run_reconstruction()
-    s = pipe.result.stats
-    assert s["num_cameras"] == N_IMAGES, s["num_cameras"]
-    assert s["num_points"] > 200, s["num_points"]
-    assert s["mean_reprojection_error"] < 0.6, s["mean_reprojection_error"]
-    assert s["gt_rot_err_deg_median"] < 1.0, s["gt_rot_err_deg_median"]
-    assert s["gt_ate_rel"] < 0.05, s["gt_ate_rel"]
+    return pipe.result
+
+
+def test_jax_reconstruct_consumes_port_artifacts(jax_result):
+    assert_pixel_gates(jax_result.stats)
+
+
+def test_port_reconstruct_on_port_artifacts(scene, port_out, jax_result, tmp_path):
+    import json
+
+    from sfm_tpu_torch import cli
+
+    shutil.copy(port_out / "pair_table.pkl", tmp_path / "pair_table.pkl")
+    PORT_RECON_CONFIG.to_json(tmp_path / "cfg.json")
+    rc = cli.main(["--log_dir", str(tmp_path / "logs"), "reconstruct", "--data_dir", str(scene),
+                   "--output_dir", str(tmp_path), "--device", "cpu", "--no_mask",
+                   "--num_images", str(N_IMAGES), "--config", str(tmp_path / "cfg.json")])
+    assert rc == 0
+    s = json.loads((tmp_path / "reconstruction" / "stats.json").read_text())
+    assert_pixel_gates(s)
+    # The same seed pair (the first two registered images) and camera count.
+    poses = json.loads((tmp_path / "reconstruction" / "poses.json").read_text())
+    seed = [int(name.split(".")[0]) for name in list(poses)[:2]]
+    assert seed == [int(i) for i in jax_result.image_ids[:2]]
+    assert s["num_cameras"] == jax_result.stats["num_cameras"]
+    for f in ("cameras.txt", "images.txt", "points3D.txt"):
+        assert (tmp_path / "exports" / "colmap" / f).exists()
+
+
+def test_port_pipeline_end_to_end(scene, tmp_path):
+    import json
+
+    from sfm_tpu_torch import cli
+
+    PORT_RECON_CONFIG.to_json(tmp_path / "cfg.json")
+    rc = cli.main(["--log_dir", str(tmp_path / "logs"), "pipeline", "--data_dir", str(scene),
+                   "--output_dir", str(tmp_path / "out"), "--device", "cpu", "--no_mask",
+                   "--num_images", str(N_IMAGES), "--config", str(tmp_path / "cfg.json")])
+    assert rc == 0
+    assert_pixel_gates(json.loads(
+        (tmp_path / "out" / "reconstruction" / "stats.json").read_text()))
+    assert (tmp_path / "out" / "pair_table.pkl").exists()
+    assert (tmp_path / "out" / "exports" / "colmap" / "images.txt").exists()
