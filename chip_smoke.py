@@ -1,33 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``sfm_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--views 36]
+    python3 chip_smoke.py [--views 36] [--large_views 150]
 
 1. Builds the port's CUDA kernels from ``sfm_tpu_torch/csrc`` (nvcc, sm_90a).
 2. Holds each kernel against its plain PyTorch twin at the main path's shapes
    and times both with CUDA events.
-3. Renders ``--views`` 1024x768 views of the textured corridor
-   (``scripts/render_scene.py``, in a subprocess, so that this process never
-   imports the JAX package) and runs the port's preprocess stage on them,
-   ``python -m sfm_tpu_torch preprocess --device cuda --no_mask`` with the
-   default SfMConfig, through ``sfm_tpu_torch.cli`` in this process. Every
-   kernel launch counter is reset just before.
-4. Checks the run: every kernel of the path launched, >= 500 valid keypoints
-   per image, every image in an accepted pair, the artifacts written, and the
-   accepted pairs' inliers consistent with the rendered cameras' ground-truth
-   epipolar geometry.
-5. Runs the port's reconstruct stage on those artifacts in this process,
-   ``python -m sfm_tpu_torch reconstruct --device cuda --no_mask`` with the
-   default SfMConfig and ``pnp.guided=false``, every launch counter reset
-   just before, and checks it: every reconstruct kernel launched, all but at
-   most one camera registered, > 1,000 points, < 0.6 px mean reprojection
-   error, ground-truth rotation median < 1 deg and ATE < 5% of the scene,
-   the model and the COLMAP export written.
+3. Renders ``--views`` and then ``--large_views`` 1024x768 views of the
+   textured corridor (``scripts/render_scene.py``, in one background
+   subprocess, so that this process never imports the JAX package).
+4. Drives the port's main path through ``sfm_tpu_torch.cli`` in this process,
+   with the default SfMConfig, every kernel launch counter reset just before
+   each path and read just after it:
+   a. ``preprocess --device cuda --no_mask`` on the ``--views`` scene: every
+      preprocess kernel launched, >= 500 valid keypoints per image, every
+      image in an accepted pair, the artifacts written, and the accepted
+      pairs' inliers consistent with the rendered cameras' ground-truth
+      epipolar geometry;
+   b. ``reconstruct`` on those artifacts: every reconstruct kernel launched,
+      all but at most one camera registered, > 1,000 points, < 0.6 px mean
+      reprojection error, ground-truth rotation median < 1 deg and ATE < 5%
+      of the scene, the model and the COLMAP export written;
+   c. the guided rescue: ``reconstruct`` on a copy of the pair table with
+      every pair of one middle image rejected (``verify.rescue_disconnected``
+      off): all cameras registered, the cut image through the guided 2D-3D
+      matcher within 2 deg of ground truth, < 0.6 px;
+   d. ``pipeline`` on the ``--large_views`` scene, where retrieval turns on:
+      fewer pairs swept than all, every image in an accepted pair, the
+      ground-truth epipolar check, recall >= 0.95 of the pairs an exhaustive
+      (``--match_mode off``) preprocess accepts, all but at most one camera,
+      > 1,000 points, < 0.6 px.
 
 Prints the card (nvidia-smi), per-kernel and stage numbers, a JSON line of
 the kernels and, last, ``{"ok": true, "device": {...}}``. Any failure raises;
 without a card, or outside a checkout of the repository, it exits non-zero
-before printing any result.
+before printing any result. It takes about three minutes on one H100 (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import pickle
 import subprocess
 import sys
 import time
+from collections import deque
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -61,8 +69,22 @@ KERNELS = {
                      "sfm_tpu/ba/residuals.py:68"),
     "schur_coupling": (("schur_coupling",), "sfm_tpu_torch/csrc/schur_coupling.cu",
                        "sfm_tpu/ba/schur.py:348"),
+    "retrieval_score": (("retrieval_score",), "sfm_tpu_torch/csrc/retrieval_score.cu",
+                        "sfm_tpu/matching/retrieval.py:37"),
+    "guided_match": (("guided_match",), "sfm_tpu_torch/csrc/guided_match.cu",
+                     "sfm_tpu/reconstruction/incremental.py:159"),
+    "pyramid": (("build_pyramid",), "sfm_tpu_torch/csrc/pyramid.cu",
+                "sfm_tpu/features/pyramid.py:123"),
+    "seed_score": (("seed_score",), "sfm_tpu_torch/csrc/seed_score.cu",
+                   "sfm_tpu/reconstruction/seed.py:51"),
 }
-PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe")
+# The kernels each path must launch.
+PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
+                      "pyramid")
+RECONSTRUCT_KERNELS = ("pnp_ransac", "triangulate_tracks", "ba_linearize", "schur_coupling",
+                       "seed_score")
+RESCUE_KERNELS = RECONSTRUCT_KERNELS + ("guided_match",)
+LARGE_KERNELS = PREPROCESS_KERNELS + RECONSTRUCT_KERNELS + ("retrieval_score",)
 
 
 def log(msg: str):
@@ -102,12 +124,16 @@ def _unit(torch, x):
 
 def two_view_batch(np, B: int, M: int, seed: int = 0):
     """B synthetic match tables of M rows: projections of random points into
-    two cameras, 0.5 px noise, 30% outliers, a valid prefix of 300..M rows."""
+    two cameras, 0.5 px noise, 30% outliers, a valid prefix of min(300, M/2)..M
+    rows. Returns (p1, p2, valid, F), F the cameras' unit-norm fundamental
+    matrices."""
     rng = np.random.default_rng(seed)
     K = np.array([[1228.0, 0, 512.0], [0, 1228.0, 384.0], [0, 0, 1.0]])
+    Kinv = np.linalg.inv(K)
     p1 = np.zeros((B, M, 2), np.float32)
     p2 = np.zeros((B, M, 2), np.float32)
     valid = np.zeros((B, M), bool)
+    F = np.zeros((B, 3, 3), np.float32)
     for b in range(B):
         X = rng.uniform([-2, -2, 4], [2, 2, 8], (M, 3))
         a = rng.uniform(0.05, 0.3)
@@ -118,8 +144,11 @@ def two_view_batch(np, B: int, M: int, seed: int = 0):
             dst[b] = x[:, :2] / x[:, 2:] + rng.normal(0, 0.5, (M, 2))
         out = rng.random(M) < 0.3
         p2[b, out] = rng.uniform([0, 0], [1024, 768], (out.sum(), 2))
-        valid[b, : rng.integers(300, M + 1)] = True
-    return p1 * valid[..., None], p2 * valid[..., None], valid
+        valid[b, : rng.integers(min(300, M // 2), M + 1)] = True
+        tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+        Fb = Kinv.T @ tx @ R @ Kinv
+        F[b] = Fb / np.linalg.norm(Fb)
+    return p1 * valid[..., None], p2 * valid[..., None], valid, F
 
 
 # ---------------------------------------------------------------- kernel phases
@@ -165,7 +194,7 @@ def phase_fmat(torch, np, dev):
     from sfm_tpu_torch.geometry.epipolar import eight_point, symmetric_epipolar_distance
 
     B, M, H, N, thr = 32, 1024, 512, 256, 3.0
-    p1, p2, valid = (torch.as_tensor(a, device=dev) for a in two_view_batch(np, B, M))
+    p1, p2, valid = (torch.as_tensor(a, device=dev) for a in two_view_batch(np, B, M)[:3])
     g = torch.Generator(device=dev).manual_seed(2)
     idx = ransac_sample_indices(valid, H, 8, g, prefix=True).reshape(B, -1, 1)
     take = lambda p: torch.gather(p, 1, idx.expand(-1, -1, 2)).reshape(B, H, 8, 2)
@@ -527,6 +556,135 @@ def phase_pnp(torch, np, dev):
     return gap, ms, plain_ms
 
 
+def corridor_descriptors(torch, dev, N: int, S: int, D: int = 128, step: int = 40,
+                         seed: int = 5):
+    """Unit descriptors of N images along a strip of points: image k sees
+    points step*k .. step*k + S - 1 in a shuffled order, with noise; 5% of
+    the keypoints invalid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pts = _unit(torch, torch.randn(step * N + S, D, generator=g, device=dev))
+    ids = torch.arange(S, device=dev)[None] + step * torch.arange(N, device=dev)[:, None]
+    ids = torch.gather(ids, 1, torch.argsort(torch.rand(N, S, generator=g, device=dev), dim=1))
+    desc = _unit(torch, pts[ids] + 0.03 * torch.randn(N, S, D, generator=g, device=dev))
+    return desc.contiguous(), torch.rand(N, S, generator=g, device=dev) > 0.05
+
+
+def phase_retrieval_score(torch, np, dev):
+    """K1-r at N = 150 images x S = 256 x D = 128 over one 1,024-pair chunk:
+    every pair (k, k + d), d = 1..7 (neighbours that share 216..0 points),
+    and two far pairs."""
+    from sfm_tpu_torch.matching.retrieval import score_chunk_cuda, score_chunk_plain
+
+    N, S = 150, 256
+    desc, valid = corridor_descriptors(torch, dev, N, S)
+    pairs = [(k, k + d) for d in range(1, 8) for k in range(N - d)] + [(0, 149), (3, 90)]
+    pairs = torch.tensor(pairs, dtype=torch.int32, device=dev)
+    check(pairs.shape[0] == 1024, f"{pairs.shape[0]} pairs")
+    args = (pairs, desc, valid, 0.75)
+    got, ref = score_chunk_cuda(*args), score_chunk_plain(*args)
+    torch.cuda.synchronize()
+    # Tolerance: counts equal on >= 99% of pairs and within 2 on all (the dot
+    # products are summed in another order, so a near-tie can flip a match).
+    diff = (got - ref).abs()
+    frac = float((diff == 0).float().mean())
+    check(frac >= 0.99 and int(diff.max()) <= 2,
+          f"K1-r: counts equal on {frac:.4f} of pairs, max difference {int(diff.max())}")
+    log(f"K1-r retrieval_score: counts equal on {frac:.2%} of {pairs.shape[0]} pairs, max "
+        f"difference {int(diff.max())}; counts {int(ref.min())}..{int(ref.max())}")
+    ms = time_ms(torch, lambda: score_chunk_cuda(*args))
+    plain_ms = time_ms(torch, lambda: score_chunk_plain(*args))
+    return float(diff.max()), ms, plain_ms
+
+
+def phase_guided_match(torch, dev):
+    """K1-g at K = 2048 keypoints x M = 8192 pool entries (2 per track, the
+    last 300 slots padding) x D = 128."""
+    from sfm_tpu_torch.reconstruction.incremental import guided_match_cuda, guided_match_plain
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    K, M, D = 2048, 8192, 128
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    base = _unit(torch, rnd(M // 2, D))
+    pool = _unit(torch, base.repeat_interleave(2, 0) + 0.05 * rnd(M, D)).contiguous()
+    pool_valid = torch.arange(M, device=dev) < M - 300
+    track = torch.where(pool_valid, torch.arange(M, device=dev) // 2, -1).to(torch.int32)
+    src = torch.randint(0, M // 2 - 150, (K,), generator=g, device=dev)
+    seen = torch.rand(K, generator=g, device=dev) < 0.6
+    desc = _unit(torch, torch.where(seen[:, None], base[src] + 0.12 * rnd(K, D), rnd(K, D)))
+    valid = torch.rand(K, generator=g, device=dev) > 0.05
+    args = (desc.contiguous(), valid, pool, pool_valid, track, 0.9)
+    tk, dk, okk = guided_match_cuda(*args)
+    tp, dp, okp = guided_match_plain(*args)
+    torch.cuda.synchronize()
+    # Tolerance: track and ok equal on >= 99.9% of rows (another summation
+    # order can flip a near-tie); distances within 1e-5.
+    agree = float(((tk == tp) & (okk == okp)).float().mean())
+    fin = torch.isfinite(dp)
+    check(torch.equal(torch.isfinite(dk), fin), "K1-g: finite pattern differs")
+    err = float((dk - dp)[fin].abs().max())
+    check(agree >= 0.999 and err <= 1e-5, f"K1-g: {agree:.5f} of rows agree, d_best err {err}")
+    log(f"K1-g guided_match: track and ok equal on {agree:.3%} of {K} rows, {int(okp.sum())} "
+        f"ok, d_best max_abs_err {err:.3g}")
+    ms = time_ms(torch, lambda: guided_match_cuda(*args))
+    plain_ms = time_ms(torch, lambda: guided_match_plain(*args))
+    return err, ms, plain_ms
+
+
+def phase_pyramid(torch, dev, images, cfg):
+    """K3 on one detection sub-batch of rendered images, the -1 octave included."""
+    from sfm_tpu_torch.features.detect import dog_extrema_scores_cuda
+    from sfm_tpu_torch.features.pyramid import build_pyramid_cuda, build_pyramid_plain
+
+    fc = cfg.features
+    kw = dict(num_octaves=fc.num_octaves, scales_per_octave=fc.scales_per_octave,
+              sigma0=fc.sigma0, assumed_blur=fc.assumed_blur, upsample=fc.upsample_first_octave)
+    gk, dk = build_pyramid_cuda(images, **kw)
+    gp, dp = build_pyramid_plain(images, **kw)
+    torch.cuda.synchronize()
+    check(tuple(dk[0].shape[-2:]) == (1536, 2048), f"octave -1 is {tuple(dk[0].shape)}")
+    # Tolerance: bit-identical (the kernel rounds every product and sum as
+    # the twin does); otherwise the DoG difference is printed and K4's
+    # extremum sets must be equal.
+    exact = all(torch.equal(a, b) for a, b in zip(gk + dk, gp + dp))
+    err = max(float((a - b).abs().max()) for a, b in zip(dk, dp))
+    if not exact:
+        log(f"K3 pyramid: not bit-identical, max |dDoG| {err:.3g}")
+        ct, et = fc.contrast_threshold, fc.edge_threshold
+        for a, b in zip(dk, dp):
+            check(torch.equal(dog_extrema_scores_cuda(a, ct, et)["score"] > 0,
+                              dog_extrema_scores_cuda(b, ct, et)["score"] > 0),
+                  f"K3: extremum sets differ on octave {tuple(a.shape)}")
+    log(f"K3 pyramid: {'bit-identical' if exact else 'equal extremum sets'} on "
+        f"{images.shape[0]} images x {len(dk)} octaves")
+    ms = time_ms(torch, lambda: build_pyramid_cuda(images, **kw))
+    plain_ms = time_ms(torch, lambda: build_pyramid_plain(images, **kw), reps=3, warmup=1)
+    return err, ms, plain_ms
+
+
+def phase_seed_score(torch, np, dev):
+    """K14 on 256 two-view pairs x 256 matches."""
+    from sfm_tpu_torch.reconstruction.seed import _score_pairs_cuda, _score_pairs_plain
+
+    P, N = 256, 256
+    p1, p2, valid, F = (torch.as_tensor(a, device=dev) for a in two_view_batch(np, P, N, seed=7))
+    K = torch.tensor([[1228.0, 0, 512.0], [0, 1228.0, 384.0], [0, 0, 1.0]], device=dev)
+    args = (F, p1, p2, valid, K)
+    sk, Rk, tk, park, errk = _score_pairs_cuda(*args)
+    sp, Rp, tp, parp, errp = _score_pairs_plain(*args)
+    torch.cuda.synchronize()
+    # Tolerance: the same argmax pair; scores within 1e-3 relative (of
+    # max(|score|, 1)); R and t within 1e-4 (another summation order).
+    s_err = float(((sk - sp).abs() / sp.abs().clamp(min=1.0)).max())
+    r_err = max(float((Rk - Rp).abs().max()), float((tk - tp).abs().max()))
+    check(int(sk.argmax()) == int(sp.argmax()), "K14: another best pair")
+    check(s_err <= 1e-3 and r_err <= 1e-4, f"K14: score rel err {s_err}, R/t err {r_err}")
+    log(f"K14 seed_score: same best pair ({int(sp.argmax())}), score rel err {s_err:.3g}, "
+        f"R/t max_abs_err {r_err:.3g}, median parallax {float(parp.median()):.3f} deg")
+    ms = time_ms(torch, lambda: _score_pairs_cuda(*args))
+    plain_ms = time_ms(torch, lambda: _score_pairs_plain(*args))
+    return r_err, ms, plain_ms
+
+
 # ---------------------------------------------------------------- ground truth
 
 def _load_projection(np, path: Path):
@@ -542,12 +700,85 @@ def _fundamental_from_projections(np, P1, P2):
     return ex @ P2 @ np.linalg.pinv(P1)
 
 
+# ---------------------------------------------------------------- main path checks
+
+def gt_epipolar_check(np, torch, scene: Path, blob) -> np.ndarray:
+    """Per accepted pair, the median symmetric epipolar error of its inliers
+    under the rendered cameras' fundamental matrix; checks median <= 1 px and
+    worst pair <= 3 px. Returns the per-pair medians."""
+    from sfm_tpu_torch.geometry.epipolar import symmetric_epipolar_distance
+
+    table = blob["table"]
+    P = [_load_projection(np, scene / "calib" / f"{Path(p).stem}.txt")
+         for p in blob["image_paths"]]
+    med = []
+    for p in table.accepted():
+        i, j = table.pairs[p]
+        inl = table.inliers[p]
+        F = torch.as_tensor(_fundamental_from_projections(np, P[i], P[j]))
+        err = symmetric_epipolar_distance(F, *(torch.as_tensor(x[p][inl], dtype=torch.float64)
+                                               for x in (table.xy1, table.xy2)))
+        med.append(float(err.median()))
+    med = np.asarray(med)
+    check(np.median(med) <= 1.0 and med.max() <= 3.0,
+          f"GT epipolar error of inliers: median {np.median(med)}, worst pair {med.max()}")
+    return med
+
+
+def accepted_degree(np, table, n_img: int):
+    return np.bincount(table.pairs[table.accepted()].reshape(-1), minlength=n_img)
+
+
+def connected_without(np, table, n_img: int, drop: int) -> bool:
+    """Whether the accepted-pair graph minus image ``drop`` is connected."""
+    adj = [[] for _ in range(n_img)]
+    for i, j in table.pairs[table.accepted()]:
+        if drop not in (i, j):
+            adj[i].append(j)
+            adj[j].append(i)
+    start = 0 if drop != 0 else 1
+    seen, todo = {start}, deque([start])
+    while todo:
+        for k in adj[todo.popleft()]:
+            if k not in seen:
+                seen.add(k)
+                todo.append(k)
+    return len(seen) == n_img - 1
+
+
+def rotation_error_deg(np, scene: Path, poses: dict, img: int, ref: int) -> float:
+    """Error of img's rotation relative to ref's, against the calib files."""
+    Kinv = np.linalg.inv(np.array([[1228.0, 0, 512.0], [0, 1228.0, 384.0], [0, 0, 1.0]]))
+    gt = lambda k: Kinv @ _load_projection(np, scene / "calib" / f"{k:04d}.txt")[:, :3]
+    est = lambda k: np.asarray(poses[f"{k:04d}.ppm"]["R"])
+    dR = (est(img) @ est(ref).T) @ (gt(img) @ gt(ref).T).T
+    return float(np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))))
+
+
+def stage_seconds(out: Path) -> dict:
+    totals = {}
+    for r in json.loads((out / "metrics.json").read_text()):
+        if r["name"].split("/")[0] in ("stage", "engine"):
+            totals[r["name"]] = totals.get(r["name"], 0.0) + r["value"]
+    return totals
+
+
+def check_model(st: dict, n_img: int, what: str):
+    check(st["num_cameras"] >= n_img - 1, f"{what}: {st['num_cameras']}/{n_img} cameras")
+    check(st["num_points"] > 1000, f"{what}: {st['num_points']} points")
+    check(st["mean_reprojection_error"] < 0.6,
+          f"{what}: mean reprojection {st['mean_reprojection_error']}")
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--views", type=int, default=36, help="rendered 1024x768 views")
+    ap.add_argument("--large_views", type=int, default=150,
+                    help="views of the retrieval-scale pipeline run")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -561,18 +792,49 @@ def main(argv=None) -> int:
     card = card_line()
     log(card)
     log(f"python {sys.version.split()[0]} | torch {torch.__version__} | cuda {torch.version.cuda}")
-    work = REPO / ".chip_smoke"   # scene and artifacts, inside the checkout
+    work = REPO / ".chip_smoke"   # scenes and artifacts, inside the checkout
     scene, out = work / f"scene_{args.views}", work / f"preprocess_{args.views}"
+    large = work / f"scene_{args.large_views}"
     work.mkdir(parents=True, exist_ok=True)
 
     render = subprocess.Popen(
         [sys.executable, "-c",
          "import sys; sys.path.insert(0, 'scripts'); from render_scene import render_dataset; "
-         "render_dataset(sys.argv[1], int(sys.argv[2]), supersample=1, log=print)",
-         str(scene), str(args.views)], cwd=REPO)
+         "[render_dataset(d, int(n), supersample=1, log=print) "
+         "for d, n in zip(sys.argv[1::2], sys.argv[2::2])]",
+         str(scene), str(args.views), str(large), str(args.large_views)], cwd=REPO)
+
+    def wait_for(d: Path):
+        while not (d / ".render_meta").exists():
+            check(render.poll() is None or (d / ".render_meta").exists(),
+                  f"rendering stopped before {d} was written")
+            time.sleep(0.5)
+
+    from sfm_tpu_torch import _kernels, cli
+
+    def run_path(name: str, argv_: list, required) -> tuple:
+        """One path of the main path through the CLI, its launch counts reset
+        just before and read just after; every kernel of ``required``
+        must have launched."""
+        _kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(["--log_level", "WARNING", "--log_dir", str(work / "logs"), *argv_,
+                       "--device", "cuda", "--no_mask"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _kernels.launch_counts()
+        check(rc == 0, f"{name} returned {rc}")
+        for k in required:
+            for entry in KERNELS[k][0]:
+                check(counts[entry] > 0, f"kernel {entry} was not launched by {name}")
+        log(f"{name}: cli wall {wall:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+        return counts, wall
+
     try:
-        from sfm_tpu_torch import _kernels
-        from sfm_tpu_torch._shared import SfMConfig, load_image_gray_u8
+        from sfm_tpu_torch._shared import SfMConfig, VerifyConfig, load_image_gray_u8
         from sfm_tpu_torch.device import resolve_device
 
         dev = resolve_device("cuda")
@@ -587,103 +849,97 @@ def main(argv=None) -> int:
         results = {"match_top2": phase_match_top2(torch, dev),
                    "fmat_score_select": phase_fmat(torch, np, dev),
                    "pnp_ransac": phase_pnp(torch, np, dev),
-                   "triangulate_tracks": phase_triangulate(torch, np, dev)}
+                   "triangulate_tracks": phase_triangulate(torch, np, dev),
+                   "retrieval_score": phase_retrieval_score(torch, np, dev),
+                   "guided_match": phase_guided_match(torch, dev),
+                   "seed_score": phase_seed_score(torch, np, dev)}
         results["ba_linearize"], results["schur_coupling"] = phase_ba(torch, np, dev)
         torch.cuda.empty_cache()
-        check(render.wait(timeout=900) == 0, "rendering the scene failed")
+        wait_for(scene)
         cfg = SfMConfig()
-        img0 = sorted((scene / "images").glob("*.pgm"))[0]
-        image = torch.as_tensor(load_image_gray_u8(img0), device=dev)[None].float() / 255.0
-        results["dog_extrema"] = phase_dog_extrema(torch, dev, image, cfg)
-        results["sift_describe"] = phase_describe(torch, dev, image, cfg)
-        del image
+        paths = sorted((scene / "images").glob("*.pgm"))
+        images = torch.stack([torch.as_tensor(load_image_gray_u8(p), device=dev)
+                              for p in paths[:cfg.features.detect_batch]]).float() / 255.0
+        results["pyramid"] = phase_pyramid(torch, dev, images, cfg)
+        results["dog_extrema"] = phase_dog_extrema(torch, dev, images[:1], cfg)
+        results["sift_describe"] = phase_describe(torch, dev, images[:1], cfg)
+        del images
         torch.cuda.empty_cache()
+        launches = {k: 0 for k in _kernels.KERNELS}
 
-        # ---- the main path, 1: python -m sfm_tpu_torch preprocess --device cuda
-        from sfm_tpu_torch import cli
+        def add(counts):
+            for k, v in counts.items():
+                launches[k] += v
 
-        _kernels.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        rc = cli.main(["--log_level", "WARNING", "--log_dir", str(work / "logs"),
-                       "preprocess", "--data_dir", str(scene), "--output_dir", str(out),
-                       "--device", "cuda", "--no_mask"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _kernels.launch_counts()
-        check(rc == 0, f"preprocess returned {rc}")
-        for name in PREPROCESS_KERNELS:
-            for entry in KERNELS[name][0]:
-                check(launches[entry] > 0, f"kernel {entry} was not launched by preprocess")
-        peak = torch.cuda.max_memory_allocated()
-        metrics = {r["name"]: r["value"]
-                   for r in json.loads((out / "metrics.json").read_text())}
+        # ---- path a: python -m sfm_tpu_torch preprocess --device cuda
+        c, pre_wall = run_path("preprocess", ["preprocess", "--data_dir", str(scene),
+                                              "--output_dir", str(out)], PREPROCESS_KERNELS)
+        add(c)
+        pre_metrics = stage_seconds(out)
+        pre_peak = torch.cuda.max_memory_allocated()
 
-        # ---- the main path, 2: python -m sfm_tpu_torch reconstruct --device cuda
-        # (default SfMConfig with pnp.guided=false: guided registration is not
-        # ported yet)
-        from sfm_tpu_torch._shared import PnPConfig
-
-        rec_cfg = work / "reconstruct_config.json"
-        SfMConfig(pnp=PnPConfig(guided=False)).to_json(rec_cfg)
-        _kernels.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        rc = cli.main(["--log_level", "WARNING", "--log_dir", str(work / "logs"),
-                       "reconstruct", "--data_dir", str(scene), "--output_dir", str(out),
-                       "--device", "cuda", "--no_mask", "--config", str(rec_cfg)])
-        torch.cuda.synchronize()
-        rec_wall = time.perf_counter() - t0
-        rec_launches = _kernels.launch_counts()
-        check(rc == 0, f"reconstruct returned {rc}")
-        for name in KERNELS:
-            if name in PREPROCESS_KERNELS:
-                continue
-            for entry in KERNELS[name][0]:
-                launches[entry] = rec_launches[entry]
-                check(rec_launches[entry] > 0, f"kernel {entry} was not launched by reconstruct")
+        # ---- path b: python -m sfm_tpu_torch reconstruct --device cuda (default config)
+        c, rec_wall = run_path("reconstruct", ["reconstruct", "--data_dir", str(scene),
+                                               "--output_dir", str(out)], RECONSTRUCT_KERNELS)
+        add(c)
+        rec_metrics = stage_seconds(out)
         rec_peak = torch.cuda.max_memory_allocated()
+
+        # ---- path c: the guided rescue of an image whose pairs are all rejected
+        cut_blob = pickle.loads((out / "pair_table.pkl").read_bytes())
+        n_img = len(cut_blob["image_paths"])
+        victim = n_img // 2
+        cut = cut_blob["table"]
+        cut.accept = cut.accept & ~(cut.pairs == victim).any(1)
+        check(connected_without(np, cut, n_img, victim),
+              "the pair graph falls apart without the cut image")
+        rescue = work / f"rescue_{args.views}"
+        rescue.mkdir(parents=True, exist_ok=True)
+        (rescue / "pair_table.pkl").write_bytes(pickle.dumps(cut_blob))
+        SfMConfig(verify=VerifyConfig(rescue_disconnected=False)).to_json(rescue / "config.json")
+        c, _ = run_path("rescue", ["reconstruct", "--data_dir", str(scene), "--output_dir",
+                                   str(rescue), "--config", str(rescue / "config.json")],
+                        RESCUE_KERNELS)
+        add(c)
+        rescue_metrics = stage_seconds(rescue)
+
+        # ---- path d: python -m sfm_tpu_torch pipeline on the retrieval-scale scene
+        wait_for(large)
+        check(render.wait(timeout=900) == 0, "rendering the scenes failed")
+        out_off = work / f"preprocess_{args.large_views}_off"
+        out_large = work / f"pipeline_{args.large_views}"
+        check(cli.main(["--log_level", "WARNING", "--log_dir", str(work / "logs"), "preprocess",
+                        "--data_dir", str(large), "--output_dir", str(out_off), "--device",
+                        "cuda", "--no_mask", "--match_mode", "off"]) == 0,
+              "the exhaustive preprocess failed")
+        c, large_wall = run_path("pipeline", ["pipeline", "--data_dir", str(large),
+                                              "--output_dir", str(out_large)], LARGE_KERNELS)
+        add(c)
+        large_metrics = stage_seconds(out_large)
+        large_peak = torch.cuda.max_memory_allocated()
     finally:
         if render.poll() is None:
             render.kill()
             render.wait()
 
+    # ---- path a's checks: the verified pairs
     blob = pickle.loads((out / "pair_table.pkl").read_bytes())
     table, valid = blob["table"], blob["valid"]
-    n_img = len(blob["image_paths"])
     check(n_img == args.views, f"{n_img} images")
     check(table.num_pairs == n_img * (n_img - 1) // 2, f"{table.num_pairs} pairs")
     per_img = valid.sum(1)
     check(per_img.min() >= 500, f"an image has {per_img.min()} valid keypoints")
     acc = table.accepted()
-    deg = np.bincount(table.pairs[acc].reshape(-1), minlength=n_img)
+    deg = accepted_degree(np, table, n_img)
     check((deg > 0).all(), f"images in no accepted pair: {np.nonzero(deg == 0)[0]}")
     check((out / "matching_results.csv").exists(), "matching_results.csv missing")
     rows = (out / "matching_results.csv").read_text().strip().splitlines()
     check(len(rows) == 1 + len(acc), "CSV rows != accepted pairs")
+    med = gt_epipolar_check(np, torch, scene, blob)
 
-    # The verified pairs against the rendered cameras' ground truth.
-    from sfm_tpu_torch.geometry.epipolar import symmetric_epipolar_distance
-
-    P = [_load_projection(np, scene / "calib" / f"{Path(p).stem}.txt")
-         for p in blob["image_paths"]]
-    med = []
-    for p in acc:
-        i, j = table.pairs[p]
-        inl = table.inliers[p]
-        F = torch.as_tensor(_fundamental_from_projections(np, P[i], P[j]))
-        err = symmetric_epipolar_distance(F, *(torch.as_tensor(x[p][inl], dtype=torch.float64)
-                                               for x in (table.xy1, table.xy2)))
-        med.append(float(err.median()))
-    med = np.asarray(med)
-    check(np.median(med) <= 1.0 and med.max() <= 3.0,
-          f"GT epipolar error of inliers: median {np.median(med)}, worst pair {med.max()}")
-
-    # The reconstruction: cameras, points, reprojection error, ground truth.
+    # ---- path b's checks: the reconstruction
     st = json.loads((out / "reconstruction" / "stats.json").read_text())
-    check(st["num_cameras"] >= n_img - 1, f"{st['num_cameras']}/{n_img} cameras registered")
-    check(st["num_points"] > 1000, f"{st['num_points']} points")
-    check(st["mean_reprojection_error"] < 0.6, f"mean reprojection {st['mean_reprojection_error']}")
+    check_model(st, n_img, "reconstruct")
     check(st.get("gt_rot_err_deg_median", 99.0) < 1.0,
           f"GT rotation median {st.get('gt_rot_err_deg_median')} deg")
     check(st.get("gt_ate_rel", 1.0) < 0.05, f"GT ATE {st.get('gt_ate_rel')} of the scene")
@@ -691,30 +947,73 @@ def main(argv=None) -> int:
               "reconstruction/reconstruction.ply", "exports/colmap/cameras.txt",
               "exports/colmap/images.txt", "exports/colmap/points3D.txt", "exports/meshlab.ply"):
         check((out / f).exists(), f"{f} missing")
-    check("jax" not in sys.modules and "sfm_tpu" not in sys.modules, "JAX was imported")
-    rec_records = json.loads((out / "metrics.json").read_text())
-    engine = {}
-    for r in rec_records:
-        if r["name"].startswith("engine/"):
-            engine[r["name"]] = engine.get(r["name"], 0.0) + r["value"]
-    rec_stage = next(r["value"] for r in rec_records if r["name"] == "stage/reconstruct")
 
-    det_s, sweep_s = metrics["stage/detect"], metrics["stage/sweep"]
+    # ---- path c's checks: the rescue
+    rs = json.loads((rescue / "reconstruction" / "stats.json").read_text())
+    poses = json.loads((rescue / "reconstruction" / "poses.json").read_text())
+    order = [int(k.split(".")[0]) for k in poses]
+    check(rs["num_cameras"] == n_img, f"rescue: {rs['num_cameras']}/{n_img} cameras")
+    check(victim not in order[:2], f"rescue: the cut image {victim} is in the seed pair")
+    check("engine/guided" in rescue_metrics, "rescue: no engine/guided span")
+    victim_err = rotation_error_deg(np, scene, poses, victim, order[0])
+    check(victim_err < 2.0, f"rescue: the cut image's rotation is {victim_err} deg off")
+    check(rs["mean_reprojection_error"] < 0.6,
+          f"rescue: mean reprojection {rs['mean_reprojection_error']}")
+
+    # ---- path d's checks: retrieval at scale, and the model
+    L = args.large_views
+    big = pickle.loads((out_large / "pair_table.pkl").read_bytes())
+    off = pickle.loads((out_off / "pair_table.pkl").read_bytes())["table"]
+    bt = big["table"]
+    check(len(big["image_paths"]) == L, f"{len(big['image_paths'])} images")
+    check(bt.num_pairs < L * (L - 1) // 2, f"retrieval kept all {bt.num_pairs} pairs")
+    check((accepted_degree(np, bt, L) > 0).all(), "an image is in no accepted pair")
+    big_med = gt_epipolar_check(np, torch, large, big)
+    acc_on = {tuple(p) for p in bt.pairs[bt.accepted()].tolist()}
+    acc_off = {tuple(p) for p in off.pairs[off.accepted()].tolist()}
+    recall = len(acc_on & acc_off) / max(len(acc_off), 1)
+    check(recall >= 0.95, f"retrieval recall {recall:.4f} of the exhaustive accepted pairs")
+    ls = json.loads((out_large / "reconstruction" / "stats.json").read_text())
+    check_model(ls, L, "pipeline")
+    from sfm_tpu_torch._shared import build_tracks
+
+    tracks = build_tracks(bt, big["xy"], L)
+    check("jax" not in sys.modules and "sfm_tpu" not in sys.modules, "JAX was imported")
+
+    # ---- report
+    det_s, sweep_s = pre_metrics["stage/detect"], pre_metrics["stage/sweep"]
     log(f"preprocess: {n_img} images, {table.num_pairs} pairs, {len(acc)} accepted, "
         f"keypoints/image min {per_img.min()} mean {per_img.mean():.0f}")
     log(f"detect {det_s:.3f} s = {n_img / det_s:.2f} imgs/s | sweep {sweep_s:.3f} s = "
-        f"{table.num_pairs / sweep_s:.1f} pairs/s | stage {metrics['stage/preprocess']:.3f} s "
-        f"| cli wall {wall:.3f} s | peak device memory {peak / 2**30:.2f} GiB")
+        f"{table.num_pairs / sweep_s:.1f} pairs/s | stage {pre_metrics['stage/preprocess']:.3f} s "
+        f"| cli wall {pre_wall:.3f} s | peak device memory {pre_peak / 2**30:.2f} GiB")
     log(f"GT check: median inlier epipolar error per pair, median {np.median(med):.3f} px, "
         f"worst {med.max():.3f} px")
+    engine = lambda m: ", ".join(f"{k.split('/')[1]} {v:.3f} s" for k, v in sorted(m.items())
+                                 if k.startswith("engine/"))
     log(f"reconstruct: {st['num_cameras']}/{n_img} cameras, {st['num_points']} points, "
         f"{st['num_observations']} observations, mean reprojection "
         f"{st['mean_reprojection_error']:.4f} px, GT rotation median "
         f"{st['gt_rot_err_deg_median']:.4f} deg, ATE {100 * st['gt_ate_rel']:.3f}% of the scene")
-    log(f"reconstruct stage {rec_stage:.3f} s | cli wall {rec_wall:.3f} s | peak device memory "
-        f"{rec_peak / 2**30:.2f} GiB | engine: "
-        + ", ".join(f"{k.split('/')[1]} {v:.3f} s" for k, v in sorted(engine.items())))
-    log("launches by entry: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    log(f"reconstruct stage {rec_metrics['stage/reconstruct']:.3f} s | cli wall {rec_wall:.3f} s "
+        f"| peak device memory {rec_peak / 2**30:.2f} GiB | engine: {engine(rec_metrics)}")
+    log(f"rescue: image {victim} cut, {rs['num_cameras']}/{n_img} cameras, its rotation "
+        f"{victim_err:.4f} deg from ground truth, mean reprojection "
+        f"{rs['mean_reprojection_error']:.4f} px, stage {rescue_metrics['stage/reconstruct']:.3f}"
+        f" s, engine/guided {rescue_metrics['engine/guided']:.3f} s")
+    log(f"pipeline at {L} views: {bt.num_pairs} of {L * (L - 1) // 2} pairs swept, "
+        f"{len(acc_on)} accepted (exhaustive: {len(acc_off)}), recall {recall:.4f}; GT check "
+        f"median {np.median(big_med):.3f} px, worst {big_med.max():.3f} px")
+    log(f"pipeline at {L} views: {ls['num_cameras']}/{L} cameras, {ls['num_points']} points, "
+        f"mean reprojection {ls['mean_reprojection_error']:.4f} px, GT rotation median "
+        f"{ls.get('gt_rot_err_deg_median', float('nan')):.4f} deg, ATE "
+        f"{100 * ls.get('gt_ate_rel', float('nan')):.3f}% of the scene (recorded, not gated); "
+        f"{tracks.num_tracks} tracks x {tracks.max_views} view slots = "
+        f"{tracks.view_img.size} BA table rows before compaction")
+    log(f"pipeline at {L} views: cli wall {large_wall:.3f} s | peak device memory "
+        f"{large_peak / 2**30:.2f} GiB | " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in sorted(large_metrics.items())))
+    log("launches by entry, all paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     kernels = []
     for name, (entries, source, replaces) in KERNELS.items():
         err, ms, plain_ms = results[name]
@@ -723,6 +1022,7 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -45,10 +45,15 @@ SIGNATURES = {
     "sfm_reproj_stats": [_P] * 9 + [_I] * 3 + [_P, _P] + [_P],
     "sfm_p3p_solve": [_P, _P, _I, _P, _P, _P] + [_P],
     "sfm_pnp_score_select": [_P] * 7 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
+    "sfm_retrieval_score": [_P] * 3 + [_I] * 4 + [_F, _P] + [_P],
+    "sfm_guided_match": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
+    "sfm_build_pyramid": [_P] + [_I] * 6 + [_P] * 5 + [_P],
+    "sfm_seed_score": [_P] * 5 + [_I] * 2 + [_P] * 5 + [_P],
 }
 KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
            "ba_linearize", "ba_cost", "schur_coupling", "triangulate_tracks",
-           "reproj_stats", "p3p_solve", "pnp_score_select")
+           "reproj_stats", "p3p_solve", "pnp_score_select", "retrieval_score",
+           "guided_match", "build_pyramid", "seed_score")
 
 _launches = {k: 0 for k in KERNELS}
 _lib = None

@@ -51,6 +51,8 @@ PnPConfig = config.PnPConfig
 BAConfig = config.BAConfig
 SelectConfig = config.SelectConfig
 effective_match_config = config.effective_match_config
+effective_retrieval_config = config.effective_retrieval_config
+effective_guided_ratio = config.effective_guided_ratio
 
 load_image_gray_u8 = images.load_image_gray_u8
 load_mask = images.load_mask

@@ -79,9 +79,10 @@ def _add_match_mode(p: argparse.ArgumentParser):
                    help="frontend class ('orb' is not ported yet)")
     p.add_argument("--match_mode", default=None,
                    choices=["off", "auto", "on", "sequential"],
-                   help="candidate-pair preselection; only the exhaustive "
-                        "sweep is ported, so 'on'/'sequential' (and 'auto' at "
-                        ">= retrieval.auto_min_images images) raise")
+                   help="candidate-pair preselection: 'off' sweeps every pair, "
+                        "'on' scores every pair and sweeps the kept ones, "
+                        "'auto' does so at >= retrieval.auto_min_images images, "
+                        "'sequential' sweeps a window of neighbours")
 
 
 def parse_args(argv=None) -> argparse.Namespace:

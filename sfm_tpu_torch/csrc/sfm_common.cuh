@@ -73,6 +73,79 @@ __device__ SfmCand sfm_block_best(SfmCand best) {
   return best;
 }
 
+// ---- DLT triangulation as sfm_tpu_torch/geometry/triangulation.py, shared by
+// K7 (triangulate_tracks.cu) and K14 (seed_score.cu).
+//
+// Adds the two row-normalized DLT rows of pixel (x, y) under the 3x4 camera P
+// to the 4x4 normal matrix A (A += q q^T per row).
+__device__ __forceinline__ void sfm_dlt_add(const float* P, float x, float y, float A[4][4]) {
+  float q[2][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    q[0][k] = x * P[8 + k] - P[k];
+    q[1][k] = y * P[8 + k] - P[4 + k];
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const float nrm = fmaxf(
+        sqrtf(q[m][0] * q[m][0] + q[m][1] * q[m][1] + q[m][2] * q[m][2] + q[m][3] * q[m][3]),
+        1e-12f);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[m][k] /= nrm;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) A[i][j] += q[m][i] * q[m][j];
+  }
+}
+
+// Smallest eigenvector of the 4x4 normal matrix (8 steps of inverse iteration
+// with the adjugate of A + (1e-6 mean_eig + 1e-20) I, as
+// utils/linalg.py::_smallest_eigvec_adjugate), dehomogenized as
+// triangulation.py::_solve_dlt.
+__device__ inline void sfm_solve_dlt(const float A[4][4], float X[3]) {
+  const float mean = (A[0][0] + A[1][1] + A[2][2] + A[3][3]) / 4.f;
+  float a[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = A[i][j] + (i == j ? 1e-6f * mean + 1e-20f : 0.f);
+  const float s0 = a[0][0] * a[1][1] - a[1][0] * a[0][1];
+  const float s1 = a[0][0] * a[1][2] - a[1][0] * a[0][2];
+  const float s2 = a[0][0] * a[1][3] - a[1][0] * a[0][3];
+  const float s3 = a[0][1] * a[1][2] - a[1][1] * a[0][2];
+  const float s4 = a[0][1] * a[1][3] - a[1][1] * a[0][3];
+  const float s5 = a[0][2] * a[1][3] - a[1][2] * a[0][3];
+  const float c5 = a[2][2] * a[3][3] - a[3][2] * a[2][3];
+  const float c4 = a[2][1] * a[3][3] - a[3][1] * a[2][3];
+  const float c3 = a[2][1] * a[3][2] - a[3][1] * a[2][2];
+  const float c2 = a[2][0] * a[3][3] - a[3][0] * a[2][3];
+  const float c1 = a[2][0] * a[3][2] - a[3][0] * a[2][2];
+  const float c0 = a[2][0] * a[3][1] - a[3][0] * a[2][1];
+  const float M[4][4] = {
+      {a[1][1] * c5 - a[1][2] * c4 + a[1][3] * c3, -a[0][1] * c5 + a[0][2] * c4 - a[0][3] * c3,
+       a[3][1] * s5 - a[3][2] * s4 + a[3][3] * s3, -a[2][1] * s5 + a[2][2] * s4 - a[2][3] * s3},
+      {-a[1][0] * c5 + a[1][2] * c2 - a[1][3] * c1, a[0][0] * c5 - a[0][2] * c2 + a[0][3] * c1,
+       -a[3][0] * s5 + a[3][2] * s2 - a[3][3] * s1, a[2][0] * s5 - a[2][2] * s2 + a[2][3] * s1},
+      {a[1][0] * c4 - a[1][1] * c2 + a[1][3] * c0, -a[0][0] * c4 + a[0][1] * c2 - a[0][3] * c0,
+       a[3][0] * s4 - a[3][1] * s2 + a[3][3] * s0, -a[2][0] * s4 + a[2][1] * s2 - a[2][3] * s0},
+      {-a[1][0] * c3 + a[1][1] * c1 - a[1][2] * c0, a[0][0] * c3 - a[0][1] * c1 + a[0][2] * c0,
+       -a[3][0] * s3 + a[3][1] * s1 - a[3][2] * s0, a[2][0] * s3 - a[2][1] * s1 + a[2][2] * s0}};
+  float x[4] = {1.f, 1.001f, 1.002f, 1.003f};
+  for (int it = 0; it < 8; ++it) {
+    float y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y[i] = M[i][0] * x[0] + M[i][1] * x[1] + M[i][2] * x[2] + M[i][3] * x[3];
+    const float nrm = fmaxf(sqrtf(y[0] * y[0] + y[1] * y[1] + y[2] * y[2] + y[3] * y[3]), 1e-30f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = y[i] / nrm;
+  }
+  const float w = fabsf(x[3]) < 1e-12f ? 1e-12f : x[3];
+  X[0] = x[0] / w;
+  X[1] = x[1] / w;
+  X[2] = x[2] / w;
+}
+
 // ---- Pinhole projection as sfm_tpu_torch/geometry/projection.py::project:
 // x_cam = R X + t, the depth clamped away from 0 by 1e-12, then
 // u = fx * x / z + cx, v = fy * y / z + cy. Returns the depth.

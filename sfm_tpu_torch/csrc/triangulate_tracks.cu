@@ -27,7 +27,6 @@ namespace {
 constexpr int NT = 128;
 constexpr int MASK_WORDS = 8;  // V <= 256
 constexpr int MAX_SEED = 32;   // n_seed <= 32 when seed pairs are on
-constexpr float kEps = 1e-12f;
 
 struct Mask {
   uint32_t w[MASK_WORDS];
@@ -56,78 +55,14 @@ struct Row {
 
 // Adds the two normalized DLT rows of view v to AtA.
 __device__ __forceinline__ void add_rows(const Row& r, int v, float A[4][4]) {
-  const float* P = r.P + (size_t)r.cam(v) * 12;
-  const float x = r.xy[2 * v], y = r.xy[2 * v + 1];
-  float q[2][4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    q[0][k] = x * P[8 + k] - P[k];
-    q[1][k] = y * P[8 + k] - P[4 + k];
-  }
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const float nrm = fmaxf(
-        sqrtf(q[m][0] * q[m][0] + q[m][1] * q[m][1] + q[m][2] * q[m][2] + q[m][3] * q[m][3]),
-        kEps);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) q[m][k] /= nrm;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) A[i][j] += q[m][i] * q[m][j];
-  }
-}
-
-// Smallest eigenvector of the 4x4 normal matrix (adjugate inverse iteration),
-// dehomogenized: geometry/triangulation.py::_solve_dlt.
-__device__ void solve_dlt(const float A[4][4], float X[3]) {
-  const float mean = (A[0][0] + A[1][1] + A[2][2] + A[3][3]) / 4.f;
-  float a[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = A[i][j] + (i == j ? 1e-6f * mean + 1e-20f : 0.f);
-  const float s0 = a[0][0] * a[1][1] - a[1][0] * a[0][1];
-  const float s1 = a[0][0] * a[1][2] - a[1][0] * a[0][2];
-  const float s2 = a[0][0] * a[1][3] - a[1][0] * a[0][3];
-  const float s3 = a[0][1] * a[1][2] - a[1][1] * a[0][2];
-  const float s4 = a[0][1] * a[1][3] - a[1][1] * a[0][3];
-  const float s5 = a[0][2] * a[1][3] - a[1][2] * a[0][3];
-  const float c5 = a[2][2] * a[3][3] - a[3][2] * a[2][3];
-  const float c4 = a[2][1] * a[3][3] - a[3][1] * a[2][3];
-  const float c3 = a[2][1] * a[3][2] - a[3][1] * a[2][2];
-  const float c2 = a[2][0] * a[3][3] - a[3][0] * a[2][3];
-  const float c1 = a[2][0] * a[3][2] - a[3][0] * a[2][2];
-  const float c0 = a[2][0] * a[3][1] - a[3][0] * a[2][1];
-  const float M[4][4] = {
-      {a[1][1] * c5 - a[1][2] * c4 + a[1][3] * c3, -a[0][1] * c5 + a[0][2] * c4 - a[0][3] * c3,
-       a[3][1] * s5 - a[3][2] * s4 + a[3][3] * s3, -a[2][1] * s5 + a[2][2] * s4 - a[2][3] * s3},
-      {-a[1][0] * c5 + a[1][2] * c2 - a[1][3] * c1, a[0][0] * c5 - a[0][2] * c2 + a[0][3] * c1,
-       -a[3][0] * s5 + a[3][2] * s2 - a[3][3] * s1, a[2][0] * s5 - a[2][2] * s2 + a[2][3] * s1},
-      {a[1][0] * c4 - a[1][1] * c2 + a[1][3] * c0, -a[0][0] * c4 + a[0][1] * c2 - a[0][3] * c0,
-       a[3][0] * s4 - a[3][1] * s2 + a[3][3] * s0, -a[2][0] * s4 + a[2][1] * s2 - a[2][3] * s0},
-      {-a[1][0] * c3 + a[1][1] * c1 - a[1][2] * c0, a[0][0] * c3 - a[0][1] * c1 + a[0][2] * c0,
-       -a[3][0] * s3 + a[3][1] * s1 - a[3][2] * s0, a[2][0] * s3 - a[2][1] * s1 + a[2][2] * s0}};
-  float x[4] = {1.f, 1.001f, 1.002f, 1.003f};
-  for (int it = 0; it < 8; ++it) {
-    float y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) y[i] = M[i][0] * x[0] + M[i][1] * x[1] + M[i][2] * x[2] + M[i][3] * x[3];
-    const float nrm = fmaxf(sqrtf(y[0] * y[0] + y[1] * y[1] + y[2] * y[2] + y[3] * y[3]), 1e-30f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = y[i] / nrm;
-  }
-  const float w = fabsf(x[3]) < kEps ? kEps : x[3];
-  X[0] = x[0] / w;
-  X[1] = x[1] / w;
-  X[2] = x[2] / w;
+  sfm_dlt_add(r.P + (size_t)r.cam(v) * 12, r.xy[2 * v], r.xy[2 * v + 1], A);
 }
 
 __device__ void dlt_views(const Row& r, const Mask& use, float X[3]) {
   float A[4][4] = {{0.f}};
   for (int v = 0; v < r.V; ++v)
     if (use.get(v)) add_rows(r, v, A);
-  solve_dlt(A, X);
+  sfm_solve_dlt(A, X);
 }
 
 // Reprojection error and depth of X in view v.
@@ -200,7 +135,7 @@ __global__ void __launch_bounds__(NT) triangulate_kernel(
         float A[4][4] = {{0.f}}, Xp[3];
         add_rows(r, stride[a], A);
         add_rows(r, stride[b], A);
-        solve_dlt(A, Xp);
+        sfm_solve_dlt(A, Xp);
         const int s = inliers(r, use, Xp, max_err, nullptr);
         if (s > best_score) {
           best_score = s;
@@ -212,7 +147,7 @@ __global__ void __launch_bounds__(NT) triangulate_kernel(
       float A[4][4] = {{0.f}}, Xp[3];
       add_rows(r, best_a, A);
       add_rows(r, best_b, A);
-      solve_dlt(A, Xp);
+      sfm_solve_dlt(A, Xp);
       Mask m;
       inliers(r, use, Xp, max_err, &m);
       use = m;

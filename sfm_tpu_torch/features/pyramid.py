@@ -5,7 +5,10 @@ exact float32 shift-add), ``layer_sigmas`` and ``build_pyramid``. Each
 octave holds S+3 Gaussian layers built by incremental blurs and S+2 DoG
 layers; the next octave's base is layer S subsampled 2x. The optional -1
 octave upsamples 2x with ``jax.image.resize``'s bilinear weights, which
-renormalize at the image edge.
+renormalize at the image edge. ``build_pyramid`` is kernel K3
+(``csrc/pyramid.cu``) on a CUDA tensor, bit-identical to its plain twin
+:func:`build_pyramid_plain`, which runs on a CPU tensor. The reference's
+banded-matmul blur (an MXU idiom) is not ported.
 """
 from __future__ import annotations
 
@@ -14,6 +17,16 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from sfm_tpu_torch import _kernels
+
+# The kernel takes at most 21 taps per blur (radius 10) and 16 blurs.
+_K3_MAX_TAPS = 21
+_K3_MAX_LAYERS = 16
+
+
+def _blur_radius(sigma: float) -> int:
+    return max(1, int(math.ceil(3.0 * sigma)))
 
 
 def _gaussian_taps(sigma: float, radius: int) -> np.ndarray:
@@ -29,7 +42,7 @@ def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
     """
     if sigma <= 0:
         return img
-    radius = max(1, int(math.ceil(3.0 * sigma)))
+    radius = _blur_radius(sigma)
     k = _gaussian_taps(sigma, radius)
     h, w = img.shape[-2], img.shape[-1]
     x = F.pad(img, (radius, radius))
@@ -70,37 +83,88 @@ def layer_sigmas(num_layers: int, sigma0: float, scales_per_octave: int):
     return [sigma0 * (k**i) for i in range(num_layers)]
 
 
-def build_pyramid(
-    image: torch.Tensor,
-    num_octaves: int = 4,
-    scales_per_octave: int = 3,
-    sigma0: float = 1.6,
-    assumed_blur: float = 0.5,
-    upsample: bool = False,
-):
-    """(B, H, W) float32 in [0, 1] -> (gaussians, dogs).
-
-    gaussians: per-octave (B, S+3, h_o, w_o); dogs: per-octave (B, S+2, h_o, w_o).
-    With ``upsample`` the first octave is the 2x-upsampled image and callers
-    scale coordinates by 0.5.
-    """
-    S = scales_per_octave
+def _blur_sigmas(S: int, sigma0: float, assumed_blur: float, upsample: bool):
+    """The base blur, then the S+2 incremental blurs of every octave."""
     sigmas = layer_sigmas(S + 3, sigma0, S)
+    if upsample:
+        assumed_blur = assumed_blur * 2.0
+    return [math.sqrt(max(sigma0**2 - assumed_blur**2, 1e-8))] + [
+        math.sqrt(max(sigmas[i] ** 2 - sigmas[i - 1] ** 2, 1e-8)) for i in range(1, S + 3)]
 
+
+def build_pyramid_plain(image: torch.Tensor, num_octaves: int = 4, scales_per_octave: int = 3,
+                        sigma0: float = 1.6, assumed_blur: float = 0.5,
+                        upsample: bool = False):
+    """The twin of K3: see :func:`build_pyramid`."""
+    S = scales_per_octave
+    blurs = _blur_sigmas(S, sigma0, assumed_blur, upsample)
     img = image.to(torch.float32)
     if upsample:
         img = upsample2x(img)
-        assumed_blur = assumed_blur * 2.0
-
-    base = gaussian_blur(img, math.sqrt(max(sigma0**2 - assumed_blur**2, 1e-8)))
+    base = gaussian_blur(img, blurs[0])
     gaussians, dogs = [], []
     for _ in range(num_octaves):
         layers = [base]
         for i in range(1, S + 3):
-            inc = math.sqrt(max(sigmas[i] ** 2 - sigmas[i - 1] ** 2, 1e-8))
-            layers.append(gaussian_blur(layers[-1], inc))
+            layers.append(gaussian_blur(layers[-1], blurs[i]))
         g = torch.stack(layers, dim=1)
         gaussians.append(g)
         dogs.append(g[:, 1:] - g[:, :-1])
         base = layers[S][..., ::2, ::2].contiguous()
     return gaussians, dogs
+
+
+def build_pyramid_cuda(image: torch.Tensor, num_octaves: int = 4, scales_per_octave: int = 3,
+                       sigma0: float = 1.6, assumed_blur: float = 0.5,
+                       upsample: bool = False):
+    S = scales_per_octave
+    L = S + 3
+    image = image.to(torch.float32).contiguous()
+    B, H, W = image.shape
+    dev = image.device
+    _kernels.check_tensor(image, "image", torch.float32, (B, H, W), dev)
+    if L > _K3_MAX_LAYERS:
+        raise ValueError(f"build_pyramid: {L} layers per octave exceed {_K3_MAX_LAYERS}")
+    taps = np.zeros((L, _K3_MAX_TAPS), np.float32)
+    radii = np.zeros(L, np.int32)
+    for layer, sigma in enumerate(_blur_sigmas(S, sigma0, assumed_blur, upsample)):
+        r = _blur_radius(sigma)
+        if 2 * r + 1 > _K3_MAX_TAPS:
+            raise ValueError(f"build_pyramid: blur sigma {sigma:.3f} needs radius {r} > "
+                             f"{(_K3_MAX_TAPS - 1) // 2}")
+        taps[layer, :2 * r + 1] = _gaussian_taps(sigma, r)
+        radii[layer] = r
+    sizes = [(2 * H, 2 * W) if upsample else (H, W)]
+    for _ in range(num_octaves - 1):
+        h, w = sizes[-1]
+        sizes.append(((h + 1) // 2, (w + 1) // 2))
+    g_flat = torch.empty(sum(B * L * h * w for h, w in sizes), dtype=torch.float32, device=dev)
+    d_flat = torch.empty(sum(B * (L - 1) * h * w for h, w in sizes), dtype=torch.float32,
+                         device=dev)
+    h0, w0 = sizes[0]
+    scratch = torch.empty(2 * B * h0 * w0, dtype=torch.float32, device=dev)
+    _kernels.launch("build_pyramid", dev, image, B, H, W, int(upsample), num_octaves, S,
+                    torch.from_numpy(taps), torch.from_numpy(radii), g_flat, d_flat, scratch)
+    gaussians, dogs, go, do = [], [], 0, 0
+    for h, w in sizes:
+        gaussians.append(g_flat[go:go + B * L * h * w].view(B, L, h, w))
+        dogs.append(d_flat[do:do + B * (L - 1) * h * w].view(B, L - 1, h, w))
+        go += B * L * h * w
+        do += B * (L - 1) * h * w
+    return gaussians, dogs
+
+
+def build_pyramid(image: torch.Tensor, num_octaves: int = 4, scales_per_octave: int = 3,
+                  sigma0: float = 1.6, assumed_blur: float = 0.5, upsample: bool = False):
+    """(B, H, W) float32 in [0, 1] -> (gaussians, dogs).
+
+    gaussians: per-octave (B, S+3, h_o, w_o); dogs: per-octave (B, S+2, h_o, w_o).
+    With ``upsample`` the first octave is the 2x-upsampled image and callers
+    scale coordinates by 0.5. Kernel K3 on a CUDA tensor, the twin on CPU.
+    """
+    args = (image, num_octaves, scales_per_octave, sigma0, assumed_blur, upsample)
+    if image.is_cuda:
+        return build_pyramid_cuda(*args)
+    if image.device.type == "cpu":
+        return build_pyramid_plain(*args)
+    raise ValueError(f"build_pyramid: unsupported device {image.device}")

@@ -5,8 +5,8 @@ pipeline), with the same on-disk contract: images in ``<data_dir>/images``,
 masks in ``<data_dir>/silhouettes``, per-pair artifacts in
 ``<output_dir>/{matches,fundamental,correspondences}`` and
 ``matching_results.csv``. The compute runs on an explicit ``device``.
-Candidate-pair retrieval is not ported: when the config turns it on, the
-matcher raises rather than sweep exhaustively in its place.
+When the config turns retrieval on (by default at >= 150 images), the sweep
+runs only on the candidate pairs that :func:`select_candidate_pairs` keeps.
 """
 from __future__ import annotations
 
@@ -19,9 +19,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sfm_tpu_torch._shared import SfMConfig, load_image_gray_u8, load_mask
+from sfm_tpu_torch._shared import (
+    SfMConfig, effective_retrieval_config, load_image_gray_u8, load_mask)
 from sfm_tpu_torch.features.frontend import detect_and_describe, detect_and_describe_batch
-from sfm_tpu_torch.matching.retrieval import retrieval_enabled
+from sfm_tpu_torch.matching.retrieval import retrieval_enabled, select_candidate_pairs
 from sfm_tpu_torch.matching.pair_table import PairTable
 from sfm_tpu_torch.matching.sweep import all_pairs_sweep
 from sfm_tpu_torch.utils.observability import Metrics, stage
@@ -32,7 +33,7 @@ _IMG_EXTS = (".ppm", ".pgm", ".png", ".jpg", ".jpeg", ".pnm")
 
 
 class ImageMatcher:
-    """Feature detection + exhaustive pair matching for a dataset directory."""
+    """Feature detection + pair matching for a dataset directory."""
 
     def __init__(self, data_dir, config: SfMConfig = SfMConfig(), output_dir=None, *,
                  device, metrics: Optional[Metrics] = None):
@@ -115,23 +116,28 @@ class ImageMatcher:
 
     def process_image_range(self, start_idx: int = 0, end_idx: Optional[int] = None,
                             use_mask: bool = True) -> PairTable:
-        """Full stage 1: detect + all-pairs sweep + per-pair artifacts.
+        """Full stage 1: detect + candidate retrieval (when on) + sweep +
+        per-pair artifacts.
 
-        Both timed stages end in a copy to the host, so their wall-clock
-        includes the device work (``stage/detect``, ``stage/sweep``).
+        Every timed stage ends in a copy to the host, so its wall-clock
+        includes the device work (``stage/detect``, ``stage/retrieval``,
+        ``stage/sweep``).
         """
-        n = len(self.list_images(start_idx, end_idx))
-        if retrieval_enabled(self.config.retrieval, n):
-            raise NotImplementedError(
-                f"candidate-pair retrieval (mode={self.config.retrieval.mode!r}, "
-                f"{n} images) is not ported yet (ROADMAP queue 1); pass "
-                "--match_mode off for the exhaustive sweep")
         with stage("detect", self.metrics):
             feats = self.detect_all(start_idx, end_idx, use_mask)
+        pairs = None
+        n = len(self.image_paths)
+        if retrieval_enabled(self.config.retrieval, n):
+            with stage("retrieval", self.metrics):
+                pairs, rstats = select_candidate_pairs(
+                    feats["desc"], feats["valid"], n, effective_retrieval_config(self.config))
+            logger.info("retrieval: kept %d of %d candidate pairs (%.1f%%) in %.1fs",
+                        rstats["kept"], rstats["candidates"], 100.0 * rstats["keep_frac"],
+                        rstats["seconds"])
         xy = torch.as_tensor(feats["xy"], device=self.device)
         valid = torch.as_tensor(feats["valid"], device=self.device)
         with stage("sweep", self.metrics):
-            self.table = all_pairs_sweep(xy, feats["desc"], valid, self.config)
+            self.table = all_pairs_sweep(xy, feats["desc"], valid, self.config, pairs=pairs)
         self._save_pair_artifacts()
         return self.table
 

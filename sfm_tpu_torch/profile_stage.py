@@ -11,7 +11,8 @@ runs once more with ``--trace_dir`` (the CLI's own ``torch.profiler``
 capture) and reads the Chrome trace:
 
 - device busy time: the union of the kernel, memcpy and memset intervals;
-- for the traced window and for the stage's spans (``detect`` and ``sweep``;
+- for the traced window and for the stage's spans (``detect``, ``retrieval``
+  when it runs, and ``sweep``;
   the engine's ``sfm/<name>`` spans, summed over their calls), the share of
   the span in which the device was idle;
 - the kernel count and the device time by kernel name.
@@ -32,9 +33,9 @@ from pathlib import Path
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPANS = {
-    "preprocess": ("detect", "sweep"),
-    "reconstruct": ("sfm/init", "sfm/select", "sfm/pnp", "sfm/triangulate", "sfm/assemble",
-                    "sfm/ba", "sfm/prune", "sfm/stats"),
+    "preprocess": ("detect", "retrieval", "sweep"),
+    "reconstruct": ("sfm/init", "sfm/select", "sfm/pnp", "sfm/guided", "sfm/triangulate",
+                    "sfm/assemble", "sfm/ba", "sfm/prune", "sfm/stats"),
 }
 
 

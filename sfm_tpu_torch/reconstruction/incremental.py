@@ -10,12 +10,15 @@ the reference; every device program reads it as tensors on ``device``:
   entry ``triangulate_tracks``), plain twin :func:`triangulate_tracks_plain`;
 * :func:`reproj_stats` -- K7's entry ``reproj_stats``, twin
   :func:`reproj_stats_plain`;
+* :func:`guided_match` -- kernel K1-g (``csrc/guided_match.cu``), the 2D-3D
+  matcher of the guided rescue, twin :func:`guided_match_plain`;
 * PnP (K6, :mod:`sfm_tpu_torch.estimators.pnp`), BA (K8-K10,
-  :mod:`sfm_tpu_torch.ba`), seed scoring (K14, plain torch).
+  :mod:`sfm_tpu_torch.ba`), seed scoring (K14,
+  :mod:`sfm_tpu_torch.reconstruction.seed`).
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-global initialization, pose-graph polish, guided 2D-3D registration,
-windowed local BA, checkpoints, and the BA routes off the dense path.
+global initialization, pose-graph polish, windowed local BA, checkpoints,
+and the BA routes off the dense path.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from sfm_tpu_torch import _kernels
-from sfm_tpu_torch._shared import SfMConfig, TrackTable, build_tracks
+from sfm_tpu_torch._shared import SfMConfig, TrackTable, build_tracks, effective_guided_ratio
 from sfm_tpu_torch.ba.lm import check_ba_config, run_ba
 from sfm_tpu_torch.ba.problem import build_problem
 from sfm_tpu_torch.estimators.pnp import pnp_ransac, pnp_ransac_batch
@@ -48,7 +51,8 @@ logger = logging.getLogger(__name__)
 # seed-pair views' slots in a 32-entry register array.
 _K7_MAX_VIEWS = 256
 _K7_MAX_SEED_VIEWS = 32
-_GUIDED_MSG = "guided registration is not ported yet (ROADMAP); set pnp.guided=false"
+# Kernel K1-g stages descriptors through shared memory in chunks of 32 floats.
+_K1G_D_MULTIPLE = 32
 
 
 # ------------------------------------------------------------- K7: triangulation
@@ -209,6 +213,59 @@ def reproj_stats(*args):
     raise ValueError(f"reproj_stats: unsupported device {args[0].device}")
 
 
+# --------------------------------------------------------- K1-g: guided matching
+
+def guided_match_plain(desc_img, valid_img, pool_desc, pool_valid, pool_track,
+                       ratio: float):
+    """Match one image's descriptors against the model's observation pool.
+
+    desc_img (K, D) unit-norm; valid_img (K,); pool_desc (M, D); pool_valid
+    (M,); pool_track (M,) int32 track id per entry. The Lowe ratio is taken
+    against the best entry of a DIFFERENT track (entries of one track are
+    near-duplicates). Returns (track (K,), dist (K,), ok (K,)).
+    """
+    sim = desc_img @ pool_desc.mT
+    dist = torch.clamp(2.0 - 2.0 * sim, min=0.0)
+    dist = torch.where(pool_valid[None, :], dist, torch.inf)
+    dist = torch.where(valid_img[:, None], dist, torch.inf)
+    d_best, j_best = torch.min(dist, dim=1)
+    t_best = pool_track[j_best]
+    other = pool_track[None, :] != t_best[:, None]
+    d_second = torch.where(other, dist, torch.inf).amin(1)
+    ok = (d_best < ratio ** 2 * d_second) & valid_img & torch.isfinite(d_best)
+    return t_best, d_best, ok
+
+
+def guided_match_cuda(desc_img, valid_img, pool_desc, pool_valid, pool_track, ratio: float):
+    K, D = desc_img.shape
+    M = pool_desc.shape[0]
+    dev = desc_img.device
+    if D % _K1G_D_MULTIPLE or M < 1:
+        raise ValueError(f"guided_match: D={D} must be a multiple of {_K1G_D_MULTIPLE} "
+                         f"and the pool non-empty (M={M})")
+    _kernels.check_tensor(desc_img, "desc_img", torch.float32, (K, D), dev)
+    _kernels.check_tensor(valid_img, "valid_img", torch.bool, (K,), dev)
+    _kernels.check_tensor(pool_desc, "pool_desc", torch.float32, (M, D), dev)
+    _kernels.check_tensor(pool_valid, "pool_valid", torch.bool, (M,), dev)
+    _kernels.check_tensor(pool_track, "pool_track", torch.int32, (M,), dev)
+    t_best = torch.empty((K,), dtype=torch.int32, device=dev)
+    d_best = torch.empty((K,), dtype=torch.float32, device=dev)
+    ok = torch.empty((K,), dtype=torch.bool, device=dev)
+    _kernels.launch("guided_match", dev, desc_img, valid_img, pool_desc, pool_valid,
+                    pool_track, K, M, D, float(ratio ** 2), t_best, d_best, ok)
+    return t_best, d_best, ok
+
+
+def guided_match(desc_img, valid_img, pool_desc, pool_valid, pool_track, ratio: float):
+    """Kernel K1-g on CUDA tensors, :func:`guided_match_plain` on CPU."""
+    args = (desc_img, valid_img, pool_desc, pool_valid, pool_track, ratio)
+    if desc_img.is_cuda:
+        return guided_match_cuda(*args)
+    if desc_img.device.type == "cpu":
+        return guided_match_plain(*args)
+    raise ValueError(f"guided_match: unsupported device {desc_img.device}")
+
+
 # ------------------------------------------------------------------- host helpers
 
 def _stratified_order(xy, quality, width, height, grid: int = 8):
@@ -224,6 +281,55 @@ def _stratified_order(xy, quality, width, height, grid: int = 8):
     run_start = np.maximum.accumulate(np.where(new_run, np.arange(n), 0))
     rank = np.arange(n) - run_start
     return ord0[np.lexsort((cell_s, rank))]
+
+
+def _pick_diverse_two(d, ok):
+    """Pick <= 2 observations per track for camera angular spread.
+
+    d: (T, V, 3) unit directions point -> camera centre; ok: (T, V). v1 is
+    the direction least aligned with the track's mean direction, v2 the one
+    least aligned with v1. Returns a (T, V) pick mask (a subset of ok).
+    """
+    T, V = ok.shape
+    dm = np.where(ok[..., None], d, 0.0)
+    cnt = ok.sum(1)
+    mean = dm.sum(1) / np.maximum(cnt, 1)[:, None]
+    dot1 = np.where(ok, np.einsum("tvk,tk->tv", dm, mean), np.inf)
+    v1 = np.argmin(dot1, axis=1)
+    d1 = dm[np.arange(T), v1]
+    dot2 = np.where(ok, np.einsum("tvk,tk->tv", dm, d1), np.inf)
+    dot2[np.arange(T), v1] = np.inf
+    v2 = np.argmin(dot2, axis=1)
+    pick = np.zeros_like(ok)
+    pick[np.arange(T), v1] = True
+    # |=, not =: with one observation v2 collapses onto v1 (an all-inf row),
+    # and assigning False there would erase the track's only pick.
+    pick[np.arange(T), v2] |= cnt >= 2
+    return pick & ok
+
+
+def _first_occurrence(ids):
+    """Mask of the first occurrence of each value of ``ids``."""
+    keep = np.zeros(len(ids), bool)
+    keep[np.unique(ids, return_index=True)[1]] = True
+    return keep
+
+
+def _cap_observations(sel, V: int, max_obs: int):
+    """Subsample the sorted valid flat slots ``sel`` (t * V + v) to
+    ``max_obs``: the first two valid observations of every track are kept,
+    the rest at an even stride."""
+    t = sel // V
+    first = np.r_[True, t[1:] != t[:-1]]
+    start = np.maximum.accumulate(np.where(first, np.arange(len(sel)), 0))
+    protected = np.arange(len(sel)) - start < 2
+    base, rest = sel[protected], sel[~protected]
+    need = max_obs - len(base)
+    if need <= 0:
+        rest = rest[:0]
+    elif len(rest) > need:
+        rest = rest[np.linspace(0, len(rest) - 1, need).astype(np.int64)]
+    return np.sort(np.concatenate([base, rest]))
 
 
 def check_config(config: SfMConfig, num_images: int):
@@ -514,28 +620,153 @@ class StructureFromMotion:
 
     # ------------------------------------------------------- guided rescue
 
+    def _model_pool(self):
+        """Observation descriptors of the triangulated model: up to 2 per
+        track, picked for viewpoint diversity (:func:`_pick_diverse_two`),
+        capped at ``pnp.guided_pool`` by an even stride over the tracks
+        (sorted longest-first). Returns (pool_desc (M, D) f32, track (M,))."""
+        from scipy.spatial.transform import Rotation
+
+        tr = self.tracks
+        img = tr.view_img
+        imgc = np.clip(img, 0, self.num_images - 1)
+        ok = (img >= 0) & self.view_valid & self.point_valid[:, None] & self.registered[imgc]
+        R = Rotation.from_rotvec(self.rvec).as_matrix()
+        centers = -np.einsum("cji,cj->ci", R, self.tvec)
+        d = centers[imgc] - self.points[:, None, :]
+        d = d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-9)
+        t_ids, v_ids = np.nonzero(_pick_diverse_two(d, ok))
+        cap = self.config.pnp.guided_pool
+        if len(t_ids) > cap:
+            sel = np.linspace(0, len(t_ids) - 1, cap).astype(np.int64)
+            t_ids, v_ids = t_ids[sel], v_ids[sel]
+        j = img[t_ids, v_ids]
+        kp = tr.view_kp[t_ids, v_ids]
+        return self.desc[j, kp].astype(np.float32), t_ids.astype(np.int32)
+
     def guided_register(self, img: int) -> bool:
-        """Guided 2D-3D registration: not ported. A no-op where the
-        reference's is one (no descriptors, pnp.guided off, or the image is
-        already registered); raises where it would do work."""
-        if self.desc is None or not self.config.pnp.guided or self.registered[img]:
+        """Register an image the pair graph failed: match its descriptors
+        against the model's observation pool (K1-g), then PnP (K6) at
+        ``pnp.guided_iters`` draws. Accepted when PnP passes and its inliers
+        reach max(guided_min_inliers, guided_min_inlier_ratio x matches);
+        the inlier matches then extend the track table."""
+        cfg = self.config.pnp
+        if self.desc is None or not cfg.guided or self.registered[img]:
             return False
-        raise NotImplementedError(_GUIDED_MSG)
+        with self._stage("guided"):
+            pool_desc, pool_track = self._model_pool()
+            M = len(pool_track)
+            if M < cfg.min_inliers:
+                return False
+            cap = cfg.guided_pool
+            pd = np.zeros((cap, pool_desc.shape[1]), np.float32)
+            pv = np.zeros(cap, bool)
+            pt = np.full(cap, -1, np.int32)
+            m = min(M, cap)
+            pd[:m], pv[:m], pt[:m] = pool_desc[:m], True, pool_track[:m]
+            desc_img = self.desc[img].astype(np.float32)
+            valid_img = (self.feat_valid[img] if self.feat_valid is not None
+                         else np.ones(desc_img.shape[0], bool))
+            t_best, d_best, ok = (x.cpu().numpy() for x in guided_match(
+                self._t(desc_img), self._t(valid_img), self._t(pd), self._t(pv), self._t(pt),
+                effective_guided_ratio(self.config)))
+            kp_ids = np.nonzero(ok)[0]
+            if len(kp_ids) < cfg.min_inliers:
+                return False
+            # One correspondence per track: the best-distance keypoint.
+            kp_ids = kp_ids[np.argsort(d_best[kp_ids], kind="stable")]
+            _, first = np.unique(t_best[kp_ids], return_index=True)
+            kp_ids = kp_ids[np.sort(first)]
+            tr_ids = t_best[kp_ids]
+            n = len(kp_ids)
+            if n < cfg.min_inliers:
+                return False
+            budget = cfg.budget
+            mm = min(n, budget)
+            p3 = np.zeros((budget, 3), np.float32)
+            p2 = np.zeros((budget, 2), np.float32)
+            valid = np.zeros(budget, bool)
+            p3[:mm] = self.points[tr_ids[:mm]]
+            p2[:mm] = self.xy[img, kp_ids[:mm]]
+            valid[:mm] = True
+            out = pnp_ransac(self._t(p3), self._t(p2), self._t(valid),
+                             self._t(self._camera_matrix()), iters=cfg.guided_iters,
+                             threshold=cfg.reproj_threshold, min_inliers=cfg.min_inliers,
+                             refine_iters=cfg.refine_iters, sample_size=cfg.sample_size,
+                             generator=self.generator)
+            n_inl = int(out["num_inliers"])
+            # Two legs: an absolute count and a consensus fraction of the matches.
+            need = max(cfg.guided_min_inliers, cfg.guided_min_inlier_ratio * mm)
+            if not (bool(out["ok"]) and n_inl >= need):
+                return False
+            inl = out["inliers"].cpu().numpy()[:mm]
+        self.rvec[img] = out["rvec"].cpu().numpy()
+        self.tvec[img] = out["t"].cpu().numpy()
+        self.registered[img] = True
+        self.reg_order.append(img)
+        n_ext = self._extend_tracks(img, kp_ids[:mm][inl], tr_ids[:mm][inl])
+        logger.info("guided-registered image %d (%d/%d PnP inliers, %d track obs added)",
+                    img, n_inl, mm, n_ext)
+        return True
+
+    def _extend_tracks(self, img: int, kp_ids, t_ids) -> int:
+        """Append (img, kp) observations to existing tracks, capacity
+        permitting, so that BA sees the new camera. Repeated track or
+        keypoint ids keep their first occurrence (callers pass best-distance
+        first). Mutates the shared track table and ``view_valid``; the
+        tensors of later device calls are built from them anew."""
+        kp_ids = np.asarray(kp_ids, np.int64)
+        t_ids = np.asarray(t_ids, np.int64)
+        if len(kp_ids) == 0:
+            return 0
+        tr = self.tracks
+        L = tr.length[t_ids]
+        eligible = (_first_occurrence(t_ids) & _first_occurrence(kp_ids)
+                    & (L < tr.max_views)                           # capacity
+                    & ~(tr.view_img[t_ids] == img).any(axis=1)     # img not in the track
+                    & (tr.kp_track[img, kp_ids] < 0))              # keypoint unclaimed
+        t_sel, kp_sel, L_sel = t_ids[eligible], kp_ids[eligible], L[eligible]
+        tr.view_img[t_sel, L_sel] = img
+        tr.view_kp[t_sel, L_sel] = kp_sel
+        tr.view_xy[t_sel, L_sel] = self.xy[img, kp_sel]
+        tr.length[t_sel] = L_sel + 1
+        tr.kp_track[img, kp_sel] = t_sel
+        self.view_valid[t_sel, L_sel] = True
+        return int(eligible.sum())
 
     def _guided_sweep(self, limit: int) -> int:
-        """The final guided pass: a no-op when every image is registered (the
-        reference's sweep then tries nothing); raises where it would try."""
-        if self.desc is None or not self.config.pnp.guided or self.registered.all():
+        """Guided registration of every remaining image, repeated while it
+        makes progress (each success strengthens the model for the next)."""
+        if self.desc is None or not self.config.pnp.guided:
             return 0
-        raise NotImplementedError(_GUIDED_MSG)
+        total = 0
+        progressed = True
+        while progressed and len(self.reg_order) < limit:
+            progressed = False
+            for img in range(self.num_images):
+                if len(self.reg_order) >= limit:
+                    break
+                if self.registered[img]:
+                    continue
+                if self.guided_register(img):
+                    self._triangulate()
+                    total += 1
+                    progressed = True
+            if progressed:
+                self.bundle_adjust()
+                self._triangulate()
+        return total
 
     # -------------------------------------------------------------------- BA
 
     def _ba_problem_arrays(self):
         """Every (track, view) slot as one BA observation row (point-major:
-        obs_point = repeat(arange(T), V)). The reference's compaction and
-        ``max_obs`` cap apply past 1.25M rows (ROADMAP); below that it keeps
-        the raw table too."""
+        obs_point = repeat(arange(T), V)), with the reference's two memory
+        controls. Past 1.25M rows of which <= 60% are valid, or whenever
+        ``ba.max_obs`` must cut, the table is compacted to its valid rows
+        (kept in observation order; eager torch needs no bucket padding).
+        Above ``max_obs`` it is subsampled at an even stride, keeping the
+        first two valid observations of every track (:func:`_cap_observations`)."""
         T, V = self.tracks.view_img.shape
         obs_cam = np.clip(self.tracks.view_img.reshape(-1), 0,
                           self.num_images - 1).astype(np.int32)
@@ -545,13 +776,16 @@ class StructureFromMotion:
                      & self.point_valid[obs_point])
         max_obs = self.config.ba.max_obs
         n_valid = int(obs_valid.sum())
-        if (max_obs > 0 and n_valid > max_obs) or (
-                obs_valid.shape[0] > 1_250_000 and n_valid <= 0.6 * obs_valid.shape[0]):
-            raise NotImplementedError(
-                f"BA observation table of {obs_valid.shape[0]} rows ({n_valid} valid): "
-                "compaction and the max_obs cap are not ported yet (ROADMAP queue 1, "
-                "item 10)")
-        return obs_cam, obs_point, obs_xy, obs_valid
+        total = obs_valid.shape[0]
+        needs_cap = max_obs > 0 and n_valid > max_obs
+        if not needs_cap and (total <= 1_250_000 or n_valid > 0.6 * total):
+            return obs_cam, obs_point, obs_xy, obs_valid
+        sel = np.nonzero(obs_valid)[0]
+        if needs_cap:
+            sel = _cap_observations(sel, V, max_obs)
+            logger.info("BA observation cap: %d valid -> %d (max_obs=%d; the first two "
+                        "valid views per track kept)", n_valid, len(sel), max_obs)
+        return obs_cam[sel], obs_point[sel], obs_xy[sel], np.ones(len(sel), bool)
 
     def bundle_adjust(self, final: bool = False):
         """LM on the flat table with the exact dense-Schur solve."""

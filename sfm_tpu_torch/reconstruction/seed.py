@@ -1,8 +1,10 @@
 """Seed-pair selection: pose recovery + parallax/consistency scoring.
 
-Counterpart of ``sfm_tpu/reconstruction/seed.py``. ``_score_pairs`` (the
-JAX program K14) is plain torch on the device here, batched over the pair
-axis: it runs once per reconstruction over at most 256 pairs x 256 matches.
+Counterpart of ``sfm_tpu/reconstruction/seed.py``. ``_score_pairs`` is
+kernel K14 (``csrc/seed_score.cu``, one block per pair) on a CUDA tensor and
+its plain twin :func:`_score_pairs_plain`, batched over the pair axis, on a
+CPU tensor. It runs once per reconstruction over at most 256 pairs x 256
+matches.
 """
 from __future__ import annotations
 
@@ -11,11 +13,14 @@ import math
 import numpy as np
 import torch
 
+from sfm_tpu_torch import _kernels
 from sfm_tpu_torch.geometry.epipolar import essential_from_fundamental, recover_pose
 from sfm_tpu_torch.geometry.projection import project
 from sfm_tpu_torch.geometry.triangulation import triangulate_two_view
 
 _EPS = 1e-12
+# The kernel runs one thread per match in one block per pair.
+_K14_MAX_MATCHES = 1024
 
 
 def _masked_median(x, mask, iters: int = 24):
@@ -33,7 +38,7 @@ def _masked_median(x, mask, iters: int = 24):
     return torch.where(n > 0, hi, torch.inf)
 
 
-def _score_pairs(Fs, xy1, xy2, valid, K):
+def _score_pairs_plain(Fs, xy1, xy2, valid, K):
     """Pose recovery + parallax/consistency scoring over a pair batch.
 
     Fs: (P, 3, 3); xy1, xy2: (P, N, 2); valid: (P, N); K: (3, 3). Returns
@@ -69,6 +74,32 @@ def _score_pairs(Fs, xy1, xy2, valid, K):
     return score, R, t, med_par, med_err
 
 
+def _score_pairs_cuda(Fs, xy1, xy2, valid, K):
+    P, N = valid.shape
+    dev = Fs.device
+    if N > _K14_MAX_MATCHES:
+        raise ValueError(f"seed_score: N={N} matches exceed {_K14_MAX_MATCHES}")
+    _kernels.check_tensor(Fs, "Fs", torch.float32, (P, 3, 3), dev)
+    _kernels.check_tensor(xy1, "xy1", torch.float32, (P, N, 2), dev)
+    _kernels.check_tensor(xy2, "xy2", torch.float32, (P, N, 2), dev)
+    _kernels.check_tensor(valid, "valid", torch.bool, (P, N), dev)
+    _kernels.check_tensor(K, "K", torch.float32, (3, 3), dev)
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    score, R, t, med_par, med_err = f32(P), f32(P, 3, 3), f32(P, 3), f32(P), f32(P)
+    _kernels.launch("seed_score", dev, Fs, xy1, xy2, valid, K, P, N, score, R, t, med_par,
+                    med_err)
+    return score, R, t, med_par, med_err
+
+
+def _score_pairs(Fs, xy1, xy2, valid, K):
+    """Kernel K14 on CUDA tensors, :func:`_score_pairs_plain` on CPU."""
+    if Fs.is_cuda:
+        return _score_pairs_cuda(Fs, xy1, xy2, valid, K)
+    if Fs.device.type == "cpu":
+        return _score_pairs_plain(Fs, xy1, xy2, valid, K)
+    raise ValueError(f"seed_score: unsupported device {Fs.device}")
+
+
 def find_best_initial_pair(table, K, *, device, max_candidates: int = 256,
                            max_matches: int = 256):
     """Pick the seed pair. Returns (pair_row, R, t, score) as numpy/floats.
@@ -85,7 +116,8 @@ def find_best_initial_pair(table, K, *, device, max_candidates: int = 256,
     M = min(max_matches, table.xy1.shape[1])
     dev = torch.device(device)
     f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
-    valid = torch.as_tensor((table.inliers[acc] & table.match_valid[acc])[:, :M], device=dev)
+    valid = torch.as_tensor(np.ascontiguousarray(
+        (table.inliers[acc] & table.match_valid[acc])[:, :M]), device=dev)
     scores, Rs, ts, _, _ = _score_pairs(f32(table.F[acc]), f32(table.xy1[acc][:, :M]),
                                         f32(table.xy2[acc][:, :M]), valid, f32(K))
     scores = scores.cpu().numpy()

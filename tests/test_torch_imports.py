@@ -141,20 +141,6 @@ def test_wrappers_refuse_other_devices():
         match_top2(d, v, d, v)
 
 
-def test_retrieval_on_raises_instead_of_sweeping(tmp_path):
-    from sfm_tpu_torch.matching.api import ImageMatcher
-
-    (tmp_path / "images").mkdir()
-    for i in range(3):
-        (tmp_path / "images" / f"{i:04d}.pgm").write_bytes(b"P5\n8 8\n255\n" + bytes(64))
-    from sfm_tpu_torch._shared import RetrievalConfig, SfMConfig as PortConfig
-
-    m = ImageMatcher(tmp_path, PortConfig(retrieval=RetrievalConfig(mode="on")),
-                     output_dir=tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="retrieval"):
-        m.process_image_range()
-
-
 def test_trace_summary_counts_overlapping_device_work_once(tmp_path):
     from sfm_tpu_torch.profile_stage import trace_summary
 

@@ -267,24 +267,6 @@ def test_exporters_write_the_same_bytes(rng, tmp_path):
 
 # ------------------------------------------------------- routes not ported yet
 
-def test_guided_registration_raises_when_on(rng):
-    table, xy = pair_table(rng, cls=TPairTable)
-    desc = np.zeros(xy.shape[:2] + (8,), np.float16)
-    on = tinc.StructureFromMotion(table, xy, PortConfig(), device="cpu", desc=desc)
-    with pytest.raises(NotImplementedError, match="pnp.guided=false"):
-        on.guided_register(5)
-    with pytest.raises(NotImplementedError, match="pnp.guided=false"):
-        on._guided_sweep(6)
-    # A scene that never needs rescue runs under the default config: with
-    # every image registered the final sweep (limit = --num_images, 1000 by
-    # default) has nothing to try.
-    on.registered[:] = True
-    assert on._guided_sweep(1000) == 0
-    off_cfg = PortConfig(pnp=dataclasses.replace(PortConfig().pnp, guided=False))
-    off = tinc.StructureFromMotion(table, xy, off_cfg, device="cpu", desc=desc)
-    assert off.guided_register(5) is False and off._guided_sweep(6) == 0
-
-
 @pytest.mark.parametrize("flag", ["--global_init", "--polish", "--visualize",
                                   "--checkpoint_dir=ck", "--resume_checkpoint=ck.npz"])
 def test_unported_flags_raise(tmp_path, flag):

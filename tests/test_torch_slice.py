@@ -4,10 +4,9 @@ Renders the 8-view textured corridor of ``tests/test_pixel_pipeline.py``, runs
 ``python -m sfm_tpu_torch preprocess`` on the CPU (plain twins), compares the
 accepted pairs with ``sfm_tpu``'s ImageMatcher on the same pixels, and then
 runs ``sfm_tpu``'s reconstruct stage and the port's own on the port's
-``pair_table.pkl``, and the port's whole ``pipeline``, under the pixel
-pipeline's quality gates (8/8 cameras, > 200 points, < 0.6 px, GT rotation
-median < 1 deg, ATE < 5%). The port runs the pixel pipeline's config with
-``pnp.guided=false`` (guided registration is not ported).
+``pair_table.pkl``, and the port's whole ``pipeline`` under the default
+config with retrieval on, under the pixel pipeline's quality gates (8/8
+cameras, > 200 points, < 0.6 px, GT rotation median < 1 deg, ATE < 5%).
 """
 import pickle
 import shutil
@@ -19,7 +18,7 @@ import pytest
 
 from torch_parity import REPO, render_scene
 
-from sfm_tpu.config import BAConfig, FeatureConfig, PnPConfig, SfMConfig, TriangulationConfig
+from sfm_tpu.config import BAConfig, FeatureConfig, SfMConfig, TriangulationConfig
 
 N_IMAGES = 8
 # Same frontend and sweep settings as the reference run; a smaller detection
@@ -30,8 +29,7 @@ RECON_CONFIG = SfMConfig(
     ba=BAConfig(max_iterations=12, cg_iters=30, optimize_intrinsics=False, prune_multiplier=3.0),
     triangulation=TriangulationConfig(cadence=2),
 )
-PORT_RECON_CONFIG = RECON_CONFIG.replace(pnp=PnPConfig(guided=False),
-                                         features=FeatureConfig(detect_batch=2))
+PORT_RECON_CONFIG = RECON_CONFIG.replace(features=FeatureConfig(detect_batch=2))
 
 
 def assert_pixel_gates(s):
@@ -152,16 +150,32 @@ def test_port_reconstruct_on_port_artifacts(scene, port_out, jax_result, tmp_pat
 
 
 def test_port_pipeline_end_to_end(scene, tmp_path):
+    # `python -m sfm_tpu_torch pipeline` with no --config and retrieval on.
     import json
 
+    from sfm_tpu.config import RetrievalConfig, effective_retrieval_config
+    from sfm_tpu.matching.retrieval import retrieval_scores, select_candidate_pairs
     from sfm_tpu_torch import cli
+    from sfm_tpu_torch.matching import retrieval as tret
 
-    PORT_RECON_CONFIG.to_json(tmp_path / "cfg.json")
+    out = tmp_path / "out"
     rc = cli.main(["--log_dir", str(tmp_path / "logs"), "pipeline", "--data_dir", str(scene),
-                   "--output_dir", str(tmp_path / "out"), "--device", "cpu", "--no_mask",
-                   "--num_images", str(N_IMAGES), "--config", str(tmp_path / "cfg.json")])
+                   "--output_dir", str(out), "--device", "cpu", "--no_mask",
+                   "--num_images", str(N_IMAGES), "--match_mode", "on"])
     assert rc == 0
-    assert_pixel_gates(json.loads(
-        (tmp_path / "out" / "reconstruction" / "stats.json").read_text()))
-    assert (tmp_path / "out" / "pair_table.pkl").exists()
-    assert (tmp_path / "out" / "exports" / "colmap" / "images.txt").exists()
+    assert_pixel_gates(json.loads((out / "reconstruction" / "stats.json").read_text()))
+    assert (out / "exports" / "colmap" / "images.txt").exists()
+    metrics = {r["name"] for r in json.loads((out / "metrics.json").read_text())}
+    assert {"stage/detect", "stage/retrieval", "stage/sweep"} <= metrics
+    # The swept pairs are the ones JAX's retrieval keeps on the port's
+    # descriptors, and both packages score them alike (the pickle holds the
+    # descriptors in f16; both score its f32 cast).
+    blob = pickle.loads((out / "pair_table.pkl").read_bytes())
+    desc = blob["desc"].astype(np.float32)
+    cfg = effective_retrieval_config(SfMConfig(retrieval=RetrievalConfig(mode="on")))
+    kept, _ = select_candidate_pairs(desc, blob["valid"], N_IMAGES, cfg)
+    np.testing.assert_array_equal(blob["table"].pairs, np.asarray(kept))
+    pairs = blob["table"].pairs
+    scores = tret.retrieval_scores(desc, blob["valid"], pairs, cfg)
+    np.testing.assert_array_equal(scores, retrieval_scores(desc, blob["valid"], pairs, cfg))
+    assert scores.max() >= 20
