@@ -4,11 +4,14 @@
     python3 chip_smoke.py [--views 36] [--large_views 150]
 
 1. Builds the port's CUDA kernels from ``sfm_tpu_torch/csrc`` (nvcc, sm_90a).
-2. Holds each kernel against its plain PyTorch twin at the main path's shapes
-   and times both with CUDA events.
+2. Holds each kernel against its plain PyTorch twin at the main path's shapes,
+   times both with CUDA events (and one PyTorch library call where one
+   computes the same function), and computes each kernel's bound: the larger
+   of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s (f32).
 3. Renders ``--views`` and then ``--large_views`` 1024x768 views of the
-   textured corridor (``scripts/render_scene.py``, in one background
-   subprocess, so that this process never imports the JAX package).
+   textured corridor (the port's own ``sfm_tpu_torch/render_scene.py``, in
+   one background subprocess, so that the renders overlap the kernel
+   phases).
 4. Drives the port's main path through ``sfm_tpu_torch.cli`` in this process,
    with the default SfMConfig, every kernel launch counter reset just before
    each path and read just after it:
@@ -34,7 +37,7 @@
 Prints the card (nvidia-smi), per-kernel and stage numbers, a JSON line of
 the kernels and, last, ``{"ok": true, "device": {...}}``. Any failure raises;
 without a card, or outside a checkout of the repository, it exits non-zero
-before printing any result. It takes about three minutes on one H100 (``PERF.md``).
+before printing any result. It takes about two minutes on one H100 (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -77,12 +80,22 @@ KERNELS = {
                 "sfm_tpu/features/pyramid.py:123"),
     "seed_score": (("seed_score",), "sfm_tpu_torch/csrc/seed_score.cu",
                    "sfm_tpu/reconstruction/seed.py:51"),
+    "pnp_refine": (("pnp_refine",), "sfm_tpu_torch/csrc/pnp_refine.cu",
+                   "sfm_tpu/estimators/pnp.py:201"),
+    "schur_damp": (("schur_damp", "schur_back_substitute"), "sfm_tpu_torch/csrc/schur_damp.cu",
+                   "sfm_tpu/ba/schur.py:174"),
+    "fmat_solve": (("fmat_hypotheses", "fmat_refit_verify"), "sfm_tpu_torch/csrc/fmat_solve.cu",
+                   "sfm_tpu/estimators/fundamental.py:20"),
+    "dog_select": (("dog_select", "dog_refine"), "sfm_tpu_torch/csrc/dog_select.cu",
+                   "sfm_tpu/features/detect.py:121"),
+    "topk_rows": (("topk_rows",), "sfm_tpu_torch/csrc/dog_select.cu",
+                  "sfm_tpu/features/frontend.py:169"),
 }
 # The kernels each path must launch.
 PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
-                      "pyramid")
+                      "pyramid", "fmat_solve", "dog_select", "topk_rows")
 RECONSTRUCT_KERNELS = ("pnp_ransac", "triangulate_tracks", "ba_linearize", "schur_coupling",
-                       "seed_score")
+                       "seed_score", "pnp_refine", "schur_damp")
 RESCUE_KERNELS = RECONSTRUCT_KERNELS + ("guided_match",)
 LARGE_KERNELS = PREPROCESS_KERNELS + RECONSTRUCT_KERNELS + ("retrieval_score",)
 
@@ -100,6 +113,32 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+# The H100's published peaks (NVIDIA's data sheet, SXM part, at 700 W): HBM
+# at 3.35 TB/s and float32 outside the tensor cores at 67 TFLOP/s. Every
+# kernel here computes in f32 (compares and integer steps counted alike).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def result(err, ms, plain_ms, moved, ops, library_ms=None) -> dict:
+    """A kernel phase's numbers. ``moved``: the bytes its function must move
+    (each input read once, each output written once); ``ops``: the
+    operations it does on this run's inputs (estimated from its loops);
+    ``library_ms``: one PyTorch call computing the same function, if any."""
+    return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "bytes": int(moved),
+            "ops": int(ops), "library_ms": library_ms}
+
+
+def bound(r: dict):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = r["bytes"] / PEAK_BYTES_PER_S, r["ops"] / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
@@ -183,23 +222,53 @@ def phase_match_top2(torch, dev):
     log(f"K1 match_top2: max_abs_err {err:.3g}, indices equal in all {B * K} rows")
     ms = time_ms(torch, lambda: match_top2_cuda(*args))
     plain_ms = time_ms(torch, lambda: match_top2_plain(*args))
-    return err, ms, plain_ms
+    # 2 K^2 D FMA-FLOP per pair and direction.
+    return result(err, ms, plain_ms, nbytes(*args, idx_k, best_k, sec_k), 2 * B * K * K * D)
 
 
 def phase_fmat(torch, np, dev):
-    """K2 at 32 pairs x 512 hypotheses x 256 scoring rows (one sweep chunk)."""
+    """K2 at 32 pairs x 512 hypotheses x 1,024 rows (one sweep chunk):
+    fmat_hypotheses, fmat_score_select on the first 256 rows, then
+    fmat_refit_verify on all rows. Returns (score_select, fmat_solve)."""
     from sfm_tpu_torch.estimators.fundamental import (
-        fmat_score_select_cuda, fmat_score_select_plain)
+        fmat_hypotheses_cuda, fmat_hypotheses_plain, fmat_refit_verify_cuda,
+        fmat_refit_verify_plain, fmat_score_select_cuda, fmat_score_select_plain)
     from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
-    from sfm_tpu_torch.geometry.epipolar import eight_point, symmetric_epipolar_distance
+    from sfm_tpu_torch.geometry.epipolar import normalize_points, symmetric_epipolar_distance
 
     B, M, H, N, thr = 32, 1024, 512, 256, 3.0
     p1, p2, valid = (torch.as_tensor(a, device=dev) for a in two_view_batch(np, B, M)[:3])
     g = torch.Generator(device=dev).manual_seed(2)
-    idx = ransac_sample_indices(valid, H, 8, g, prefix=True).reshape(B, -1, 1)
-    take = lambda p: torch.gather(p, 1, idx.expand(-1, -1, 2)).reshape(B, H, 8, 2)
-    Fs = eight_point(take(p1), take(p2), enforce_rank2=False, null_iters=3,
-                     null_fallback=False).contiguous()
+    idx = ransac_sample_indices(valid, H, 8, g, prefix=True).contiguous()
+    hargs = (p1, p2, idx)
+    Fs_k = fmat_hypotheses_cuda(*hargs)
+    Fs = fmat_hypotheses_plain(*hargs).contiguous()
+    torch.cuda.synchronize()
+    # Tolerance, hypotheses: sign-aligned within 1e-4 on >= 99% of the
+    # well-conditioned samples: the second-smallest eigenvalue of the
+    # normalized 9x9 A^T A (in f64) >= 1e-3 of its largest, which bounds the
+    # null vector's f32 rounding (~eps lambda_max / lambda_2) near 6e-5. A
+    # degenerate sample's junk scores no consensus on either side.
+    flat = idx.reshape(B, -1, 1).expand(-1, -1, 2)
+    take = lambda p: torch.gather(p.double(), 1, flat).reshape(B, H, 8, 2)
+    n1, _ = normalize_points(take(p1))
+    n2, _ = normalize_points(take(p2))
+    x1, y1, x2, y2 = n1[..., 0], n1[..., 1], n2[..., 0], n2[..., 1]
+    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, torch.ones_like(x1)],
+                    dim=-1)
+    lam = torch.linalg.eigvalsh(A.mT @ A)
+    well = lam[..., 1] >= 1e-3 * lam[..., -1]
+    d_hyp = torch.minimum((Fs_k - Fs).flatten(-2).abs().amax(-1),
+                          (Fs_k + Fs).flatten(-2).abs().amax(-1))
+    frac_h = float((d_hyp[well] <= 1e-4).float().mean())
+    fair = lam[..., 1] >= 1e-4 * lam[..., -1]
+    log(f"  fmat_hypotheses at lambda_2 >= 1e-4 lambda_max: "
+        f"{float((d_hyp[fair] <= 1e-4).float().mean()):.4%} of {int(fair.sum())} within 1e-4")
+    check(int(well.sum()) >= 1000 and frac_h >= 0.99,
+          f"K2 fmat_hypotheses: {frac_h:.4f} of {int(well.sum())} well-conditioned samples "
+          "within 1e-4")
+    log(f"K2 fmat_hypotheses: {frac_h:.4%} of {int(well.sum())}/{B * H} well-conditioned "
+        f"samples within 1e-4, max difference there {float(d_hyp[well].max()):.3g}")
     args = (Fs, p1[:, :N].contiguous(), p2[:, :N].contiguous(), valid[:, :N].contiguous(), thr)
     best_k, count_k = fmat_score_select_cuda(*args)
     best_p, count_p = fmat_score_select_plain(*args)
@@ -218,7 +287,56 @@ def phase_fmat(torch, np, dev):
         f"max score gap {gap:.3g}")
     ms = time_ms(torch, lambda: fmat_score_select_cuda(*args))
     plain_ms = time_ms(torch, lambda: fmat_score_select_plain(*args))
-    return gap, ms, plain_ms
+    # ~45 FLOP per (hypothesis, row): two lines, two distances.
+    score = result(gap, ms, plain_ms, nbytes(*args[:4], best_k, count_k), 45 * B * H * N)
+
+    # The refit from the kernel pipeline's winner, both sides on the same input.
+    best = fmat_score_select_cuda(Fs_k, *args[1:])[0].contiguous()
+    rargs = (Fs_k, best, p1, p2, valid, thr)
+    rk, rp = fmat_refit_verify_cuda(*rargs), fmat_refit_verify_plain(*rargs)
+    rd = fmat_refit_verify_plain(Fs_k.double(), best, p1.double(), p2.double(), valid, thr)
+    torch.cuda.synchronize()
+    # Tolerance, refit: the refit's f32 null vector moves by ~eps lambda_max /
+    # lambda_2 of its 9x9 normal matrix (~3e-4 at 0.5 px noise, more once
+    # denormalized), with the summation order, so kernel and twin are each
+    # held against the f64 refit, pair by pair: the kernel's F (unit-norm,
+    # sign-aligned) no farther from it than max(1e-4, 3x the twin's), and the
+    # inlier rows' epipolar distances under it no farther from the f64 F's
+    # than max(1e-2 px, 3x the twin's); inliers equal on >= 99.9% of rows (a
+    # row on the threshold may flip); accept equal on every pair.
+    dist = lambda a, b: torch.minimum((a - b).flatten(-2).abs().amax(-1),
+                                      (a + b).flatten(-2).abs().amax(-1))
+    d_f = float(dist(rk["F"], rp["F"]).max())
+    ek, ep = dist(rk["F"].double(), rd["F"]), dist(rp["F"].double(), rd["F"])
+    both = rk["inliers"] & rp["inliers"]
+    px = lambda r: float((r["errors"].double() - rd["errors"]).abs()[both].max())
+    pk_, pp_ = px(rk), px(rp)
+    inl_eq = float((rk["inliers"] == rp["inliers"]).float().mean())
+    check(bool((ek <= torch.clamp(3 * ep, min=1e-4)).all()) and pk_ <= max(1e-2, 3 * pp_)
+          and inl_eq >= 0.999, f"K2 fmat_refit_verify: F to f64: kernel {float(ek.max())}, "
+          f"twin {float(ep.max())}; inlier distances to f64: kernel {pk_} px, twin {pp_} px; "
+          f"inliers equal on {inl_eq:.5f} of rows")
+    check(torch.equal(rk["accept"], rp["accept"]) and torch.equal(rk["ok"], rp["ok"]),
+          "K2 fmat_refit_verify: accept differs")
+    check(bool(rk["accept"].any()), "K2 fmat_refit_verify: no pair accepted")
+    log(f"K2 fmat_refit_verify: F max difference {d_f:.3g} (to the f64 refit: kernel "
+        f"{float(ek.max()):.3g}, twin {float(ep.max()):.3g}); inlier rows' distances to the "
+        f"f64 F's: kernel {pk_:.3g} px, twin {pp_:.3g} px; inliers equal on {inl_eq:.4%} of "
+        f"{B * M} rows, accept equal on all {B} pairs ({int(rk['accept'].sum())} accepted)")
+    hyp_ms = time_ms(torch, lambda: fmat_hypotheses_cuda(*hargs))
+    hyp_plain = time_ms(torch, lambda: fmat_hypotheses_plain(*hargs))
+    ref_ms = time_ms(torch, lambda: fmat_refit_verify_cuda(*rargs))
+    ref_plain = time_ms(torch, lambda: fmat_refit_verify_plain(*rargs))
+    log(f"  fmat_hypotheses {hyp_ms:.4f} ms (plain torch {hyp_plain:.4f} ms); "
+        f"fmat_refit_verify {ref_ms:.4f} ms (plain torch {ref_plain:.4f} ms)")
+    # Hypotheses: ~1.7 kFLOP a sample (A^T A 720, Cholesky ~330, 3 solves ~490,
+    # normalization and denormalization ~150). Refit: ~300 FLOP a row over its
+    # five passes, ~3 kFLOP of thread 0's solve per pair.
+    solve = result(max(float(d_hyp[well].max()), d_f), hyp_ms + ref_ms, hyp_plain + ref_plain,
+                   nbytes(p1, p2, idx, Fs_k, valid, best) + 36 * B
+                   + sum(nbytes(v) for v in rk.values()),
+                   1700 * B * H + 300 * B * M + 3000 * B)
+    return score, solve
 
 
 def phase_dog_extrema(torch, dev, image, cfg):
@@ -244,7 +362,9 @@ def phase_dog_extrema(torch, dev, image, cfg):
     log(f"K4 dog_extrema: bit-exact on {len(dogs)} octaves, {n} extrema")
     ms = time_ms(torch, lambda: [dog_extrema_scores_cuda(d, ct, et) for d in dogs])
     plain_ms = time_ms(torch, lambda: [dog_extrema_scores_plain(d, ct, et) for d in dogs])
-    return 0.0, ms, plain_ms
+    # 26 compares per interior-layer pixel; the DoG read, the scores written.
+    interior = sum(d[:, 1:-1].numel() for d in dogs)
+    return result(0.0, ms, plain_ms, sum(nbytes(d) for d in dogs) + 4 * interior, 26 * interior)
 
 
 def phase_describe(torch, dev, image, cfg):
@@ -279,7 +399,10 @@ def phase_describe(torch, dev, image, cfg):
         f"{int(off.sum())} outside (all orientation near-ties)")
     ms = time_ms(torch, lambda: orientation_and_descriptor_canvas_cuda(*args, **kw))
     plain_ms = time_ms(torch, lambda: orientation_and_descriptor_canvas_plain(*args, **kw))
-    return err, ms, plain_ms
+    # Per keypoint: its 66 x 66 f16 patch and 7 parameters in, 129 floats out;
+    # ~512 samples of ~40 FLOP for the orientation and again for the descriptor.
+    K = valid.numel()
+    return result(err, ms, plain_ms, K * (66 * 66 * 2 + 7 * 4 + 129 * 4), K * 512 * 80)
 
 
 def _rel(a, b) -> float:
@@ -350,12 +473,16 @@ def phase_ba(torch, np, dev):
         + f"; ba_cost rel err {cost_err:.2g} ({O} obs, {C} cams, {P} points)")
     ms = time_ms(torch, lambda: linearize_cuda(*args))
     plain_ms = time_ms(torch, lambda: linearize_plain(*args))
+    lin_bytes = nbytes(*(a for a in args if isinstance(a, torch.Tensor))) + sum(
+        nbytes(getattr(lk, f)) for f in ("Jc", "Jk", "Jp", "rw", "V", "U", "Uk", "g_c", "g_k",
+                                         "g_p"))
     cost_ms = time_ms(torch, lambda: total_huber_cost_cuda(*cargs))
     cost_plain_ms = time_ms(torch, lambda: total_huber_cost_plain(*cargs))
     log(f"  ba_cost: {cost_ms:.4f} ms (plain torch {cost_plain_ms:.4f} ms)")
-    k89 = (max(errs.values()), ms, plain_ms)
+    # ~400 FLOP per observation (projection, analytic Jacobians, whitening, sums).
+    k89 = result(max(errs.values()), ms, plain_ms, lin_bytes, 400 * O)
 
-    op, rhs_c, rhs_k = damp_operator(lk, 1e-3)
+    op, rhs_c, rhs_k = damp_operator(lk, 1e-3, perm, pvm)
     Sk = schur_matrix_cuda(lk, op, perm, pvm)
     Sp = schur_matrix_plain(lk, op, perm, pvm)
     torch.cuda.synchronize()
@@ -373,7 +500,12 @@ def phase_ba(torch, np, dev):
         f"{x_err:.2g} (grouping {tuple(perm.shape)})")
     ms = time_ms(torch, lambda: schur_matrix_cuda(lk, op, perm, pvm))
     plain_ms = time_ms(torch, lambda: schur_matrix_plain(lk, op, perm, pvm))
-    return k89, (s_err, ms, plain_ms)
+    # ~200 FLOP per pair of one point's observation slots (this scene's data).
+    pairs = int((pvm.sum(1).long() ** 2).sum())
+    coupling = result(s_err, ms, plain_ms,
+                      nbytes(lk.Jc, lk.Jk, lk.Jp, lk.obs_cam, lk.obs_point, op.Vinv, perm, pvm, Sk),
+                      200 * pairs)
+    return k89, coupling
 
 
 def track_scene(torch, np, dev, T, V=36, C=36, seed=0):
@@ -420,7 +552,7 @@ def phase_triangulate(torch, np, dev):
         reproj_stats_cuda, reproj_stats_plain, triangulate_tracks_cuda,
         triangulate_tracks_plain)
 
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, moved, ops = 0.0, 0.0, 0.0, 0, 0
     for T, seed_on in ((2048, False), (1024, True)):
         view_img, view_xy, registered, rvec, tvec, K = track_scene(torch, np, dev, T, seed=T)
         use = (view_img >= 0) & registered[view_img.long().clamp(min=0)]
@@ -442,6 +574,13 @@ def phase_triangulate(torch, np, dev):
         worst = max(worst, err)
         ms += time_ms(torch, lambda: triangulate_tracks_cuda(*args))
         plain_ms += time_ms(torch, lambda: triangulate_tracks_plain(*args))
+        # Per row of L used views: L DLT rows (~100 FLOP each with their
+        # reprojection), 8 4x4 inverse-iteration steps (~300); with seed pairs,
+        # ~200 FLOP per pair of its first 8 views.
+        L = use.sum(1).long()
+        moved += nbytes(view_img, view_xy, use, active, rvec, tvec, pk, ok_k)
+        ops += int((100 * L + 300).sum()) + (int((200 * L.clamp(max=8) ** 2).sum()) if seed_on
+                                             else 0)
         if T == 2048:
             rargs = (view_img, view_xy, view_img >= 0, rvec, tvec, registered, K, pp, ok_p)
             ek, uk = reproj_stats_cuda(*rargs)
@@ -452,7 +591,7 @@ def phase_triangulate(torch, np, dev):
             log(f"  reproj_stats: use equal, max abs err {e_err:.3g} px; "
                 f"{time_ms(torch, lambda: reproj_stats_cuda(*rargs)):.4f} ms (plain torch "
                 f"{time_ms(torch, lambda: reproj_stats_plain(*rargs)):.4f} ms)")
-    return worst, ms, plain_ms
+    return result(worst, ms, plain_ms, moved, ops)
 
 
 def phase_pnp(torch, np, dev):
@@ -553,7 +692,11 @@ def phase_pnp(torch, np, dev):
         f"selected rotations within {ang:.3g} rad, inlier counts within {100 * dn:.3g}%")
     ms = time_ms(torch, lambda: (p3p_solve_cuda(s3, s2n), pnp_score_select_cuda(*sargs)))
     plain_ms = time_ms(torch, lambda: (p3p_candidates(s3, s2n), pnp_score_select_plain(*sargs)))
-    return gap, ms, plain_ms
+    # P3P: ~6 kFLOP a sample (30 Durand-Kerner steps on 4 roots, the poses);
+    # scoring: ~25 FLOP per (hypothesis, correspondence).
+    return result(gap, ms, plain_ms,
+                  nbytes(s3, s2n, Rk, tk, okk, p3, p2, valid) + 16 * B,
+                  6000 * B * iters + 25 * B * H * N)
 
 
 def corridor_descriptors(torch, dev, N: int, S: int, D: int = 128, step: int = 40,
@@ -593,7 +736,9 @@ def phase_retrieval_score(torch, np, dev):
         f"difference {int(diff.max())}; counts {int(ref.min())}..{int(ref.max())}")
     ms = time_ms(torch, lambda: score_chunk_cuda(*args))
     plain_ms = time_ms(torch, lambda: score_chunk_plain(*args))
-    return float(diff.max()), ms, plain_ms
+    # 2 S^2 D FMA-FLOP per pair; the descriptor table read once.
+    return result(float(diff.max()), ms, plain_ms, nbytes(pairs, desc, valid, got),
+                  2 * pairs.shape[0] * S * S * desc.shape[-1])
 
 
 def phase_guided_match(torch, dev):
@@ -627,7 +772,7 @@ def phase_guided_match(torch, dev):
         f"ok, d_best max_abs_err {err:.3g}")
     ms = time_ms(torch, lambda: guided_match_cuda(*args))
     plain_ms = time_ms(torch, lambda: guided_match_plain(*args))
-    return err, ms, plain_ms
+    return result(err, ms, plain_ms, nbytes(*args[:5], tk, dk, okk), 2 * K * M * D)
 
 
 def phase_pyramid(torch, dev, images, cfg):
@@ -658,7 +803,10 @@ def phase_pyramid(torch, dev, images, cfg):
         f"{images.shape[0]} images x {len(dk)} octaves")
     ms = time_ms(torch, lambda: build_pyramid_cuda(images, **kw))
     plain_ms = time_ms(torch, lambda: build_pyramid_plain(images, **kw), reps=3, warmup=1)
-    return err, ms, plain_ms
+    # The images in, every Gaussian and DoG layer out; ~76 FLOP per Gaussian
+    # pixel (two separable passes of ~19 taps, a multiply and an add each).
+    return result(err, ms, plain_ms, nbytes(images, *gk, *dk),
+                  76 * sum(g.numel() for g in gk))
 
 
 def phase_seed_score(torch, np, dev):
@@ -682,7 +830,268 @@ def phase_seed_score(torch, np, dev):
         f"R/t max_abs_err {r_err:.3g}, median parallax {float(parp.median()):.3f} deg")
     ms = time_ms(torch, lambda: _score_pairs_cuda(*args))
     plain_ms = time_ms(torch, lambda: _score_pairs_plain(*args))
-    return r_err, ms, plain_ms
+    # ~2 kFLOP per match (three 4x4 DLT solves, the cheirality tests).
+    return result(r_err, ms, plain_ms, nbytes(*args, sk, Rk, tk, park, errk), 2000 * P * N)
+
+
+def pnp_scene(torch, np, dev, B: int, N: int, seed: int):
+    """B registration candidates of N 2D-3D correspondences: random poses,
+    0.5 px noise, 30% outliers, a valid prefix of 300..N rows."""
+    from sfm_tpu_torch.geometry.projection import project
+    from sfm_tpu_torch.geometry.rotations import rodrigues
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    K = f32([[1228.0, 0, 512.0], [0, 1228.0, 384.0], [0, 0, 1]])
+    R = rodrigues(f32(rng.normal(0, 0.3, (B, 3))))
+    t = f32(rng.uniform([-1, -1, 4], [1, 1, 6], (B, 3)))
+    p3 = f32(rng.uniform(-2, 2, (B, N, 3)))
+    p2, _ = project(p3, R[:, None], t[:, None], K)
+    p2 = p2 + f32(rng.normal(0, 0.5, (B, N, 2)))
+    out = torch.as_tensor(rng.random((B, N)) < 0.3, device=dev)
+    p2 = torch.where(out[..., None], f32(rng.uniform([0, 0], [1024, 768], (B, N, 2))), p2)
+    valid = torch.as_tensor(np.arange(N)[None] < rng.integers(300, N + 1, (B, 1)), device=dev)
+    return p3, p2.contiguous(), valid, K, R, t, rng
+
+
+def phase_pnp_refine(torch, np, dev):
+    """K6's pnp_refine at B = 8 candidates x N = 2,048 (registration) and
+    B = 1 x N = 8,192 (the guided rescue), from the true pose rotated by
+    ~0.6 deg and moved by ~1%; one registration candidate gated off."""
+    from sfm_tpu_torch.estimators.pnp import pnp_refine_cuda, pnp_refine_plain
+    from sfm_tpu_torch.geometry.rotations import rodrigues
+
+    worst, ms, plain_ms, moved, ops = 0.0, 0.0, 0.0, 0, 0
+    for B, N in ((8, 2048), (1, 8192)):
+        p3, p2, valid, K, R, t, rng = pnp_scene(torch, np, dev, B, N, seed=10 + B)
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        R0 = (rodrigues(f32(rng.normal(0, 0.006, (B, 3)))) @ R).contiguous()
+        t0 = (t * f32(1 + rng.normal(0, 0.01, (B, 3)))).contiguous()
+        ok0 = torch.ones(B, dtype=torch.bool, device=dev)
+        ok0[B // 2] = B == 1
+        args = (R0, t0, ok0, p3, p2, valid, K, 8.0, torch.full((B,), 15, device=dev), 10)
+        k, pl = pnp_refine_cuda(*args), pnp_refine_plain(*args)
+        torch.cuda.synchronize()
+        # Tolerance: R within 1e-4 rad and t within 1e-4 |t| (Cholesky in the
+        # kernel, LU in the twin, on the same SPD system); inlier sets equal on
+        # >= 99.9% of rows; ok equal.
+        M = (k["R"].double().mT @ pl["R"].double())
+        vee = torch.stack([M[:, 2, 1] - M[:, 1, 2], M[:, 0, 2] - M[:, 2, 0],
+                           M[:, 1, 0] - M[:, 0, 1]], -1)
+        ang = float(torch.asin((vee.norm(dim=-1) / 2).clamp(max=1.0)).max())
+        t_err = float(((k["t"] - pl["t"]).norm(dim=-1) / pl["t"].norm(dim=-1).clamp(min=1e-6))
+                      .max())
+        inl_eq = float((k["inliers"] == pl["inliers"]).float().mean())
+        check(ang <= 1e-4 and t_err <= 1e-4 and inl_eq >= 0.999,
+              f"K6 pnp_refine B={B}: R {ang} rad, t {t_err} rel, inliers equal {inl_eq}")
+        check(torch.equal(k["ok"], pl["ok"]) and bool(k["ok"].any()),
+              f"K6 pnp_refine B={B}: ok {k['ok'].tolist()} vs {pl['ok'].tolist()}")
+        log(f"K6 pnp_refine B={B} N={N}: R within {ang:.3g} rad, t within {t_err:.3g} |t|, "
+            f"inliers equal on {inl_eq:.4%} of rows, ok {k['ok'].tolist()}")
+        worst = max(worst, float((k["R"] - pl["R"]).abs().max()),
+                    float((k["t"] - pl["t"]).abs().max()))
+        ms += time_ms(torch, lambda: pnp_refine_cuda(*args))
+        plain_ms += time_ms(torch, lambda: pnp_refine_plain(*args))
+        # 20 steps of ~250 FLOP per weighted row (6 tangents, 27 sums), three
+        # passes of ~30 FLOP per row for the weights and the final errors.
+        moved += nbytes(*args[:6]) + sum(nbytes(v) for v in k.values())
+        ops += 20 * 250 * int(k["num_inliers"].sum()) + 3 * 30 * B * N
+    return result(worst, ms, plain_ms, moved, ops)
+
+
+def phase_schur_damp(torch, np, dev):
+    """K10's schur_damp and schur_back_substitute on the 100-camera /
+    200k-observation scene and a 150-camera / 300k one; then one run_ba on a
+    40-camera scene on the card, against the plain twins on the host."""
+    from sfm_tpu_torch.ba.lm import run_ba
+    from sfm_tpu_torch.ba.problem import BAProblem
+    from sfm_tpu_torch.ba.schur import (
+        coobs_pairs, dense_schur_direct, linearize_cuda, schur_back_substitute_cuda,
+        schur_back_substitute_plain, schur_damp_cuda, schur_damp_plain)
+    from sfm_tpu_torch.config import BAConfig
+
+    worst, ms, plain_ms, lib_ms, moved, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
+    lam = 1e-3
+    for n_cams, n_pts in ((100, 20000), (150, 30000)):
+        rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = ba_scene(
+            torch, np, dev, n_cams=n_cams, n_pts=n_pts, seed=n_cams)
+        C, P, O = rvec.shape[0], pts.shape[0], obs_cam.shape[0]
+        perm, pvm = coobs_pairs(obs_point.cpu().numpy(), np.ones(O, bool))
+        perm, pvm = torch.as_tensor(perm, device=dev), torch.as_tensor(pvm, device=dev)
+        cam_free = torch.ones(C, device=dev)
+        cam_free[0] = 0.0
+        pv = torch.ones(P, dtype=torch.bool, device=dev)
+        pv[::97] = False
+        lin = linearize_cuda(rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy,
+                             torch.ones(O, device=dev), cam_free, pv, perm, pvm, 2.0, True,
+                             torch.eye(4, device=dev), torch.zeros(4, device=dev))
+        (opk, rck, rkk), (opp, rcp, rkp) = (schur_damp_cuda(lin, lam, perm, pvm),
+                                            schur_damp_plain(lin, lam))
+        xc, xk = dense_schur_direct(opk, lin, rck, rkk, perm, pvm)
+        dpk = schur_back_substitute_cuda(lin, opk, xc, xk, perm, pvm)
+        dpp = schur_back_substitute_plain(lin, opk, xc, xk)
+        torch.cuda.synchronize()
+        # Tolerance: rhs_c / rhs_k within 1e-3 relative (camera sums by float
+        # atomics, another order); Vinv within 1e-4 of each block's largest
+        # entry where the damped block's condition number is <= 100 (the
+        # adjugate and LU round differently); on the other valid blocks the
+        # residual |Vd Vinv - I| no larger than max(1e-3, 10x the twin's LU
+        # inverse's own); the diagonals exactly; dp within 1e-3 relative.
+        diag = torch.diagonal(lin.V, dim1=-2, dim2=-1)
+        Vd = lin.V + (lam * diag + 1e-10)[..., None] * torch.eye(3, device=dev)
+        cond = torch.linalg.cond(Vd.double())
+        well = pv & (cond <= 100)
+        blk_err = ((opk.Vinv - opp.Vinv).flatten(1).abs().amax(1)
+                   / opp.Vinv.flatten(1).abs().amax(1).clamp(min=1e-30))
+        v_err = float(blk_err[well].max())
+        resid = lambda Vi: (Vd @ Vi - torch.eye(3, device=dev)).flatten(1).abs().amax(1)
+        ill = pv & ~well
+        ident = float(resid(opk.Vinv)[ill].max()) if bool(ill.any()) else 0.0
+        ident_ok = bool((resid(opk.Vinv) <= torch.clamp(10 * resid(opp.Vinv), min=1e-3))[ill]
+                        .all())
+        errs = {"rhs_c": _rel(rck, rcp), "rhs_k": _rel(rkk, rkp), "dp": _rel(dpk, dpp)}
+        check(max(errs.values()) <= 1e-3 and v_err <= 1e-4 and ident_ok,
+              f"K10 schur_damp C={C}: {errs}, Vinv {v_err}, Vd Vinv - I {ident}")
+        check(torch.equal(opk.lam_diag_c, opp.lam_diag_c)
+              and bool((opk.Vinv[~pv] == 0).all()), f"K10 schur_damp C={C}: diagonals")
+        log(f"K10 schur_damp / back_substitute C={C} O={O}: rel err " + ", ".join(
+            f"{k} {v:.2g}" for k, v in errs.items()) + f"; Vinv {v_err:.2g} on "
+            f"{int(well.sum())} well-conditioned blocks, |Vd Vinv - I| {ident:.2g} on "
+            f"{int((pv & ~well).sum())} others")
+        worst = max(worst, *errs.values(), v_err)
+        dk = time_ms(torch, lambda: schur_damp_cuda(lin, lam, perm, pvm))
+        bk = time_ms(torch, lambda: schur_back_substitute_cuda(lin, opk, xc, xk, perm, pvm))
+        dpl = time_ms(torch, lambda: schur_damp_plain(lin, lam))
+        bpl = time_ms(torch, lambda: schur_back_substitute_plain(lin, opk, xc, xk))
+        inv_ms = time_ms(torch, lambda: torch.linalg.inv(Vd))
+        log(f"  C={C}: schur_damp {dk:.4f} ms (plain torch {dpl:.4f} ms, torch.linalg.inv of "
+            f"the damped blocks alone {inv_ms:.4f} ms); schur_back_substitute {bk:.4f} ms "
+            f"(plain torch {bpl:.4f} ms)")
+        ms, plain_ms, lib_ms = ms + dk + bk, plain_ms + dpl + bpl, lib_ms + inv_ms
+        # Damping: ~60 FLOP a point (scaling, adjugate), ~60 an observation
+        # (h_p, y_o, Jc^T y, Jk^T y). Back-substitution: ~64 an observation, 18 a point.
+        sys_in = nbytes(lin.Jc, lin.Jk, lin.Jp, lin.obs_cam, lin.obs_point, perm, pvm, lin.g_p)
+        moved += (sys_in + nbytes(lin.V, lin.point_valid, lin.U, lin.Uk, lin.g_c, lin.g_k,
+                                  opk.Vinv, opk.lam_diag_c, opk.lam_diag_k, rck, rkk)
+                  + sys_in + nbytes(opk.Vinv, xc, xk, dpk))
+        ops += 60 * P + 60 * O + 64 * O + 18 * P
+
+    # One LM run on the card against the twins on the host: the final costs
+    # within 1e-3 relative (atomics may flip an accept at convergence, so the
+    # iteration counts are not compared).
+    rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = ba_scene(
+        torch, np, dev, n_cams=40, n_pts=8000, seed=40)
+    C, P, O = rvec.shape[0], pts.shape[0], obs_cam.shape[0]
+    ones = lambda n: torch.ones(n, dtype=torch.bool, device=dev)
+    fixed = torch.zeros(C, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    prob = BAProblem(rvec, tvec, ones(C), fixed, intr, pts, ones(P), obs_cam, obs_point, obs_xy,
+                     ones(O))
+    cfg = BAConfig(max_iterations=10)
+    t0 = time.perf_counter()
+    _, st_k = run_ba(prob, cfg)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, st_p = run_ba(BAProblem(*(x.cpu() for x in prob)), cfg)
+    t_host = time.perf_counter() - t0
+    cost_err = abs(st_k["final_cost"] - st_p["final_cost"]) / st_p["final_cost"]
+    check(cost_err <= 1e-3 and st_k["final_cost"] < 0.5 * st_k["initial_cost"],
+          f"K10 run_ba: final cost {st_k['final_cost']} vs twin {st_p['final_cost']}")
+    log(f"K10 run_ba C={C} O={O}: final cost {st_k['final_cost']:.6g} (card, {t_card:.2f} s) vs "
+        f"{st_p['final_cost']:.6g} (twins on the host, {t_host:.2f} s), rel {cost_err:.2g}; "
+        f"{st_k['iterations']} / {st_p['iterations']} iterations")
+    return result(worst, ms, plain_ms, moved, ops, library_ms=lib_ms)
+
+
+def phase_dog_select(torch, dev, images, cfg):
+    """K4's dog_select and dog_refine on octave 0 and the -1 octave of one
+    detection sub-batch of rendered images."""
+    from sfm_tpu_torch.features.detect import (
+        dog_extrema_scores_cuda, dog_refine_cuda, dog_refine_plain,
+        select_octave_candidates_cuda, select_octave_candidates_plain)
+    from sfm_tpu_torch.features.frontend import _octave_budget
+    from sfm_tpu_torch.features.pyramid import build_pyramid_cuda
+
+    fc = cfg.features
+    _, dogs = build_pyramid_cuda(images, num_octaves=fc.num_octaves,
+                                 scales_per_octave=fc.scales_per_octave, sigma0=fc.sigma0,
+                                 assumed_blur=fc.assumed_blur, upsample=fc.upsample_first_octave)
+    ct, et = fc.contrast_threshold, fc.edge_threshold
+    worst, ms, plain_ms, moved, ops = 0.0, 0.0, 0.0, 0, 0
+    for o in (1, 0):
+        dog = dogs[o].contiguous()
+        score = dog_extrema_scores_cuda(dog, ct, et)["score"]
+        budget = _octave_budget(fc.max_keypoints, o)
+        ck = select_octave_candidates_cuda({"score": score}, budget)
+        cp = select_octave_candidates_plain({"score": score}, budget)
+        rargs = lambda c: (dog, c["layer"], c["y"], c["x"], c["score"], ct, et)
+        rk, rp = dog_refine_cuda(*rargs(ck)), dog_refine_plain(*rargs(cp))
+        torch.cuda.synchronize()
+        # Tolerance: the candidates (layer, y, x, score) identical and in the
+        # same order; the refined offsets and gated scores bit-identical (every
+        # operation rounded as the twin rounds it), or else the largest
+        # difference is printed and the gated sets must be equal.
+        for key in ("layer", "y", "x", "score"):
+            check(torch.equal(ck[key], cp[key]), f"K4 dog_select octave {o - 1}: {key} differs")
+        exact = all(torch.equal(a, b) for a, b in zip(rk, rp))
+        diff = max(float((a - b).abs().max()) for a, b in zip(rk, rp))
+        if not exact:
+            check(torch.equal(rk[3] > 0, rp[3] > 0), f"K4 dog_refine octave {o - 1}: gated sets")
+        log(f"K4 dog_select octave {o - 1} {tuple(score.shape)}: {budget} candidates "
+            f"identical in order ({int((ck['score'] > 0).sum())} nonzero); dog_refine "
+            f"{'bit-identical' if exact else f'max difference {diff:.3g}, equal gated sets'} "
+            f"({int((rk[3] > 0).sum())} kept)")
+        worst = max(worst, diff)
+        sk = time_ms(torch, lambda: select_octave_candidates_cuda({"score": score}, budget))
+        rkm = time_ms(torch, lambda: dog_refine_cuda(*rargs(ck)))
+        sp = time_ms(torch, lambda: select_octave_candidates_plain({"score": score}, budget))
+        rpm = time_ms(torch, lambda: dog_refine_plain(*rargs(cp)))
+        log(f"  octave {o - 1}: dog_select {sk:.4f} ms (plain torch {sp:.4f} ms); dog_refine "
+            f"{rkm:.4f} ms (plain torch {rpm:.4f} ms)")
+        ms, plain_ms = ms + sk + rkm, plain_ms + sp + rpm
+        # Selection: every score read once, the candidates written; a compare
+        # per pixel for the block maxima and 5 passes over them. Refinement:
+        # 27 values gathered and ~120 FLOP per candidate.
+        n1 = score.numel() // 16
+        K = ck["score"].numel()
+        moved += nbytes(score, *ck.values()) + K * (27 * 4 + 28) + nbytes(*rk)
+        ops += score.numel() + 5 * n1 + 120 * K
+    return result(worst, ms, plain_ms, moved, ops)
+
+
+def phase_topk(torch, dev, cfg):
+    """K4's topk_rows at the frontend's global keypoint selection (12 images
+    x every octave's budget -> max_keypoints, with planted ties and the -1
+    rows of invalid candidates) and the sweep's match compaction (32 pairs x
+    2,048 -> 1,024, -inf padding)."""
+    from sfm_tpu_torch.estimators.ransac import top_k_cuda, top_k_plain
+    from sfm_tpu_torch.features.frontend import _octave_budget
+
+    fc = cfg.features
+    g = torch.Generator(device=dev).manual_seed(8)
+    n = sum(_octave_budget(fc.max_keypoints, o) for o in range(fc.num_octaves))
+    x1 = torch.round(torch.rand(12, n, generator=g, device=dev) * 200) / 200
+    x1 = torch.where(torch.rand(12, n, generator=g, device=dev) < 0.3, -1.0, x1)
+    x2 = -torch.rand(32, 2048, generator=g, device=dev) * 4
+    x2 = torch.where(torch.rand(32, 2048, generator=g, device=dev) < 0.6, -torch.inf, x2)
+    ms = plain_ms = lib_ms = 0.0
+    moved = ops = 0
+    for x, k in ((x1, fc.max_keypoints), (x2, 1024)):
+        vk, ik = top_k_cuda(x, k)
+        vp, ip = top_k_plain(x, k)
+        torch.cuda.synchronize()
+        # Tolerance: values and indices identical (lax.top_k's order).
+        check(torch.equal(vk, vp) and torch.equal(ik, ip), f"K4 topk_rows {tuple(x.shape)} k={k}")
+        ms += time_ms(torch, lambda: top_k_cuda(x, k))
+        plain_ms += time_ms(torch, lambda: top_k_plain(x, k))
+        lib_ms += time_ms(torch, lambda: torch.topk(x, k))
+        moved += nbytes(x) + x.shape[0] * k * 8
+        ops += 5 * x.numel()
+    log(f"K4 topk_rows: identical to the stable sort at {tuple(x1.shape)} k={fc.max_keypoints} "
+        f"and {tuple(x2.shape)} k=1024; {ms:.4f} ms (plain torch {plain_ms:.4f} ms, "
+        f"torch.topk {lib_ms:.4f} ms)")
+    return result(0.0, ms, plain_ms, moved, ops, library_ms=lib_ms)
 
 
 # ---------------------------------------------------------------- ground truth
@@ -784,7 +1193,7 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a card")
-    if not (REPO / "sfm_tpu_torch" / "csrc").is_dir() or not (REPO / "scripts").is_dir():
+    if not (REPO / "sfm_tpu_torch" / "csrc").is_dir():
         raise SystemExit(f"chip_smoke: {REPO} is not a checkout of the repository")
     sys.path.insert(0, str(REPO))
     import numpy as np
@@ -799,7 +1208,7 @@ def main(argv=None) -> int:
 
     render = subprocess.Popen(
         [sys.executable, "-c",
-         "import sys; sys.path.insert(0, 'scripts'); from render_scene import render_dataset; "
+         "import sys; from sfm_tpu_torch.render_scene import render_dataset; "
          "[render_dataset(d, int(n), supersample=1, log=print) "
          "for d, n in zip(sys.argv[1::2], sys.argv[2::2])]",
          str(scene), str(args.views), str(large), str(args.large_views)], cwd=REPO)
@@ -834,7 +1243,8 @@ def main(argv=None) -> int:
         return counts, wall
 
     try:
-        from sfm_tpu_torch._shared import SfMConfig, VerifyConfig, load_image_gray_u8
+        from sfm_tpu_torch.config import SfMConfig, VerifyConfig
+        from sfm_tpu_torch.io.images import load_image_gray_u8
         from sfm_tpu_torch.device import resolve_device
 
         dev = resolve_device("cuda")
@@ -847,13 +1257,15 @@ def main(argv=None) -> int:
                 log("  ptxas: " + line.split("ptxas info    : ")[-1])
 
         results = {"match_top2": phase_match_top2(torch, dev),
-                   "fmat_score_select": phase_fmat(torch, np, dev),
                    "pnp_ransac": phase_pnp(torch, np, dev),
+                   "pnp_refine": phase_pnp_refine(torch, np, dev),
                    "triangulate_tracks": phase_triangulate(torch, np, dev),
                    "retrieval_score": phase_retrieval_score(torch, np, dev),
                    "guided_match": phase_guided_match(torch, dev),
                    "seed_score": phase_seed_score(torch, np, dev)}
+        results["fmat_score_select"], results["fmat_solve"] = phase_fmat(torch, np, dev)
         results["ba_linearize"], results["schur_coupling"] = phase_ba(torch, np, dev)
+        results["schur_damp"] = phase_schur_damp(torch, np, dev)
         torch.cuda.empty_cache()
         wait_for(scene)
         cfg = SfMConfig()
@@ -863,25 +1275,29 @@ def main(argv=None) -> int:
         results["pyramid"] = phase_pyramid(torch, dev, images, cfg)
         results["dog_extrema"] = phase_dog_extrema(torch, dev, images[:1], cfg)
         results["sift_describe"] = phase_describe(torch, dev, images[:1], cfg)
+        results["dog_select"] = phase_dog_select(torch, dev, images, cfg)
+        results["topk_rows"] = phase_topk(torch, dev, cfg)
         del images
         torch.cuda.empty_cache()
         launches = {k: 0 for k in _kernels.KERNELS}
+        by_path = {}
 
-        def add(counts):
+        def add(counts, path):
+            by_path[path] = counts
             for k, v in counts.items():
                 launches[k] += v
 
         # ---- path a: python -m sfm_tpu_torch preprocess --device cuda
         c, pre_wall = run_path("preprocess", ["preprocess", "--data_dir", str(scene),
                                               "--output_dir", str(out)], PREPROCESS_KERNELS)
-        add(c)
+        add(c, "preprocess")
         pre_metrics = stage_seconds(out)
         pre_peak = torch.cuda.max_memory_allocated()
 
         # ---- path b: python -m sfm_tpu_torch reconstruct --device cuda (default config)
         c, rec_wall = run_path("reconstruct", ["reconstruct", "--data_dir", str(scene),
                                                "--output_dir", str(out)], RECONSTRUCT_KERNELS)
-        add(c)
+        add(c, "reconstruct")
         rec_metrics = stage_seconds(out)
         rec_peak = torch.cuda.max_memory_allocated()
 
@@ -900,7 +1316,7 @@ def main(argv=None) -> int:
         c, _ = run_path("rescue", ["reconstruct", "--data_dir", str(scene), "--output_dir",
                                    str(rescue), "--config", str(rescue / "config.json")],
                         RESCUE_KERNELS)
-        add(c)
+        add(c, "rescue")
         rescue_metrics = stage_seconds(rescue)
 
         # ---- path d: python -m sfm_tpu_torch pipeline on the retrieval-scale scene
@@ -914,7 +1330,7 @@ def main(argv=None) -> int:
               "the exhaustive preprocess failed")
         c, large_wall = run_path("pipeline", ["pipeline", "--data_dir", str(large),
                                               "--output_dir", str(out_large)], LARGE_KERNELS)
-        add(c)
+        add(c, "pipeline")
         large_metrics = stage_seconds(out_large)
         large_peak = torch.cuda.max_memory_allocated()
     finally:
@@ -975,7 +1391,7 @@ def main(argv=None) -> int:
     check(recall >= 0.95, f"retrieval recall {recall:.4f} of the exhaustive accepted pairs")
     ls = json.loads((out_large / "reconstruction" / "stats.json").read_text())
     check_model(ls, L, "pipeline")
-    from sfm_tpu_torch._shared import build_tracks
+    from sfm_tpu_torch.reconstruction.tracks import build_tracks
 
     tracks = build_tracks(bt, big["xy"], L)
     check("jax" not in sys.modules and "sfm_tpu" not in sys.modules, "JAX was imported")
@@ -1016,12 +1432,19 @@ def main(argv=None) -> int:
     log("launches by entry, all paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     kernels = []
     for name, (entries, source, replaces) in KERNELS.items():
-        err, ms, plain_ms = results[name]
+        r = results[name]
         n = sum(launches[e] for e in entries)
-        log(f"{name}: {ms:.4f} ms (plain torch {plain_ms:.4f} ms), {n} launches in the main path")
+        per_path = {path: sum(c[e] for e in entries) for path, c in by_path.items()}
+        bound_ms, bound_by = bound(r)
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"{name}: {r['ms']:.4f} ms (plain torch {r['plain_ms']:.4f} ms, library {lib}, "
+            f"bound {bound_ms:.4f} ms by {bound_by}: {r['bytes']} B, {r['ops']} op), {n} "
+            f"launches in the main path ({per_path})")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": n,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "replaces": replaces, "launches": n, "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": r["library_ms"],
+                        "launches_by_path": per_path, "entries": list(entries)})
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -49,11 +49,21 @@ SIGNATURES = {
     "sfm_guided_match": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
     "sfm_build_pyramid": [_P] + [_I] * 6 + [_P] * 5 + [_P],
     "sfm_seed_score": [_P] * 5 + [_I] * 2 + [_P] * 5 + [_P],
+    "sfm_pnp_refine": [_P] * 7 + [_I, _I, _F, _P, _I] + [_P] * 7 + [_P],
+    "sfm_schur_damp": [_P] * 14 + [_I] * 4 + [_F] + [_P] * 5 + [_P],
+    "sfm_schur_back_substitute": [_P] * 11 + [_I] * 3 + [_P] + [_P],
+    "sfm_fmat_hypotheses": [_P] * 3 + [_I] * 3 + [_P] + [_P],
+    "sfm_fmat_refit_verify": [_P] * 5 + [_I] * 3 + [_F, _I, _F, _F, _F] + [_P] * 10 + [_P],
+    "sfm_dog_select": [_P] + [_I] * 5 + [_P] * 10 + [_P],
+    "sfm_dog_refine": [_P] + [_I] * 4 + [_P] * 4 + [_I] + [_F] * 3 + [_P] * 4 + [_P],
+    "sfm_topk_rows": [_P] + [_I] * 3 + [_P] * 2 + [_P],
 }
 KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
            "ba_linearize", "ba_cost", "schur_coupling", "triangulate_tracks",
            "reproj_stats", "p3p_solve", "pnp_score_select", "retrieval_score",
-           "guided_match", "build_pyramid", "seed_score")
+           "guided_match", "build_pyramid", "seed_score", "pnp_refine", "schur_damp",
+           "schur_back_substitute", "fmat_hypotheses", "fmat_refit_verify", "dog_select",
+           "dog_refine", "topk_rows")
 
 _launches = {k: 0 for k in KERNELS}
 _lib = None

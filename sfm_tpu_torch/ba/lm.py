@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sfm_tpu_torch._shared import BAConfig
+from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.ba.problem import BAProblem
 from sfm_tpu_torch.ba.residuals import total_huber_cost
 from sfm_tpu_torch.ba.schur import (
@@ -105,9 +105,9 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
     it = n_acc = 0
     done = False
     while it < config.max_iterations and not done:
-        op, rhs_c, rhs_k = damp_operator(lin, float(lam))
+        op, rhs_c, rhs_k = damp_operator(lin, float(lam), perm, perm_valid)
         xc, xk = dense_schur_direct(op, lin, rhs_c, rhs_k, perm, perm_valid)
-        dp = back_substitute(lin, op, xc, xk)
+        dp = back_substitute(lin, op, xc, xk, perm, perm_valid)
         cand = (rvec + xc[:, :3], tvec + xc[:, 3:6], intr + xk, points + dp)
         new_cost = float(total_cost(*cand))          # the one host sync per iteration
         accept = new_cost < cost

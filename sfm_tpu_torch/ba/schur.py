@@ -7,13 +7,17 @@ Counterpart of ``sfm_tpu/ba/schur.py`` on the path the main path runs
   parameters (whitened Jacobians, undamped U/V blocks, gradients) -- kernel
   K8+K9 (``csrc/ba_linearize.cu``) on a CUDA tensor; on a CPU tensor its
   twin, ``residuals_and_jacobians`` + :func:`linearize_system`;
-* :func:`damp_operator` applies a given lambda (O(obs) torch passes);
+* :func:`damp_operator` applies a given lambda -- kernel K10's
+  ``schur_damp`` (``csrc/schur_damp.cu``: the adjugate inverses of the damped
+  point blocks and the reduced right-hand side, walking the grouping), its
+  twin :func:`schur_damp_plain`;
 * :func:`dense_schur_direct` assembles the reduced camera + intrinsics
   system S from the per-point co-observation grouping
   (:func:`coobs_pairs`) -- the coupling accumulation is kernel K10
   (``csrc/schur_coupling.cu``), its twin :func:`schur_matrix_plain` -- and
   solves it by Cholesky (``torch.linalg.cholesky_ex``, a library call);
-* :func:`back_substitute` recovers the point step.
+* :func:`back_substitute` recovers the point step -- K10's
+  ``schur_back_substitute``, its twin :func:`schur_back_substitute_plain`.
 
 Not ported: the one-hot (O, C) camera reduction (a TPU matmul trick),
 ``dense_schur_solve`` and the matrix-free PCG path (more than
@@ -144,8 +148,9 @@ def linearize(*args):
     raise ValueError(f"linearize: unsupported device {dev}")
 
 
-def damp_operator(lin: Linearization, lam: float):
-    """Apply LM damping at ``lam``; returns (Damped, rhs_c (C,6), rhs_k (4,))."""
+def schur_damp_plain(lin: Linearization, lam: float, perm=None, perm_valid=None):
+    """Apply LM damping at ``lam``; returns (Damped, rhs_c (C,6), rhs_k (4,)).
+    Plain twin of kernel K10's ``schur_damp`` (the grouping is not needed)."""
     dt, dev = lin.U.dtype, lin.U.device
     diagV = torch.diagonal(lin.V, dim1=-2, dim2=-1)
     Vd = lin.V + (lam * diagV + _EPS)[..., None] * torch.eye(3, dtype=dt, device=dev)
@@ -161,6 +166,50 @@ def damp_operator(lin: Linearization, lam: float):
                                 lin.U.shape[0])
     rhs_k = -lin.g_k + torch.einsum("oci,oc->i", lin.Jk, y_o)
     return Damped(Vinv=Vinv, lam_diag_c=lam_diag_c, lam_diag_k=lam_diag_k), rhs_c, rhs_k
+
+
+def _check_system(lin: Linearization, perm, perm_valid, extra=()):
+    """Check the Linearization tensors a K10 kernel reads (and ``extra``)."""
+    C, P, O = lin.U.shape[0], lin.V.shape[0], lin.Jc.shape[0]
+    G, Vs = perm.shape
+    dev, f32 = lin.U.device, torch.float32
+    for name, x, dt, shape in (
+            ("Jc", lin.Jc, f32, (O, 2, 6)), ("Jk", lin.Jk, f32, (O, 2, 4)),
+            ("Jp", lin.Jp, f32, (O, 2, 3)), ("obs_cam", lin.obs_cam, torch.int32, (O,)),
+            ("obs_point", lin.obs_point, torch.int32, (O,)), ("g_p", lin.g_p, f32, (P, 3)),
+            ("perm", perm, torch.int32, (G, Vs)),
+            ("perm_valid", perm_valid, torch.bool, (G, Vs)), *extra):
+        _kernels.check_tensor(x, name, dt, shape, dev)
+    return C, P, G, Vs
+
+
+def schur_damp_cuda(lin: Linearization, lam: float, perm, perm_valid):
+    C, P = lin.U.shape[0], lin.V.shape[0]
+    dev, f32 = lin.U.device, torch.float32
+    _, _, G, Vs = _check_system(lin, perm, perm_valid, (
+        ("V", lin.V, f32, (P, 3, 3)), ("point_valid", lin.point_valid, torch.bool, (P,)),
+        ("U", lin.U, f32, (C, 6, 6)), ("Uk", lin.Uk, f32, (4, 4)), ("g_c", lin.g_c, f32, (C, 6)),
+        ("g_k", lin.g_k, f32, (4,))))
+    e = lambda *s: torch.empty(s, dtype=f32, device=dev)
+    Vinv, lam_diag_c, lam_diag_k, rhs_c, rhs_k = e(P, 3, 3), e(C, 6), e(4), e(C, 6), e(4)
+    _kernels.launch("schur_damp", dev, lin.V, lin.point_valid, lin.U, lin.Uk, lin.g_c, lin.g_k,
+                    lin.g_p, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam, lin.obs_point, perm,
+                    perm_valid, P, C, G, Vs, float(lam), Vinv, lam_diag_c, lam_diag_k, rhs_c,
+                    rhs_k)
+    return Damped(Vinv=Vinv, lam_diag_c=lam_diag_c, lam_diag_k=lam_diag_k), rhs_c, rhs_k
+
+
+def damp_operator(lin: Linearization, lam: float, perm, perm_valid):
+    """Kernel K10 ``schur_damp`` on CUDA tensors, :func:`schur_damp_plain` on CPU.
+
+    perm / perm_valid: the :func:`coobs_pairs` grouping, which the kernel
+    walks for the reduced right-hand side."""
+    dev = lin.U.device
+    if dev.type == "cuda":
+        return schur_damp_cuda(lin, lam, perm, perm_valid)
+    if dev.type == "cpu":
+        return schur_damp_plain(lin, lam, perm, perm_valid)
+    raise ValueError(f"damp_operator: unsupported device {dev}")
 
 
 def coobs_pairs(obs_point, obs_valid, v_bucket: int = 8):
@@ -277,8 +326,33 @@ def dense_schur_direct(op: Damped, lin: Linearization, rhs_c, rhs_k, perm, perm_
     return x[: 6 * C].reshape(C, 6), x[6 * C:]
 
 
-def back_substitute(lin: Linearization, op: Damped, xc, xk):
-    """Point step: dp = Vinv (-g_p - W^T dx)."""
+def schur_back_substitute_plain(lin: Linearization, op: Damped, xc, xk, perm=None,
+                                perm_valid=None):
+    """Point step: dp = Vinv (-g_p - W^T dx). Plain twin of kernel K10's
+    ``schur_back_substitute`` (the grouping is not needed)."""
     a = (lin.Jc @ xc[lin.obs_cam.long()][..., None])[..., 0] + lin.Jk @ xk
     u_p = _seg_sum((lin.Jp.mT @ a[..., None])[..., 0], lin.obs_point, op.Vinv.shape[0])
     return (op.Vinv @ (-lin.g_p - u_p)[..., None])[..., 0]
+
+
+def schur_back_substitute_cuda(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
+    C, P = lin.U.shape[0], lin.V.shape[0]
+    f32 = torch.float32
+    _, _, G, Vs = _check_system(lin, perm, perm_valid, (
+        ("Vinv", op.Vinv, f32, (P, 3, 3)), ("xc", xc, f32, (C, 6)), ("xk", xk, f32, (4,))))
+    dp = torch.empty((P, 3), dtype=f32, device=xc.device)
+    _kernels.launch("schur_back_substitute", xc.device, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
+                    lin.obs_point, perm, perm_valid, op.Vinv, lin.g_p, xc, xk, P, G, Vs, dp)
+    return dp
+
+
+def back_substitute(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
+    """Kernel K10 ``schur_back_substitute`` on CUDA tensors (deterministic: one
+    thread per grouping row, no atomics), its plain twin on CPU tensors."""
+    dev = xc.device
+    if dev.type == "cuda":
+        return schur_back_substitute_cuda(lin, op, xc.contiguous(), xk.contiguous(), perm,
+                                          perm_valid)
+    if dev.type == "cpu":
+        return schur_back_substitute_plain(lin, op, xc, xk, perm, perm_valid)
+    raise ValueError(f"back_substitute: unsupported device {dev}")

@@ -19,7 +19,7 @@ import sys
 import time
 from pathlib import Path
 
-from sfm_tpu_torch._shared import SfMConfig
+from sfm_tpu_torch.config import SfMConfig
 from sfm_tpu_torch.pipeline import PipelineArgs, SfMPipeline
 
 

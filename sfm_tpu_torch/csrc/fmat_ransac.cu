@@ -15,8 +15,8 @@
 // images, valid flag) sits in shared memory; one thread per hypothesis walks the
 // points and accumulates count and error sum; a block argmax picks the winner.
 //
-// Semantics: ransac_select's (sfm_common.cuh, shared with K6). The error follows
-// epipolar.py::symmetric_epipolar_distance term for term.
+// Semantics: ransac_select's and the epipolar distance of sfm_common.cuh (shared
+// with K6 and fmat_solve.cu).
 #include <climits>
 
 #include "sfm_common.cuh"
@@ -57,19 +57,7 @@ __global__ void __launch_bounds__(NT) fmat_score_select_kernel(
     float err_sum = 0.f;
     for (int n = 0; n < N; ++n) {
       if (!sv[n]) continue;
-      const float x = sx1[n], y = sy1[n], u = sx2[n], v = sy2[n];
-      // l1 = F^T x2 (lines in image 1), l2 = F x1 (lines in image 2).
-      const float l10 = f[0] * u + f[3] * v + f[6];
-      const float l11 = f[1] * u + f[4] * v + f[7];
-      const float l12 = f[2] * u + f[5] * v + f[8];
-      const float l20 = f[0] * x + f[1] * y + f[2];
-      const float l21 = f[3] * x + f[4] * y + f[5];
-      const float l22 = f[6] * x + f[7] * y + f[8];
-      const float d1 = fabsf(l10 * x + l11 * y + l12) /
-                       fmaxf(sqrtf(l10 * l10 + l11 * l11), 1e-12f);
-      const float d2 = fabsf(l20 * u + l21 * v + l22) /
-                       fmaxf(sqrtf(l20 * l20 + l21 * l21), 1e-12f);
-      const float err = 0.5f * (d1 + d2);
+      const float err = sfm_sym_epipolar(f, sx1[n], sy1[n], sx2[n], sy2[n]);
       if (err < thr) {
         ++count;
         err_sum += err;

@@ -30,6 +30,49 @@ __device__ __forceinline__ float sfm_lerp_rn(float a, float b, float f) {
   return __fadd_rn(__fmul_rn(__fsub_rn(1.f, f), a), __fmul_rn(f, b));
 }
 
+// v clamped into [0, hi]: an index from outside never reads past its rows.
+__device__ __forceinline__ int64_t sfm_clamp_index(int64_t v, int64_t hi) {
+  return v < 0 ? 0 : (v > hi ? hi : v);
+}
+
+// Block-wide sums of M floats per thread (warp shuffles, then the warps in a
+// fixed order: deterministic); every thread gets the result. red holds
+// NT / 32 x M floats; every thread of the block must call it.
+template <int NT, int M>
+__device__ __forceinline__ void sfm_block_sum(float* v, float (*red)[M]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v[m] += __shfl_xor_sync(0xffffffffu, v[m], off);
+  if (lane == 0)
+#pragma unroll
+    for (int m = 0; m < M; ++m) red[warp][m] = v[m];
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    float s = 0.f;
+    for (int k = 0; k < NT / 32; ++k) s += red[k][m];
+    v[m] = s;
+  }
+  __syncthreads();
+}
+
+// epipolar.py::symmetric_epipolar_distance of one row (x, y) <-> (u, v)
+// under the row-major F: lines F^T x2 in image 1 and F x1 in image 2.
+__device__ __forceinline__ float sfm_sym_epipolar(const float* f, float x, float y, float u,
+                                                  float v) {
+  const float l10 = f[0] * u + f[3] * v + f[6];
+  const float l11 = f[1] * u + f[4] * v + f[7];
+  const float l12 = f[2] * u + f[5] * v + f[8];
+  const float l20 = f[0] * x + f[1] * y + f[2];
+  const float l21 = f[3] * x + f[4] * y + f[5];
+  const float l22 = f[6] * x + f[7] * y + f[8];
+  const float d1 = fabsf(l10 * x + l11 * y + l12) / fmaxf(sqrtf(l10 * l10 + l11 * l11), 1e-12f);
+  const float d2 = fabsf(l20 * u + l21 * v + l22) / fmaxf(sqrtf(l20 * l20 + l21 * l21), 1e-12f);
+  return 0.5f * (d1 + d2);
+}
+
 // ---- RANSAC selection shared by K2 (fmat_ransac.cu) and K6 (pnp_ransac.cu).
 //
 // ransac_select's rule: inliers are valid rows with error < threshold; the

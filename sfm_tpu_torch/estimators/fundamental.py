@@ -1,11 +1,15 @@
-"""Fundamental-matrix RANSAC, batched over image pairs.
+"""Fundamental-matrix RANSAC, batched over image pairs, and the verify gates.
 
-Counterpart of ``sfm_tpu/estimators/fundamental.py``. Hypotheses are solved
-by the eight-point solver in plain torch; scoring every hypothesis against
-the scoring subset and picking the winner is kernel K2
-(``csrc/fmat_ransac.cu``), whose plain twin is :func:`fmat_score_select_plain`.
-The winner's consensus over the full set, the weighted rank-2 refit and the
-final inliers are plain torch again.
+Counterpart of ``sfm_tpu/estimators/fundamental.py`` (and of the gates of
+``sfm_tpu/matching/verify.py::verify_pair``). Kernel K2 runs every device
+step in three launches: ``fmat_hypotheses`` (``csrc/fmat_solve.cu``: the
+eight-point solve of every RANSAC sample), ``fmat_score_select``
+(``csrc/fmat_ransac.cu``: every hypothesis scored on the scoring subset, the
+winner picked) and ``fmat_refit_verify`` (``csrc/fmat_solve.cu``: the
+winner's consensus over all rows, the weighted rank-2 refit, the final
+inliers and the verify gates). Their plain twins are
+:func:`fmat_hypotheses_plain`, :func:`fmat_score_select_plain` and
+:func:`fmat_refit_verify_plain`.
 """
 from __future__ import annotations
 
@@ -17,6 +21,42 @@ from sfm_tpu_torch.estimators.ransac import ransac_sample_indices, ransac_select
 
 # One thread block holds the scoring subset in shared memory (5 floats a row).
 _K2_MAX_POINTS = 2048
+# fmat_refit_verify: one thread block holds a pair's rows in shared memory.
+_K2_MAX_ROWS = 1024
+_EPS = 1e-12
+
+
+def fmat_hypotheses_plain(pts1, pts2, indices):
+    """Eight-point F of every sample: pts (B, N, 2), indices (B, H, 8) ->
+    (B, H, 3, 3) unit-norm, rank 2 not enforced (3 inverse-iteration steps,
+    no fallback tier: a degenerate sample gives junk that scores no consensus)."""
+    B = pts1.shape[0]
+    flat = indices.reshape(B, -1)
+    gather = lambda p: torch.gather(p, 1, flat[..., None].expand(-1, -1, 2)).reshape(
+        indices.shape + (2,))
+    return eight_point(gather(pts1), gather(pts2), enforce_rank2=False, null_iters=3,
+                       null_fallback=False)
+
+
+def fmat_hypotheses_cuda(pts1, pts2, indices):
+    B, N = pts1.shape[:2]
+    H = indices.shape[1]
+    dev = pts1.device
+    _kernels.check_tensor(pts1, "pts1", torch.float32, (B, N, 2), dev)
+    _kernels.check_tensor(pts2, "pts2", torch.float32, (B, N, 2), dev)
+    _kernels.check_tensor(indices, "indices", torch.int64, (B, H, 8), dev)
+    Fs = torch.empty((B, H, 3, 3), dtype=torch.float32, device=dev)
+    _kernels.launch("fmat_hypotheses", dev, pts1, pts2, indices, B, H, N, Fs)
+    return Fs
+
+
+def fmat_hypotheses(pts1, pts2, indices):
+    """Kernel K2 ``fmat_hypotheses`` on CUDA tensors, its plain twin on CPU."""
+    if pts1.is_cuda:
+        return fmat_hypotheses_cuda(pts1, pts2, indices)
+    if pts1.device.type == "cpu":
+        return fmat_hypotheses_plain(pts1, pts2, indices)
+    raise ValueError(f"fmat_hypotheses: unsupported device {pts1.device}")
 
 
 def fmat_score_select_plain(Fs, pts1, pts2, valid, threshold: float):
@@ -52,6 +92,89 @@ def fmat_score_select(Fs, pts1, pts2, valid, threshold: float):
     raise ValueError(f"fmat_score_select: unsupported device {Fs.device}")
 
 
+def _masked_std(x, w):
+    """Weighted std over the last axis."""
+    n = torch.clamp(w.sum(-1), min=_EPS)
+    mean = (x * w).sum(-1) / n
+    var = (w * (x - mean[..., None]) ** 2).sum(-1) / n
+    return torch.sqrt(var)
+
+
+def fmat_refit_verify_plain(Fs, best, pts1, pts2, valid, threshold: float,
+                            min_inliers: int = 15, min_inlier_ratio: float = 0.3,
+                            max_reproj_error: float = 2.0, min_spread: float = 20.0):
+    """From the winner ``best`` (B,) of the hypotheses Fs (B, H, 3, 3) on:
+    its consensus over all (B, N) rows, the weighted eight-point refit with
+    rank 2, the final inliers, and ``verify_pair``'s gates (>= 8 valid rows,
+    inlier count and ratio, mean inlier error, point spread on both axes of
+    both images). Returns F, inliers, errors, num_matches, num_inliers,
+    inlier_ratio, reprojection_error, well_distributed, accept, ok."""
+    B = valid.shape[0]
+    ok = valid.sum(-1) >= 8
+    F_best = Fs[torch.arange(B, device=Fs.device), best]
+    err_h = symmetric_epipolar_distance(F_best, pts1, pts2)
+    w = ((err_h < threshold) & valid).to(torch.float32)
+    F = eight_point(pts1, pts2, w)
+    final_err = symmetric_epipolar_distance(F, pts1, pts2)
+    inl = (final_err < threshold) & valid & ok[:, None]
+
+    wi = inl.to(torch.float32)
+    n_matches = valid.sum(-1, dtype=torch.int32)
+    n_inl = inl.sum(-1, dtype=torch.int32)
+    ratio = n_inl.to(torch.float32) / torch.clamp(n_matches.to(torch.float32), min=1.0)
+    mean_err = torch.where(inl, final_err, 0.0).sum(-1) / torch.clamp(
+        n_inl.to(torch.float32), min=1.0)
+    spread_ok = (
+        (_masked_std(pts1[..., 0], wi) > min_spread)
+        & (_masked_std(pts1[..., 1], wi) > min_spread)
+        & (_masked_std(pts2[..., 0], wi) > min_spread)
+        & (_masked_std(pts2[..., 1], wi) > min_spread)
+    )
+    accept = (ok & (n_inl >= min_inliers) & (ratio >= min_inlier_ratio)
+              & (mean_err <= max_reproj_error) & spread_ok)
+    return {"F": F, "inliers": inl, "errors": final_err, "num_matches": n_matches,
+            "num_inliers": n_inl, "inlier_ratio": ratio, "reprojection_error": mean_err,
+            "well_distributed": spread_ok, "accept": accept, "ok": ok}
+
+
+def fmat_refit_verify_cuda(Fs, best, pts1, pts2, valid, threshold: float,
+                           min_inliers: int = 15, min_inlier_ratio: float = 0.3,
+                           max_reproj_error: float = 2.0, min_spread: float = 20.0):
+    B, H = Fs.shape[:2]
+    N = pts1.shape[1]
+    dev = Fs.device
+    if N > _K2_MAX_ROWS:
+        raise ValueError(f"fmat_refit_verify: N={N} exceeds {_K2_MAX_ROWS}")
+    _kernels.check_tensor(Fs, "Fs", torch.float32, (B, H, 3, 3), dev)
+    _kernels.check_tensor(best, "best", torch.int64, (B,), dev)
+    _kernels.check_tensor(pts1, "pts1", torch.float32, (B, N, 2), dev)
+    _kernels.check_tensor(pts2, "pts2", torch.float32, (B, N, 2), dev)
+    _kernels.check_tensor(valid, "valid", torch.bool, (B, N), dev)
+    e = lambda dt, *s: torch.empty(s, dtype=dt, device=dev)
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    out = {"F": e(f32, B, 3, 3), "inliers": e(b8, B, N), "errors": e(f32, B, N),
+           "num_matches": e(i32, B), "num_inliers": e(i32, B), "inlier_ratio": e(f32, B),
+           "reprojection_error": e(f32, B), "well_distributed": e(b8, B), "accept": e(b8, B),
+           "ok": e(b8, B)}
+    _kernels.launch("fmat_refit_verify", dev, Fs, best, pts1, pts2, valid, B, H, N,
+                    float(threshold), int(min_inliers), float(min_inlier_ratio),
+                    float(max_reproj_error), float(min_spread), *out.values())
+    return out
+
+
+def fmat_refit_verify(Fs, best, pts1, pts2, valid, threshold: float, min_inliers: int = 15,
+                      min_inlier_ratio: float = 0.3, max_reproj_error: float = 2.0,
+                      min_spread: float = 20.0):
+    """Kernel K2 ``fmat_refit_verify`` on CUDA tensors, its plain twin on CPU."""
+    args = (Fs, best, pts1, pts2, valid, threshold, min_inliers, min_inlier_ratio,
+            max_reproj_error, min_spread)
+    if Fs.is_cuda:
+        return fmat_refit_verify_cuda(*args)
+    if Fs.device.type == "cpu":
+        return fmat_refit_verify_plain(*args)
+    raise ValueError(f"fmat_refit_verify: unsupported device {Fs.device}")
+
+
 def estimate_fundamental_ransac(
     pts1,
     pts2,
@@ -62,30 +185,29 @@ def estimate_fundamental_ransac(
     score_budget: int = 0,
     generator: torch.Generator | None = None,
     indices: torch.Tensor | None = None,
+    min_inliers: int = 15,
+    min_inlier_ratio: float = 0.3,
+    max_reproj_error: float = 2.0,
+    min_spread: float = 20.0,
 ):
-    """Robust F for a batch of padded correspondence sets.
+    """Robust F for a batch of padded correspondence sets, and its gates.
 
     pts1, pts2: (B, N, 2); valid: (B, N) bool. ``indices`` (B, iters, 8)
-    replaces the draw from ``generator`` when given. Returns a dict of
-    F (B, 3, 3), inliers (B, N), num_inliers (B,), errors (B, N), ok (B,).
-    ``score_budget`` > 0 selects hypotheses on the first ``score_budget``
-    rows only; the consensus refit and reported inliers use all rows.
+    replaces the draw from ``generator`` when given. ``score_budget`` > 0
+    selects hypotheses on the first ``score_budget`` rows only; the consensus
+    refit and reported inliers use all rows. Returns the
+    :func:`fmat_refit_verify_plain` dict: F (B, 3, 3), inliers (B, N),
+    num_inliers (B,), errors (B, N), ok (B,) and the verify gates' fields.
     """
-    pts1 = pts1.to(torch.float32)
-    pts2 = pts2.to(torch.float32)
-    valid = valid.to(torch.bool)
-    B, N = valid.shape
-    ok = valid.sum(-1) >= 8
-
+    pts1 = pts1.to(torch.float32).contiguous()
+    pts2 = pts2.to(torch.float32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    N = valid.shape[1]
     if indices is None:
         if generator is None:
             raise ValueError("estimate_fundamental_ransac needs a generator or indices")
         indices = ransac_sample_indices(valid, iters, 8, generator, prefix=prefix_valid)
-    flat = indices.reshape(B, -1)
-    gather = lambda p: torch.gather(p, 1, flat[..., None].expand(-1, -1, 2)).reshape(
-        indices.shape + (2,))
-    s1, s2 = gather(pts1), gather(pts2)          # (B, iters, 8, 2)
-    Fs = eight_point(s1, s2, enforce_rank2=False, null_iters=3, null_fallback=False)
+    Fs = fmat_hypotheses(pts1, pts2, indices.to(torch.int64).contiguous())
 
     if score_budget and score_budget < N:
         sc1, sc2, scv = pts1[:, :score_budget], pts2[:, :score_budget], valid[:, :score_budget]
@@ -93,17 +215,5 @@ def estimate_fundamental_ransac(
         sc1, sc2, scv = pts1, pts2, valid
     best_h, _ = fmat_score_select(Fs.contiguous(), sc1.contiguous(), sc2.contiguous(),
                                   scv.contiguous(), threshold)
-
-    F_best = Fs[torch.arange(B, device=Fs.device), best_h]
-    err_h = symmetric_epipolar_distance(F_best, pts1, pts2)
-    w = ((err_h < threshold) & valid).to(torch.float32)
-    F = eight_point(pts1, pts2, w)
-    final_err = symmetric_epipolar_distance(F, pts1, pts2)
-    inliers = (final_err < threshold) & valid & ok[:, None]
-    return {
-        "F": F,
-        "inliers": inliers,
-        "num_inliers": inliers.sum(-1, dtype=torch.int32),
-        "errors": final_err,
-        "ok": ok,
-    }
+    return fmat_refit_verify(Fs.contiguous(), best_h.contiguous(), pts1, pts2, valid, threshold,
+                             min_inliers, min_inlier_ratio, max_reproj_error, min_spread)

@@ -5,11 +5,14 @@ runs (``PnPConfig.sample_size = 3``, minimal P3P). Kernel K6
 (``csrc/pnp_ransac.cu``) has two entries: ``p3p_solve`` (Grunert's quartic
 by Durand-Kerner, up to 4 poses per sample) and ``pnp_score_select``
 (reprojection error + cheirality of every hypothesis over every
-correspondence, then ``ransac_select``'s winner). Their plain twins are
-:func:`p3p_candidates` and :func:`pnp_score_select_plain`. The two 10-step
-Gauss-Newton refits on the consensus set (:func:`refine_pose_gn`) are plain
-torch on the device (ROADMAP). Samples come from a ``torch.Generator`` or
-are injected (``indices``), so a test can hand both packages the same draws.
+correspondence, then ``ransac_select``'s winner); ``csrc/pnp_refine.cu``
+(entry ``pnp_refine``) runs everything from the winner on in one launch: the
+two 10-step Gauss-Newton refits on the consensus set, the re-derived
+weights, the final inliers and gates. Their plain twins are
+:func:`p3p_candidates`, :func:`pnp_score_select_plain` and
+:func:`pnp_refine_plain` (which keeps ``torch.func.jacfwd``, the reference's
+Jacobian). Samples come from a ``torch.Generator`` or are injected
+(``indices``), so a test can hand both packages the same draws.
 """
 from __future__ import annotations
 
@@ -245,22 +248,33 @@ def pnp_ransac_batch(pts3d, pts2d, valid, K, min_inliers, iters: int = 1024,
                                valid.contiguous(), K, threshold)
 
     ar = torch.arange(B, device=dev)
-    R0, t0, ok0 = Rs[ar, best], ts[ar, best], cand_ok[ar, best]
+    min_inliers = torch.as_tensor(min_inliers, device=dev).expand(B)
+    return pnp_refine(Rs[ar, best].contiguous(), ts[ar, best].contiguous(),
+                      cand_ok[ar, best].contiguous(), pts3d.contiguous(), pts2d.contiguous(),
+                      valid.contiguous(), K, threshold, min_inliers, refine_iters)
+
+
+def pnp_refine_plain(R0, t0, ok0, pts3d, pts2d, valid, K, threshold: float, min_inliers,
+                     iters: int = 10):
+    """From the RANSAC winner (R0 (B,3,3), t0 (B,3), ok0 (B,)) on: GN refit on
+    its consensus set, re-derived weights, a second refit, then the final
+    inliers, the ``min_inliers`` (B,) gate and the finite guard. Plain twin
+    of kernel K6's ``pnp_refine``; returns the :func:`pnp_ransac_batch` dict."""
+    dev = pts3d.device
     proj0, depth0 = project(pts3d, R0[:, None], t0[:, None], K)
     err0 = torch.linalg.vector_norm(proj0 - pts2d, dim=-1)
     w = ((err0 < threshold) & (depth0 > 0) & valid & ok0[:, None]).to(torch.float32)
-    R, t = refine_pose_gn(R0, t0, pts3d, pts2d, K, w, iters=refine_iters)
+    R, t = refine_pose_gn(R0, t0, pts3d, pts2d, K, w, iters=iters)
     proj1, depth1 = project(pts3d, R[:, None], t[:, None], K)
     err1 = torch.linalg.vector_norm(proj1 - pts2d, dim=-1)
     w2 = ((err1 < threshold) & (depth1 > 0) & valid).to(torch.float32)
-    R, t = refine_pose_gn(R, t, pts3d, pts2d, K, w2, iters=refine_iters)
+    R, t = refine_pose_gn(R, t, pts3d, pts2d, K, w2, iters=iters)
 
     projf, depthf = project(pts3d, R[:, None], t[:, None], K)
     err_f = torch.linalg.vector_norm(projf - pts2d, dim=-1)
     inliers = (err_f < threshold) & (depthf > 0) & valid
     num = inliers.sum(-1, dtype=torch.int32)
-    min_inliers = torch.as_tensor(min_inliers, device=dev)
-    ok = num >= min_inliers
+    ok = num >= torch.as_tensor(min_inliers, device=dev)
     # Outputs are finite even for degenerate input; callers gate on ``ok``.
     finite = torch.isfinite(R).all(-1).all(-1) & torch.isfinite(t).all(-1)
     R = torch.where(finite[:, None, None], R, torch.eye(3, dtype=R.dtype, device=dev))
@@ -274,6 +288,42 @@ def pnp_ransac_batch(pts3d, pts2d, valid, K, min_inliers, iters: int = 1024,
         "errors": torch.where(torch.isfinite(err_f), err_f, torch.inf),
         "ok": ok & finite,
     }
+
+
+def pnp_refine_cuda(R0, t0, ok0, pts3d, pts2d, valid, K, threshold: float, min_inliers,
+                    iters: int = 10):
+    B, N = valid.shape
+    dev = pts3d.device
+    if N > _K6_MAX_POINTS:
+        raise ValueError(f"pnp_refine: N={N} exceeds {_K6_MAX_POINTS}")
+    _kernels.check_tensor(R0, "R0", torch.float32, (B, 3, 3), dev)
+    _kernels.check_tensor(t0, "t0", torch.float32, (B, 3), dev)
+    _kernels.check_tensor(ok0, "ok0", torch.bool, (B,), dev)
+    _kernels.check_tensor(pts3d, "pts3d", torch.float32, (B, N, 3), dev)
+    _kernels.check_tensor(pts2d, "pts2d", torch.float32, (B, N, 2), dev)
+    _kernels.check_tensor(valid, "valid", torch.bool, (B, N), dev)
+    min_inl = torch.as_tensor(min_inliers, device=dev).to(torch.int32).expand(B).contiguous()
+    f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    R, rvec, t, errors = f32(B, 3, 3), f32(B, 3), f32(B, 3), f32(B, N)
+    inliers = torch.empty((B, N), dtype=torch.bool, device=dev)
+    num = torch.empty((B,), dtype=torch.int32, device=dev)
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    _kernels.launch("pnp_refine", dev, R0, t0, ok0, pts3d, pts2d, valid, intrinsics_vector(K),
+                    B, N, float(threshold), min_inl, int(iters), R, rvec, t, inliers, num,
+                    errors, ok)
+    return {"R": R, "rvec": rvec, "t": t, "inliers": inliers, "num_inliers": num,
+            "errors": errors, "ok": ok}
+
+
+def pnp_refine(R0, t0, ok0, pts3d, pts2d, valid, K, threshold: float, min_inliers,
+               iters: int = 10):
+    """Kernel K6 ``pnp_refine`` on CUDA tensors, :func:`pnp_refine_plain` on CPU."""
+    args = (R0, t0, ok0, pts3d, pts2d, valid, K, threshold, min_inliers, iters)
+    if R0.is_cuda:
+        return pnp_refine_cuda(*args)
+    if R0.device.type == "cpu":
+        return pnp_refine_plain(*args)
+    raise ValueError(f"pnp_refine: unsupported device {R0.device}")
 
 
 def pnp_ransac(pts3d, pts2d, valid, K, iters: int = 1024, threshold: float = 8.0,

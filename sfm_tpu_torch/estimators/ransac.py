@@ -10,8 +10,13 @@ from __future__ import annotations
 
 import torch
 
+from sfm_tpu_torch import _kernels
 
-def top_k(x: torch.Tensor, k: int):
+# topk_rows sorts a row's top-k survivors in shared memory (8 bytes each).
+_TOPK_MAX_K = 16384
+
+
+def top_k_plain(x: torch.Tensor, k: int):
     """``lax.top_k`` on the last axis: largest first, ties to the lower index.
 
     ``torch.topk`` promises no order among ties; a stable descending sort
@@ -19,6 +24,30 @@ def top_k(x: torch.Tensor, k: int):
     """
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def top_k_cuda(x: torch.Tensor, k: int):
+    n = x.shape[-1]
+    k = min(k, n)
+    if k > _TOPK_MAX_K:
+        raise ValueError(f"top_k: k={k} exceeds {_TOPK_MAX_K}")
+    rows = x.reshape(-1, n).contiguous()
+    _kernels.check_tensor(rows, "x", torch.float32, rows.shape, x.device)
+    vals = torch.empty((rows.shape[0], k), dtype=torch.float32, device=x.device)
+    idx = torch.empty((rows.shape[0], k), dtype=torch.int32, device=x.device)
+    _kernels.launch("topk_rows", x.device, rows, rows.shape[0], n, k, vals, idx)
+    lead = x.shape[:-1]
+    return vals.reshape(lead + (k,)), idx.long().reshape(lead + (k,))
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` on the last axis of a float32 tensor: kernel K4's
+    ``topk_rows`` (``csrc/dog_select.cu``) on CUDA, :func:`top_k_plain` on CPU."""
+    if x.is_cuda:
+        return top_k_cuda(x, k)
+    if x.device.type == "cpu":
+        return top_k_plain(x, k)
+    raise ValueError(f"top_k: unsupported device {x.device}")
 
 
 def ransac_sample_indices(valid, iters: int, sample_size: int,

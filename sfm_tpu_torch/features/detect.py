@@ -4,8 +4,12 @@ Counterpart of ``sfm_tpu/features/detect.py``, batched over images. The
 dense extremum score grid is kernel K4 (``csrc/dog_extrema.cu``); its plain
 twin :func:`dog_extrema_scores_plain` is the transcription of the JAX
 oracle ``_dog_extrema_scores_ref`` (26 strict shifted compares). Selection
-(:func:`select_octave_candidates`) and refinement (:func:`refine_and_gate`)
-are plain torch.
+and refinement are K4's ``dog_select`` and ``dog_refine``
+(``csrc/dog_select.cu``): :func:`select_octave_candidates` and
+:func:`dog_refine` on CUDA tensors, their twins
+:func:`select_octave_candidates_plain` and :func:`dog_refine_plain` (built on
+:func:`refine_and_gate`) on CPU tensors. Both are exact: the same candidates
+in the same order, bit-identical offsets and scores.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from sfm_tpu_torch import _kernels
-from sfm_tpu_torch.estimators.ransac import top_k
+from sfm_tpu_torch.estimators.ransac import top_k_plain
 
 _EPS = 1e-12
 _BORDER = 5
@@ -69,6 +73,45 @@ def dog_extrema_scores(dog, contrast_threshold: float, edge_threshold: float):
     if dog.device.type == "cpu":
         return dog_extrema_scores_plain(dog, contrast_threshold, edge_threshold)
     raise ValueError(f"dog_extrema_scores: unsupported device {dog.device}")
+
+
+def dog_refine_plain(dog, layer, y, x, cand_score, contrast_threshold: float,
+                     edge_threshold: float):
+    """:func:`refine_and_gate`, then selection padding (``cand_score`` 0)
+    stays invalid whatever the gates computed on its clamped neighbourhood.
+    Plain twin of kernel K4's ``dog_refine``."""
+    off_x, off_y, off_s, gated = refine_and_gate(dog, layer, y, x, contrast_threshold,
+                                                 edge_threshold)
+    return off_x, off_y, off_s, torch.where(cand_score > 0, gated, 0.0)
+
+
+def dog_refine_cuda(dog, layer, y, x, cand_score, contrast_threshold: float,
+                    edge_threshold: float):
+    B, Sp2, h, w = dog.shape
+    K = layer.shape[1]
+    dev = dog.device
+    _kernels.check_tensor(dog, "dog", torch.float32, (B, Sp2, h, w), dev)
+    for name, t in (("layer", layer), ("y", y), ("x", x)):
+        _kernels.check_tensor(t, name, torch.int64, (B, K), dev)
+    _kernels.check_tensor(cand_score, "cand_score", torch.float32, (B, K), dev)
+    off_x, off_y, off_s, gated = (torch.empty((B, K), dtype=torch.float32, device=dev)
+                                  for _ in range(4))
+    r = float(edge_threshold)
+    _kernels.launch("dog_refine", dev, dog, B, Sp2, h, w, layer, y, x, cand_score, K,
+                    float(contrast_threshold), r, (r + 1.0) ** 2, off_x, off_y, off_s, gated)
+    return off_x, off_y, off_s, gated
+
+
+def dog_refine(dog, layer, y, x, cand_score, contrast_threshold: float, edge_threshold: float):
+    """Kernel K4 ``dog_refine`` on CUDA tensors, :func:`dog_refine_plain` on
+    CPU. dog (B, S+2, h, w); layer / y / x (B, K) int64 and cand_score (B, K)
+    from :func:`select_octave_candidates`. Returns (off_x, off_y, off_s, score)."""
+    args = (dog, layer, y, x, cand_score, contrast_threshold, edge_threshold)
+    if dog.is_cuda:
+        return dog_refine_cuda(*args)
+    if dog.device.type == "cpu":
+        return dog_refine_plain(*args)
+    raise ValueError(f"dog_refine: unsupported device {dog.device}")
 
 
 def refine_and_gate(dog, layer, y, x, contrast_threshold: float, edge_threshold: float):
@@ -138,13 +181,14 @@ def _maxpool2(x):
     return F.max_pool2d(F.pad(x, (0, w % 2, 0, h % 2)), 2, 2)
 
 
-def select_octave_candidates(fields, budget: int):
+def select_octave_candidates_plain(fields, budget: int):
     """Top-``budget`` candidates of one octave's (B, S, h, w) score grid.
 
     Exact and hierarchical, as in the reference: 2x2 cell max, 4x4 block
     max, top-k over blocks, top-k over the surviving blocks' cells, then the
     winning pixel inside each cell. Returns (B, budget) layer (1-based DoG
-    layer), y, x (int64) and score; score 0 marks padding.
+    layer), y, x (int64) and score; score 0 marks padding. Plain twin of
+    kernel K4's ``dog_select``.
     """
     score = fields["score"]
     B, S, h, w = score.shape
@@ -155,7 +199,7 @@ def select_octave_candidates(fields, budget: int):
     h4, w4 = blk.shape[-2:]
 
     k1 = min(budget, S * h4 * w4)
-    _, bidx = top_k(blk.reshape(B, -1), k1)
+    _, bidx = top_k_plain(blk.reshape(B, -1), k1)
     bl = bidx // (h4 * w4)
     brem = bidx % (h4 * w4)
     by = brem // w4
@@ -172,7 +216,7 @@ def select_octave_candidates(fields, budget: int):
     cs = torch.where(cell_ok, cs, -1.0)
 
     k2 = min(budget, k1 * 4)
-    ctop, cpos = top_k(cs.reshape(B, -1), k2)
+    ctop, cpos = top_k_plain(cs.reshape(B, -1), k2)
     sel_b = cpos // 4
     sub = cpos % 4
     layer = torch.gather(bl, 1, sel_b)
@@ -200,3 +244,36 @@ def select_octave_candidates(fields, budget: int):
         "x": torch.clamp(x, max=w - 1),
         "score": top,
     }
+
+
+# dog_select sorts each image's top-k survivors in shared memory (8 bytes each).
+_K4_MAX_BUDGET = 16384
+
+
+def select_octave_candidates_cuda(fields, budget: int):
+    score = fields["score"]
+    B, S, h, w = score.shape
+    dev = score.device
+    if not 1 <= budget <= _K4_MAX_BUDGET:
+        raise ValueError(f"dog_select: budget {budget} outside [1, {_K4_MAX_BUDGET}]")
+    _kernels.check_tensor(score, "score", torch.float32, (B, S, h, w), dev)
+    n1 = S * ((h + 3) // 4) * ((w + 3) // 4)
+    k1 = min(budget, n1)
+    k2 = min(budget, 4 * k1)
+    e = lambda dt, *s: torch.empty(s, dtype=dt, device=dev)
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    scratch = (e(f32, B, n1), e(i32, B, k1), e(f32, B, k1), e(f32, B, 4 * k1), e(i32, B, k2),
+               e(f32, B, k2))
+    layer, y, x, top = e(i64, B, budget), e(i64, B, budget), e(i64, B, budget), e(f32, B, budget)
+    _kernels.launch("dog_select", dev, score, B, S, h, w, budget, *scratch, layer, y, x, top)
+    return {"layer": layer, "y": y, "x": x, "score": top}
+
+
+def select_octave_candidates(fields, budget: int):
+    """Kernel K4 ``dog_select`` on a CUDA score grid, its plain twin on CPU."""
+    score = fields["score"]
+    if score.is_cuda:
+        return select_octave_candidates_cuda({"score": score.contiguous()}, budget)
+    if score.device.type == "cpu":
+        return select_octave_candidates_plain(fields, budget)
+    raise ValueError(f"select_octave_candidates: unsupported device {score.device}")

@@ -1,8 +1,8 @@
 """The SIFT feature frontend: images -> fixed-K keypoints + descriptors.
 
 Counterpart of ``sfm_tpu/features/frontend.py`` (SIFT branch), batched over
-images: pyramid -> per-octave extremum grid (kernel K4) -> per-octave
-candidate selection + subpixel refinement -> mask gate + global top-k on
+images: pyramid (kernel K3) -> per-octave extremum grid, candidate selection and
+subpixel refinement (kernel K4) -> mask gate + global top-k on
 candidate metadata -> orientation + descriptor of the selected budget only
 (kernel K5) against a multi-octave f16 "canvas". Returns padded arrays and a
 validity mask so the sweep downstream sees fixed shapes.
@@ -15,12 +15,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sfm_tpu_torch._shared import FeatureConfig
+from sfm_tpu_torch.config import FeatureConfig
 from sfm_tpu_torch.estimators.ransac import top_k
 from sfm_tpu_torch.features.descriptor import _GPATCH, orientation_and_descriptor_canvas
 from sfm_tpu_torch.features.detect import (
     dog_extrema_scores,
-    refine_and_gate,
+    dog_refine,
     select_octave_candidates,
 )
 from sfm_tpu_torch.features.pyramid import build_pyramid
@@ -101,13 +101,11 @@ def select_keypoints(images: torch.Tensor, masks: Optional[torch.Tensor],
                                     config.edge_threshold)
         cands = select_octave_candidates(fields, _octave_budget(config.max_keypoints, o))
         layer = cands["layer"]                         # 1..S (DoG interior)
-        off_x, off_y, off_s, gated = refine_and_gate(
-            dogs[o], layer, cands["y"], cands["x"],
+        # Selection padding (score 0) stays invalid whatever the gates compute.
+        off_x, off_y, off_s, gated = dog_refine(
+            dogs[o].contiguous(), layer, cands["y"], cands["x"], cands["score"],
             config.contrast_threshold, config.edge_threshold,
         )
-        # Selection padding (score 0) stays invalid whatever the gates computed
-        # on its clamped neighbourhood.
-        gated = torch.where(cands["score"] > 0, gated, 0.0)
         x_o = cands["x"].to(torch.float32) + off_x
         y_o = cands["y"].to(torch.float32) + off_y
         sigma_rel = config.sigma0 * torch.pow(

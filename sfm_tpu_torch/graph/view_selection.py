@@ -15,7 +15,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from sfm_tpu_torch._shared import SelectConfig
+from sfm_tpu_torch.config import SelectConfig
 
 
 class SfMGraphSelector:

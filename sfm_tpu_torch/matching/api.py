@@ -19,8 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sfm_tpu_torch._shared import (
-    SfMConfig, effective_retrieval_config, load_image_gray_u8, load_mask)
+from sfm_tpu_torch.config import SfMConfig, effective_retrieval_config
+from sfm_tpu_torch.io.images import load_image_gray_u8, load_mask
 from sfm_tpu_torch.features.frontend import detect_and_describe, detect_and_describe_batch
 from sfm_tpu_torch.matching.retrieval import retrieval_enabled, select_candidate_pairs
 from sfm_tpu_torch.matching.pair_table import PairTable

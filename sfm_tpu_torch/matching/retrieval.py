@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from sfm_tpu_torch import _kernels
-from sfm_tpu_torch._shared import RetrievalConfig
+from sfm_tpu_torch.config import RetrievalConfig
 
 # The kernel keeps per-row and per-column state for S rows in shared memory
 # and stages descriptors in chunks of 32 floats.

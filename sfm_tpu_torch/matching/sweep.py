@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sfm_tpu_torch._shared import SfMConfig, effective_match_config
+from sfm_tpu_torch.config import SfMConfig, effective_match_config
 from sfm_tpu_torch.matching.pair_table import PairTable
 from sfm_tpu_torch.matching.verify import match_and_verify
 

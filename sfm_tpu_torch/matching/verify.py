@@ -3,6 +3,8 @@
 Counterpart of ``sfm_tpu/matching/verify.py``, batched over pairs. Gates:
 num_inliers >= 15, inlier_ratio >= 0.3, mean inlier symmetric-epipolar
 error <= 2.0 px, and point spread (std) > 20 px on both axes of both images.
+The gates are computed with the refit, in kernel K2's ``fmat_refit_verify``
+(:mod:`sfm_tpu_torch.estimators.fundamental`).
 """
 from __future__ import annotations
 
@@ -11,15 +13,8 @@ import torch
 from sfm_tpu_torch.estimators.fundamental import estimate_fundamental_ransac
 from sfm_tpu_torch.matching.core import match_descriptors
 
-_EPS = 1e-12
-
-
-def _masked_std(x, w):
-    """Weighted std over the last axis."""
-    n = torch.clamp(w.sum(-1), min=_EPS)
-    mean = (x * w).sum(-1) / n
-    var = (w * (x - mean[..., None]) ** 2).sum(-1) / n
-    return torch.sqrt(var)
+_VERIFY_KEYS = ("F", "inliers", "num_matches", "num_inliers", "inlier_ratio",
+                "reprojection_error", "well_distributed", "accept")
 
 
 def verify_pair(
@@ -45,38 +40,11 @@ def verify_pair(
     est = estimate_fundamental_ransac(
         xy1, xy2, valid, iters=ransac_iters, threshold=ransac_threshold,
         prefix_valid=prefix_valid, score_budget=score_budget,
-        generator=generator, indices=indices,
+        generator=generator, indices=indices, min_inliers=min_inliers,
+        min_inlier_ratio=min_inlier_ratio, max_reproj_error=max_reproj_error,
+        min_spread=min_spread,
     )
-    inl = est["inliers"]
-    w = inl.to(torch.float32)
-    n_matches = valid.sum(-1, dtype=torch.int32)
-    n_inl = est["num_inliers"]
-    ratio = n_inl.to(torch.float32) / torch.clamp(n_matches.to(torch.float32), min=1.0)
-    mean_err = torch.where(inl, est["errors"], 0.0).sum(-1) / torch.clamp(
-        n_inl.to(torch.float32), min=1.0)
-    spread_ok = (
-        (_masked_std(xy1[..., 0], w) > min_spread)
-        & (_masked_std(xy1[..., 1], w) > min_spread)
-        & (_masked_std(xy2[..., 0], w) > min_spread)
-        & (_masked_std(xy2[..., 1], w) > min_spread)
-    )
-    accept = (
-        est["ok"]
-        & (n_inl >= min_inliers)
-        & (ratio >= min_inlier_ratio)
-        & (mean_err <= max_reproj_error)
-        & spread_ok
-    )
-    return {
-        "F": est["F"],
-        "inliers": inl,
-        "num_matches": n_matches,
-        "num_inliers": n_inl,
-        "inlier_ratio": ratio,
-        "reprojection_error": mean_err,
-        "well_distributed": spread_ok,
-        "accept": accept,
-    }
+    return {k: est[k] for k in _VERIFY_KEYS}
 
 
 def match_and_verify(

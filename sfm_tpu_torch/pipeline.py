@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
-from sfm_tpu_torch._shared import SfMConfig
+from sfm_tpu_torch.config import SfMConfig
 from sfm_tpu_torch.device import resolve_device
 from sfm_tpu_torch.utils.observability import Metrics, stage, trace_to
 
@@ -200,7 +200,7 @@ class SfMPipeline:
     def _evaluate_against_gt(self):
         """Pose accuracy against ``data_dir/calib``, when shipped: adds
         gt_rot_err_deg_median / gt_ate / gt_ate_rel to the result stats."""
-        from sfm_tpu_torch._shared import evaluate_result_against_gt
+        from sfm_tpu_torch.io.calib import evaluate_result_against_gt
 
         calib = self.data_dir / "calib"
         if self.result is None or not calib.is_dir():

@@ -122,7 +122,9 @@ def main(argv=None) -> int:
         print(f"run {i} ({'cold' if i == 0 else 'warm'}): wall {time.perf_counter() - t0:.4f} s "
               + " ".join(f"{k} {v:.4f}" for k, v in m.items()), flush=True)
         rows.append(m)
-    warm = {k: statistics.median(r[k] for r in rows[1:]) for k in rows[0]}
+    # A span that ran in only some runs (engine/guided) counts 0 s in the others.
+    keys = dict.fromkeys(k for r in rows for k in r)
+    warm = {k: statistics.median(r.get(k, 0.0) for r in rows[1:]) for k in keys}
     print("warm median: " + ", ".join(f"{k} {v:.4f} s" for k, v in warm.items()))
 
     run("--trace_dir", str(out / "trace"))

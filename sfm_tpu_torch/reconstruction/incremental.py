@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from sfm_tpu_torch import _kernels
-from sfm_tpu_torch._shared import SfMConfig, TrackTable, build_tracks, effective_guided_ratio
+from sfm_tpu_torch.config import SfMConfig, effective_guided_ratio
+from sfm_tpu_torch.reconstruction.tracks import TrackTable, build_tracks
 from sfm_tpu_torch.ba.lm import check_ba_config, run_ba
 from sfm_tpu_torch.ba.problem import build_problem
 from sfm_tpu_torch.estimators.pnp import pnp_ransac, pnp_ransac_batch

@@ -31,7 +31,7 @@ from sfm_tpu_torch.ba import lm as tlm
 from sfm_tpu_torch.ba import residuals as tres
 from sfm_tpu_torch.ba import schur as tschur
 from sfm_tpu_torch.ba.problem import problem_from_numpy
-from sfm_tpu_torch._shared import BAConfig as PortBAConfig
+from sfm_tpu_torch.config import BAConfig as PortBAConfig
 
 CFG = dict(max_iterations=25, cg_iters=60)
 
@@ -128,7 +128,7 @@ def test_dense_schur_direct_solution(rng):
 
     got, perm, pvm = port_linearization(prob, problem_from_numpy(prob, device="cpu"),
                                         Hreg, greg)
-    op, rhs_c, rhs_k = tschur.damp_operator(got, 1e-3)
+    op, rhs_c, rhs_k = tschur.damp_operator(got, 1e-3, t(perm), t(pvm))
     rel_close(rhs_c, rhs_cj, 1e-4)
     rel_close(rhs_k, rhs_kj, 1e-4)
     rel_close(op.Vinv, op_j.Vinv, 1e-4)
@@ -136,7 +136,8 @@ def test_dense_schur_direct_solution(rng):
     rel_close(xc, xc_j, 1e-4)
     rel_close(xk, xk_j, 1e-4)
     from sfm_tpu.ba.schur import back_substitute as j_back
-    rel_close(tschur.back_substitute(got, op, xc, xk), j_back(op_j, ref.g_p, xc_j, xk_j), 1e-4)
+    rel_close(tschur.back_substitute(got, op, xc, xk, t(perm), t(pvm)),
+              j_back(op_j, ref.g_p, xc_j, xk_j), 1e-4)
 
 
 @pytest.mark.parametrize("optimize_intrinsics", [False, True])

@@ -202,7 +202,7 @@ class _TableState:
     """Just the state ``_ba_problem_arrays`` reads, for either package."""
 
     def __init__(self, view_img, view_xy, view_valid, registered, point_valid, max_obs):
-        from sfm_tpu_torch._shared import TrackTable
+        from sfm_tpu_torch.reconstruction.tracks import TrackTable
 
         T, V = view_img.shape
         self.tracks = TrackTable(view_img, np.zeros((T, V), np.int32), view_xy,

@@ -12,7 +12,11 @@ from sfm_tpu.config import FeatureConfig, MatchConfig, SfMConfig, VerifyConfig
 
 SLICE_MODULES = [
     "sfm_tpu_torch",
-    "sfm_tpu_torch._shared",
+    "sfm_tpu_torch.config",
+    "sfm_tpu_torch.io.images",
+    "sfm_tpu_torch.io.calib",
+    "sfm_tpu_torch.reconstruction.tracks",
+    "sfm_tpu_torch.render_scene",
     "sfm_tpu_torch._kernels",
     "sfm_tpu_torch.device",
     "sfm_tpu_torch.utils.linalg",
@@ -49,21 +53,51 @@ SLICE_MODULES = [
 
 
 def test_port_imports_neither_jax_nor_sfm_tpu():
+    # By name, and by file: a module run from a file of the JAX package or of
+    # scripts/ under another name (a loader by path) counts as well.
     code = (
         "import importlib, json, sys\n"
+        "from pathlib import Path\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
-        "print(json.dumps(sorted(k for k in sys.modules\n"
-        "    if k.split('.')[0] in ('jax', 'jaxlib', 'sfm_tpu'))))\n"
+        "repo = Path.cwd().resolve()\n"
+        "ref = [repo / 'sfm_tpu', repo / 'scripts']\n"
+        "names = sorted(k for k in sys.modules\n"
+        "    if k.split('.')[0] in ('jax', 'jaxlib', 'sfm_tpu'))\n"
+        "files = sorted(k for k, m in list(sys.modules.items())\n"
+        "    if getattr(m, '__file__', None)\n"
+        "    and any(d in Path(m.__file__).resolve().parents for d in ref))\n"
+        "print(json.dumps([names, files]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == [[], []]
+
+
+def test_port_renderer_runs_without_jax_sfm_tpu_or_torch(tmp_path):
+    # chip_smoke renders through the port's renderer in a subprocess; it
+    # needs numpy and the port's config, nothing of JAX, sfm_tpu or torch.
+    code = (
+        "import importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('torch', 'jax', 'sfm_tpu'):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from sfm_tpu_torch.render_scene import render_dataset\n"
+        "out = render_dataset(sys.argv[1], 2, supersample=1, log=print)\n"
+        "print(sorted(p.name for p in (out / 'images').iterdir()))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path / "scene")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "['0000.pgm', '0001.pgm']"
+    assert len(list((tmp_path / "scene" / "calib").glob("*.txt"))) == 2
 
 
 def test_config_json_round_trips_between_packages(tmp_path):
-    from sfm_tpu_torch._shared import SfMConfig as PortConfig
-    from sfm_tpu_torch._shared import effective_match_config
+    from sfm_tpu_torch.config import SfMConfig as PortConfig
+    from sfm_tpu_torch.config import effective_match_config
 
     cfg = SfMConfig(features=FeatureConfig(max_keypoints=1024, kind="orb"),
                     matching=MatchConfig(max_matches=512),

@@ -26,7 +26,7 @@ from sfm_tpu.reconstruction.incremental import _reproj_stats as j_reproj_stats
 from sfm_tpu.reconstruction.incremental import _triangulate_tracks as j_triangulate
 from sfm_tpu.reconstruction.seed import find_best_initial_pair as j_seed
 from sfm_tpu_torch import cli
-from sfm_tpu_torch._shared import SfMConfig as PortConfig
+from sfm_tpu_torch.config import SfMConfig as PortConfig
 from sfm_tpu_torch.estimators.pnp import pnp_ransac as t_pnp_ransac
 from sfm_tpu_torch.graph.view_selection import SfMGraphSelector as TSelector
 from sfm_tpu_torch.io import export as texport
