@@ -32,7 +32,16 @@
       fewer pairs swept than all, every image in an accepted pair, the
       ground-truth epipolar check, recall >= 0.95 of the pairs an exhaustive
       (``--match_mode off``) preprocess accepts, all but at most one camera,
-      > 1,000 points, < 0.6 px.
+      > 1,000 points, < 0.6 px;
+   e. ``reconstruct --global_init`` on path a's artifacts (global SfM):
+      kernel K13 launched, all but at most one camera, > 1,000 points,
+      < 0.6 px, the global model kept (median pair-rotation residual < 1 deg,
+      outlier pairs <= ``global_init.fallback_outlier_frac``); ground-truth
+      pose printed, not gated;
+   f. ``reconstruct --polish`` on path d's artifacts (pose-graph polish of
+      the 150-view model): K13 launched, polish ran, all but at most one
+      camera, > 1,000 points, < 0.6 px; its adoption, seed and ground-truth
+      pose printed beside path d's.
 
 Prints the card (nvidia-smi), per-kernel and stage numbers, a JSON line of
 the kernels and, last, ``{"ok": true, "device": {...}}``. Any failure raises;
@@ -90,14 +99,27 @@ KERNELS = {
                    "sfm_tpu/features/detect.py:121"),
     "topk_rows": (("topk_rows",), "sfm_tpu_torch/csrc/dog_select.cu",
                   "sfm_tpu/features/frontend.py:169"),
+    "match_epilogue": (("match_epilogue", "match_compact"), "sfm_tpu_torch/csrc/match_top2.cu",
+                       "sfm_tpu/matching/core.py:81"),
+    "relpose": (("relpose",), "sfm_tpu_torch/csrc/relpose.cu",
+                "sfm_tpu/reconstruction/global_init.py:147"),
+    "rotation_average": (("rotation_average",), "sfm_tpu_torch/csrc/rotation_average.cu",
+                         "sfm_tpu/reconstruction/global_init.py:438"),
+    "translation_average": (("translation_average",),
+                            "sfm_tpu_torch/csrc/translation_average.cu",
+                            "sfm_tpu/reconstruction/global_init.py:598"),
 }
 # The kernels each path must launch.
 PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
-                      "pyramid", "fmat_solve", "dog_select", "topk_rows")
+                      "pyramid", "fmat_solve", "dog_select", "topk_rows", "match_epilogue")
 RECONSTRUCT_KERNELS = ("pnp_ransac", "triangulate_tracks", "ba_linearize", "schur_coupling",
                        "seed_score", "pnp_refine", "schur_damp")
 RESCUE_KERNELS = RECONSTRUCT_KERNELS + ("guided_match",)
 LARGE_KERNELS = PREPROCESS_KERNELS + RECONSTRUCT_KERNELS + ("retrieval_score",)
+K13_KERNELS = ("relpose", "rotation_average", "translation_average")
+GLOBAL_KERNELS = K13_KERNELS + ("triangulate_tracks", "ba_linearize", "schur_coupling",
+                                "schur_damp")
+POLISH_KERNELS = RECONSTRUCT_KERNELS + K13_KERNELS
 
 
 def log(msg: str):
@@ -192,12 +214,10 @@ def two_view_batch(np, B: int, M: int, seed: int = 0):
 
 # ---------------------------------------------------------------- kernel phases
 
-def phase_match_top2(torch, dev):
-    """K1 at 32 pairs x K=2048 x D=128 (one sweep chunk, one direction)."""
-    from sfm_tpu_torch.matching.core import match_top2_cuda, match_top2_plain
-
-    g = torch.Generator(device=dev).manual_seed(1)
-    B, K, D = 32, 2048, 128
+def sweep_descriptors(torch, dev, B: int, K: int, D: int, seed: int):
+    """B pairs of K unit descriptors, 1,200 of each pair's second set near a
+    row of its first; 5% of the rows and columns invalid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     d1 = _unit(torch, torch.randn(B, K, D, generator=g, device=dev))
     d2 = _unit(torch, torch.randn(B, K, D, generator=g, device=dev))
     perm = torch.randperm(K, generator=g, device=dev)[:1200]
@@ -205,25 +225,93 @@ def phase_match_top2(torch, dev):
                                                                  device=dev))
     v1 = torch.rand(B, K, generator=g, device=dev) > 0.05
     v2 = torch.rand(B, K, generator=g, device=dev) > 0.05
-    args = (d1, v1, d2, v2)
-    idx_k, best_k, sec_k = match_top2_cuda(*args)
-    idx_p, best_p, sec_p = match_top2_plain(*args)
-    torch.cuda.synchronize()
-    # Tolerance: indices equal; distances within 1e-5 absolute (another
-    # summation order).
-    fin = torch.isfinite(best_p)
-    check(torch.equal(torch.isfinite(best_k), fin), "K1: finite pattern differs")
-    fin2 = torch.isfinite(sec_p)
-    err = max(float((best_k - best_p)[fin].abs().max()),
-              float((sec_k - sec_p)[fin2].abs().max()))
-    check(err <= 1e-5, f"K1: distance error {err}")
-    check(torch.equal(idx_k, idx_p),
-          f"K1: best index differs in {int((idx_k != idx_p).sum())} of {B * K} rows")
-    log(f"K1 match_top2: max_abs_err {err:.3g}, indices equal in all {B * K} rows")
-    ms = time_ms(torch, lambda: match_top2_cuda(*args))
-    plain_ms = time_ms(torch, lambda: match_top2_plain(*args))
-    # 2 K^2 D FMA-FLOP per pair and direction.
-    return result(err, ms, plain_ms, nbytes(*args, idx_k, best_k, sec_k), 2 * B * K * K * D)
+    return d1, v1, d2, v2
+
+
+def tie_heavy_descriptors(torch, dev, B: int, K: int, D: int = 256, seed: int = 4):
+    """+-1/16 descriptors drawn from a small set: every dot product is a
+    multiple of 1/256, exact in f32, so distances tie exactly (duplicated
+    rows and columns); 10% of the rows and columns invalid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.where(torch.rand(96, D, generator=g, device=dev) < 0.5, -1.0, 1.0) / 16.0
+    d1 = base[torch.randint(0, 96, (B, K), generator=g, device=dev)]
+    d2 = base[torch.randint(0, 96, (B, K), generator=g, device=dev)]
+    d2 = torch.where(torch.rand(B, K, D, generator=g, device=dev) < 0.04, -d2, d2)
+    v1 = torch.rand(B, K, generator=g, device=dev) > 0.1
+    v2 = torch.rand(B, K, generator=g, device=dev) > 0.1
+    return d1.contiguous(), v1, d2.contiguous(), v2
+
+
+def phase_match_top2(torch, dev):
+    """K1 at 32 pairs x K=2048 x D=128 (one sweep chunk), with the mutual
+    check's column argmin from the same tiles; and a tie-heavy input."""
+    from sfm_tpu_torch.matching.core import match_top2_cuda, match_top2_plain
+
+    B, K, D = 32, 2048, 128
+    args = sweep_descriptors(torch, dev, B, K, D, seed=1)
+    err = 0.0
+    for what, a in (("random", args), ("tie-heavy", tie_heavy_descriptors(torch, dev, 8, K))):
+        idx_k, best_k, sec_k, back_k = match_top2_cuda(*a, mutual=True)
+        idx_p, best_p, sec_p, back_p = match_top2_plain(*a, mutual=True)
+        torch.cuda.synchronize()
+        # Tolerance: row and column indices equal (no tie allowance); distances
+        # within 1e-5 absolute (another summation order).
+        fin = torch.isfinite(best_p)
+        check(torch.equal(torch.isfinite(best_k), fin), f"K1 ({what}): finite pattern differs")
+        fin2 = torch.isfinite(sec_p)
+        e = max(float((best_k - best_p)[fin].abs().max()),
+                float((sec_k - sec_p)[fin2].abs().max()))
+        check(e <= 1e-5, f"K1 ({what}): distance error {e}")
+        check(torch.equal(idx_k.long(), idx_p),
+              f"K1 ({what}): best index differs in {int((idx_k.long() != idx_p).sum())} rows")
+        check(torch.equal(back_k.long(), back_p),
+              f"K1 ({what}): column argmin differs in {int((back_k.long() != back_p).sum())} "
+              "columns")
+        err = max(err, e)
+        log(f"K1 match_top2 ({what}, {tuple(a[0].shape)}): max_abs_err {e:.3g}, row and "
+            f"column indices equal in all {idx_k.numel()} rows and {back_k.numel()} columns")
+    ms = time_ms(torch, lambda: match_top2_cuda(*args, mutual=True))
+    plain_ms = time_ms(torch, lambda: match_top2_plain(*args, mutual=True))
+    idx_k, best_k, sec_k, back_k = match_top2_cuda(*args, mutual=True)
+    # 2 K^2 D FMA-FLOP per pair: one product serves both directions.
+    return result(err, ms, plain_ms, nbytes(*args, idx_k, best_k, sec_k, back_k),
+                  2 * B * K * K * D)
+
+
+def phase_match_epilogue(torch, dev):
+    """K1's epilogue at one sweep chunk (32 pairs x 2,048 rows -> 1,024
+    matches): match_epilogue's ratio / mutual test / score, then topk_rows,
+    then match_compact, against the twins on the same top-2 outputs, on the
+    random and the tie-heavy input."""
+    from sfm_tpu_torch.estimators.ransac import top_k_plain, top_k_rows
+    from sfm_tpu_torch.matching.core import (
+        match_compact_cuda, match_compact_plain, match_epilogue_cuda, match_epilogue_plain,
+        match_top2_cuda)
+
+    B, K, D, M = 32, 2048, 128, 1024
+    for what, a in (("random", sweep_descriptors(torch, dev, B, K, D, seed=2)),
+                    ("tie-heavy", tie_heavy_descriptors(torch, dev, B, K))):
+        best_j, d_best, d_second, back = match_top2_cuda(*a, mutual=True)
+        ep = (best_j, d_best, d_second, a[1], back, 0.75)
+        sk, sp = match_epilogue_cuda(*ep), match_epilogue_plain(*ep)
+        vk, ik = top_k_rows(sk, M)
+        vp, ip = top_k_plain(sp, M)
+        ok_, op_ = match_compact_cuda(vk, ik, best_j, M), match_compact_plain(vp, ip, best_j, M)
+        torch.cuda.synchronize()
+        # Tolerance: identical scores, compaction order and match table.
+        check(torch.equal(sk, sp), f"K1 epilogue ({what}): scores differ")
+        for k in ("idx1", "idx2", "valid", "distance"):
+            check(torch.equal(ok_[k], op_[k]), f"K1 compaction ({what}): {k} differs")
+        log(f"K1 match_epilogue + match_compact ({what}): scores and the (B, {M}) match table "
+            f"identical to the twins; {int(ok_['valid'].sum())} matches kept")
+    # The two entries of this kernel, timed apart (topk_rows runs between them).
+    ms = (time_ms(torch, lambda: match_epilogue_cuda(*ep))
+          + time_ms(torch, lambda: match_compact_cuda(vk, ik, best_j, M)))
+    plain_ms = (time_ms(torch, lambda: match_epilogue_plain(*ep))
+                + time_ms(torch, lambda: match_compact_plain(vp, ip, best_j, M)))
+    moved = nbytes(best_j, d_best, d_second, a[1], back, sk) + nbytes(vk, ik, *ok_.values())
+    # ~6 operations a row (ratio, mutual gather, compares, select) and ~4 a slot.
+    return result(0.0, ms, plain_ms, moved, 6 * B * K + 4 * B * M)
 
 
 def phase_fmat(torch, np, dev):
@@ -1096,6 +1184,190 @@ def phase_topk(torch, dev, cfg):
 
 # ---------------------------------------------------------------- ground truth
 
+# ---------------------------------------------------------------- K13: global SfM
+
+def _rot(np, rv):
+    """Rodrigues of a rotation vector (numpy, f64)."""
+    th = float(np.linalg.norm(rv))
+    if th < 1e-12:
+        return np.eye(3)
+    k = np.asarray(rv) / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + math.sin(th) * Kx + (1 - math.cos(th)) * Kx @ Kx
+
+
+def relpose_batch(np, P: int, S: int = 256, seed: int = 5):
+    """P two-view tables of S rows in normalized coordinates, as
+    pairwise_relative_poses feeds K13-a: the inlier rows first (weight 1,
+    0.5 px noise at f = 1228), outliers after them (weight 0)."""
+    rng = np.random.default_rng(seed)
+    xn1 = np.zeros((P, S, 2), np.float32)
+    xn2 = np.zeros((P, S, 2), np.float32)
+    w = np.zeros((P, S), np.float32)
+    R_gt = np.zeros((P, 3, 3))
+    for p in range(P):
+        X = rng.uniform([-2, -2, 4], [2, 2, 8], (S, 3))
+        R = _rot(np, rng.normal(scale=0.05, size=3) + [0, rng.uniform(0.02, 0.3), 0])
+        t = np.array([rng.uniform(0.3, 1.0), 0.05, 0.1])
+        Xc = X @ R.T + t
+        xn1[p] = X[:, :2] / X[:, 2:] + rng.normal(scale=0.5 / 1228, size=(S, 2))
+        xn2[p] = Xc[:, :2] / Xc[:, 2:] + rng.normal(scale=0.5 / 1228, size=(S, 2))
+        n_inl = int(rng.integers(60, S + 1))
+        w[p, :n_inl] = 1.0
+        xn2[p, n_inl:] = rng.uniform(-0.4, 0.4, (S - n_inl, 2))
+        R_gt[p] = R
+    return xn1, xn2, w, R_gt
+
+
+def _angle_deg(torch, A, B):
+    """Geodesic angle (deg) of A B^T, robust near 0 (trace and skew part)."""
+    dR = A.double() @ B.double().mT
+    cos = (dR.diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2
+    v = torch.stack([dR[..., 2, 1] - dR[..., 1, 2], dR[..., 0, 2] - dR[..., 2, 0],
+                     dR[..., 1, 0] - dR[..., 0, 1]], -1)
+    return torch.rad2deg(torch.atan2(0.5 * torch.linalg.vector_norm(v, dim=-1), cos))
+
+
+def phase_relpose(torch, np, dev, P: int = 232):
+    """K13-a at the 36-view table's accepted pairs (JAX's own table: 232)
+    x 256 rows, against its twin (torch.func's jacfwd, SVD rank 2)."""
+    from sfm_tpu_torch.reconstruction.global_init import relpose_cuda, relpose_plain
+
+    xn1, xn2, w, R_gt = relpose_batch(np, P)
+    args = tuple(torch.as_tensor(a, device=dev) for a in (xn1, xn2, w))
+    Rk, tk, gk = relpose_cuda(*args)
+    Rp, tp, gp = relpose_plain(*args)
+    torch.cuda.synchronize()
+    ang = _angle_deg(torch, Rk, Rp)
+    t_err = float((tk - tp).abs().max())
+    same = float((gk == gp).float().mean())
+    gt_err = _angle_deg(torch, Rk, torch.as_tensor(R_gt, device=dev))
+    # Tolerance: after the 10 GN steps, which pull both to one minimum (the
+    # kernel's rank 2 is F (I - v v^T), the twin's an SVD): rotations within
+    # 0.05 deg and unit t within 1e-3 for every pair, cheirality counts equal
+    # for >= 99% of the pairs (a row near the cheirality boundary may flip).
+    check(bool(torch.isfinite(Rk).all() and torch.isfinite(tk).all()), "K13-a: not finite")
+    check(float(ang.max()) <= 0.05 and t_err <= 1e-3,
+          f"K13-a: rotation {float(ang.max())} deg, t {t_err} from the twin")
+    check(same >= 0.99, f"K13-a: cheirality counts equal in {same:.4f} of the pairs")
+    check(float(gt_err.median()) <= 0.1, f"K13-a: median {float(gt_err.median())} deg from GT")
+    log(f"K13-a relpose: {P} pairs x {xn1.shape[1]} rows, rotation within "
+        f"{float(ang.max()):.3g} deg and t within {t_err:.3g} of the twin, counts equal in "
+        f"{same:.4f}; median {float(gt_err.median()):.4f} deg from the synthetic truth")
+    ms = time_ms(torch, lambda: relpose_cuda(*args))
+    plain_ms = time_ms(torch, lambda: relpose_plain(*args), reps=3, warmup=1)
+    # ~4,200 FLOP a row: 10 GN steps (~330: residual, 6 tangents, J^T J),
+    # the eight-point sums and two recover_pose's triangulations (~860).
+    return result(float(ang.max()), ms, plain_ms, nbytes(*args, Rk, tk, gk),
+                  4200 * xn1.shape[0] * xn1.shape[1])
+
+
+def corridor_graph(np, N: int, window: int, seed: int = 6, outliers: float = 0.02):
+    """Pairs within ``window`` along a drifting corridor: (pairs, R_rel, t_rel,
+    weights, R_gt, C_gt), 0.3 deg rotation noise, 1% direction noise and a
+    share of gross rotation outliers."""
+    rng = np.random.default_rng(seed)
+    yaw = np.cumsum(rng.normal(scale=0.02, size=N))
+    R_gt = np.stack([_rot(np, [0.0, y, 0.0]) for y in yaw])
+    k = np.arange(N)
+    C_gt = np.stack([k * 0.3, np.sin(k * 0.3), 0.5 * np.cos(k * 0.17)], 1)
+    pairs = np.array([(i, j) for i in range(N) for j in range(i + 1, min(i + 1 + window, N))],
+                     np.int32)
+    R_rel, t_rel = [], []
+    for i, j in pairs:
+        R_rel.append(_rot(np, rng.normal(scale=np.deg2rad(0.3), size=3)) @ R_gt[j] @ R_gt[i].T)
+        t = R_gt[j] @ (C_gt[i] - C_gt[j])
+        t_rel.append(t / np.linalg.norm(t) + rng.normal(scale=0.01, size=3))
+    R_rel = np.stack(R_rel)
+    bad = rng.random(len(pairs)) < outliers
+    R_rel[bad] = np.stack([_rot(np, rng.normal(size=3)) for _ in range(int(bad.sum()))])
+    w = rng.uniform(20, 300, len(pairs)).astype(np.float32)
+    return (pairs, R_rel.astype(np.float32), np.stack(t_rel).astype(np.float32), w, R_gt,
+            C_gt)
+
+
+def _avg_ops(N: int, P: int, power: int, refine: int, rounds: int, cg: int):
+    """Operations of one rotation and one translation solve: a pass over the
+    pair list costs ~54 FLOP a pair and side for a 3x3 block product, ~25 for
+    a Laplacian or projected row; per camera ~10 FLOP a CG vector entry and
+    ~1,000 for nearest_rotation's 24 steps."""
+    rot = (power * (2 * P * 54 + 9 * N * 8) + N * 1000
+           + refine * (P * 150 + N * 1000 + cg * (2 * P * 3 * 4 + 3 * N * 10)))
+    trans = 2 * rounds * (P * 30 + cg * (2 * P * 3 * 8 + 3 * N * 10)) + 2 * P * 20
+    return rot, trans
+
+
+def phase_averaging(torch, np, dev):
+    """K13-b and K13-c at N = 36 and 150 cameras on corridor pair graphs
+    (window 7 and 8: ~the pair counts of the 36- and 150-view tables),
+    seeded from the spanning tree as the global path and polish seed them,
+    against their dense twins."""
+    from sfm_tpu_torch.config import GlobalInitConfig
+    from sfm_tpu_torch.io.calib import umeyama
+    from sfm_tpu_torch.reconstruction import global_init as gi
+
+    cfg = GlobalInitConfig()
+    out = {}
+    for N, window in ((36, 7), (150, 8)):
+        pairs, R_rel, t_rel, w, R_gt, C_gt = corridor_graph(np, N, window)
+        P = len(pairs)
+        forest = gi.spanning_forest(pairs, w, N)
+        X0 = gi.tree_init_rotations(forest, R_rel, N).reshape(3 * N, 3)
+        T = lambda a, dt=torch.float32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                                        device=dev)
+        rargs = (T(pairs, torch.int32), T(R_rel), T(gi._normalized(w)), T(X0), cfg.power_iters,
+                 cfg.refine_iters)
+        Rk = gi.rotation_average_cuda(*rargs)
+        Rp = gi.rotation_average_plain(*rargs)
+        torch.cuda.synchronize()
+        rel = lambda R: R @ R[:1].mT
+        r_err = float(_angle_deg(torch, rel(Rk), rel(Rp)).max())
+        r_gt = float(_angle_deg(torch, rel(Rk), rel(T(R_gt))).median())
+        # Tolerance: gauge-free rotations within 0.1 deg of the dense twin
+        # (f32 CG in another summation order), median within 2 deg of truth.
+        check(bool(torch.isfinite(Rk).all()) and r_err <= 0.1,
+              f"K13-b at N={N}: {r_err} deg from the twin")
+        check(r_gt <= 2.0, f"K13-b at N={N}: median {r_gt} deg from the truth")
+        R_np = Rk.cpu().numpy()
+        d = -np.einsum("pba,pb->pa", R_np[pairs[:, 1]], t_rel)
+        d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+        C0 = gi.tree_init_centers(forest, R_np, pairs, t_rel, N)
+        targs = (T(pairs, torch.int32), T(d), T(gi._normalized(w)), T(C0), cfg.als_rounds,
+                 cfg.cg_iters, True)
+        Ck = gi.translation_average_cuda(*targs)
+        Cp = gi.translation_average_plain(*targs)
+        torch.cuda.synchronize()
+
+        def aligned(A, B):
+            """Max error of A similarity-aligned to B, over B's extent."""
+            A, B = A.double().cpu().numpy(), np.asarray(B, np.float64)
+            s_, Q, T_ = umeyama(A, B)
+            return float(np.linalg.norm(s_ * A @ Q.T + T_ - B, axis=1).max()
+                         / np.linalg.norm(B - B.mean(0), axis=1).mean())
+
+        c_err, c_gt = aligned(Ck, Cp.cpu().numpy()), aligned(Ck, C_gt)
+        # Tolerance: centers within 1e-3 of the extent of the twin's after a
+        # similarity alignment (80 f32 CG steps, another summation order).
+        check(bool(torch.isfinite(Ck).all()) and c_err <= 1e-3,
+              f"K13-c at N={N}: {c_err} of the extent from the twin")
+        log(f"K13-b/c at N={N}, {P} pairs: rotations within {r_err:.3g} deg of the twin "
+            f"(median {r_gt:.4f} deg from the truth); centers within {c_err:.3g} of the "
+            f"extent of the twin's ({c_gt:.4f} from the truth)")
+        rot_ms = time_ms(torch, lambda: gi.rotation_average_cuda(*rargs), reps=5, warmup=1)
+        rot_plain = time_ms(torch, lambda: gi.rotation_average_plain(*rargs), reps=3, warmup=1)
+        tr_ms = time_ms(torch, lambda: gi.translation_average_cuda(*targs), reps=5, warmup=1)
+        tr_plain = time_ms(torch, lambda: gi.translation_average_plain(*targs), reps=3,
+                           warmup=1)
+        rot_ops, tr_ops = _avg_ops(N, P, cfg.power_iters, cfg.refine_iters, cfg.als_rounds,
+                                   cfg.cg_iters)
+        log(f"  N={N}: rotation_average {rot_ms:.4f} ms (plain {rot_plain:.4f} ms), "
+            f"translation_average {tr_ms:.4f} ms (plain {tr_plain:.4f} ms)")
+        out[N] = (result(r_err, rot_ms, rot_plain, nbytes(*rargs[:4], Rk), rot_ops),
+                  result(c_err, tr_ms, tr_plain, nbytes(*targs[:4], Ck), tr_ops))
+    # The kernels' rows: N = 150, polish's size on the 150-view corridor.
+    return out[150]
+
+
 def _load_projection(np, path: Path):
     vals = path.read_text().split()
     check(vals[0] == "CONTOUR", f"{path}: not a CONTOUR file")
@@ -1257,6 +1529,8 @@ def main(argv=None) -> int:
                 log("  ptxas: " + line.split("ptxas info    : ")[-1])
 
         results = {"match_top2": phase_match_top2(torch, dev),
+                   "match_epilogue": phase_match_epilogue(torch, dev),
+                   "relpose": phase_relpose(torch, np, dev),
                    "pnp_ransac": phase_pnp(torch, np, dev),
                    "pnp_refine": phase_pnp_refine(torch, np, dev),
                    "triangulate_tracks": phase_triangulate(torch, np, dev),
@@ -1266,6 +1540,8 @@ def main(argv=None) -> int:
         results["fmat_score_select"], results["fmat_solve"] = phase_fmat(torch, np, dev)
         results["ba_linearize"], results["schur_coupling"] = phase_ba(torch, np, dev)
         results["schur_damp"] = phase_schur_damp(torch, np, dev)
+        results["rotation_average"], results["translation_average"] = phase_averaging(
+            torch, np, dev)
         torch.cuda.empty_cache()
         wait_for(scene)
         cfg = SfMConfig()
@@ -1333,6 +1609,26 @@ def main(argv=None) -> int:
         add(c, "pipeline")
         large_metrics = stage_seconds(out_large)
         large_peak = torch.cuda.max_memory_allocated()
+
+        # ---- path e: reconstruct --global_init on path a's 36-view artifacts
+        glob = work / f"global_{args.views}"
+        glob.mkdir(parents=True, exist_ok=True)
+        (glob / "pair_table.pkl").write_bytes((out / "pair_table.pkl").read_bytes())
+        c, glob_wall = run_path("global", ["reconstruct", "--data_dir", str(scene),
+                                           "--output_dir", str(glob), "--global_init"],
+                                GLOBAL_KERNELS)
+        add(c, "global")
+        glob_metrics = stage_seconds(glob)
+
+        # ---- path f: reconstruct --polish on path d's 150-view artifacts
+        pol = work / f"polish_{args.large_views}"
+        pol.mkdir(parents=True, exist_ok=True)
+        (pol / "pair_table.pkl").write_bytes((out_large / "pair_table.pkl").read_bytes())
+        c, pol_wall = run_path("polish", ["reconstruct", "--data_dir", str(large),
+                                          "--output_dir", str(pol), "--polish"],
+                               POLISH_KERNELS)
+        add(c, "polish")
+        pol_metrics = stage_seconds(pol)
     finally:
         if render.poll() is None:
             render.kill()
@@ -1394,6 +1690,23 @@ def main(argv=None) -> int:
     from sfm_tpu_torch.reconstruction.tracks import build_tracks
 
     tracks = build_tracks(bt, big["xy"], L)
+
+    # ---- path e's checks: the global model is kept and consistent
+    gcfg = SfMConfig().global_init
+    gs = json.loads((glob / "reconstruction" / "stats.json").read_text())
+    check_model(gs, n_img, "global")
+    check("global_pair_residual_deg" in gs, "global: the model came from the incremental "
+          "fallback, not the global path")
+    check(gs["global_pair_residual_deg"] < 1.0,
+          f"global: median pair residual {gs['global_pair_residual_deg']} deg")
+    check(gs["global_pair_outlier_frac"] <= gcfg.fallback_outlier_frac,
+          f"global: {gs['global_pair_outlier_frac']} of the pairs disagree")
+
+    # ---- path f's checks: polish ran on the 150-view model
+    ps = json.loads((pol / "reconstruction" / "stats.json").read_text())
+    check_model(ps, L, "polish")
+    check(any(k.startswith("polish_") for k in ps), "polish: no polish_* stats (it never ran)")
+    check("engine/polish" in pol_metrics, "polish: no engine/polish span")
     check("jax" not in sys.modules and "sfm_tpu" not in sys.modules, "JAX was imported")
 
     # ---- report
@@ -1429,6 +1742,23 @@ def main(argv=None) -> int:
     log(f"pipeline at {L} views: cli wall {large_wall:.3f} s | peak device memory "
         f"{large_peak / 2**30:.2f} GiB | " + ", ".join(
             f"{k} {v:.3f} s" for k, v in sorted(large_metrics.items())))
+    gt = lambda st: (f"GT rotation median {st.get('gt_rot_err_deg_median', float('nan')):.4f} "
+                     f"deg, ATE {100 * st.get('gt_ate_rel', float('nan')):.3f}% of the scene")
+    log(f"global at {n_img} views: {gs['num_cameras']}/{n_img} cameras, {gs['num_points']} "
+        f"points, mean reprojection {gs['mean_reprojection_error']:.4f} px, pair residual "
+        f"median {gs['global_pair_residual_deg']:.4f} deg, outlier pairs "
+        f"{gs['global_pair_outlier_frac']:.4f}; {gt(gs)} (recorded, not gated); cli wall "
+        f"{glob_wall:.3f} s | " + ", ".join(f"{k} {v:.3f} s"
+                                          for k, v in sorted(glob_metrics.items())))
+    log(f"polish at {L} views: applied {ps.get('polish_applied')}, rolled back "
+        f"{ps.get('polish_rolled_back', False)}, seed {ps.get('polish_seed_choice')} (scores "
+        f"(outlier share, median deg) {ps.get('polish_seed_scores')}), pair "
+        f"residual {ps.get('polish_pair_residual_deg_before', float('nan')):.4f} -> "
+        f"{ps.get('polish_pair_residual_deg_after', float('nan')):.4f} deg, outlier pairs "
+        f"{ps.get('polish_pair_outlier_frac', float('nan')):.4f}; {ps['num_cameras']}/{L} "
+        f"cameras, {ps['num_points']} points, {ps['mean_reprojection_error']:.4f} px; {gt(ps)} "
+        f"(path d, unpolished: {gt(ls)}); cli wall {pol_wall:.3f} s | " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in sorted(pol_metrics.items())))
     log("launches by entry, all paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     kernels = []
     for name, (entries, source, replaces) in KERNELS.items():

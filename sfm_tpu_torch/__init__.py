@@ -13,7 +13,8 @@ originals.
 Ported so far: the main path under the default configuration, ``python -m
 sfm_tpu_torch pipeline --data_dir D --device cuda`` (SIFT frontend,
 retrieval, match/verify sweep, the incremental engine with the guided
-rescue, dense-Schur bundle adjustment, export). The device is always explicit
+rescue, dense-Schur bundle adjustment, export), and the global SfM and
+pose-graph polish routes (``--global_init``, ``--polish``). The device is always explicit
 (:func:`sfm_tpu_torch.device.resolve_device`); on a CUDA tensor every kernel
 wrapper launches its hand-written kernel from ``csrc/`` or raises, and its
 plain PyTorch twin runs only on CPU tensors.

@@ -33,14 +33,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel entry point (all return int = cudaError_t);
 # the last argument is always the cudaStream_t.
 SIGNATURES = {
-    "sfm_match_top2": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "sfm_match_top2": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "sfm_match_epilogue": [_P] * 5 + [_I] * 3 + [_F, _P] + [_P],
+    "sfm_match_compact": [_P] * 3 + [_I] * 4 + [_P] * 4 + [_P],
     "sfm_fmat_score_select": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "sfm_dog_extrema": [_P, _I, _I, _I, _I, _F, _P, _P],
     "sfm_sift_describe": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _I, _P, _F, _F, _P, _P, _P],
     "sfm_ba_linearize": [_P] * 12 + [_I] * 5 + [_F, _I] + [_P] * 10 + [_P],
     "sfm_ba_cost": [_P] * 8 + [_I, _F, _P] + [_P],
-    "sfm_schur_coupling": [_P] * 8 + [_I] * 3 + [_P] + [_P],
+    "sfm_schur_coupling": [_P] * 10 + [_I] * 3 + [_P] + [_P],
     "sfm_triangulate_tracks": [_P] * 9 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P, _P] + [_P],
     "sfm_reproj_stats": [_P] * 9 + [_I] * 3 + [_P, _P] + [_P],
     "sfm_p3p_solve": [_P, _P, _I, _P, _P, _P] + [_P],
@@ -57,13 +59,17 @@ SIGNATURES = {
     "sfm_dog_select": [_P] + [_I] * 5 + [_P] * 10 + [_P],
     "sfm_dog_refine": [_P] + [_I] * 4 + [_P] * 4 + [_I] + [_F] * 3 + [_P] * 4 + [_P],
     "sfm_topk_rows": [_P] + [_I] * 3 + [_P] * 2 + [_P],
+    "sfm_relpose": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_P],
+    "sfm_rotation_average": [_P] * 4 + [_I] * 4 + [_P] * 4 + [_P],
+    "sfm_translation_average": [_P] * 4 + [_I] * 5 + [_P] * 4 + [_P],
 }
 KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
            "ba_linearize", "ba_cost", "schur_coupling", "triangulate_tracks",
            "reproj_stats", "p3p_solve", "pnp_score_select", "retrieval_score",
            "guided_match", "build_pyramid", "seed_score", "pnp_refine", "schur_damp",
            "schur_back_substitute", "fmat_hypotheses", "fmat_refit_verify", "dog_select",
-           "dog_refine", "topk_rows")
+           "dog_refine", "topk_rows", "match_epilogue", "match_compact", "relpose",
+           "rotation_average", "translation_average")
 
 _launches = {k: 0 for k in KERNELS}
 _lib = None

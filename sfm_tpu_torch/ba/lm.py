@@ -42,15 +42,15 @@ def check_ba_config(config: BAConfig, num_cameras: int):
     """Raise on a BA configuration this port does not run yet (ROADMAP)."""
     if config.per_camera_intrinsics:
         raise NotImplementedError(
-            "ba.per_camera_intrinsics is not ported yet (ROADMAP queue 1, item 5)")
+            "ba.per_camera_intrinsics is not ported yet (ROADMAP queue 1, item 6)")
     if config.f64_normal_equations:
         raise NotImplementedError(
-            "ba.f64_normal_equations is not ported yet (ROADMAP queue 1, item 5)")
+            "ba.f64_normal_equations is not ported yet (ROADMAP queue 1, item 6)")
     if num_cameras > config.use_dense_schur_below:
         raise NotImplementedError(
             f"{num_cameras} cameras > ba.use_dense_schur_below="
             f"{config.use_dense_schur_below}: the PCG / blocked BA path is not ported "
-            "yet (ROADMAP queue 1, item 10)")
+            "yet (ROADMAP queue 1, item 2)")
 
 
 def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,

@@ -14,7 +14,8 @@ Counterpart of ``sfm_tpu/ba/schur.py`` on the path the main path runs
 * :func:`dense_schur_direct` assembles the reduced camera + intrinsics
   system S from the per-point co-observation grouping
   (:func:`coobs_pairs`) -- the coupling accumulation is kernel K10
-  (``csrc/schur_coupling.cu``), its twin :func:`schur_matrix_plain` -- and
+  (``csrc/schur_coupling.cu``, which also adds the camera blocks
+  U_c + diag(lambda D_c)), its twin :func:`schur_matrix_plain` -- and
   solves it by Cholesky (``torch.linalg.cholesky_ex``, a library call);
 * :func:`back_substitute` recovers the point step -- K10's
   ``schur_back_substitute``, its twin :func:`schur_back_substitute_plain`.
@@ -294,11 +295,16 @@ def schur_matrix_cuda(lin: Linearization, op: Damped, perm, perm_valid):
             ("Jp", lin.Jp, f32, (O, 2, 3)), ("obs_cam", lin.obs_cam, torch.int32, (O,)),
             ("obs_point", lin.obs_point, torch.int32, (O,)),
             ("Vinv", op.Vinv, f32, (P, 3, 3)), ("perm", perm, torch.int32, (G, Vs)),
-            ("perm_valid", perm_valid, torch.bool, (G, Vs))):
+            ("perm_valid", perm_valid, torch.bool, (G, Vs)), ("U", lin.U, f32, (C, 6, 6)),
+            ("lam_diag_c", op.lam_diag_c, f32, (C, 6))):
         _kernels.check_tensor(x, name, dt, shape, dev)
-    S = _base_matrix(lin, op)
+    # The kernel adds the camera blocks U_c + diag(lam D_c) into the zeroed S.
+    n = 6 * C + 4
+    S = torch.zeros((n, n), dtype=f32, device=dev)
+    S[6 * C:, 6 * C:] = lin.Uk + torch.diag(op.lam_diag_k)
     _kernels.launch("schur_coupling", dev, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
-                    lin.obs_point, op.Vinv, perm, perm_valid, C, G, Vs, S)
+                    lin.obs_point, op.Vinv, perm, perm_valid, lin.U, op.lam_diag_c, C, G, Vs,
+                    S)
     return S
 
 

@@ -5,9 +5,10 @@
 
 Counterpart of ``sfm_tpu/cli.py``; the subcommands and flags mean what they
 mean there, plus ``--device`` (default ``cuda``; asking for CUDA without a
-card raises). Flags of parts not ported yet (``--global_init``,
-``--polish``, ``--checkpoint_dir`` / ``--resume_checkpoint``,
-``--visualize``) raise ``NotImplementedError`` naming their ROADMAP item.
+card raises). ``--global_init`` and ``--polish`` set
+``global_init.enabled`` / ``global_init.polish``. Flags of parts not ported
+yet (``--checkpoint_dir`` / ``--resume_checkpoint``, ``--visualize``) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -54,9 +55,10 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     p.add_argument("--global_init", action="store_true",
-                   help="global SfM (not ported yet: raises)")
+                   help="global SfM: rotation + translation averaging instead of "
+                        "incremental growth")
     p.add_argument("--polish", action="store_true",
-                   help="pose-graph drift correction (not ported yet: raises)")
+                   help="pose-graph drift correction of the incremental model")
 
 
 def _add_recon_flags(p: argparse.ArgumentParser):
@@ -124,13 +126,6 @@ def main(argv=None) -> int:
 
     log.info("python %s | torch %s (cuda %s) | numpy %s", sys.version.split()[0],
              torch.__version__, torch.version.cuda, numpy.__version__)
-    if args.global_init:
-        raise NotImplementedError(
-            "--global_init (global SfM) is not ported yet (ROADMAP queue 1, item 12)")
-    if args.polish:
-        raise NotImplementedError(
-            "--polish (pose-graph drift correction) is not ported yet "
-            "(ROADMAP queue 1, item 12)")
     opt = lambda name, default: getattr(args, name, default)
     pargs = PipelineArgs(
         data_dir=args.data_dir,
@@ -155,6 +150,11 @@ def main(argv=None) -> int:
         cfg = SfMConfig.from_json(args.config_json) if args.config_json else SfMConfig()
         if pargs.min_matches != 20:
             cfg = cfg.replace(pnp=dataclasses.replace(cfg.pnp, min_matches=pargs.min_matches))
+        if args.global_init:
+            cfg = cfg.replace(
+                global_init=dataclasses.replace(cfg.global_init, enabled=True))
+        if args.polish:
+            cfg = cfg.replace(global_init=dataclasses.replace(cfg.global_init, polish=True))
         if opt("match_mode", None):
             cfg = cfg.replace(
                 retrieval=dataclasses.replace(cfg.retrieval, mode=args.match_mode))

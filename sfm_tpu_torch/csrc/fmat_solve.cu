@@ -36,163 +36,12 @@
 // MB (sample indices in, F out: ~0.5 us at 3.35 TB/s); the refit moves ~22 KB
 // a pair. Both are latency chains: a serial 9x9 factorization per thread, and
 // in the refit five block reductions and thread 0's solve between them.
-#include "sfm_common.cuh"
+#include "sfm_geom.cuh"
 
 namespace {
 
 constexpr int NT = 256;
 constexpr int MAXN = 1024;  // fmat_refit_verify: rows of one pair in shared memory
-
-// Packed lower triangle of a symmetric 9x9: entry (i, j), j <= i.
-__device__ __forceinline__ constexpr int pk(int i, int j) { return i * (i + 1) / 2 + j; }
-
-// One row of eight_point's design matrix (x2^T F x1 = a . vec(F)), times w,
-// added to the packed A^T A.
-__device__ __forceinline__ void add_design_row(float x1, float y1, float x2, float y2, float w,
-                                               float* A) {
-  const float a[9] = {x2 * x1 * w, x2 * y1 * w, x2 * w, y2 * x1 * w, y2 * y1 * w,
-                      y2 * w,      x1 * w,      y1 * w, w};
-#pragma unroll
-  for (int i = 0; i < 9; ++i)
-#pragma unroll
-    for (int j = 0; j <= i; ++j) A[pk(i, j)] += a[i] * a[j];
-}
-
-// utils/linalg.py::_cholesky_clamped of the packed A + shift I, column by
-// column, written to L (which may be A itself: each entry of A is read before
-// its place is written). Returns whether a pivot was nonpositive.
-__device__ __forceinline__ bool cholesky_clamped9(const float* A, float shift, float* L) {
-  bool bad = false;
-#pragma unroll
-  for (int j = 0; j < 9; ++j) {
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < j; ++k) acc += L[pk(j, k)] * L[pk(j, k)];
-    const float s = (A[pk(j, j)] + shift) - acc;
-    bad |= s <= 0.f;
-    const float d = sqrtf(fmaxf(s, 1e-30f));
-    L[pk(j, j)] = d;
-#pragma unroll
-    for (int i = j + 1; i < 9; ++i) {
-      float r = 0.f;
-#pragma unroll
-      for (int k = 0; k < j; ++k) r += L[pk(i, k)] * L[pk(j, k)];
-      L[pk(i, j)] = (A[pk(i, j)] - r) / d;
-    }
-  }
-  return bad;
-}
-
-// smallest_eigvec's iteration on the factor: x <- (L L^T)^-1 x, normalized,
-// from x0 = 1 + 1e-3 * arange(9).
-__device__ __forceinline__ void inverse_iterate9(const float* L, int iters, float* x) {
-#pragma unroll
-  for (int i = 0; i < 9; ++i) x[i] = 1.f + 1e-3f * (float)i;
-  for (int it = 0; it < iters; ++it) {
-    float y[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      float s = x[i];
-#pragma unroll
-      for (int k = 0; k < i; ++k) s -= L[pk(i, k)] * y[k];
-      y[i] = s / L[pk(i, i)];
-    }
-#pragma unroll
-    for (int i = 8; i >= 0; --i) {
-      float s = y[i];
-#pragma unroll
-      for (int k = i + 1; k < 9; ++k) s -= L[pk(k, i)] * x[k];
-      x[i] = s / L[pk(i, i)];
-    }
-    float n2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) n2 += x[i] * x[i];
-    const float nrm = fmaxf(sqrtf(n2), 1e-30f);
-#pragma unroll
-    for (int i = 0; i < 9; ++i) x[i] /= nrm;
-  }
-}
-
-// F = T2^T Fn T1 (T = [[s, 0, -s cx], [0, s, -s cy], [0, 0, 1]], given as
-// (s, cx, cy)), then divided by max(||F||_F, 1e-12).
-__device__ __forceinline__ void denormalize(const float* fn, const float* t1, const float* t2,
-                                            float* F) {
-  const float T1[9] = {t1[0], 0.f, -t1[0] * t1[1], 0.f, t1[0], -t1[0] * t1[2], 0.f, 0.f, 1.f};
-  const float T2[9] = {t2[0], 0.f, -t2[0] * t2[1], 0.f, t2[0], -t2[0] * t2[2], 0.f, 0.f, 1.f};
-  float M[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      M[i * 3 + j] = fn[i * 3] * T1[j] + fn[i * 3 + 1] * T1[3 + j] + fn[i * 3 + 2] * T1[6 + j];
-  float n2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      F[i * 3 + j] = T2[i] * M[j] + T2[3 + i] * M[3 + j] + T2[6 + i] * M[6 + j];
-      n2 += F[i * 3 + j] * F[i * 3 + j];
-    }
-  const float nrm = fmaxf(sqrtf(n2), 1e-12f);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) F[k] /= nrm;
-}
-
-// Rank 2 without an SVD: F <- F (I - v v^T), v the unit eigenvector of F^T F
-// for its smallest eigenvalue. adj(F^T F) = det (F^T F)^-1 has v as its
-// dominant eigenvector (as utils/linalg.py::_smallest_eigvec_adjugate uses
-// it), and is still v v^T times lambda_1 lambda_2 when F is singular; 12
-// renormalized squarings raise it to the power 4096, so its other directions
-// shrink by (sigma_3 / sigma_2)^8192 and every column is a multiple of v; v is
-// the column of largest norm. A rank-1 F has adj = 0 and is left as it is.
-__device__ void rank2_project(float* f) {
-  float M[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) M[i * 3 + j] = f[i] * f[j] + f[3 + i] * f[3 + j] + f[6 + i] * f[6 + j];
-  // adj(M)[:, j] = row (j+1) x row (j+2).
-  float P[9];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float* a = M + ((j + 1) % 3) * 3;
-    const float* b = M + ((j + 2) % 3) * 3;
-    P[0 * 3 + j] = a[1] * b[2] - a[2] * b[1];
-    P[1 * 3 + j] = a[2] * b[0] - a[0] * b[2];
-    P[2 * 3 + j] = a[0] * b[1] - a[1] * b[0];
-  }
-  for (int k = 0; k < 12; ++k) {
-    float Q[9], mx = 0.f;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        Q[i * 3 + j] = P[i * 3] * P[j] + P[i * 3 + 1] * P[3 + j] + P[i * 3 + 2] * P[6 + j];
-        mx = fmaxf(mx, fabsf(Q[i * 3 + j]));
-      }
-    mx = fmaxf(mx, 1e-30f);
-#pragma unroll
-    for (int e = 0; e < 9; ++e) P[e] = Q[e] / mx;
-  }
-  int jm = 0;
-  float best = -1.f;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float n2 = P[j] * P[j] + P[3 + j] * P[3 + j] + P[6 + j] * P[6 + j];
-    if (n2 > best) {
-      best = n2;
-      jm = j;
-    }
-  }
-  const float nrm = fmaxf(sqrtf(best), 1e-30f);
-  const float v[3] = {P[jm] / nrm, P[3 + jm] / nrm, P[6 + jm] / nrm};
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float fv = f[i * 3] * v[0] + f[i * 3 + 1] * v[1] + f[i * 3 + 2] * v[2];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) f[i * 3 + j] -= fv * v[j];
-  }
-}
 
 __global__ void __launch_bounds__(NT) fmat_hypotheses_kernel(
     const float* __restrict__ pts1, const float* __restrict__ pts2,
@@ -243,14 +92,14 @@ __global__ void __launch_bounds__(NT) fmat_hypotheses_kernel(
 #pragma unroll
   for (int e = 0; e < 45; ++e) A[e] = 0.f;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) add_design_row(p[0][k], p[1][k], p[2][k], p[3][k], 1.f, A);
+  for (int k = 0; k < 8; ++k) sfm_add_design_row(p[0][k], p[1][k], p[2][k], p[3][k], 1.f, A);
   float tr = 0.f;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) tr += A[pk(i, i)];
-  cholesky_clamped9(A, 1e-6f * (tr / 9.f) + 1e-20f, A);
+  for (int i = 0; i < 9; ++i) tr += A[sfm_pk(i, i)];
+  sfm_cholesky_clamped9(A, 1e-6f * (tr / 9.f) + 1e-20f, A);
   float f[9], F[9];
-  inverse_iterate9(A, 3, f);
-  denormalize(f, T[0], T[1], F);
+  sfm_inverse_iterate9(A, 3, f);
+  sfm_denormalize(f, T[0], T[1], F);
 #pragma unroll
   for (int k = 0; k < 9; ++k) Fs[(size_t)g * 9 + k] = F[k];
 }
@@ -287,8 +136,8 @@ __global__ void __launch_bounds__(NT) fmat_refit_verify_kernel(
     for (int k = 0; k < 9; ++k) Fb[k] = Fs[((size_t)b * H + h) * 9 + k];
   }
 
-  // 1. The winner's consensus w over all rows; the weighted centroids.
-  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // sum w, w x1, w y1, w x2, w y2; valid rows
+  // 1. The winner's consensus w over all rows; the valid rows.
+  float n_valid = 0.f;
   for (int n = threadIdx.x; n < N; n += NT) {
     const float x1 = pts1[(row0 + n) * 2], y1 = pts1[(row0 + n) * 2 + 1];
     const float x2 = pts2[(row0 + n) * 2], y2 = pts2[(row0 + n) * 2 + 1];
@@ -298,62 +147,15 @@ __global__ void __launch_bounds__(NT) fmat_refit_verify_kernel(
     sp[2][n] = x2;
     sp[3][n] = y2;
     sv[n] = v;
-    const float w = (v && sfm_sym_epipolar(Fb, x1, y1, x2, y2) < thr) ? 1.f : 0.f;
-    sw[n] = w;
-    acc[0] += w;
-    acc[1] += x1 * w;
-    acc[2] += y1 * w;
-    acc[3] += x2 * w;
-    acc[4] += y2 * w;
-    acc[5] += v ? 1.f : 0.f;
+    sw[n] = (v && sfm_sym_epipolar(Fb, x1, y1, x2, y2) < thr) ? 1.f : 0.f;
+    n_valid += v ? 1.f : 0.f;
   }
-  sfm_block_sum<NT, 6>(acc, reinterpret_cast<float(*)[6]>(&red[0][0]));
-  const float wsum = fmaxf(acc[0], 1e-12f);
-  const float c[4] = {acc[1] / wsum, acc[2] / wsum, acc[3] / wsum, acc[4] / wsum};
-  const int n_matches = (int)acc[5];
+  sfm_block_sum<NT, 1>(&n_valid, reinterpret_cast<float(*)[1]>(&red[0][0]));
+  const int n_matches = (int)n_valid;
   const bool ok = n_matches >= 8;
 
-  // 2. The weighted mean distances to the centroids.
-  float md[2] = {0.f, 0.f};
-  for (int n = threadIdx.x; n < N; n += NT) {
-    const float w = sw[n];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const float dx = sp[2 * m][n] - c[2 * m], dy = sp[2 * m + 1][n] - c[2 * m + 1];
-      md[m] += sqrtf(dx * dx + dy * dy) * w;
-    }
-  }
-  sfm_block_sum<NT, 2>(md, reinterpret_cast<float(*)[2]>(&red[0][0]));
-  const float s1 = 1.41421356237309515f / fmaxf(md[0] / wsum, 1e-12f);
-  const float s2 = 1.41421356237309515f / fmaxf(md[1] / wsum, 1e-12f);
-
-  // 3. The weighted 9x9 A^T A of the normalized rows.
-  float A[45];
-#pragma unroll
-  for (int e = 0; e < 45; ++e) A[e] = 0.f;
-  for (int n = threadIdx.x; n < N; n += NT) {
-    const float w = sw[n];
-    if (w == 0.f) continue;
-    add_design_row((sp[0][n] - c[0]) * s1, (sp[1][n] - c[1]) * s1, (sp[2][n] - c[2]) * s2,
-                   (sp[3][n] - c[3]) * s2, w, A);
-  }
-  sfm_block_sum<NT, 45>(A, red);
-
-  // 4. Thread 0: smallest_eigvec with its fallback tier, rank 2, denormalize.
-  if (threadIdx.x == 0) {
-    float tr = 0.f;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) tr += A[pk(i, i)];
-    const float mean = tr / 9.f;
-    float L[45];
-    if (cholesky_clamped9(A, 1e-6f * mean + 1e-20f, L)) cholesky_clamped9(A, 1e-3f * mean + 1e-20f, L);
-    float f[9];
-    inverse_iterate9(L, 8, f);
-    rank2_project(f);
-    const float t1[3] = {s1, c[0], c[1]}, t2[3] = {s2, c[2], c[3]};
-    denormalize(f, t1, t2, sF);
-  }
-  __syncthreads();
+  // 2-4. The weighted eight-point refit with its rank-2 projection.
+  sfm_eight_point_block<NT>(sp[0], sp[1], sp[2], sp[3], sw, N, red, sF);
   float F[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) F[k] = sF[k];

@@ -29,127 +29,12 @@
 // x ~150 FLOP is 25 MFLOP for B = 8 x 2048 (< 1 us at the f32 peak), and the
 // inputs are 20 bytes a row. The block-wide reduction and thread 0's solve
 // between steps (a serial chain of 20 barriers) set its time.
-#include "sfm_common.cuh"
+#include "sfm_geom.cuh"
 
 namespace {
 
 constexpr int NT = 256;
 constexpr int MAXN = 8192;
-
-// R = I + a K + b K^2 (rotations.py::rodrigues) and, when dR != nullptr,
-// dR[j] = dR / d rvec_j.
-__device__ void rodrigues_d(const float* w, float* R, float (*dR)[9]) {
-  const float th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
-  const bool small = th2 < 1e-8f;
-  float a, b, da, db;  // da, db: d/d(theta^2)
-  if (small) {
-    a = 1.f - th2 / 6.f;
-    b = 0.5f - th2 / 24.f;
-    da = -1.f / 6.f;
-    db = -1.f / 24.f;
-  } else {
-    const float th = sqrtf(th2);
-    const float s = sinf(th), c = cosf(th);
-    a = s / th;
-    b = (1.f - c) / th2;
-    da = (th * c - s) / (2.f * th2 * th);
-    db = (th * s - 2.f * (1.f - c)) / (2.f * th2 * th2);
-  }
-  const float K[9] = {0.f, -w[2], w[1], w[2], 0.f, -w[0], -w[1], w[0], 0.f};
-  float K2[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      K2[i * 3 + j] = K[i * 3] * K[j] + K[i * 3 + 1] * K[3 + j] + K[i * 3 + 2] * K[6 + j];
-#pragma unroll
-  for (int e = 0; e < 9; ++e) R[e] = (e % 4 == 0 ? 1.f : 0.f) + a * K[e] + b * K2[e];
-  if (dR == nullptr) return;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    // dK = skew(e_j); d(K^2) = dK K + K dK.
-    float dK[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (j == 0) { dK[5] = -1.f; dK[7] = 1.f; }
-    if (j == 1) { dK[2] = 1.f; dK[6] = -1.f; }
-    if (j == 2) { dK[1] = -1.f; dK[3] = 1.f; }
-    const float dth2 = 2.f * w[j];
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float dK2 = 0.f;
-#pragma unroll
-        for (int m = 0; m < 3; ++m) dK2 += dK[r * 3 + m] * K[m * 3 + c] + K[r * 3 + m] * dK[m * 3 + c];
-        dR[j][r * 3 + c] = da * dth2 * K[r * 3 + c] + a * dK[r * 3 + c] +
-                           db * dth2 * K2[r * 3 + c] + b * dK2;
-      }
-  }
-}
-
-// rotations.py::rotation_to_rvec: generic, theta -> 0 and theta -> pi.
-__device__ void rotation_to_rvec(const float* R, float* out) {
-  const float tr = R[0] + R[4] + R[8];
-  const float cos_t = fminf(fmaxf((tr - 1.f) * 0.5f, -1.f), 1.f);
-  const float theta = acosf(cos_t);
-  const float v[3] = {R[7] - R[5], R[2] - R[6], R[3] - R[1]};
-  if (theta < 1e-5f) {
-    for (int k = 0; k < 3; ++k) out[k] = 0.5f * v[k];
-    return;
-  }
-  if (theta > (float)(3.14159265358979323846 - 1e-3)) {
-    float ax[3];
-    for (int k = 0; k < 3; ++k) ax[k] = sqrtf(fmaxf((R[k * 4] + 1.f) * 0.5f, 0.f));
-    int im = 0;
-    if (ax[1] > ax[im]) im = 1;
-    if (ax[2] > ax[im]) im = 2;
-    auto sgn = [](float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f); };
-    const float s01 = sgn(R[1] + R[3]), s02 = sgn(R[2] + R[6]), s12 = sgn(R[5] + R[7]);
-    const float sraw[3] = {im == 1 ? s01 : s02, im == 0 ? s01 : s12, im == 0 ? s02 : s12};
-    float n2 = 0.f;
-    for (int k = 0; k < 3; ++k) {
-      const float s = k == im ? 1.f : (sraw[k] == 0.f ? 1.f : sraw[k]);
-      ax[k] *= s;
-      n2 += ax[k] * ax[k];
-    }
-    const float n = fmaxf(sqrtf(n2), 1e-12f);
-    for (int k = 0; k < 3; ++k) out[k] = ax[k] / n * theta;
-    return;
-  }
-  const float n = fmaxf(sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]), 1e-12f);
-  for (int k = 0; k < 3; ++k) out[k] = v[k] / n * theta;
-}
-
-// (A + 1e-6 I) x = g by Cholesky; A given by its upper triangle (21, row-major).
-__device__ void solve6(const float* A21, const float* g, float* x) {
-  float L[6][6];
-  int e = 0;
-  for (int i = 0; i < 6; ++i)
-    for (int j = i; j < 6; ++j) {
-      L[j][i] = A21[e++] + (i == j ? 1e-6f : 0.f);  // lower triangle of A + 1e-6 I
-    }
-  for (int j = 0; j < 6; ++j) {
-    float s = L[j][j];
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    const float d = sqrtf(s);  // not SPD: NaN, caught by the finite guard
-    L[j][j] = d;
-    for (int i = j + 1; i < 6; ++i) {
-      float r = L[i][j];
-      for (int k = 0; k < j; ++k) r -= L[i][k] * L[j][k];
-      L[i][j] = r / d;
-    }
-  }
-  float y[6];
-  for (int i = 0; i < 6; ++i) {
-    float s = g[i];
-    for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-    y[i] = s / L[i][i];
-  }
-  for (int i = 5; i >= 0; --i) {
-    float s = y[i];
-    for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
-    x[i] = s / L[i][i];
-  }
-}
 
 struct Rows {
   const float* p3;
@@ -184,7 +69,7 @@ __device__ void refine(const Rows& rows, const uint8_t* w, const float* k4, int 
                        float* params, float (*red)[27]) {
   for (int it = 0; it < iters; ++it) {
     float R[9], dR[3][9];
-    rodrigues_d(params, R, dR);
+    sfm_rodrigues_d(params, R, dR);
     const float t[3] = {params[3], params[4], params[5]};
     float acc[27];
 #pragma unroll
@@ -227,7 +112,7 @@ __device__ void refine(const Rows& rows, const uint8_t* w, const float* k4, int 
     sfm_block_sum<NT, 27>(acc, red);
     if (threadIdx.x == 0) {
       float delta[6];
-      solve6(acc, acc + 21, delta);
+      sfm_solve6(acc, acc + 21, delta, 1e-6f, false);  // (J^T J + 1e-6 I) delta = J^T r
       for (int k = 0; k < 6; ++k) params[k] -= delta[k];
     }
     __syncthreads();
@@ -254,7 +139,7 @@ __global__ void __launch_bounds__(NT) pnp_refine_kernel(
   for (int k = 0; k < 9; ++k) R[k] = R0[b * 9 + k];
   for (int k = 0; k < 3; ++k) t[k] = t0[b * 3 + k];
   if (threadIdx.x == 0) {
-    rotation_to_rvec(R, params);
+    sfm_rotation_to_rvec(R, params);
     for (int k = 0; k < 3; ++k) params[3 + k] = t[k];
     s_count = 0;
   }
@@ -263,14 +148,14 @@ __global__ void __launch_bounds__(NT) pnp_refine_kernel(
 
   // Re-derive the weights at the refined pose; the second refit starts from
   // rotation_to_rvec(rodrigues(params)), as refine_pose_gn does.
-  rodrigues_d(params, R, nullptr);
+  sfm_rodrigues_d(params, R, nullptr);
   for (int k = 0; k < 3; ++k) t[k] = params[3 + k];
   __syncthreads();
-  if (threadIdx.x == 0) rotation_to_rvec(R, params);
+  if (threadIdx.x == 0) sfm_rotation_to_rvec(R, params);
   set_weights(rows, R, t, k4, thr, true, w);
   refine(rows, w, k4, iters, params, red);
 
-  rodrigues_d(params, R, nullptr);
+  sfm_rodrigues_d(params, R, nullptr);
   for (int k = 0; k < 3; ++k) t[k] = params[3 + k];
   bool finite = true;
   for (int k = 0; k < 9; ++k) finite = finite && isfinite(R[k]);
@@ -293,7 +178,7 @@ __global__ void __launch_bounds__(NT) pnp_refine_kernel(
     }
     for (int k = 0; k < 9; ++k) R_out[b * 9 + k] = R[k];
     for (int k = 0; k < 3; ++k) t_out[b * 3 + k] = t[k];
-    rotation_to_rvec(R, rvec_out + b * 3);
+    sfm_rotation_to_rvec(R, rvec_out + b * 3);
     num_out[b] = finite ? s_count : 0;
     ok_out[b] = s_count >= min_inliers[b] && finite;
   }

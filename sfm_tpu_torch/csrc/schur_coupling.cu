@@ -3,8 +3,9 @@
 // Replaces the assembly in sfm_tpu/ba/schur.py::dense_schur_direct (:348-418):
 // there the per-slot blocks are scattered onto cameras by one-hot matmuls and
 // the camera-pair coupling sum_p sum_{a,b in obs(p)} W_a V_p^-1 W_b^T is one
-// (3P' x 6C)^T (3P' x 6C) matmul (an MXU trick). Here the wrapper fills S with
-// blockdiag(U + lambda D) and Uk + diag(lambda_k); this kernel subtracts the
+// (3P' x 6C)^T (3P' x 6C) matmul (an MXU trick), and the camera blocks are one
+// scatter (:392). Here the wrapper zeroes S and writes Uk + diag(lambda_k);
+// this kernel adds the camera blocks U_c + diag(lambda D_c), subtracts the
 // coupling and adds the intrinsics row/column, in place:
 //   S[cam_a, cam_b] -= M_a Vinv_p M_b^T         (M_o = Jc_o^T Jp_o, 6 x 3)
 //   S[cam_a, k]     += Jc_a^T Jk_a - M_a Vinv_p Wk_p^T  (Wk_p = sum_a Jk_a^T Jp_a)
@@ -44,7 +45,8 @@ __global__ void __launch_bounds__(NT) schur_coupling_kernel(
     const float* __restrict__ Jc, const float* __restrict__ Jk,
     const float* __restrict__ Jp, const int* __restrict__ obs_cam,
     const int* __restrict__ obs_point, const float* __restrict__ Vinv,
-    const int* __restrict__ perm, const uint8_t* __restrict__ perm_valid, int C, int G,
+    const int* __restrict__ perm, const uint8_t* __restrict__ perm_valid,
+    const float* __restrict__ U, const float* __restrict__ lam_diag_c, int C, int G,
     int Vs, float* __restrict__ S) {
   extern __shared__ int sslot[];  // WARPS x Vs observation ids, then WARPS x Vs cams
   __shared__ float s_kk[16];
@@ -53,6 +55,14 @@ __global__ void __launch_bounds__(NT) schur_coupling_kernel(
   const size_t n = (size_t)6 * C + 4;
   const size_t kc = (size_t)6 * C;
   if (threadIdx.x < 16) s_kk[threadIdx.x] = 0.f;
+  // The camera blocks U_c + diag(lambda D_c), spread over the grid; added, as
+  // the coupling atomics may land first.
+  for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < (size_t)36 * C;
+       e += (size_t)gridDim.x * NT) {
+    const size_t c = e / 36, i = e % 36 / 6, j = e % 6;
+    const float x = U[e] + (i == j ? lam_diag_c[6 * c + i] : 0.f);
+    if (x != 0.f) atomicAdd(&S[(6 * c + i) * n + 6 * c + j], x);
+  }
   int* so = sslot + warp * Vs;
   int* sc = sslot + WARPS * Vs + warp * Vs;
 
@@ -159,18 +169,21 @@ __global__ void __launch_bounds__(NT) schur_coupling_kernel(
 SFM_API int sfm_schur_coupling(const void* Jc, const void* Jk, const void* Jp,
                                const void* obs_cam, const void* obs_point,
                                const void* Vinv, const void* perm, const void* perm_valid,
-                               int C, int G, int Vs, void* S, void* stream) {
+                               const void* U, const void* lam_diag_c, int C, int G, int Vs,
+                               void* S, void* stream) {
   const size_t smem = (size_t)2 * WARPS * Vs * sizeof(int);
   cudaError_t e = cudaFuncSetAttribute(
       schur_coupling_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (G > 0) {
-    schur_coupling_kernel<<<(G + WARPS - 1) / WARPS, NT, smem,
+  const int blocks = max((G + WARPS - 1) / WARPS, (36 * C + NT - 1) / NT);
+  if (blocks > 0) {
+    schur_coupling_kernel<<<blocks, NT, smem,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(Jc), static_cast<const float*>(Jk),
         static_cast<const float*>(Jp), static_cast<const int*>(obs_cam),
         static_cast<const int*>(obs_point), static_cast<const float*>(Vinv),
-        static_cast<const int*>(perm), static_cast<const uint8_t*>(perm_valid), C, G, Vs,
+        static_cast<const int*>(perm), static_cast<const uint8_t*>(perm_valid),
+        static_cast<const float*>(U), static_cast<const float*>(lam_diag_c), C, G, Vs,
         static_cast<float*>(S));
   }
   return static_cast<int>(cudaGetLastError());

@@ -19,89 +19,11 @@
 // both rotations. The four cheirality counts are __syncthreads_count
 // reductions and the first maximum wins, as torch.argmax. Each masked median
 // is 24 bisection rounds of one block count each; an empty mask gives +inf.
-#include "sfm_common.cuh"
+#include "sfm_geom.cuh"
 
 namespace {
 
 constexpr int MAX_N = 1024;
-
-__device__ __forceinline__ void cross3(const float a[3], const float b[3], float c[3]) {
-  c[0] = a[1] * b[2] - a[2] * b[1];
-  c[1] = a[2] * b[0] - a[0] * b[2];
-  c[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-__device__ __forceinline__ void matmul3(const float A[3][3], const float B[3][3],
-                                        float C[3][3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) C[i][j] = A[i][0] * B[0][j] + A[i][1] * B[1][j] + A[i][2] * B[2][j];
-}
-
-// utils/linalg.py::_smallest_eigvec_adjugate for n = 3: 8 steps of inverse
-// iteration with adj(A + (1e-6 mean_eig + 1e-20) I), whose columns are the
-// cross products of its rows.
-__device__ void smallest_eigvec3(const float A[3][3], float x[3]) {
-  const float mean = (A[0][0] + A[1][1] + A[2][2]) / 3.f;
-  float a[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) a[i][j] = A[i][j] + (i == j ? 1e-6f * mean + 1e-20f : 0.f);
-  float c[3][3];  // c[k] = column k of the adjugate
-  cross3(a[1], a[2], c[0]);
-  cross3(a[2], a[0], c[1]);
-  cross3(a[0], a[1], c[2]);
-  x[0] = 1.f;
-  x[1] = 1.001f;
-  x[2] = 1.002f;
-  for (int it = 0; it < 8; ++it) {
-    float y[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) y[i] = c[0][i] * x[0] + c[1][i] * x[1] + c[2][i] * x[2];
-    const float nrm = fmaxf(sqrtf(y[0] * y[0] + y[1] * y[1] + y[2] * y[2]), 1e-30f);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) x[i] = y[i] / nrm;
-  }
-}
-
-// R <- 1.5 R - 0.5 (R R^T) R, three times (epipolar.py::_orthonormalize).
-__device__ void orthonormalize(float R[3][3]) {
-  for (int it = 0; it < 3; ++it) {
-    float RRt[3][3], M[3][3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        RRt[i][j] = R[i][0] * R[j][0] + R[i][1] * R[j][1] + R[i][2] * R[j][2];
-    matmul3(RRt, R, M);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) R[i][j] = 1.5f * R[i][j] - 0.5f * M[i][j];
-  }
-}
-
-// P = K [R | t] (3 x 4, row-major).
-__device__ void camera(const float K[3][3], const float R[3][3], const float t[3],
-                       float P[12]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) P[4 * i + j] = K[i][0] * R[0][j] + K[i][1] * R[1][j] + K[i][2] * R[2][j];
-    P[4 * i + 3] = K[i][0] * t[0] + K[i][1] * t[1] + K[i][2] * t[2];
-  }
-}
-
-// Two-view DLT of one match under cameras P1, P2.
-__device__ void triangulate2(const float P1[12], const float P2[12], const float p1[2],
-                             const float p2[2], float X[3]) {
-  float A[4][4] = {{0.f}};
-  sfm_dlt_add(P1, p1[0], p1[1], A);
-  sfm_dlt_add(P2, p2[0], p2[1], A);
-  sfm_solve_dlt(A, X);
-}
 
 // Pixel and depth of X under (R, t, K), as geometry/projection.py::project.
 __device__ float project(const float K[3][3], const float R[3][3], const float t[3],
@@ -164,75 +86,27 @@ __global__ void seed_score_kernel(const float* __restrict__ Fs, const float* __r
     K[i / 3][i % 3] = Kmat[i];
     F[i / 3][i % 3] = Fs[(size_t)p * 9 + i];
   }
-  // E = K^T F K, normalized to Frobenius norm sqrt(2).
+  // E = K^T F K.
   float KtF[3][3], E[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) KtF[i][j] = K[0][i] * F[0][j] + K[1][i] * F[1][j] + K[2][i] * F[2][j];
-  matmul3(KtF, K, E);
-  float fro = 0.f;
-#pragma unroll
-  for (int i = 0; i < 9; ++i) fro += E[i / 3][i % 3] * E[i / 3][i % 3];
-  const float scale = 1.41421356f / fmaxf(sqrtf(fro), 1e-12f);
-  float En[3][3];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) En[i / 3][i % 3] = E[i / 3][i % 3] * scale;
-
-  // Horn: t = null vector of En En^T; R = Cof(En) -+ [t]x En.
-  float EEt[3][3], t[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      EEt[i][j] = En[i][0] * En[j][0] + En[i][1] * En[j][1] + En[i][2] * En[j][2];
-  smallest_eigvec3(EEt, t);
-  const float B[3][3] = {{0.f, -t[2], t[1]}, {t[2], 0.f, -t[0]}, {-t[1], t[0], 0.f}};
-  float cof[3][3], BE[3][3], Rc[2][3][3];
-  cross3(En[1], En[2], cof[0]);
-  cross3(En[2], En[0], cof[1]);
-  cross3(En[0], En[1], cof[2]);
-  matmul3(B, En, BE);
-#pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    Rc[0][i / 3][i % 3] = cof[i / 3][i % 3] - BE[i / 3][i % 3];
-    Rc[1][i / 3][i % 3] = cof[i / 3][i % 3] + BE[i / 3][i % 3];  // Cof(-En) - [t]x (-En)
-  }
-  orthonormalize(Rc[0]);
-  orthonormalize(Rc[1]);
-
-  // Cheirality of (R_k, t) and (R_k, -t) from one triangulation each.
+  sfm_matmul3(KtF, K, E);
+  // Horn's decomposition and the four-way cheirality vote (recover_pose).
+  float R[3][3], tb[3];
+  bool mask;
+  int count;
+  sfm_recover_pose(E, K, p1, p2, w, R, tb, &mask, &count);
   const float I3[3][3] = {{1.f, 0.f, 0.f}, {0.f, 1.f, 0.f}, {0.f, 0.f, 1.f}};
   const float zero3[3] = {0.f, 0.f, 0.f};
   float P1[12], P2[12];
-  camera(K, I3, zero3, P1);
-  int counts[4];
-  bool masks[4];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    camera(K, Rc[k], t, P2);
-    float X[3];
-    triangulate2(P1, P2, p1, p2, X);
-    const float z1 = X[2];
-    const float z2 = Rc[k][2][0] * X[0] + Rc[k][2][1] * X[1] + Rc[k][2][2] * X[2] + t[2];
-    masks[2 * k] = z1 > 0.f && z2 > 0.f;
-    masks[2 * k + 1] = z1 < 0.f && z2 < 0.f;
-    counts[2 * k] = __syncthreads_count(w && masks[2 * k]);
-    counts[2 * k + 1] = __syncthreads_count(w && masks[2 * k + 1]);
-  }
-  int best = 0;
-#pragma unroll
-  for (int k = 1; k < 4; ++k)
-    if (counts[k] > counts[best]) best = k;
-  const float(*R)[3] = Rc[best / 2];
-  const float sgn = best % 2 ? -1.f : 1.f;
-  const float tb[3] = {sgn * t[0], sgn * t[1], sgn * t[2]};
-  const bool mask = masks[best] && w;
+  sfm_camera(K, I3, zero3, P1);
 
   // Two-view consistency and parallax under the chosen pose.
-  camera(K, R, tb, P2);
+  sfm_camera(K, R, tb, P2);
   float X[3], pr1[2], pr2[2];
-  triangulate2(P1, P2, p1, p2, X);
+  sfm_triangulate2(P1, P2, p1, p2, X);
   const float z1 = project(K, I3, zero3, X, pr1);
   const float z2 = project(K, R, tb, X, pr2);
   const float e1 = sqrtf((pr1[0] - p1[0]) * (pr1[0] - p1[0]) + (pr1[1] - p1[1]) * (pr1[1] - p1[1]));
@@ -253,7 +127,7 @@ __global__ void seed_score_kernel(const float* __restrict__ Fs, const float* __r
 
   if (threadIdx.x == 0) {
     const float consistent = med_err < 3.f ? 1.f : 0.f;
-    score[p] = (float)counts[best] * fminf(fmaxf(med_par, 0.f), 10.f) * consistent;
+    score[p] = (float)count * fminf(fmaxf(med_par, 0.f), 10.f) * consistent;
 #pragma unroll
     for (int i = 0; i < 9; ++i) R_out[(size_t)p * 9 + i] = R[i / 3][i % 3];
 #pragma unroll

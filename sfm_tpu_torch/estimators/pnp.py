@@ -225,7 +225,7 @@ def pnp_ransac_batch(pts3d, pts2d, valid, K, min_inliers, iters: int = 1024,
     if sample_size != 3:
         raise NotImplementedError(
             f"pnp.sample_size={sample_size}: only the P3P path (3) is ported; the DLT + "
-            "per-hypothesis GN path is on ROADMAP queue 1, item 6")
+            "per-hypothesis GN path is on ROADMAP queue 1, item 5")
     pts3d = pts3d.to(torch.float32)
     pts2d = pts2d.to(torch.float32)
     valid = valid.to(torch.bool)

@@ -26,18 +26,24 @@ def top_k_plain(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def top_k_rows(rows: torch.Tensor, k: int):
+    """Kernel K4's ``topk_rows`` on a contiguous (R, n) float32 CUDA tensor:
+    (values (R, k), indices (R, k) int32), ``lax.top_k``'s order."""
+    R, n = rows.shape
+    if k > min(n, _TOPK_MAX_K):
+        raise ValueError(f"top_k: k={k} exceeds the row length {n} or {_TOPK_MAX_K}")
+    _kernels.check_tensor(rows, "x", torch.float32, (R, n), rows.device)
+    vals = torch.empty((R, k), dtype=torch.float32, device=rows.device)
+    idx = torch.empty((R, k), dtype=torch.int32, device=rows.device)
+    _kernels.launch("topk_rows", rows.device, rows, R, n, k, vals, idx)
+    return vals, idx
+
+
 def top_k_cuda(x: torch.Tensor, k: int):
     n = x.shape[-1]
-    k = min(k, n)
-    if k > _TOPK_MAX_K:
-        raise ValueError(f"top_k: k={k} exceeds {_TOPK_MAX_K}")
-    rows = x.reshape(-1, n).contiguous()
-    _kernels.check_tensor(rows, "x", torch.float32, rows.shape, x.device)
-    vals = torch.empty((rows.shape[0], k), dtype=torch.float32, device=x.device)
-    idx = torch.empty((rows.shape[0], k), dtype=torch.int32, device=x.device)
-    _kernels.launch("topk_rows", x.device, rows, rows.shape[0], n, k, vals, idx)
+    vals, idx = top_k_rows(x.reshape(-1, n).contiguous(), min(k, n))
     lead = x.shape[:-1]
-    return vals.reshape(lead + (k,)), idx.long().reshape(lead + (k,))
+    return vals.reshape(lead + (vals.shape[1],)), idx.long().reshape(lead + (vals.shape[1],))
 
 
 def top_k(x: torch.Tensor, k: int):

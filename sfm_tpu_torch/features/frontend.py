@@ -78,7 +78,7 @@ def select_keypoints(images: torch.Tensor, masks: Optional[torch.Tensor],
     per-keypoint ``grad_layer, x, y, sigma_rel, row_off, w_o, h_o``)."""
     if config.kind == "orb":
         raise NotImplementedError(
-            "feature kind 'orb' is not ported yet (ROADMAP queue 2, K12)")
+            "feature kind 'orb' is not ported yet (ROADMAP queue 1, item 4; kernel K12)")
     image = _normalize_image(images)
     B, H, W = image.shape
     dev = image.device

@@ -58,11 +58,12 @@ class PipelineArgs:
     def __post_init__(self):
         if self.visualize:
             raise NotImplementedError(
-                "--visualize (per-pair match overlays) is not ported yet (ROADMAP queue 1)")
+                "--visualize (per-pair match overlays) is not ported yet "
+                "(ROADMAP queue 1, item 8)")
         if self.checkpoint_dir or self.checkpoint_every or self.resume_checkpoint:
             raise NotImplementedError(
                 "--checkpoint_dir / --resume_checkpoint are not ported yet "
-                "(ROADMAP queue 1, item 13)")
+                "(ROADMAP queue 1, item 7)")
 
 
 class SfMPipeline:

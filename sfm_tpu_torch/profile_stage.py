@@ -15,7 +15,10 @@ capture) and reads the Chrome trace:
   when it runs, and ``sweep``;
   the engine's ``sfm/<name>`` spans, summed over their calls), the share of
   the span in which the device was idle;
-- the kernel count and the device time by kernel name.
+- the kernel count and the device time by kernel name;
+- the kernels by the outermost PyTorch operator that launched them
+  (``aten::...``; the port's own kernels, launched through ctypes, count
+  under "(no operator)"), so that a launch count can be traced to its call.
 
 The profiler slows the host, so the traced window is longer than a warm run
 and overstates the idle share; the script also prints the idle share of the
@@ -25,6 +28,7 @@ object of these numbers.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import statistics
 import time
@@ -35,7 +39,8 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPANS = {
     "preprocess": ("detect", "retrieval", "sweep"),
     "reconstruct": ("sfm/init", "sfm/select", "sfm/pnp", "sfm/guided", "sfm/triangulate",
-                    "sfm/assemble", "sfm/ba", "sfm/prune", "sfm/stats"),
+                    "sfm/assemble", "sfm/ba", "sfm/prune", "sfm/stats", "sfm/global_init",
+                    "sfm/polish"),
 }
 
 
@@ -83,7 +88,34 @@ def trace_summary(trace_path: Path, span_names=SPANS["preprocess"]) -> dict:
         by_name[key][1] += e["dur"]
     out["by_name"] = sorted(([n, c, us / 1e3] for n, (c, us) in by_name.items()),
                             key=lambda r: -r[2])
+    out["by_op"] = kernels_by_operator(events)
     return out
+
+
+def kernels_by_operator(events) -> list:
+    """[operator, kernels, device ms] per outermost ``cpu_op`` whose interval
+    holds the kernel's launch (matched by the trace's correlation id), most
+    kernels first."""
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    tops = defaultdict(list)   # (pid, tid) -> outermost cpu_ops, by start
+    for e in sorted((e for e in events if e.get("cat") == "cpu_op"), key=lambda e: e["ts"]):
+        lst = tops[(e.get("pid"), e.get("tid"))]
+        if not lst or e["ts"] >= lst[-1]["ts"] + lst[-1]["dur"]:
+            lst.append(e)
+    starts = {k: [e["ts"] for e in v] for k, v in tops.items()}
+    by_op = defaultdict(lambda: [0, 0.0])
+    for k in (e for e in events if e.get("cat") == "kernel"):
+        op = "(no operator)"
+        r = launch.get(k.get("args", {}).get("correlation"))
+        if r is not None:
+            key = (r.get("pid"), r.get("tid"))
+            i = bisect.bisect_right(starts.get(key, []), r["ts"]) - 1
+            if i >= 0 and r["ts"] <= tops[key][i]["ts"] + tops[key][i]["dur"]:
+                op = tops[key][i]["name"]
+        by_op[op][0] += 1
+        by_op[op][1] += k["dur"]
+    return sorted(([n, c, us / 1e3] for n, (c, us) in by_op.items()), key=lambda r: -r[1])
 
 
 def main(argv=None) -> int:
@@ -142,7 +174,11 @@ def main(argv=None) -> int:
     print(f"{s['kernels']} kernels; device time by name (count, ms):")
     for n, c, ms in s["by_name"][:20]:
         print(f"  {ms:10.3f} ms  {c:6d}  {n[:90]}")
+    print("kernels by the outermost operator that launched them (count, ms):")
+    for n, c, ms in s["by_op"][:12]:
+        print(f"  {c:8d}  {ms:10.3f} ms  {n[:90]}")
     s["by_name"] = s["by_name"][:20]
+    s["by_op"] = s["by_op"][:12]
     print(json.dumps(s))
     return 0
 

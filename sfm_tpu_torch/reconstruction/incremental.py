@@ -1,10 +1,12 @@
 """The incremental SfM engine on one named device.
 
-Counterpart of ``sfm_tpu/reconstruction/incremental.py`` on the path the
-default config runs: seed pair, batched P3P registration, triangulation of
-every active track, periodic and final LM BA on the flat dense-Schur path,
-and pruning. State is host numpy (poses, points, the track table), as in
-the reference; every device program reads it as tensors on ``device``:
+Counterpart of ``sfm_tpu/reconstruction/incremental.py``: seed pair, batched
+P3P registration, triangulation of every active track, periodic and final LM
+BA on the flat dense-Schur path, and pruning; the one-shot global path
+(``global_init.enabled``) and the pose-graph polish of the incremental model
+(``global_init.polish``), with the reference's routing, fallback, adoption
+gates and rollback. State is host numpy (poses, points, the track table), as
+in the reference; every device program reads it as tensors on ``device``:
 
 * :func:`triangulate_tracks` -- kernel K7 (``csrc/triangulate_tracks.cu``,
   entry ``triangulate_tracks``), plain twin :func:`triangulate_tracks_plain`;
@@ -14,11 +16,12 @@ the reference; every device program reads it as tensors on ``device``:
   matcher of the guided rescue, twin :func:`guided_match_plain`;
 * PnP (K6, :mod:`sfm_tpu_torch.estimators.pnp`), BA (K8-K10,
   :mod:`sfm_tpu_torch.ba`), seed scoring (K14,
-  :mod:`sfm_tpu_torch.reconstruction.seed`).
+  :mod:`sfm_tpu_torch.reconstruction.seed`), relative poses and rotation
+  and translation averaging (K13,
+  :mod:`sfm_tpu_torch.reconstruction.global_init`).
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-global initialization, pose-graph polish, windowed local BA, checkpoints,
-and the BA routes off the dense path.
+windowed local BA, checkpoints, and the BA routes off the dense path.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 
 from sfm_tpu_torch import _kernels
 from sfm_tpu_torch.config import SfMConfig, effective_guided_ratio
+from sfm_tpu_torch.reconstruction import global_init as gi
 from sfm_tpu_torch.reconstruction.tracks import TrackTable, build_tracks
 from sfm_tpu_torch.ba.lm import check_ba_config, run_ba
 from sfm_tpu_torch.ba.problem import build_problem
@@ -335,20 +339,14 @@ def _cap_observations(sel, V: int, max_obs: int):
 
 def check_config(config: SfMConfig, num_images: int):
     """Raise on a configuration that would route off the ported path."""
-    if config.global_init.enabled:
-        raise NotImplementedError(
-            "global_init.enabled (global SfM) is not ported yet (ROADMAP queue 1, item 12)")
-    if config.global_init.polish:
-        raise NotImplementedError(
-            "global_init.polish is not ported yet (ROADMAP queue 1, item 12)")
     if config.ba.local_window > 0:
         raise NotImplementedError(
             "ba.local_window > 0 (windowed local BA) is not ported yet "
-            "(ROADMAP queue 1, item 10)")
+            "(ROADMAP queue 1, item 2)")
     if config.features.kind != "sift":
         raise NotImplementedError(
             f"features.kind={config.features.kind!r} is not ported yet "
-            "(ROADMAP queue 1, item 11)")
+            "(ROADMAP queue 1, item 4)")
     check_ba_config(config.ba, num_images)
 
 
@@ -394,9 +392,19 @@ class StructureFromMotion:
             if n_rescued:
                 logger.info("rescued %d sub-gate pairs for pairless images", n_rescued)
         self.selector = SfMGraphSelector.from_pair_table(table, select=config.select)
-        self.tracks: TrackTable = build_tracks(table, self.xy, self.num_images)
+        self._reset_state()
         logger.info("tracks: %d (max length %d)", self.tracks.num_tracks,
                     int(self.tracks.length.max(initial=0)))
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+
+    # ------------------------------------------------------------------ utils
+
+    def _reset_state(self):
+        """Fresh run state (tracks, poses, points) on the pair table; the
+        router also calls it to discard a failed one-shot global model (whose
+        guided sweep may have extended the tracks) before the incremental
+        engine runs."""
+        self.tracks: TrackTable = build_tracks(self.table, self.xy, self.num_images)
         C = self.num_images
         T = max(self.tracks.num_tracks, 1)
         self.rvec = np.zeros((C, 3), np.float32)
@@ -406,12 +414,9 @@ class StructureFromMotion:
         self.points = np.zeros((T, 3), np.float32)
         self.point_valid = np.zeros(T, bool)
         self.view_valid = self.tracks.view_img >= 0
-        self.intr = np.array([config.camera.fx, config.camera.fy, config.camera.cx,
-                              config.camera.cy], np.float32)
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.intr = np.array([self.config.camera.fx, self.config.camera.fy,
+                              self.config.camera.cx, self.config.camera.cy], np.float32)
         self._ba_calls = 0
-
-    # ------------------------------------------------------------------ utils
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -847,8 +852,192 @@ class StructureFromMotion:
 
     # ------------------------------------------------------------------- run
 
+    def global_initialize(self) -> int:
+        """Place every pair-connected camera at once by rotation and
+        translation averaging over the verified-pair graph (K13)."""
+        with self._stage("global_init"):
+            rvec, tvec, placed, rel = gi.global_poses(
+                self.table, self._camera_matrix(), self.num_images, self.config.global_init,
+                return_rel=True, device=self.device)
+        self._global_rel = rel   # for the post-BA consistency diagnostic
+        self.rvec[placed] = rvec[placed]
+        self.tvec[placed] = tvec[placed]
+        self.registered |= placed
+        self.reg_order = [int(i) for i in np.nonzero(placed)[0]]
+        return int(placed.sum())
+
+    def _refine_rounds(self):
+        """Triangulate under the relaxed gate, then BA + prune + retriangulate
+        (strict gate) + prune, ``global_init.refine_rounds`` times."""
+        self._triangulate(max_err_mult=self.config.global_init.tri_relax)
+        for _ in range(max(1, self.config.global_init.refine_rounds)):
+            self.bundle_adjust()
+            self.prune_observations()
+            self._triangulate()
+            self.prune_observations()
+
+    def pose_graph_polish(self) -> bool:
+        """Drift correction of the incremental model (``global_init.polish``).
+
+        Re-averages every registered camera's pose seeded from the model
+        (:func:`global_init.polish_poses`) and rebuilds the point cloud in
+        the polished frame. Adopted when the median pair-rotation residual
+        drops by ``polish_min_gain``, or when the result is self-consistent
+        (``polish_max_residual_deg``, ``polish_max_outlier_frac``); rolled
+        back when the rebuild keeps fewer than ``polish_rollback_min_points``
+        of the model's points. Returns whether the polished model stands.
+        """
+        if len(self.reg_order) < 3:
+            return False
+        gcfg = self.config.global_init
+        with self._stage("polish"):
+            try:
+                rvec, tvec, placed, rel = gi.polish_poses(
+                    self.table, self._camera_matrix(), self.num_images, self.rvec, self.tvec,
+                    self.registered, config=gcfg, device=self.device)
+            except ValueError as e:
+                # e.g. no accepted pair joins two registered cameras.
+                logger.warning("polish skipped: %s", e)
+                return False
+            if int(placed.sum()) < 3:
+                logger.info("polish: averaging subgraph too small; skipping")
+                return False
+            before = float(np.median(gi.pair_rotation_residuals(self.rvec, rel["pairs"],
+                                                                rel["R"])))
+            res_after = gi.pair_rotation_residuals(rvec, rel["pairs"], rel["R"])
+            after = float(np.median(res_after))
+            outlier_frac = float(np.mean(res_after > gcfg.consistency_warn_deg))
+            stats = {"polish_applied": False, "polish_pair_residual_deg_before": before,
+                     "polish_pair_residual_deg_after": after,
+                     "polish_pair_outlier_frac": outlier_frac}
+            if "seed_choice" in rel:
+                # Each seed's (outlier share, median residual): a near tie
+                # makes the choice noise (ROADMAP queue 3).
+                stats["polish_seed_choice"] = rel["seed_choice"]
+                stats["polish_seed_scores"] = {k: list(v) for k, v in rel["seed_scores"].items()}
+            # Adoption: (a) a material fractional gain, or (b) absolute
+            # self-consistency (pairwise residuals are nearly blind to smooth
+            # drift, so (a) alone would never fire on a long corridor).
+            gain = (before - after) / max(before, 1e-9)
+            trustworthy = (after <= gcfg.polish_max_residual_deg
+                           and outlier_frac <= gcfg.polish_max_outlier_frac)
+            if gain < gcfg.polish_min_gain and not trustworthy:
+                logger.warning(
+                    "polish refused (%.2f -> %.2f deg median, gain %.0f%% < %.0f%%; outlier "
+                    "edges %.0f%%): averaging-hostile graph, keeping the incremental poses",
+                    before, after, 100 * gain, 100 * gcfg.polish_min_gain, 100 * outlier_frac)
+                self._polish_stats = stats
+                return False
+            # Snapshot: the rebuild may be rolled back without re-registering.
+            snapshot = dict(rvec=self.rvec.copy(), tvec=self.tvec.copy(), intr=self.intr.copy(),
+                            registered=self.registered.copy(), reg_order=list(self.reg_order),
+                            points=self.points.copy(), point_valid=self.point_valid.copy(),
+                            view_valid=self.view_valid.copy())
+            points_before = int(self.point_valid.sum())
+            cams_before = len(self.reg_order)
+            self.rvec[placed] = rvec[placed]
+            self.tvec[placed] = tvec[placed]
+            dropped = self.registered & ~placed
+            if dropped.any():
+                # Outside the averaging subgraph: the old gauge; the guided
+                # sweep re-localizes them against the polished model.
+                self.registered &= placed
+                self.reg_order = [i for i in self.reg_order if placed[i]]
+            # Every point lives in the drifted frame: rebuild and un-prune.
+            self.point_valid[:] = False
+            self.view_valid = self.tracks.view_img >= 0
+            stats.update(polish_applied=True, polish_cameras_dropped=int(dropped.sum()))
+            self._polish_stats = stats
+            logger.info("polish adopted: pair residual %.2f -> %.2f deg median, %d camera(s) "
+                        "deferred to guided re-localization", before, after, int(dropped.sum()))
+        self._refine_rounds()
+        points_after = int(self.point_valid.sum())
+        min_keep = gcfg.polish_rollback_min_points
+        if points_after < min_keep * points_before:
+            logger.warning("polish rolled back: rebuild kept %d of %d points (< %.0f%%) -- "
+                           "restoring the incremental model", points_after, points_before,
+                           100 * min_keep)
+            for k, v in snapshot.items():
+                setattr(self, k, v)
+            self._polish_stats = {
+                "polish_applied": False, "polish_rolled_back": True,
+                "polish_pair_residual_deg_before": before,
+                "polish_pair_residual_deg_after": after,
+                "polish_pair_outlier_frac": outlier_frac,
+                "polish_points_before": points_before,
+                "polish_points_after_rebuild": points_after,
+            }
+            return False
+        self._polish_stats.update(polish_cameras_before=cams_before,
+                                  polish_points_before=points_before,
+                                  polish_points_after_rebuild=points_after)
+        return True
+
+    def run_global_reconstruction(self) -> ReconstructionResult:
+        """Global path: averaging init -> triangulate everything -> BA/prune
+        rounds -> guided rescue of unplaced cameras -> final BA, with the
+        pair-rotation self-diagnostic in the stats."""
+        t_start = time.time()
+        n = self.global_initialize()
+        logger.info("global init placed %d/%d cameras", n, self.num_images)
+        if n < 2:
+            raise ValueError("global init needs at least 2 connected cameras")
+        self._refine_rounds()
+        if 2 <= len(self.reg_order) < self.num_images:
+            n_guided = self._guided_sweep(self.num_images)
+            if n_guided:
+                logger.info("guided sweep registered %d extra image(s)", n_guided)
+                self._triangulate()
+        self.bundle_adjust(final=True)
+        stats = self.compute_stats()
+        stats["wall_clock_s"] = time.time() - t_start
+        stats["stage_s"] = {k: round(v, 2) for k, v in self.stage_s.items()}
+        # Reprojection error cannot see metric warps; the share of pair
+        # measurements the final model grossly disagrees with can.
+        rel = self._global_rel
+        res_deg = gi.pair_rotation_residuals(self.rvec, rel["pairs"], rel["R"])
+        thr = self.config.global_init.consistency_warn_deg
+        frac = float(np.mean(res_deg > thr)) if len(res_deg) else 0.0
+        stats["global_pair_residual_deg"] = float(np.median(res_deg))
+        stats["global_pair_outlier_frac"] = frac
+        if frac > 0.1:
+            logger.warning(
+                "%.0f%% of the pair-rotation measurements disagree with the final model by "
+                ">%.0f deg: the pair graph is averaging-hostile and the global result may be "
+                "metrically warped; prefer the incremental mode on this scene", 100 * frac, thr)
+        logger.info("global reconstruction: %s", stats)
+        return self._result(stats)
+
     def run_reconstruction(self, num_images: Optional[int] = None) -> ReconstructionResult:
-        """The incremental loop (the reference's incremental branch)."""
+        """The reference's run_reconstruction: the global path when
+        ``global_init.enabled`` (unless the pair graph has fewer than
+        ``min_edges_per_camera`` edges a camera, or an image limit below the
+        scene size is asked for; a global model that disagrees with more than
+        ``fallback_outlier_frac`` of its pair measurements is discarded),
+        else the incremental loop, with ``global_init.polish`` before the
+        final guided sweep."""
+        if self.config.global_init.enabled and not self.reg_order:
+            gcfg = self.config.global_init
+            n_edges = len(self.table.accepted())
+            min_edges = gcfg.min_edges_per_camera * self.num_images
+            if n_edges < min_edges:
+                logger.warning(
+                    "global_init: pair graph has %d edges for %d cameras (< %.0f): too sparse "
+                    "for one-shot averaging -- using the incremental path", n_edges,
+                    self.num_images, min_edges)
+            elif num_images is None or num_images >= self.num_images:
+                result = self.run_global_reconstruction()
+                frac = result.stats.get("global_pair_outlier_frac", 0.0)
+                if frac <= gcfg.fallback_outlier_frac:
+                    return result
+                logger.error(
+                    "global model inconsistent with %.0f%% of its pair measurements (> %.0f%% "
+                    "fallback threshold): discarding it and rerunning incrementally",
+                    100 * frac, 100 * gcfg.fallback_outlier_frac)
+                self._reset_state()
+            else:
+                logger.warning("global_init.enabled but num_images < the scene: the one-shot "
+                               "global path does not take a limit; using the incremental path")
         t_start = time.time()
         limit = num_images or self.num_images
         if not self.reg_order:
@@ -897,6 +1086,10 @@ class StructureFromMotion:
                 self.bundle_adjust()
                 self._triangulate()
 
+        # Drift correction before the guided rescue, so that images the loop
+        # failed to place retry against the unbent model.
+        if self.config.global_init.polish:
+            self.pose_graph_polish()
         if 2 <= len(self.reg_order) < limit:
             n_guided = self._guided_sweep(limit)
             if n_guided:
@@ -904,6 +1097,7 @@ class StructureFromMotion:
         if len(self.reg_order) >= 2:
             self.bundle_adjust(final=True)
         stats = self.compute_stats()
+        stats.update(getattr(self, "_polish_stats", {}))
         stats["wall_clock_s"] = time.time() - t_start
         stats["stage_s"] = {k: round(v, 2) for k, v in self.stage_s.items()}
         logger.info("reconstruction: %s", stats)

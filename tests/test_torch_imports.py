@@ -44,6 +44,7 @@ SLICE_MODULES = [
     "sfm_tpu_torch.ba.lm",
     "sfm_tpu_torch.graph.view_selection",
     "sfm_tpu_torch.reconstruction.seed",
+    "sfm_tpu_torch.reconstruction.global_init",
     "sfm_tpu_torch.reconstruction.incremental",
     "sfm_tpu_torch.io.export",
     "sfm_tpu_torch.pipeline",
@@ -216,3 +217,30 @@ def test_trace_summary_sums_repeated_spans(tmp_path):
     assert s["sfm/ba"]["idle_share"] == pytest.approx(0.5)
     assert s["sfm/pnp"]["idle_share"] == pytest.approx(1.0)
     assert s["by_name"][0][:2] == ["ba_obs_kernel", 2]
+
+
+def test_trace_summary_attributes_kernels_to_the_outermost_operator(tmp_path):
+    from sfm_tpu_torch.profile_stage import trace_summary
+
+    def ev(cat, name, ts, dur, tid=1, **args):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "pid": 0,
+                "tid": tid, "args": args}
+
+    trace = {"traceEvents": [
+        ev("cpu_op", "aten::block_diag", 0, 50), ev("cpu_op", "aten::copy_", 5, 10),
+        ev("cuda_runtime", "cudaLaunchKernel", 6, 1, correlation=1),
+        ev("cpu_op", "aten::copy_", 20, 10),
+        ev("cuda_runtime", "cudaLaunchKernel", 21, 1, correlation=2),
+        ev("cpu_op", "aten::mm", 60, 10),
+        ev("cuda_runtime", "cudaLaunchKernel", 61, 1, correlation=3),
+        ev("cuda_runtime", "cudaLaunchKernel", 80, 1, correlation=4),   # no operator
+        ev("kernel", "elementwise", 100, 4, tid=7, correlation=1),
+        ev("kernel", "elementwise", 110, 4, tid=7, correlation=2),
+        ev("kernel", "gemm", 120, 8, tid=7, correlation=3),
+        ev("kernel", "sfm_kernel", 130, 2, tid=7, correlation=4),
+    ]}
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps(trace))
+    by_op = {r[0]: r[1:] for r in trace_summary(path)["by_op"]}
+    assert by_op["aten::block_diag"] == [2, pytest.approx(0.008)]
+    assert by_op["aten::mm"][0] == 1 and by_op["(no operator)"][0] == 1

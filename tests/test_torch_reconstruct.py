@@ -267,8 +267,8 @@ def test_exporters_write_the_same_bytes(rng, tmp_path):
 
 # ------------------------------------------------------- routes not ported yet
 
-@pytest.mark.parametrize("flag", ["--global_init", "--polish", "--visualize",
-                                  "--checkpoint_dir=ck", "--resume_checkpoint=ck.npz"])
+@pytest.mark.parametrize("flag", ["--visualize", "--checkpoint_dir=ck",
+                                  "--resume_checkpoint=ck.npz"])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--log_dir", str(tmp_path / "logs"), "pipeline", "--data_dir",
@@ -276,7 +276,7 @@ def test_unported_flags_raise(tmp_path, flag):
 
 
 @pytest.mark.parametrize("field", [
-    ("global_init", "enabled", True), ("ba", "local_window", 5),
+    ("ba", "local_window", 5),
     ("ba", "per_camera_intrinsics", True), ("ba", "f64_normal_equations", True),
     ("features", "kind", "orb")])
 def test_unported_configs_raise(field):
