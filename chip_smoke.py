@@ -4,7 +4,10 @@
     python3 chip_smoke.py [--views 36] [--large_views 150]
 
 1. Builds the port's CUDA kernels from ``sfm_tpu_torch/csrc`` (nvcc, sm_90a).
-2. Holds each kernel against its plain PyTorch twin at the main path's shapes,
+2. Holds each kernel against its plain PyTorch twin at the main path's shapes
+   (K1, K1-r and K1-g also on +-1/16 binary descriptors at D = 256; K4's
+   ``dog_select`` also on the binary frontend's FAST planes and
+   ``topk_rows`` on its merge of the levels, where scores tie exactly),
    times both with CUDA events (and one PyTorch library call where one
    computes the same function), and computes each kernel's bound: the larger
    of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s (f32).
@@ -41,7 +44,15 @@
    f. ``reconstruct --polish`` on path d's artifacts (pose-graph polish of
       the 150-view model): K13 launched, polish ran, all but at most one
       camera, > 1,000 points, < 0.6 px; its adoption, seed and ground-truth
-      pose printed beside path d's.
+      pose printed beside path d's;
+   g. ``pipeline --feature_kind orb`` on the ``--views`` scene (the binary
+      frontend, kernel K12), with ``features.fast_threshold`` =
+      ``ORB_FAST_THRESHOLD``: every K12 entry, ``dog_select``, ``topk_rows``,
+      K1, K2 and the reconstruct kernels launched, and SIFT's ``pyramid``,
+      ``dog_extrema``, ``dog_refine`` and ``sift_describe`` not; every image
+      in an accepted pair, the ground-truth epipolar check, all but at most
+      one camera, > 1,000 points, < 0.6 px; ground-truth pose printed, not
+      gated.
 
 Prints the card (nvidia-smi), per-kernel and stage numbers, a JSON line of
 the kernels and, last, ``{"ok": true, "device": {...}}``. Any failure raises;
@@ -108,6 +119,12 @@ KERNELS = {
     "translation_average": (("translation_average",),
                             "sfm_tpu_torch/csrc/translation_average.cu",
                             "sfm_tpu/reconstruction/global_init.py:598"),
+    "orb_fast_nms": (("orb_fast_nms",), "sfm_tpu_torch/csrc/orb.cu",
+                     "sfm_tpu/features/binary.py:110"),
+    "orb_blur": (("orb_blur",), "sfm_tpu_torch/csrc/pyramid.cu",
+                 "sfm_tpu/features/binary.py:289"),
+    "orb_describe": (("orb_describe",), "sfm_tpu_torch/csrc/orb.cu",
+                     "sfm_tpu/features/binary.py:240"),
 }
 # The kernels each path must launch.
 PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
@@ -120,6 +137,18 @@ K13_KERNELS = ("relpose", "rotation_average", "translation_average")
 GLOBAL_KERNELS = K13_KERNELS + ("triangulate_tracks", "ba_linearize", "schur_coupling",
                                 "schur_damp")
 POLISH_KERNELS = RECONSTRUCT_KERNELS + K13_KERNELS
+K12_KERNELS = ("orb_fast_nms", "orb_blur", "orb_describe")
+# Path g: K4's dog_select and dog_refine share a row; only dog_select runs there.
+ORB_KERNELS = K12_KERNELS + ("topk_rows", "match_top2", "match_epilogue", "fmat_score_select",
+                             "fmat_solve") + RECONSTRUCT_KERNELS
+ORB_ENTRIES = ("dog_select",)
+SIFT_ONLY_ENTRIES = ("build_pyramid", "dog_extrema", "dog_refine", "sift_describe")
+# FAST's contrast gate (u8 scale) on the rendered corridor. Its band-limited
+# fractal texture has few sharp corners: at the default 20 the 3,800-row
+# tables stay mostly padding (tests/orb_parity_report.py counts them); at 5
+# they fill, so path g runs the binary frontend at its full width (PERF.md,
+# section 4).
+ORB_FAST_THRESHOLD = 5.0
 
 
 def log(msg: str):
@@ -491,6 +520,284 @@ def phase_describe(torch, dev, image, cfg):
     # ~512 samples of ~40 FLOP for the orientation and again for the descriptor.
     K = valid.numel()
     return result(err, ms, plain_ms, K * (66 * 66 * 2 + 7 * 4 + 129 * 4), K * 512 * 80)
+
+
+def orb_levels(torch, images, cfg):
+    """The binary frontend's pyramid of one detection sub-batch: (level, image
+    plane, keypoint budget) for each level, as ``features.binary.detect_orb``
+    builds it."""
+    from sfm_tpu_torch.features.binary import _level_budgets, level_shape, resize_linear
+
+    fc = cfg.features
+    H, W = images.shape[-2:]
+    out = []
+    for lvl, budget in enumerate(_level_budgets(fc.max_keypoints, fc.orb_levels,
+                                                fc.orb_scale_factor)):
+        im = images if lvl == 0 else resize_linear(images, *level_shape(
+            H, W, lvl, fc.orb_scale_factor))
+        out.append((lvl, im.contiguous(), budget))
+    return out
+
+
+def phase_orb_fast_nms(torch, dev, levels):
+    """K12's fast_nms on the three levels of one detection sub-batch of
+    rendered images, at path g's threshold; level 0 also under a mask."""
+    from sfm_tpu_torch.features.binary import fast_nms_cuda, fast_nms_plain
+
+    t = ORB_FAST_THRESHOLD / 255.0
+    g = torch.Generator(device=dev).manual_seed(9)
+    worst, ms, plain_ms, moved, ops = 0.0, 0.0, 0.0, 0, 0
+    for lvl, im, _ in levels:
+        B, H, W = im.shape
+        cases = [("no mask", None)]
+        if lvl == 0:
+            blobs = torch.rand(B, 1, H // 32 + 1, W // 32 + 1, generator=g, device=dev) > 0.3
+            mask = torch.repeat_interleave(torch.repeat_interleave(blobs, 32, 2), 32, 3)
+            cases.append(("mask", mask[:, 0, :H, :W].contiguous()))
+        for what, mk in cases:
+            k, p = fast_nms_cuda(im, t, mk), fast_nms_plain(im, t, mk)
+            torch.cuda.synchronize()
+            # Tolerance: the pass/fail map exact; scores within 1e-6 relative
+            # (the kernel sums the 16 terms in the twin's order, unfused, so
+            # they are expected bit-identical).
+            check(torch.equal(k > 0, p > 0),
+                  f"K12 fast_nms level {lvl} ({what}): the kept sets differ in "
+                  f"{int(((k > 0) != (p > 0)).sum())} pixels")
+            kept = p > 0
+            rel = float(((k - p).abs()[kept] / p[kept]).max()) if bool(kept.any()) else 0.0
+            check(rel <= 1e-6, f"K12 fast_nms level {lvl} ({what}): relative error {rel}")
+            worst = max(worst, float((k - p).abs().max()))
+            log(f"K12 fast_nms level {lvl} {tuple(im.shape)} ({what}): "
+                f"{'bit-identical' if torch.equal(k, p) else f'max rel err {rel:.3g}'}, "
+                f"{int(kept.sum())} pixels kept")
+        ms += time_ms(torch, lambda: fast_nms_cuda(im, t))
+        plain_ms += time_ms(torch, lambda: fast_nms_plain(im, t), reps=3, warmup=1)
+        # The image read once and the plane written once; per pixel 16 ring
+        # samples x (2 compares, 2 subtractions, an add) + the arc test's 8
+        # bit operations x 2 + 9 NMS maxima: ~110 operations.
+        moved += nbytes(im, k)
+        ops += 110 * im.numel()
+    return result(worst, ms, plain_ms, moved, ops)
+
+
+def phase_orb_blur(torch, dev, levels):
+    """K12's orb_blur (sigma 2, bf16 out) on the three levels of one
+    detection sub-batch; library: one float32 2-D convolution."""
+    import torch.nn.functional as F
+
+    from sfm_tpu_torch.features.binary import BLUR_SIGMA, orb_blur_cuda, orb_blur_plain
+    from sfm_tpu_torch.features.pyramid import _blur_radius, _gaussian_taps
+
+    r = _blur_radius(BLUR_SIGMA)
+    taps = torch.as_tensor(_gaussian_taps(BLUR_SIGMA, r), device=dev)
+    k2d = (taps[:, None] * taps[None, :])[None, None]
+    worst, ms, plain_ms, lib_ms, moved, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
+    for lvl, im, _ in levels:
+        k, p = orb_blur_cuda(im), orb_blur_plain(im)
+        torch.cuda.synchronize()
+        # Tolerance: within 1e-6 after the bf16 rounding (the kernel rounds
+        # every product and sum as the twin does: expected bit-identical).
+        err = float((k.float() - p.float()).abs().max())
+        check(err <= 1e-6, f"K12 orb_blur level {lvl}: max_abs_err {err}")
+        worst = max(worst, err)
+        log(f"K12 orb_blur level {lvl} {tuple(im.shape)}: "
+            f"{'bit-identical' if torch.equal(k, p) else f'max_abs_err {err:.3g}'}")
+        ms += time_ms(torch, lambda: orb_blur_cuda(im))
+        plain_ms += time_ms(torch, lambda: orb_blur_plain(im))
+        lib_ms += time_ms(torch, lambda: F.conv2d(im[:, None], k2d, padding=r))
+        # f32 in, bf16 out; two passes of 2r + 1 taps, a multiply and an add each.
+        moved += nbytes(im, k)
+        ops += 2 * 2 * (2 * r + 1) * im.numel()
+    return result(worst, ms, plain_ms, moved, ops, library_ms=lib_ms)
+
+
+def phase_orb_describe(torch, dev, levels):
+    """K12's orb_describe on the keypoints each level of one detection
+    sub-batch selects (2,048 + 1,128 + 624 = 3,800 rows per image), and K4's
+    dog_select with one layer on each level's FAST plane, as the ORB path
+    calls it. Returns the phase's result and the sub-batch's merge key (the
+    levels' responses, -inf for invalid rows), which phase_topk holds."""
+    from sfm_tpu_torch.features.binary import (
+        _BIN_SCALE, orb_blur_cuda, orb_describe_cuda, orb_describe_plain, fast_nms_cuda)
+    from sfm_tpu_torch.features.detect import (
+        select_octave_candidates_cuda, select_octave_candidates_plain)
+
+    t = ORB_FAST_THRESHOLD / 255.0
+    worst, ms, plain_ms, moved, ops = 0.0, 0.0, 0.0, 0, 0
+    n_valid = n_exact = 0
+    keys = []
+    for lvl, im, budget in levels:
+        plane = {"score": fast_nms_cuda(im, t)[:, None]}
+        c = select_octave_candidates_cuda(plane, budget)
+        cp = select_octave_candidates_plain(plane, budget)
+        torch.cuda.synchronize()
+        # Tolerance: x, y and score identical and in the same order. FAST
+        # scores of u8 contrasts tie exactly and often, and the order among
+        # ties decides which keypoints the level keeps.
+        for key in ("layer", "y", "x", "score"):
+            check(torch.equal(c[key], cp[key]),
+                  f"K4 dog_select on K12 level {lvl}: {key} differs")
+        ties = int((c["score"][:, 1:] == c["score"][:, :-1]).logical_and(
+            c["score"][:, 1:] > 0).sum())
+        log(f"K4 dog_select on K12 level {lvl} {tuple(plane['score'].shape)}: {budget} "
+            f"candidates identical in order ({int((c['score'] > 0).sum())} nonzero, {ties} "
+            "adjacent ties)")
+        keys.append(torch.where(c["score"] > 0, c["score"], -torch.inf))
+        args = (orb_blur_cuda(im), c["x"], c["y"], c["score"] > 0)
+        ak, dk = orb_describe_cuda(*args)
+        ap, dp = orb_describe_plain(*args)
+        torch.cuda.synchronize()
+        # Tolerance: the descriptor bits exact on every keypoint whose
+        # steering bin is away from a boundary (|frac - round(frac)| < 0.5 -
+        # 1e-3: the moments are exact sums, but atan2 may differ by an ulp),
+        # and exact on >= 99% of the valid keypoints overall; angles within
+        # 1e-6 rad.
+        valid = args[3]
+        frac = ap * _BIN_SCALE
+        away = (frac - torch.round(frac)).abs() < 0.5 - 1e-3
+        rows = (dk == dp).all(-1)
+        bad = valid & away & ~rows
+        check(int(bad.sum()) == 0, f"K12 orb_describe level {lvl}: {int(bad.sum())} "
+              "keypoints away from a bin boundary differ")
+        check(torch.equal(dk[~valid], dp[~valid]) and bool((dk[~valid] == 0).all()),
+              f"K12 orb_describe level {lvl}: padding rows not zero")
+        err = float((ak - ap).abs().max())
+        check(err <= 1e-6, f"K12 orb_describe level {lvl}: angle error {err}")
+        worst = max(worst, err)
+        n_valid += int(valid.sum())
+        n_exact += int((valid & rows).sum())
+        log(f"K12 orb_describe level {lvl} {tuple(dk.shape)}: {int((valid & rows).sum())} of "
+            f"{int(valid.sum())} valid keypoints bit-identical, angle max_abs_err {err:.3g}")
+        ms += time_ms(torch, lambda: orb_describe_cuda(*args))
+        plain_ms += time_ms(torch, lambda: orb_describe_plain(*args))
+        # Per row: x, y, valid in, angle and 256 floats out. The patches
+        # overlap: per image the bytes read are those of its valid rows'
+        # 33 x 33 bf16 patches, at most its whole bf16 plane. Per valid row
+        # 709 disk pixels x 2 moments x 2 operations and 256 tests x 3 (two
+        # reads, a compare).
+        B, K = valid.shape
+        plane_bytes = im.shape[-2] * im.shape[-1] * 2
+        moved += B * K * (8 + 8 + 1 + 4 + 256 * 4) + int(
+            (valid.sum(1) * 33 * 33 * 2).clamp(max=plane_bytes).sum())
+        ops += int(valid.sum()) * (709 * 4 + 256 * 3)
+    check(n_exact >= 0.99 * n_valid, f"K12 orb_describe: {n_exact} of {n_valid} exact")
+    log(f"K12 orb_describe: {n_exact} of {n_valid} valid keypoints bit-identical over the "
+        "three levels")
+    return result(worst, ms, plain_ms, moved, ops), torch.cat(keys, 1).contiguous()
+
+
+def binary_descriptors(torch, d):
+    """Sign of unit descriptors as the binary frontend's +-1/16 encoding."""
+    return (torch.where(d >= 0, 1.0, -1.0) / 16.0).contiguous()
+
+
+def phase_match_binary(torch, dev):
+    """K1 (match_top2, then match_epilogue / topk_rows / match_compact) at one
+    sweep chunk of the binary frontend: 32 pairs x K = 3,800 x D = 256 +-1/16
+    descriptors, and a tie-heavy binary input. Every dot product is a
+    multiple of 1/256, exact in f32 in any order: results must be identical."""
+    from sfm_tpu_torch.estimators.ransac import top_k_plain, top_k_rows
+    from sfm_tpu_torch.matching.core import (
+        match_compact_cuda, match_compact_plain, match_epilogue_cuda, match_epilogue_plain,
+        match_top2_cuda, match_top2_plain)
+
+    B, K, D, M = 32, 3800, 256, 1024
+    d1, v1, d2, v2 = sweep_descriptors(torch, dev, B, K, D, seed=10)
+    args = (binary_descriptors(torch, d1), v1, binary_descriptors(torch, d2), v2)
+    ratio = 0.75 ** 0.5  # map_ratio_for_kind(0.75, "orb")
+    for what, a in (("binary", args), ("tie-heavy", tie_heavy_descriptors(torch, dev, 8, K))):
+        tk, tp = match_top2_cuda(*a, mutual=True), match_top2_plain(*a, mutual=True)
+        torch.cuda.synchronize()
+        # Tolerance: none -- indices, column argmins and distances identical.
+        for name, x, y in zip(("best index", "best", "second", "column argmin"), tk, tp):
+            check(torch.equal(x.to(y.dtype), y), f"K1 D=256 ({what}): {name} differs")
+        ep = (tk[0], tk[1], tk[2], a[1], tk[3], ratio)
+        sk, sp = match_epilogue_cuda(*ep), match_epilogue_plain(*ep)
+        vk, ik = top_k_rows(sk, M)
+        vp, ip = top_k_plain(sp, M)
+        ok_, op_ = match_compact_cuda(vk, ik, tk[0], M), match_compact_plain(vp, ip, tk[0], M)
+        torch.cuda.synchronize()
+        check(torch.equal(sk, sp), f"K1 D=256 epilogue ({what}): scores differ")
+        for k in ("idx1", "idx2", "valid", "distance"):
+            check(torch.equal(ok_[k], op_[k]), f"K1 D=256 compaction ({what}): {k} differs")
+        log(f"K1 at D=256 ({what}, {tuple(a[0].shape)}): top-2, column argmin, epilogue and "
+            f"the (B, {M}) match table identical to the twins; {int(ok_['valid'].sum())} "
+            "matches kept")
+    top2 = {"ms": time_ms(torch, lambda: match_top2_cuda(*args, mutual=True)),
+            "plain_ms": time_ms(torch, lambda: match_top2_plain(*args, mutual=True), reps=3,
+                                warmup=1)}
+    tk = match_top2_cuda(*args, mutual=True)
+    top2.update(bytes=nbytes(*args, *tk), ops=2 * B * K * K * D, max_abs_err=0.0)
+    ep = (tk[0], tk[1], tk[2], args[1], tk[3], ratio)
+    sk = match_epilogue_cuda(*ep)
+    vk, ik = top_k_rows(sk, M)
+    vp, ip = top_k_plain(sk, M)
+    ok_ = match_compact_cuda(vk, ik, tk[0], M)
+    epi = {"ms": time_ms(torch, lambda: match_epilogue_cuda(*ep))
+           + time_ms(torch, lambda: match_compact_cuda(vk, ik, tk[0], M)),
+           "plain_ms": time_ms(torch, lambda: match_epilogue_plain(*ep))
+           + time_ms(torch, lambda: match_compact_plain(vp, ip, tk[0], M)),
+           "bytes": nbytes(*tk, args[1], sk) + nbytes(vk, ik, *ok_.values()),
+           "ops": 6 * B * K + 4 * B * M, "max_abs_err": 0.0}
+    return top2, epi
+
+
+def phase_guided_binary(torch, dev):
+    """K1-g on the binary frontend's tables: K = 3,800 keypoints x M = 8,192
+    pool entries (2 per track, the last 300 padding) of +-1/16 descriptors at
+    D = 256; the pool and the seen keypoints are their track's pattern with
+    3% / 12% of the signs flipped."""
+    from sfm_tpu_torch.reconstruction.incremental import guided_match_cuda, guided_match_plain
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    K, M, D = 3800, 8192, 256
+    sign = lambda *s: torch.where(torch.rand(*s, generator=g, device=dev) < 0.5, -1.0, 1.0)
+    flip = lambda x, p: torch.where(torch.rand(*x.shape, generator=g, device=dev) < p, -x, x)
+    base = sign(M // 2, D)
+    pool = (flip(base.repeat_interleave(2, 0), 0.03) / 16.0).contiguous()
+    pool_valid = torch.arange(M, device=dev) < M - 300
+    track = torch.where(pool_valid, torch.arange(M, device=dev) // 2, -1).to(torch.int32)
+    src = torch.randint(0, M // 2 - 150, (K,), generator=g, device=dev)
+    seen = torch.rand(K, generator=g, device=dev) < 0.6
+    desc = torch.where(seen[:, None], flip(base[src], 0.12), sign(K, D)) / 16.0
+    valid = torch.rand(K, generator=g, device=dev) > 0.05
+    args = (desc.contiguous(), valid, pool, pool_valid, track, 0.9 ** 0.5)
+    got, ref = guided_match_cuda(*args), guided_match_plain(*args)
+    torch.cuda.synchronize()
+    # Tolerance: none -- the dot products are exact, so tracks, distances and
+    # the ratio test agree on every row (ties to the lowest index).
+    for name, x, y in zip(("track", "distance", "ok"), got, ref):
+        check(torch.equal(x, y.to(x.dtype)), f"K1-g D=256: {name} differs on "
+              f"{int((x != y.to(x.dtype)).sum())} rows")
+    log(f"K1-g guided_match at D=256: tracks, distances and ok identical on all {K} rows, "
+        f"{int(ref[2].sum())} ok")
+    return {"ms": time_ms(torch, lambda: guided_match_cuda(*args)),
+            "plain_ms": time_ms(torch, lambda: guided_match_plain(*args)),
+            "bytes": nbytes(*args[:5], *got), "ops": 2 * K * M * D, "max_abs_err": 0.0}
+
+
+def phase_retrieval_binary(torch, dev):
+    """K1-r at N = 150 x S = 256 x D = 256 on +-1/16 descriptors (the
+    corridor strip of :func:`phase_retrieval_score`, binarized)."""
+    from sfm_tpu_torch.matching.retrieval import score_chunk_cuda, score_chunk_plain
+
+    N, S = 150, 256
+    desc, valid = corridor_descriptors(torch, dev, N, S, D=256)
+    desc = binary_descriptors(torch, desc)
+    pairs = [(k, k + d) for d in range(1, 8) for k in range(N - d)] + [(0, 149), (3, 90)]
+    pairs = torch.tensor(pairs, dtype=torch.int32, device=dev)
+    args = (pairs, desc, valid, 0.75 ** 0.5)
+    got, ref = score_chunk_cuda(*args), score_chunk_plain(*args)
+    torch.cuda.synchronize()
+    # Tolerance: none -- the dot products are exact, so the counts are equal.
+    check(torch.equal(got, ref), f"K1-r D=256: counts differ on "
+          f"{int((got != ref).sum())} of {pairs.shape[0]} pairs")
+    log(f"K1-r retrieval_score at D=256: counts identical on all {pairs.shape[0]} pairs; "
+        f"counts {int(ref.min())}..{int(ref.max())}")
+    return {"ms": time_ms(torch, lambda: score_chunk_cuda(*args)),
+            "plain_ms": time_ms(torch, lambda: score_chunk_plain(*args)),
+            "bytes": nbytes(pairs, desc, valid, got), "ops": 2 * pairs.shape[0] * S * S * 256,
+            "max_abs_err": 0.0}
 
 
 def _rel(a, b) -> float:
@@ -1148,11 +1455,13 @@ def phase_dog_select(torch, dev, images, cfg):
     return result(worst, ms, plain_ms, moved, ops)
 
 
-def phase_topk(torch, dev, cfg):
+def phase_topk(torch, dev, cfg, merge_key):
     """K4's topk_rows at the frontend's global keypoint selection (12 images
     x every octave's budget -> max_keypoints, with planted ties and the -1
-    rows of invalid candidates) and the sweep's match compaction (32 pairs x
-    2,048 -> 1,024, -inf padding)."""
+    rows of invalid candidates), the sweep's match compaction (32 pairs x
+    2,048 -> 1,024, -inf padding) and the ORB path's merge of the levels
+    (one sub-batch's real key, 12 x 3,800 -> all 3,800 rows, and that key
+    with more ties and -inf rows planted)."""
     from sfm_tpu_torch.estimators.ransac import top_k_cuda, top_k_plain
     from sfm_tpu_torch.features.frontend import _octave_budget
 
@@ -1163,9 +1472,17 @@ def phase_topk(torch, dev, cfg):
     x1 = torch.where(torch.rand(12, n, generator=g, device=dev) < 0.3, -1.0, x1)
     x2 = -torch.rand(32, 2048, generator=g, device=dev) * 4
     x2 = torch.where(torch.rand(32, 2048, generator=g, device=dev) < 0.6, -torch.inf, x2)
+    # Planted: a quarter of the rows copy another row's key of the same
+    # image (ties across levels, -inf copies among them), a tenth become -inf.
+    B, n3 = merge_key.shape
+    src = torch.randint(0, n3, (B, n3), generator=g, device=dev)
+    x3 = torch.where(torch.rand(B, n3, generator=g, device=dev) < 0.25,
+                     torch.gather(merge_key, 1, src), merge_key)
+    x3 = torch.where(torch.rand(B, n3, generator=g, device=dev) < 0.1, -torch.inf, x3)
+    cases = ((x1, fc.max_keypoints), (x2, 1024), (merge_key, n3), (x3.contiguous(), n3))
     ms = plain_ms = lib_ms = 0.0
     moved = ops = 0
-    for x, k in ((x1, fc.max_keypoints), (x2, 1024)):
+    for x, k in cases:
         vk, ik = top_k_cuda(x, k)
         vp, ip = top_k_plain(x, k)
         torch.cuda.synchronize()
@@ -1176,9 +1493,13 @@ def phase_topk(torch, dev, cfg):
         lib_ms += time_ms(torch, lambda: torch.topk(x, k))
         moved += nbytes(x) + x.shape[0] * k * 8
         ops += 5 * x.numel()
-    log(f"K4 topk_rows: identical to the stable sort at {tuple(x1.shape)} k={fc.max_keypoints} "
-        f"and {tuple(x2.shape)} k=1024; {ms:.4f} ms (plain torch {plain_ms:.4f} ms, "
-        f"torch.topk {lib_ms:.4f} ms)")
+    ties = int(((merge_key[:, 1:] == merge_key[:, :-1])
+                & torch.isfinite(merge_key[:, 1:])).sum())
+    log(f"K4 topk_rows: identical to the stable sort at {tuple(x1.shape)} k={fc.max_keypoints}, "
+        f"{tuple(x2.shape)} k=1024 and the ORB merge {tuple(merge_key.shape)} k={n3} "
+        f"({int(torch.isinf(merge_key).sum())} -inf rows, {ties} adjacent ties; and with "
+        f"ties planted); {ms:.4f} ms (plain torch {plain_ms:.4f} ms, torch.topk "
+        f"{lib_ms:.4f} ms)")
     return result(0.0, ms, plain_ms, moved, ops, library_ms=lib_ms)
 
 
@@ -1493,10 +1814,11 @@ def main(argv=None) -> int:
 
     from sfm_tpu_torch import _kernels, cli
 
-    def run_path(name: str, argv_: list, required) -> tuple:
+    def run_path(name: str, argv_: list, required, entries=(), forbidden=()) -> tuple:
         """One path of the main path through the CLI, its launch counts reset
-        just before and read just after; every kernel of ``required``
-        must have launched."""
+        just before and read just after; every kernel of ``required`` and
+        every C entry of ``entries`` must have launched, no entry of
+        ``forbidden``."""
         _kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1506,16 +1828,17 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
         counts = _kernels.launch_counts()
         check(rc == 0, f"{name} returned {rc}")
-        for k in required:
-            for entry in KERNELS[k][0]:
-                check(counts[entry] > 0, f"kernel {entry} was not launched by {name}")
+        for entry in [e for k in required for e in KERNELS[k][0]] + list(entries):
+            check(counts[entry] > 0, f"kernel {entry} was not launched by {name}")
+        for entry in forbidden:
+            check(counts[entry] == 0, f"kernel {entry} was launched by {name}")
         log(f"{name}: cli wall {wall:.3f} s, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
             + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
         return counts, wall
 
     try:
-        from sfm_tpu_torch.config import SfMConfig, VerifyConfig
+        from sfm_tpu_torch.config import FeatureConfig, SfMConfig, VerifyConfig
         from sfm_tpu_torch.io.images import load_image_gray_u8
         from sfm_tpu_torch.device import resolve_device
 
@@ -1552,8 +1875,17 @@ def main(argv=None) -> int:
         results["dog_extrema"] = phase_dog_extrema(torch, dev, images[:1], cfg)
         results["sift_describe"] = phase_describe(torch, dev, images[:1], cfg)
         results["dog_select"] = phase_dog_select(torch, dev, images, cfg)
-        results["topk_rows"] = phase_topk(torch, dev, cfg)
-        del images
+        levels = orb_levels(torch, images, cfg)
+        results["orb_fast_nms"] = phase_orb_fast_nms(torch, dev, levels)
+        results["orb_blur"] = phase_orb_blur(torch, dev, levels)
+        results["orb_describe"], merge_key = phase_orb_describe(torch, dev, levels)
+        results["topk_rows"] = phase_topk(torch, dev, cfg, merge_key)
+        del images, levels
+        torch.cuda.empty_cache()
+        results["match_top2"]["d256"], results["match_epilogue"]["d256"] = (
+            phase_match_binary(torch, dev))
+        results["retrieval_score"]["d256"] = phase_retrieval_binary(torch, dev)
+        results["guided_match"]["d256"] = phase_guided_binary(torch, dev)
         torch.cuda.empty_cache()
         launches = {k: 0 for k in _kernels.KERNELS}
         by_path = {}
@@ -1629,6 +1961,19 @@ def main(argv=None) -> int:
                                POLISH_KERNELS)
         add(c, "polish")
         pol_metrics = stage_seconds(pol)
+
+        # ---- path g: pipeline --feature_kind orb on the --views scene
+        orb = work / f"orb_{args.views}"
+        orb.mkdir(parents=True, exist_ok=True)
+        SfMConfig(features=FeatureConfig(fast_threshold=ORB_FAST_THRESHOLD)).to_json(
+            orb / "config.json")
+        c, orb_wall = run_path("orb", ["pipeline", "--data_dir", str(scene), "--output_dir",
+                                       str(orb), "--feature_kind", "orb", "--config",
+                                       str(orb / "config.json")],
+                               ORB_KERNELS, entries=ORB_ENTRIES, forbidden=SIFT_ONLY_ENTRIES)
+        add(c, "orb")
+        orb_metrics = stage_seconds(orb)
+        orb_peak = torch.cuda.max_memory_allocated()
     finally:
         if render.poll() is None:
             render.kill()
@@ -1707,6 +2052,21 @@ def main(argv=None) -> int:
     check_model(ps, L, "polish")
     check(any(k.startswith("polish_") for k in ps), "polish: no polish_* stats (it never ran)")
     check("engine/polish" in pol_metrics, "polish: no engine/polish span")
+
+    # ---- path g's checks: the binary frontend's pairs and model
+    ob = pickle.loads((orb / "pair_table.pkl").read_bytes())
+    ot = ob["table"]
+    from sfm_tpu_torch.features.binary import _level_budgets
+
+    fc = SfMConfig().features
+    orb_rows = sum(_level_budgets(fc.max_keypoints, fc.orb_levels, fc.orb_scale_factor))
+    check(ob["desc"].shape == (n_img, orb_rows, 256), f"path g: descriptors {ob['desc'].shape}")
+    check(set(np.unique(np.abs(ob["desc"][ob["valid"]]))) == {np.float16(1 / 16)},
+          "path g: descriptors are not +-1/16")
+    check((accepted_degree(np, ot, n_img) > 0).all(), "path g: an image is in no accepted pair")
+    orb_med = gt_epipolar_check(np, torch, scene, ob)
+    os_ = json.loads((orb / "reconstruction" / "stats.json").read_text())
+    check_model(os_, n_img, "orb")
     check("jax" not in sys.modules and "sfm_tpu" not in sys.modules, "JAX was imported")
 
     # ---- report
@@ -1759,6 +2119,19 @@ def main(argv=None) -> int:
         f"cameras, {ps['num_points']} points, {ps['mean_reprojection_error']:.4f} px; {gt(ps)} "
         f"(path d, unpolished: {gt(ls)}); cli wall {pol_wall:.3f} s | " + ", ".join(
             f"{k} {v:.3f} s" for k, v in sorted(pol_metrics.items())))
+    o_det, o_sweep = orb_metrics["stage/detect"], orb_metrics["stage/sweep"]
+    log(f"orb at {n_img} views: keypoints/image min {ob['valid'].sum(1).min()} mean "
+        f"{ob['valid'].sum(1).mean():.0f} of {orb_rows}, {len(ot.accepted())} of {ot.num_pairs} "
+        f"pairs accepted; GT check median {np.median(orb_med):.3f} px, worst "
+        f"{orb_med.max():.3f} px")
+    log(f"orb: detect {o_det:.3f} s = {n_img / o_det:.2f} imgs/s | sweep {o_sweep:.3f} s = "
+        f"{ot.num_pairs / o_sweep:.1f} pairs/s | preprocess stage "
+        f"{orb_metrics['stage/preprocess']:.3f} s | reconstruct stage "
+        f"{orb_metrics['stage/reconstruct']:.3f} s | cli wall {orb_wall:.3f} s | peak device "
+        f"memory {orb_peak / 2**30:.2f} GiB")
+    log(f"orb: {os_['num_cameras']}/{n_img} cameras, {os_['num_points']} points, mean "
+        f"reprojection {os_['mean_reprojection_error']:.4f} px; {gt(os_)} (recorded, not "
+        f"gated) | engine: {engine(orb_metrics)}")
     log("launches by entry, all paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     kernels = []
     for name, (entries, source, replaces) in KERNELS.items():
@@ -1770,11 +2143,19 @@ def main(argv=None) -> int:
         log(f"{name}: {r['ms']:.4f} ms (plain torch {r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {bound_ms:.4f} ms by {bound_by}: {r['bytes']} B, {r['ops']} op), {n} "
             f"launches in the main path ({per_path})")
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": n, "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": r["library_ms"],
-                        "launches_by_path": per_path, "entries": list(entries)})
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": r["library_ms"], "launches_by_path": per_path,
+               "entries": list(entries)}
+        if "d256" in r:   # the same kernel held on +-1/16 descriptors at D = 256
+            b = r["d256"]
+            b_ms, b_by = bound(b)
+            row["d256"] = {"ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b_ms,
+                           "bound_by": b_by, "max_abs_err": b["max_abs_err"]}
+            log(f"  {name} at D=256: {b['ms']:.4f} ms (plain torch {b['plain_ms']:.4f} ms, "
+                f"bound {b_ms:.4f} ms by {b_by}: {b['bytes']} B, {b['ops']} op)")
+        kernels.append(row)
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))

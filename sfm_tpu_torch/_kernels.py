@@ -62,6 +62,9 @@ SIGNATURES = {
     "sfm_relpose": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_P],
     "sfm_rotation_average": [_P] * 4 + [_I] * 4 + [_P] * 4 + [_P],
     "sfm_translation_average": [_P] * 4 + [_I] * 5 + [_P] * 4 + [_P],
+    "sfm_orb_fast_nms": [_P, _P] + [_I] * 3 + [_F, _P] + [_P],
+    "sfm_orb_blur": [_P] + [_I] * 3 + [_P, _I, _P, _P] + [_P],
+    "sfm_orb_describe": [_P] + [_I] * 3 + [_P] * 3 + [_I, _P, _F, _P, _P] + [_P],
 }
 KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
            "ba_linearize", "ba_cost", "schur_coupling", "triangulate_tracks",
@@ -69,7 +72,8 @@ KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
            "guided_match", "build_pyramid", "seed_score", "pnp_refine", "schur_damp",
            "schur_back_substitute", "fmat_hypotheses", "fmat_refit_verify", "dog_select",
            "dog_refine", "topk_rows", "match_epilogue", "match_compact", "relpose",
-           "rotation_average", "translation_average")
+           "rotation_average", "translation_average", "orb_fast_nms", "orb_blur",
+           "orb_describe")
 
 _launches = {k: 0 for k in KERNELS}
 _lib = None

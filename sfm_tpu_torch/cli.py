@@ -78,7 +78,7 @@ def _add_recon_flags(p: argparse.ArgumentParser):
 
 def _add_match_mode(p: argparse.ArgumentParser):
     p.add_argument("--feature_kind", default=None, choices=["sift", "orb"],
-                   help="frontend class ('orb' is not ported yet)")
+                   help="frontend class: SIFT, or FAST + steered BRIEF (ORB-class)")
     p.add_argument("--match_mode", default=None,
                    choices=["off", "auto", "on", "sequential"],
                    help="candidate-pair preselection: 'off' sweeps every pair, "

@@ -19,10 +19,17 @@
 // resize's renormalized edge weights; the next octave's base is layer S at
 // [::2, ::2]. The pyramid is then bit-identical to the twin's.
 //
-// One entry, sfm_build_pyramid, launches the whole pyramid on the stream: the
-// optional upsample, the base blur, S + 2 incremental blurs per octave and the
+// sfm_build_pyramid launches the whole pyramid on the stream: the optional
+// upsample, the base blur, S + 2 incremental blurs per octave and the
 // subsample between octaves. Outputs are two flat buffers holding, octave after
 // octave, the (B, S + 3, h, w) Gaussian and (B, S + 2, h, w) DoG stacks.
+//
+// sfm_orb_blur is the same row and column pass once, the column pass rounding
+// to bf16 (round to nearest even, as torch's .to(bfloat16)): the sigma = 2
+// plane of kernel K12 (sfm_tpu/features/binary.py:289, features/binary.py::
+// orb_blur), bit-identical to its twin orb_blur_plain.
+#include <cuda_bf16.h>
+
 #include "sfm_common.cuh"
 
 namespace {
@@ -96,9 +103,14 @@ __global__ void blur_rows_kernel(const float* __restrict__ src, size_t src_bstri
   dst[((size_t)blockIdx.z * h + y) * w + x] = acc;
 }
 
-// Column pass into Gaussian layer g, and DoG = g - prev when dog is not null.
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Column pass into Gaussian layer g (float, or bf16 for K12's plane), and
+// DoG = g - prev when dog is not null.
+template <typename Out>
 __global__ void blur_cols_kernel(const float* __restrict__ src, int h, int w, Taps taps,
-                                 float* __restrict__ g, const float* __restrict__ prev,
+                                 Out* __restrict__ g, const float* __restrict__ prev,
                                  float* __restrict__ dog, size_t g_bstride,
                                  size_t dog_bstride) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -113,7 +125,7 @@ __global__ void blur_cols_kernel(const float* __restrict__ src, int h, int w, Ta
     acc = __fadd_rn(acc, __fmul_rn(taps.k[i], v));
   }
   const size_t o = (size_t)y * w + x;
-  g[blockIdx.z * g_bstride + o] = acc;
+  store(g + blockIdx.z * g_bstride + o, acc);
   if (dog) dog[blockIdx.z * dog_bstride + o] = __fsub_rn(acc, prev[blockIdx.z * g_bstride + o]);
 }
 
@@ -186,5 +198,25 @@ SFM_API int sfm_build_pyramid(const void* img, int B, int H, int W, int upsample
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// img: (B, h, w) f32; taps_host: the host array of the 2R + 1 taps; scratch:
+// B * h * w floats; out: (B, h, w) bf16.
+SFM_API int sfm_orb_blur(const void* img, int B, int h, int w, const void* taps_host, int R,
+                         void* scratch, void* out, void* stream) {
+  if (R < 1 || 2 * R + 1 > MAX_TAPS || B < 1 || h < 1 || w < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Taps taps;
+  taps.radius = R;
+  for (int i = 0; i < MAX_TAPS; ++i)
+    taps.k[i] = i <= 2 * R ? static_cast<const float*>(taps_host)[i] : 0.f;
+  const size_t plane = (size_t)h * w;
+  float* tmp = static_cast<float*>(scratch);
+  blur_rows_kernel<<<grid_for(h, w, B), kBlock, 0, st>>>(static_cast<const float*>(img), plane,
+                                                         h, w, taps, tmp);
+  blur_cols_kernel<<<grid_for(h, w, B), kBlock, 0, st>>>(
+      tmp, h, w, taps, static_cast<__nv_bfloat16*>(out), nullptr, nullptr, plane, 0);
   return static_cast<int>(cudaGetLastError());
 }

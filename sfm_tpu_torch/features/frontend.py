@@ -1,11 +1,12 @@
-"""The SIFT feature frontend: images -> fixed-K keypoints + descriptors.
+"""The feature frontend: images -> fixed-K keypoints + descriptors.
 
-Counterpart of ``sfm_tpu/features/frontend.py`` (SIFT branch), batched over
-images: pyramid (kernel K3) -> per-octave extremum grid, candidate selection and
-subpixel refinement (kernel K4) -> mask gate + global top-k on
+Counterpart of ``sfm_tpu/features/frontend.py``, batched over images. The
+SIFT branch: pyramid (kernel K3) -> per-octave extremum grid, candidate
+selection and subpixel refinement (kernel K4) -> mask gate + global top-k on
 candidate metadata -> orientation + descriptor of the selected budget only
-(kernel K5) against a multi-octave f16 "canvas". Returns padded arrays and a
-validity mask so the sweep downstream sees fixed shapes.
+(kernel K5) against a multi-octave f16 "canvas". ``FeatureConfig.kind ==
+"orb"`` routes to the binary frontend (kernel K12, :mod:`.binary`). Returns
+padded arrays and a validity mask so the sweep downstream sees fixed shapes.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from sfm_tpu_torch.config import FeatureConfig
 from sfm_tpu_torch.estimators.ransac import top_k
+from sfm_tpu_torch.features.binary import detect_orb
 from sfm_tpu_torch.features.descriptor import _GPATCH, orientation_and_descriptor_canvas
 from sfm_tpu_torch.features.detect import (
     dog_extrema_scores,
@@ -32,8 +34,8 @@ class Features(NamedTuple):
     xy: torch.Tensor        # (B, K, 2) full-resolution pixel coords
     sigma: torch.Tensor     # (B, K)
     angle: torch.Tensor     # (B, K)
-    response: torch.Tensor  # (B, K) |refined DoG contrast|
-    desc: torch.Tensor      # (B, K, 128) unit-norm
+    response: torch.Tensor  # (B, K) |refined DoG contrast| (SIFT), FAST score (ORB)
+    desc: torch.Tensor      # (B, K, D) unit-norm: D = 128 (SIFT), 256 in +-1/16 (ORB)
     valid: torch.Tensor     # (B, K) bool
 
 
@@ -49,13 +51,25 @@ def _octave_budget(max_keypoints: int, octave: int) -> int:
     return max(max_keypoints >> octave, 256)
 
 
-def _normalize_image(image: torch.Tensor) -> torch.Tensor:
-    """u8 / u16 quantized grayscale -> float32 in [0, 1]; float passes through."""
-    if image.dtype == torch.uint8:
-        return image.to(torch.float32) / 255.0
-    if image.dtype == torch.uint16:
-        return image.to(torch.float32) / 65535.0
-    return image.to(torch.float32)
+def _normalize_image(image: torch.Tensor, reciprocal: bool = False) -> torch.Tensor:
+    """u8 / u16 quantized grayscale -> float32 in [0, 1]; float passes through.
+
+    ``reciprocal``: multiply by the float32 reciprocal of 255 (65535), as XLA
+    compiles the reference's ``/ 255.0``, instead of dividing. The ORB branch
+    needs it: the quotient differs by an ulp on half the u8 values, and FAST
+    compares u8 contrasts that tie its threshold exactly (99.29% of the
+    compiled reference's keypoints with it, 96.66% without:
+    ``tests/orb_parity_report.py``). The SIFT branch keeps the quotient: its
+    parity tests pass either way, and with the reciprocal the 150-view
+    corridor of ``chip_smoke.py`` registered 102/150 cameras in one of two
+    runs on the card, below the smoke's gate, which every run with the
+    quotient has met (ROADMAP queue 3)."""
+    scale = {torch.uint8: 255.0, torch.uint16: 65535.0}.get(image.dtype)
+    if scale is None:
+        return image.to(torch.float32)
+    if reciprocal:
+        return image.to(torch.float32) * float(np.float32(1.0 / scale))
+    return image.to(torch.float32) / scale
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -75,10 +89,8 @@ def select_keypoints(images: torch.Tensor, masks: Optional[torch.Tensor],
                      config: FeatureConfig) -> dict:
     """Stages 1-2 of the frontend: the selected keypoints' metadata and the
     inputs of :func:`orientation_and_descriptor_canvas` (the f16 canvas and
-    per-keypoint ``grad_layer, x, y, sigma_rel, row_off, w_o, h_o``)."""
-    if config.kind == "orb":
-        raise NotImplementedError(
-            "feature kind 'orb' is not ported yet (ROADMAP queue 1, item 4; kernel K12)")
+    per-keypoint ``grad_layer, x, y, sigma_rel, row_off, w_o, h_o``).
+    The SIFT branch; the ORB branch is :func:`.binary.detect_orb`."""
     image = _normalize_image(images)
     B, H, W = image.shape
     dev = image.device
@@ -171,6 +183,8 @@ def select_keypoints(images: torch.Tensor, masks: Optional[torch.Tensor],
 def _detect_impl(images: torch.Tensor, masks: Optional[torch.Tensor],
                  config: FeatureConfig) -> Features:
     """(B, H, W) images (+ (B, H, W) bool masks) -> batched :class:`Features`."""
+    if config.kind == "orb":
+        return Features(**detect_orb(_normalize_image(images, reciprocal=True), masks, config))
     kp = select_keypoints(images, masks, config)
     angle, desc = orientation_and_descriptor_canvas(
         *kp["describe"],

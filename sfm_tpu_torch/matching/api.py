@@ -82,7 +82,7 @@ class ImageMatcher:
                    use_mask: bool = True):
         """Run the frontend over the image range.
 
-        Returns {"xy": (N, K, 2) numpy, "desc": (N, K, 128) tensor on the
+        Returns {"xy": (N, K, 2) numpy, "desc": (N, K, D) tensor on the
         device, "valid": (N, K) numpy}.
         """
         self.image_paths = self.list_images(start_idx, end_idx)

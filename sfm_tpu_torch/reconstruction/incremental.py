@@ -343,10 +343,6 @@ def check_config(config: SfMConfig, num_images: int):
         raise NotImplementedError(
             "ba.local_window > 0 (windowed local BA) is not ported yet "
             "(ROADMAP queue 1, item 2)")
-    if config.features.kind != "sift":
-        raise NotImplementedError(
-            f"features.kind={config.features.kind!r} is not ported yet "
-            "(ROADMAP queue 1, item 4)")
     check_ba_config(config.ba, num_images)
 
 

@@ -146,12 +146,6 @@ def test_detect_impl_matches_jax(with_mask):
     assert abs(int(jv.sum()) - int(tv.sum())) <= max(2, int(0.01 * jv.sum()))
 
 
-def test_detect_batch_rejects_orb():
-    cfg = FeatureConfig(kind="orb")
-    with pytest.raises(NotImplementedError, match="K12"):
-        tfront.detect_and_describe(np.zeros((64, 64), np.uint8), config=cfg, device="cpu")
-
-
 def test_dilate_mask_matches_jax():
     m = np.random.default_rng(2).random((1, 23, 31)) > 0.93
     ref = jfront.dilate_mask(jnp.asarray(m[0]), 2)

@@ -1,8 +1,9 @@
 """The port's copies of the numpy-only host modules, held against the originals.
 
 ``sfm_tpu_torch`` keeps its own ``config.py``, ``io/images.py``,
-``io/calib.py``, ``reconstruction/tracks.py`` and ``render_scene.py`` (the
-JAX package's ``import sfm_tpu`` imports ``jax``). These tests hold each copy
+``io/calib.py``, ``reconstruction/tracks.py`` and ``render_scene.py``, and
+``features/binary.py`` its own BRIEF pattern and tables (the JAX package's
+``import sfm_tpu`` imports ``jax``). These tests hold each copy
 against the file it was copied from, on inputs made here from a numpy seed:
 the same schema, the same arrays, the same bytes on disk.
 """
@@ -16,10 +17,12 @@ import pytest
 from torch_parity import SCRIPTS
 
 import sfm_tpu.config as jcfg
+import sfm_tpu.features.binary as jbinary
 import sfm_tpu.io.calib as jcalib
 import sfm_tpu.io.images as jimages
 import sfm_tpu.reconstruction.tracks as jtracks
 import sfm_tpu_torch.config as tcfg
+import sfm_tpu_torch.features.binary as tbinary
 import sfm_tpu_torch.io.calib as tcalib
 import sfm_tpu_torch.io.images as timages
 import sfm_tpu_torch.reconstruction.tracks as ttracks
@@ -49,6 +52,24 @@ def test_config_has_the_same_dataclasses():
     port = sorted(name for name, obj in vars(tcfg).items()
                   if dataclasses.is_dataclass(obj) and obj.__module__ == tcfg.__name__)
     assert port == CONFIG_CLASSES and len(port) >= 10
+
+
+BINARY_CONSTANTS = ["_RING", "_STEER1", "_STEER2", "_IC_WX", "_IC_WY", "PATCH", "HALF",
+                    "N_BITS", "N_ANGLE_BINS", "BORDER"]
+
+
+@pytest.mark.parametrize("name", BINARY_CONSTANTS)
+def test_binary_constants_match(name):
+    # The binary frontend's copy of the reference's BRIEF pattern, steering
+    # tables, FAST ring and moment weights: bit-identical.
+    a, b = getattr(tbinary, name), getattr(jbinary, name)
+    assert np.asarray(a).dtype == np.asarray(b).dtype
+    np.testing.assert_array_equal(a, b)
+
+
+def test_binary_pattern_matches():
+    for a, b in zip(tbinary._make_pattern(), jbinary._make_pattern()):
+        np.testing.assert_array_equal(a, b)
 
 
 CONFIG_VARIANTS = [

@@ -277,8 +277,7 @@ def test_unported_flags_raise(tmp_path, flag):
 
 @pytest.mark.parametrize("field", [
     ("ba", "local_window", 5),
-    ("ba", "per_camera_intrinsics", True), ("ba", "f64_normal_equations", True),
-    ("features", "kind", "orb")])
+    ("ba", "per_camera_intrinsics", True), ("ba", "f64_normal_equations", True)])
 def test_unported_configs_raise(field):
     sub, name, value = field
     base = PortConfig()
