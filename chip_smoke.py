@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``sfm_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--views 36] [--large_views 150]
+    python3 chip_smoke.py [--views 36] [--large_views 150] [--huge_views 300]
 
 1. Builds the port's CUDA kernels from ``sfm_tpu_torch/csrc`` (nvcc, sm_90a).
 2. Holds each kernel against its plain PyTorch twin at the main path's shapes
@@ -11,10 +11,16 @@
    times both with CUDA events (and one PyTorch library call where one
    computes the same function), and computes each kernel's bound: the larger
    of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s (f32).
-3. Renders ``--views`` and then ``--large_views`` 1024x768 views of the
-   textured corridor (the port's own ``sfm_tpu_torch/render_scene.py``, in
-   one background subprocess, so that the renders overlap the kernel
-   phases).
+   K11 (the matrix-free S x and the block-Jacobi PCG) and K10's block-Jacobi
+   inverses run on a 300-camera / 60k-point / 600k-observation scene with
+   20 cameras pinned; one ``run_ba`` at 256 cameras runs through PCG and
+   through the dense path. The kernels with scattered sums (K5, K8-K11)
+   must give the same bits on a second launch.
+3. Renders ``--views``, ``--large_views`` and ``--huge_views`` 1024x768
+   views of the textured corridor (the port's own
+   ``sfm_tpu_torch/render_scene.py``, in one background subprocess with a
+   pool of processes, one view a task, so that the renders overlap the
+   kernel phases).
 4. Drives the port's main path through ``sfm_tpu_torch.cli`` in this process,
    with the default SfMConfig, every kernel launch counter reset just before
    each path and read just after it:
@@ -26,7 +32,9 @@
    b. ``reconstruct`` on those artifacts: every reconstruct kernel launched,
       all but at most one camera registered, > 1,000 points, < 0.6 px mean
       reprojection error, ground-truth rotation median < 1 deg and ATE < 5%
-      of the scene, the model and the COLMAP export written;
+      of the scene, the model and the COLMAP export written; then the same
+      ``reconstruct`` again on the same pair table, whose model must be
+      the same bytes (the BA kernels' sums are order-free);
    c. the guided rescue: ``reconstruct`` on a copy of the pair table with
       every pair of one middle image rejected (``verify.rescue_disconnected``
       off): all cameras registered, the cut image through the guided 2D-3D
@@ -52,19 +60,34 @@
       ``dog_extrema``, ``dog_refine`` and ``sift_describe`` not; every image
       in an accepted pair, the ground-truth epipolar check, all but at most
       one camera, > 1,000 points, < 0.6 px; ground-truth pose printed, not
-      gated.
+      gated;
+   h. ``pipeline`` on the ``--huge_views`` scene, more images than
+      ``ba.use_dense_schur_below``: K11 launched and no dense S assembled
+      (``schur_coupling``, whose S the Cholesky factorizes) in the whole
+      pipeline; every BA call a PCG call, its final cost finite and no
+      higher than its initial one; every image in an accepted pair, the
+      ground-truth epipolar check, > 1,000 points, < 0.6 px and the camera
+      gate ``HUGE_MIN_CAMERA_SHARE``; then two ``reconstruct``s on its
+      artifacts with ``ba.local_window`` = ``LOCAL_WINDOW``
+      (``WINDOW_CONFIGS``): periodic calls on restricted problems, every BA
+      call's cost finite and down, the final call global on PCG; the run
+      with the reference's long-sequence settings held to the model gates
+      above, the window alone (intrinsics free) checked finite and printed.
+      Ground-truth pose and the track table's fill printed, not gated.
 
 Prints the card (nvidia-smi), per-kernel and stage numbers, a JSON line of
 the kernels and, last, ``{"ok": true, "device": {...}}``. Any failure raises;
 without a card, or outside a checkout of the repository, it exits non-zero
-before printing any result. It takes about two minutes on one H100 (``PERF.md``).
+before printing any result. It takes about four minutes on one H100 (``PERF.md``).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
 import pickle
+import signal
 import subprocess
 import sys
 import time
@@ -125,6 +148,12 @@ KERNELS = {
                  "sfm_tpu/features/binary.py:289"),
     "orb_describe": (("orb_describe",), "sfm_tpu_torch/csrc/orb.cu",
                      "sfm_tpu/features/binary.py:240"),
+    "schur_block_jacobi": (("schur_block_jacobi",), "sfm_tpu_torch/csrc/schur_damp.cu",
+                           "sfm_tpu/ba/schur.py:197"),
+    "schur_matvec": (("schur_matvec",), "sfm_tpu_torch/csrc/schur_pcg.cu",
+                     "sfm_tpu/ba/schur.py:232"),
+    "pcg": (("pcg_init", "pcg_step"), "sfm_tpu_torch/csrc/schur_pcg.cu",
+            "sfm_tpu/ba/schur.py:261"),
 }
 # The kernels each path must launch.
 PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
@@ -143,6 +172,40 @@ ORB_KERNELS = K12_KERNELS + ("topk_rows", "match_top2", "match_epilogue", "fmat_
                              "fmat_solve") + RECONSTRUCT_KERNELS
 ORB_ENTRIES = ("dog_select",)
 SIFT_ONLY_ENTRIES = ("build_pyramid", "dog_extrema", "dog_refine", "sift_describe")
+# Path h: more images than ba.use_dense_schur_below, so every BA call of the
+# pipeline is a PCG call (K11 and K10's block-Jacobi inverses) and no dense S
+# is assembled or factorized; with ba.local_window the periodic calls run on
+# restricted problems of at most 256 cameras (dense S), the final one on PCG.
+K11_KERNELS = ("schur_block_jacobi", "schur_matvec", "pcg")
+HUGE_KERNELS = PREPROCESS_KERNELS + ("retrieval_score", "pnp_ransac", "triangulate_tracks",
+                                     "ba_linearize", "seed_score", "pnp_refine",
+                                     "schur_damp") + K11_KERNELS
+DENSE_ENTRIES = ("schur_coupling",)
+WINDOW_KERNELS = RECONSTRUCT_KERNELS + K11_KERNELS
+# Path h's two windowed runs on the pipeline's artifacts: the window of 16
+# alone (the rest of the default config: shared intrinsics optimized), and
+# the reference's own settings for long ordered sequences
+# (scripts/image_scale_bench.py:62-73, its incremental modes: intrinsics
+# fixed, 15 LM iterations, 40 CG steps, triangulation every 2 registrations).
+LOCAL_WINDOW = 16
+WINDOW_CONFIGS = {
+    "local_window": {"ba": {"local_window": LOCAL_WINDOW}},
+    "long_sequence": {"ba": {"local_window": LOCAL_WINDOW, "optimize_intrinsics": False,
+                             "prune_multiplier": 3.0, "max_iterations": 15, "cg_iters": 40},
+                      "triangulation": {"cadence": 2}},
+}
+# The runs of path h whose model is gated, and each one's camera gate: all
+# but at most one image when None, else this share of the images. The BA
+# sums are order-free, so a tree reads the same models in every smoke; each
+# gate is what the final tree's three smokes from `git archive` read, less
+# 5%: the pipeline 235 cameras in each, the long-sequence run 153 (PERF.md,
+# section 6). The "local_window" run's model is checked finite and printed,
+# not held to the model gates: on one 300-view table the JAX reference's own
+# windowed reconstruct, with the intrinsics free, ended at 0.6581 px with
+# 1,041 points and fx 2,371 against the rendered 1,228, as the port's does
+# (tests/local_window_report.py; PERF.md, section 6).
+HUGE_MIN_CAMERA_SHARE = {"pipeline_huge": 0.95 * 235 / 300,
+                         "long_sequence": 0.95 * 153 / 300}
 # FAST's contrast gate (u8 scale) on the rendered corridor. Its band-limited
 # fractal texture has few sharp corners: at the default 20 the 3,800-row
 # tables stay mostly padding (tests/orb_parity_report.py counts them); at 5
@@ -498,9 +561,12 @@ def phase_describe(torch, dev, image, cfg):
     ang_k, desc_k = orientation_and_descriptor_canvas_cuda(*args, **kw)
     ang_p, desc_p = orientation_and_descriptor_canvas_plain(*args, **kw)
     torch.cuda.synchronize()
+    check_repeatable(torch, "K5 sift_describe",
+                     lambda: orientation_and_descriptor_canvas_cuda(*args, **kw), (ang_k, desc_k))
     # Tolerance: >= 99.5% of valid keypoints within 1e-3 rad and 1e-3 L2
-    # (atomics reorder the histogram sums); the rest must be orientation
-    # near-ties (the two largest smoothed bins within 1%).
+    # (the kernel's histograms are fixed-point sums, the twin's sequential
+    # float sums); the rest must be orientation near-ties (the two largest
+    # smoothed bins within 1%).
     valid = kp["valid"]
     d_ang = (ang_k - ang_p).abs() % (2 * math.pi)
     d_ang = torch.minimum(d_ang, 2 * math.pi - d_ang)
@@ -800,6 +866,23 @@ def phase_retrieval_binary(torch, dev):
             "max_abs_err": 0.0}
 
 
+def _tensors(x):
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return [x] if hasattr(x, "is_cuda") else []
+
+
+def check_repeatable(torch, what: str, fn, first):
+    """A second launch of ``fn`` gives the same bits as ``first``: the
+    kernels' scattered sums are order-free (``csrc/sfm_common.cuh``), so the
+    engine's decisions do not move from run to run."""
+    again = fn()
+    torch.cuda.synchronize()
+    a, b = _tensors(first), _tensors(again)
+    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"{what}: a second launch gave other bits")
+
+
 def _rel(a, b) -> float:
     """max |a - b| over max |b|."""
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
@@ -849,9 +932,10 @@ def phase_ba(torch, np, dev):
     lk = linearize_cuda(*args)
     lp = linearize_plain(*args)
     torch.cuda.synchronize()
+    check_repeatable(torch, "K8+K9 ba_linearize", lambda: linearize_cuda(*args), lk)
     # Tolerance: the analytic Jacobians against torch.func.jacrev (an
     # independent derivation), 1e-4 of each tensor's largest entry; the
-    # reductions (float atomics, another order) 1e-3.
+    # reductions (fixed-point sums against the twin's float sums) 1e-3.
     for name in lk._fields:
         x = getattr(lk, name)
         if x.is_floating_point():
@@ -862,6 +946,7 @@ def phase_ba(torch, np, dev):
         check(e <= (1e-4 if f in ("Jc", "Jk", "Jp", "rw") else 1e-3), f"K8/K9: {f} rel err {e}")
     cargs = (rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy, obs_w, 2.0)
     ck, cp = total_huber_cost_cuda(*cargs), total_huber_cost_plain(*cargs)
+    check_repeatable(torch, "K8 ba_cost", lambda: total_huber_cost_cuda(*cargs), ck)
     cost_err = abs(float(ck) - float(cp)) / float(cp)
     check(cost_err <= 1e-5, f"K8 ba_cost: rel err {cost_err}")
     log("K8+K9 ba_linearize: rel err " + ", ".join(f"{f} {e:.2g}" for f, e in errs.items())
@@ -881,12 +966,14 @@ def phase_ba(torch, np, dev):
     Sk = schur_matrix_cuda(lk, op, perm, pvm)
     Sp = schur_matrix_plain(lk, op, perm, pvm)
     torch.cuda.synchronize()
+    check_repeatable(torch, "K10 schur_coupling", lambda: schur_matrix_cuda(lk, op, perm, pvm),
+                     Sk)
     rhs = torch.cat([rhs_c.reshape(-1), rhs_k])[:, None]
     solve = lambda S: torch.cholesky_solve(rhs, torch.linalg.cholesky(S))[:, 0]
     s_err = _rel(Sk, Sp)
     x_err = _rel(solve(Sk), solve(Sp))
-    # Tolerance: S within 1e-4 of its largest entry (float atomics sum the
-    # coupling in another order); the solved step within 1e-2, since S's
+    # Tolerance: S within 1e-4 of its largest entry (the kernel's fixed-point
+    # sums against the twin's float sums); the solved step within 1e-2, since S's
     # condition number (100 cameras + the intrinsics column) multiplies that
     # difference (on an H100, a 5e-6 difference in S moved the step by 1.1e-3).
     check(bool(torch.isfinite(Sk).all()), "K10: S not finite")
@@ -1326,8 +1413,10 @@ def phase_schur_damp(torch, np, dev):
         dpk = schur_back_substitute_cuda(lin, opk, xc, xk, perm, pvm)
         dpp = schur_back_substitute_plain(lin, opk, xc, xk)
         torch.cuda.synchronize()
-        # Tolerance: rhs_c / rhs_k within 1e-3 relative (camera sums by float
-        # atomics, another order); Vinv within 1e-4 of each block's largest
+        check_repeatable(torch, f"K10 schur_damp C={C}",
+                         lambda: schur_damp_cuda(lin, lam, perm, pvm), (opk, rck, rkk))
+        # Tolerance: rhs_c / rhs_k within 1e-3 relative (the kernel's camera
+        # sums are fixed-point, the twin's float); Vinv within 1e-4 of each block's largest
         # entry where the damped block's condition number is <= 100 (the
         # adjugate and LU round differently); on the other valid blocks the
         # residual |Vd Vinv - I| no larger than max(1e-3, 10x the twin's LU
@@ -1372,8 +1461,9 @@ def phase_schur_damp(torch, np, dev):
         ops += 60 * P + 60 * O + 64 * O + 18 * P
 
     # One LM run on the card against the twins on the host: the final costs
-    # within 1e-3 relative (atomics may flip an accept at convergence, so the
-    # iteration counts are not compared).
+    # within 1e-3 relative (the sums round differently, which may flip an
+    # accept at convergence, so the iteration counts are not compared); a
+    # second run on the card must repeat the first bit for bit.
     rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = ba_scene(
         torch, np, dev, n_cams=40, n_pts=8000, seed=40)
     C, P, O = rvec.shape[0], pts.shape[0], obs_cam.shape[0]
@@ -1384,9 +1474,12 @@ def phase_schur_damp(torch, np, dev):
                      ones(O))
     cfg = BAConfig(max_iterations=10)
     t0 = time.perf_counter()
-    _, st_k = run_ba(prob, cfg)
+    out_k, st_k = run_ba(prob, cfg)
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
+    out_k2, st_k2 = run_ba(prob, cfg)
+    check(st_k2 == st_k and all(torch.equal(a, b) for a, b in zip(out_k, out_k2)),
+          "K10 run_ba: a second run on the card gave another result")
     t0 = time.perf_counter()
     _, st_p = run_ba(BAProblem(*(x.cpu() for x in prob)), cfg)
     t_host = time.perf_counter() - t0
@@ -1397,6 +1490,210 @@ def phase_schur_damp(torch, np, dev):
         f"{st_p['final_cost']:.6g} (twins on the host, {t_host:.2f} s), rel {cost_err:.2g}; "
         f"{st_k['iterations']} / {st_p['iterations']} iterations")
     return result(worst, ms, plain_ms, moved, ops, library_ms=lib_ms)
+
+
+# K11 with K10's block-Jacobi inverses: the PCG path of BA past
+# use_dense_schur_below cameras.
+K11_CAMS, K11_POINTS, K11_OBS_PER_CAM = 300, 60000, 2000
+K11_PINNED = tuple(range(7, 300, 15))      # 20 unregistered cameras
+
+
+def pcg_system(torch, np, dev, n_cams, n_pts, obs_per_cam, seed, pinned):
+    """``ba_scene``'s problem with the ``pinned`` cameras unregistered (their
+    observations excluded, their entries pinned by the damping) and camera 0
+    fixed, linearized on the card as ``run_ba`` does (intrinsics optimized,
+    with their regularization): (Linearization, perm, perm_valid)."""
+    from sfm_tpu_torch.ba.lm import _intr_reg
+    from sfm_tpu_torch.ba.schur import coobs_pairs, linearize_cuda
+
+    rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = ba_scene(
+        torch, np, dev, n_cams=n_cams, n_pts=n_pts, obs_per_cam=obs_per_cam, seed=seed)
+    C, P = rvec.shape[0], pts.shape[0]
+    cam_valid = torch.ones(C, dtype=torch.bool, device=dev)
+    cam_valid[list(pinned)] = False
+    cam_free = cam_valid.float()
+    cam_free[0] = 0.0
+    obs_w = cam_valid[obs_cam.long()].float()
+    perm, pvm = coobs_pairs(obs_point.cpu().numpy(), obs_w.cpu().numpy() > 0)
+    perm, pvm = torch.as_tensor(perm, device=dev), torch.as_tensor(pvm, device=dev)
+    _, Hreg, greg = _intr_reg(intr, intr, 0.1)
+    lin = linearize_cuda(rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy, obs_w, cam_free,
+                         torch.ones(P, dtype=torch.bool, device=dev), perm, pvm, 2.0, True,
+                         Hreg.contiguous(), greg.contiguous())
+    return lin, perm, pvm
+
+
+def _block_rel(A, B):
+    """Per block: max |A - B| over max |B|."""
+    return (A - B).flatten(1).abs().amax(1) / B.flatten(1).abs().amax(1).clamp(min=1e-30)
+
+
+def phase_pcg(torch, np, dev):
+    """K10's ``schur_block_jacobi`` and K11's ``schur_matvec`` and
+    ``pcg_init`` / ``pcg_step`` on the 300-camera / 60k-point /
+    600k-observation scene, 20 cameras pinned, against their twins."""
+    from sfm_tpu_torch.ba import schur as S
+
+    lam = 1e-3
+    lin, perm, pvm = pcg_system(torch, np, dev, K11_CAMS, K11_POINTS, K11_OBS_PER_CAM, 300,
+                                K11_PINNED)
+    C, P, O = lin.U.shape[0], lin.V.shape[0], lin.Jc.shape[0]
+    op, rhs_c, rhs_k = S.damp_operator(lin, lam, perm, pvm)
+    Mc, Mk = S.block_jacobi_cuda(lin.U, op.lam_diag_c, lin.Uk, op.lam_diag_k)
+    Mc_p, Mk_p = S.block_jacobi_plain(lin.U, op.lam_diag_c, lin.Uk, op.lam_diag_k)
+    torch.cuda.synchronize()
+    # Tolerance: both inverses held against the f64 inverse of the same f32
+    # blocks; the damped camera blocks' condition numbers reach ~1e5, so an
+    # f32 inverse is only good to cond x 6e-8 of it whichever way it
+    # eliminates. Each kernel block within max(1e-4, 4x the twin's LU error);
+    # the pinned blocks the identity within 1e-6.
+    eye6 = torch.eye(6, device=dev, dtype=torch.float64)
+    Ud = lin.U.double() + op.lam_diag_c.double()[..., None] * eye6 + 1e-10 * eye6
+    truth = torch.linalg.inv(Ud)
+    e_k, e_p = _block_rel(Mc.double(), truth), _block_rel(Mc_p.double(), truth)
+    Uk_d = (lin.Uk + torch.diag(op.lam_diag_k)).double() + 1e-10 * torch.eye(
+        4, device=dev, dtype=torch.float64)
+    tk = torch.linalg.inv(Uk_d)[None]
+    ek_k, ek_p = _block_rel(Mk.double()[None], tk), _block_rel(Mk_p.double()[None], tk)
+    pin_err = float((Mc[list(K11_PINNED) + [0]] - torch.eye(6, device=dev)).abs().max())
+    cond = torch.linalg.cond(Ud)
+    check(bool((e_k <= torch.clamp(4 * e_p, min=1e-4)).all())
+          and float(ek_k[0]) <= max(1e-4, 4 * float(ek_p[0])) and pin_err <= 1e-6,
+          f"K10 schur_block_jacobi: Mc error {float(e_k.max())} (twin {float(e_p.max())}), "
+          f"Mk {float(ek_k[0])} (twin {float(ek_p[0])}), pinned blocks {pin_err}")
+    log(f"K10 schur_block_jacobi C={C}: against the f64 inverse, Mc max rel err "
+        f"{float(e_k.max()):.2g} (twin {float(e_p.max()):.2g}; block cond up to "
+        f"{float(cond.max()):.3g}), Mk {float(ek_k[0]):.2g} (twin {float(ek_p[0]):.2g}), "
+        f"{len(K11_PINNED) + 1} pinned / fixed blocks the identity within {pin_err:.2g}")
+    bj_ms = time_ms(torch, lambda: S.block_jacobi_cuda(lin.U, op.lam_diag_c, lin.Uk,
+                                                       op.lam_diag_k))
+    bj_plain = time_ms(torch, lambda: S.block_jacobi_plain(lin.U, op.lam_diag_c, lin.Uk,
+                                                           op.lam_diag_k))
+    bj_lib = time_ms(torch, lambda: torch.linalg.inv(Ud.float()))
+    # Gauss-Jordan with partial pivoting: ~2 n^3 FLOP a block.
+    bj = result(float(max(e_k.max(), ek_k[0])), bj_ms, bj_plain,
+                nbytes(lin.U, op.lam_diag_c, lin.Uk, op.lam_diag_k, Mc, Mk),
+                2 * 6 ** 3 * C + 2 * 4 ** 3, library_ms=bj_lib)
+
+    op = op._replace(Mc=Mc, Mk=Mk)
+    g = torch.Generator(device=dev).manual_seed(9)
+    xc = 1e-2 * torch.randn((C, 6), device=dev, generator=g)
+    xk = 1e-1 * torch.randn(4, device=dev, generator=g)
+    mk = S.schur_matvec_cuda(lin, op, xc, xk, perm, pvm)
+    Sk = torch.cat([t.reshape(-1) for t in mk])
+    Sp = torch.cat([t.reshape(-1) for t in S.schur_matvec_plain(lin, op, xc, xk)])
+    torch.cuda.synchronize()
+    check_repeatable(torch, "K11 schur_matvec",
+                     lambda: S.schur_matvec_cuda(lin, op, xc, xk, perm, pvm), mk)
+    mv_err = _rel(Sk, Sp)
+    # Tolerance: 1e-4 of the largest entry (fixed-point sums against the
+    # twin's float sums).
+    check(bool(torch.isfinite(Sk).all()) and mv_err <= 1e-4, f"K11 schur_matvec: rel err {mv_err}")
+    mv_ms = time_ms(torch, lambda: S.schur_matvec_cuda(lin, op, xc, xk, perm, pvm))
+    mv_plain = time_ms(torch, lambda: S.schur_matvec_plain(lin, op, xc, xk))
+    # Bytes: the valid observations' Jacobians (12 + 8 + 6 floats), camera
+    # id and grouping slot (the pinned cameras' observations are not in the
+    # grouping and not read), one valid flag a slot of the grouping, an
+    # observed point's id and Vinv, the damping, x and S x.
+    n_obs, n_pts = int(pvm.sum()), int(pvm[:, 0].sum())
+    mv_bytes = (n_obs * (26 + 2) * 4 + pvm.numel() + n_pts * (1 + 9) * 4
+                + nbytes(op.lam_diag_c, op.lam_diag_k, lin.Hreg_k, xc, xk, Sk))
+    # ~150 FLOP an observation (B x twice, Jp^T a, Jp v, Jc^T d, Jk^T d),
+    # 18 a point (Vinv u), 2 an entry (the damping).
+    mv_ops = 150 * n_obs + 18 * n_pts + 2 * (6 * C + 4)
+    log(f"K11 schur_matvec C={C} P={P} O={O} ({n_obs} valid): rel err {mv_err:.2g}; "
+        f"{mv_ms:.4f} ms (plain torch {mv_plain:.4f} ms)")
+    mv = result(mv_err, mv_ms, mv_plain, mv_bytes, mv_ops)
+
+    # PCG: 10 fixed steps (tol 0), then converged, held against the twin and
+    # against the dense solve of the same system (K10's S, factorized in f64).
+    xk_c, xk_k, st_k = S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, 10, 0.0)
+    xp_c, xp_k, st_p = S.pcg_solve_plain(lin, op, rhs_c, rhs_k, perm, pvm, 10, 0.0)
+    torch.cuda.synchronize()
+    check_repeatable(torch, "K11 pcg",
+                     lambda: S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, 10, 0.0),
+                     (xk_c, xk_k, st_k))
+    cat = lambda a, b: torch.cat([a.reshape(-1), b])
+    fixed_err = _rel(cat(xk_c, xk_k), cat(xp_c, xp_k))
+    # Tolerance: 1e-3 of the largest entry after 10 steps (the matvec's sums
+    # round otherwise than the twin's, and the recursion carries it).
+    check(int(st_k) == 10 and int(st_p) == 10 and fixed_err <= 1e-3,
+          f"K11 pcg, 10 fixed steps: rel err {fixed_err}, steps {int(st_k)} / {int(st_p)}")
+    Sd = S.schur_matrix_cuda(lin, op, perm, pvm).double()
+    rhs = cat(rhs_c, rhs_k).double()
+    x_dense = torch.linalg.solve(Sd, rhs)
+    iters, tol = 500, 1e-6
+    xc_c, xc_k, steps = S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, iters, tol)
+    xq_c, xq_k, steps_p = S.pcg_solve_plain(lin, op, rhs_c, rhs_k, perm, pvm, iters, tol)
+    torch.cuda.synchronize()
+    conv_err = _rel(cat(xc_c, xc_k).double(), x_dense)
+    conv_err_p = _rel(cat(xq_c, xq_k).double(), x_dense)
+    # Tolerance: an f32 CG that stops at |r| <= 1e-6 |rhs| gives the step to
+    # about cond x 1e-6 of the exact one; on this system the twin (the
+    # reference's loop) read 6e-4 to 1.2e-3 of the f64 dense solve from call
+    # to call while the linearization's sums were float atomics. So the kernel must
+    # come as close as the twin (within 1.5x its error, or 1e-3), and the
+    # twin within 1e-2.
+    check(conv_err <= max(1e-3, 1.5 * conv_err_p) and conv_err_p <= 1e-2,
+          f"K11 pcg converged: rel err to the dense solve {conv_err} (twin {conv_err_p}), "
+          f"{int(steps)} / {int(steps_p)} steps")
+    log(f"K11 pcg C={C}: 10 fixed steps rel err {fixed_err:.2g} to the twin; converged "
+        f"(tol {tol}) in {int(steps)} steps (twin {int(steps_p)}), rel err to the f64 dense "
+        f"solve {conv_err:.2g} (twin {conv_err_p:.2g})")
+    # The solve as run_ba runs it: cg_iters = 50, cg_tol = 1e-6.
+    from sfm_tpu_torch.config import BAConfig
+
+    cfg = BAConfig()
+    run = lambda: S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, cfg.cg_iters, cfg.cg_tol)
+    pcg_ms = time_ms(torch, run)
+    pcg_plain = time_ms(torch, lambda: S.pcg_solve_plain(lin, op, rhs_c, rhs_k, perm, pvm,
+                                                         cfg.cg_iters, cfg.cg_tol),
+                        reps=3, warmup=1)
+    n_steps = int(run()[2])
+    log(f"K11 pcg C={C}, cg_iters {cfg.cg_iters}, cg_tol {cfg.cg_tol}: {n_steps} steps, "
+        f"{pcg_ms:.4f} ms (plain torch {pcg_plain:.4f} ms)")
+    n = 6 * C + 4
+    # A step: the matvec, then the CG update (reads Ap, p, r, x, Mc, Mk; writes
+    # x, r, z, p): ~20 FLOP an entry and 72 a camera (the 6x6 apply).
+    step_bytes = mv_bytes + nbytes(Mc, Mk) + 4 * 9 * n
+    step_ops = mv_ops + 20 * n + 72 * C
+    pcg = result(max(fixed_err, conv_err), pcg_ms, pcg_plain,
+                 nbytes(rhs_c, rhs_k, Mc, Mk) + 4 * 5 * n + n_steps * step_bytes,
+                 n_steps * step_ops)
+    return bj, mv, pcg
+
+
+def phase_run_ba_pcg(torch, np, dev):
+    """One run_ba at 256 cameras on the card through PCG
+    (``use_dense_schur_below`` 0) and through the dense path: final costs
+    within 1e-3 relative."""
+    from sfm_tpu_torch.ba.lm import run_ba
+    from sfm_tpu_torch.ba.problem import BAProblem
+    from sfm_tpu_torch.config import BAConfig
+
+    rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = ba_scene(
+        torch, np, dev, n_cams=256, n_pts=50000, obs_per_cam=2000, seed=256)
+    C, P, O = rvec.shape[0], pts.shape[0], obs_cam.shape[0]
+    ones = lambda k: torch.ones(k, dtype=torch.bool, device=dev)
+    fixed = torch.zeros(C, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    prob = BAProblem(rvec, tvec, ones(C), fixed, intr, pts, ones(P), obs_cam, obs_point, obs_xy,
+                     ones(O))
+    out = {}
+    for name, below in (("pcg", 0), ("dense", 256)):
+        t0 = time.perf_counter()
+        _, st = run_ba(prob, BAConfig(max_iterations=10, use_dense_schur_below=below))
+        torch.cuda.synchronize()
+        out[name] = (st, time.perf_counter() - t0)
+    (st_p, t_p), (st_d, t_d) = out["pcg"], out["dense"]
+    cost_err = abs(st_p["final_cost"] - st_d["final_cost"]) / st_d["final_cost"]
+    check(st_p["solver"] == "pcg" and st_d["solver"] == "dense" and cost_err <= 1e-3
+          and st_p["final_cost"] < 0.5 * st_p["initial_cost"],
+          f"K11 run_ba C={C}: PCG final cost {st_p['final_cost']} vs dense {st_d['final_cost']}")
+    log(f"K11 run_ba C={C} O={O}: final cost {st_p['final_cost']:.6g} through PCG ({t_p:.2f} s, "
+        f"{st_p['iterations']} iterations, {st_p['cg_iterations']} CG steps) vs "
+        f"{st_d['final_cost']:.6g} dense ({t_d:.2f} s, {st_d['iterations']} iterations), rel "
+        f"{cost_err:.2g}")
 
 
 def phase_dog_select(torch, dev, images, cfg):
@@ -1765,6 +2062,124 @@ def stage_seconds(out: Path) -> dict:
     return totals
 
 
+def ba_calls(out: Path, what: str) -> list:
+    """The run's ``ba/solve`` records (one a BA call); checks each final cost
+    is finite and no higher than its initial cost."""
+    calls = [r for r in json.loads((out / "metrics.json").read_text())
+             if r["name"] == "ba/solve"]
+    check(len(calls) > 0, f"{what}: no BA call")
+    for r in calls:
+        check(math.isfinite(r["final_cost"]) and r["final_cost"] <= r["initial_cost"],
+              f"{what}: BA call {r['call']} cost {r['initial_cost']} -> {r['final_cost']}")
+    return calls
+
+
+def check_path_h(np, torch, huge: Path, out_huge: Path, huge_metrics: dict, huge_wall: float,
+                 huge_peak: int, windows: dict, H: int) -> list:
+    """Path h's checks (see the module docstring); returns its report lines.
+    ``windows``: run name -> (output dir, cli wall, stage seconds)."""
+    gt = lambda st: (f"GT rotation median {st.get('gt_rot_err_deg_median', float('nan')):.4f} "
+                     f"deg, ATE {100 * st.get('gt_ate_rel', float('nan')):.3f}% of the scene")
+    engine = lambda m: ", ".join(f"{k.split('/')[1]} {v:.3f} s" for k, v in sorted(m.items())
+                                 if k.startswith("engine/"))
+    from sfm_tpu_torch.config import SfMConfig
+
+    hb = pickle.loads((out_huge / "pair_table.pkl").read_bytes())
+    ht = hb["table"]
+    check(len(hb["image_paths"]) == H, f"path h: {len(hb['image_paths'])} images")
+    check(ht.num_pairs < H * (H - 1) // 2, f"path h: retrieval kept all {ht.num_pairs} pairs")
+    check((accepted_degree(np, ht, H) > 0).all(), "path h: an image is in no accepted pair")
+    huge_med = gt_epipolar_check(np, torch, huge, hb)
+
+    def min_cameras(run: str) -> int:
+        share = HUGE_MIN_CAMERA_SHARE[run]
+        return H - 1 if share is None else math.floor(share * H)
+
+    fill_calls = [r for r in json.loads((out_huge / "metrics.json").read_text())
+                  if r["name"] == "ba/fill"]
+    check(len(fill_calls) == len(ba_calls(out_huge, "path h")),
+          "path h: a BA call logged no track table fill")
+    # The calls that the reference would route by the fill: > 256 registered.
+    fills = [r["value"] for r in fill_calls
+             if r["registered"] > SfMConfig().ba.use_dense_schur_below]
+    hs = json.loads((out_huge / "reconstruction" / "stats.json").read_text())
+    h_calls = ba_calls(out_huge, "path h")
+    check(all(r["value"] == "pcg" and r["cameras"] == H and r["cg_iterations"] > 0
+              for r in h_calls), "path h: a BA call did not run on PCG")
+    check(hs["num_cameras"] >= min_cameras("pipeline_huge"),
+          f"path h: {hs['num_cameras']}/{H} cameras, gate {min_cameras('pipeline_huge')}")
+    gated = [(hs, "path h")]
+    win_st = {}
+    for name, (win, _, _) in windows.items():
+        ws = json.loads((win / "reconstruction" / "stats.json").read_text())
+        calls = ba_calls(win, f"path h, {name}")
+        local = [r for r in calls if r["local"]]
+        check(len(local) > 0, f"path h, {name}: no restricted BA call")
+        check(not calls[-1]["local"] and calls[-1]["value"] == "pcg",
+              f"path h, {name}: the final BA call is not global on PCG")
+        check(all((r["value"] == "pcg") == (r["cameras"] > SfMConfig().ba.use_dense_schur_below)
+                  for r in calls), f"path h, {name}: a BA call took the other solver")
+        win_st[name] = (ws, calls, local)
+        check(ws["num_cameras"] >= 2 and ws["num_points"] > 0
+              and math.isfinite(ws["mean_reprojection_error"]),
+              f"path h, {name}: {ws['num_cameras']} cameras, {ws['num_points']} points, "
+              f"{ws['mean_reprojection_error']} px")
+        if name in HUGE_MIN_CAMERA_SHARE:
+            gated.append((ws, f"path h, {name}"))
+            check(ws["num_cameras"] >= min_cameras(name),
+                  f"path h, {name}: {ws['num_cameras']}/{H} cameras, gate {min_cameras(name)}")
+    for st_, what in gated:
+        check(st_["num_points"] > 1000, f"{what}: {st_['num_points']} points")
+        check(st_["mean_reprojection_error"] < 0.6,
+              f"{what}: mean reprojection {st_['mean_reprojection_error']}")
+
+    out = []
+    h_det, h_ret, h_sweep = (huge_metrics[f"stage/{k}"] for k in ("detect", "retrieval", "sweep"))
+    out.append(
+        f"path h at {H} views: {ht.num_pairs} of {H * (H - 1) // 2} pairs swept, "
+        f"{len(ht.accepted())} accepted; GT check median {np.median(huge_med):.3f} px, worst "
+        f"{huge_med.max():.3f} px; detect {h_det:.3f} s, retrieval {h_ret:.3f} s, sweep "
+        f"{h_sweep:.3f} s = {ht.num_pairs / h_sweep:.1f} pairs/s")
+    out.append(
+        f"path h: {hs['num_cameras']}/{H} cameras (gate {min_cameras('pipeline_huge')}), "
+        f"{hs['num_points']} points, mean reprojection {hs['mean_reprojection_error']:.4f} px; "
+        f"{gt(hs)} (recorded, not gated); {len(h_calls)} BA calls, all PCG, "
+        f"{sum(r['cg_iterations'] for r in h_calls)} CG steps, "
+        f"{sum(r['iterations'] for r in h_calls)} LM iterations; track table fill "
+        f"{min(r['value'] for r in fill_calls):.4f}-{max(r['value'] for r in fill_calls):.4f}"
+        f", at the calls with > {SfMConfig().ba.use_dense_schur_below} registered "
+        + (f"{min(fills):.4f}-{max(fills):.4f} (last {fills[-1]:.4f})" if fills else "none"))
+    out.append(
+        f"path h: preprocess stage {huge_metrics['stage/preprocess']:.3f} s, reconstruct stage "
+        f"{huge_metrics['stage/reconstruct']:.3f} s | cli wall {huge_wall:.3f} s | peak device "
+        f"memory {huge_peak / 2**30:.2f} GiB | engine: {engine(huge_metrics)}")
+    for name, (ws, calls, local) in win_st.items():
+        _, w_wall, w_metrics = windows[name]
+        gate = (f"gate {min_cameras(name)}" if name in HUGE_MIN_CAMERA_SHARE
+                else "model printed, not gated")
+        out.append(
+            f"path h, {name} {json.dumps(WINDOW_CONFIGS[name])}: {ws['num_cameras']}/{H} "
+            f"cameras ({gate}), {ws['num_points']} points, mean reprojection "
+            f"{ws['mean_reprojection_error']:.4f} px; {gt(ws)}; {len(local)} restricted calls "
+            f"(largest {max(r['cameras'] for r in local)} cameras, "
+            f"{sum(r['value'] == 'pcg' for r in local)} on PCG), {len(calls) - len(local)} "
+            f"global; reconstruct stage {w_metrics['stage/reconstruct']:.3f} s | cli wall "
+            f"{w_wall:.3f} s | engine: {engine(w_metrics)}")
+    return out
+
+
+def log_model(name: str, out: Path):
+    """Print a run's model as soon as it is written (path h's readings stay in
+    the log whatever a later check finds)."""
+    st = json.loads((out / "reconstruction" / "stats.json").read_text())
+    intr = json.loads((out / "reconstruction" / "intrinsics.json").read_text())
+    log(f"{name}: {st['num_cameras']} cameras, {st['num_points']} points, mean reprojection "
+        f"{st['mean_reprojection_error']:.4f} px, GT rotation median "
+        f"{st.get('gt_rot_err_deg_median', float('nan')):.4f} deg, ATE "
+        f"{100 * st.get('gt_ate_rel', float('nan')):.3f}% of the scene; final intrinsics "
+        f"{json.dumps(intr)} (rendered: fx = fy = 1228, cx 512, cy 384)")
+
+
 def check_model(st: dict, n_img: int, what: str):
     check(st["num_cameras"] >= n_img - 1, f"{what}: {st['num_cameras']}/{n_img} cameras")
     check(st["num_points"] > 1000, f"{what}: {st['num_points']} points")
@@ -1779,6 +2194,8 @@ def main(argv=None) -> int:
     ap.add_argument("--views", type=int, default=36, help="rendered 1024x768 views")
     ap.add_argument("--large_views", type=int, default=150,
                     help="views of the retrieval-scale pipeline run")
+    ap.add_argument("--huge_views", type=int, default=300,
+                    help="views of the PCG-scale pipeline run (path h)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1797,14 +2214,19 @@ def main(argv=None) -> int:
     work = REPO / ".chip_smoke"   # scenes and artifacts, inside the checkout
     scene, out = work / f"scene_{args.views}", work / f"preprocess_{args.views}"
     large = work / f"scene_{args.large_views}"
+    huge = work / f"scene_{args.huge_views}"
     work.mkdir(parents=True, exist_ok=True)
 
+    # One view a task in a pool of half the host's cores (this process drives
+    # the card meanwhile, and its paths are host-bound).
     render = subprocess.Popen(
         [sys.executable, "-c",
-         "import sys; from sfm_tpu_torch.render_scene import render_dataset; "
-         "[render_dataset(d, int(n), supersample=1, log=print) "
+         "import os, sys; from sfm_tpu_torch.render_scene import render_dataset; "
+         "w = max(2, (os.cpu_count() or 4) // 2); "
+         "[render_dataset(d, int(n), supersample=1, log=print, workers=w) "
          "for d, n in zip(sys.argv[1::2], sys.argv[2::2])]",
-         str(scene), str(args.views), str(large), str(args.large_views)], cwd=REPO)
+         str(scene), str(args.views), str(large), str(args.large_views), str(huge),
+         str(args.huge_views)], cwd=REPO, start_new_session=True)
 
     def wait_for(d: Path):
         while not (d / ".render_meta").exists():
@@ -1832,7 +2254,8 @@ def main(argv=None) -> int:
             check(counts[entry] > 0, f"kernel {entry} was not launched by {name}")
         for entry in forbidden:
             check(counts[entry] == 0, f"kernel {entry} was launched by {name}")
-        log(f"{name}: cli wall {wall:.3f} s, peak device memory "
+        log(f"{name} (done at {time.perf_counter() - t_start:.1f} s): cli wall {wall:.3f} s, "
+            f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
             + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
         return counts, wall
@@ -1863,6 +2286,10 @@ def main(argv=None) -> int:
         results["fmat_score_select"], results["fmat_solve"] = phase_fmat(torch, np, dev)
         results["ba_linearize"], results["schur_coupling"] = phase_ba(torch, np, dev)
         results["schur_damp"] = phase_schur_damp(torch, np, dev)
+        results["schur_block_jacobi"], results["schur_matvec"], results["pcg"] = phase_pcg(
+            torch, np, dev)
+        phase_run_ba_pcg(torch, np, dev)
+        torch.cuda.empty_cache()
         results["rotation_average"], results["translation_average"] = phase_averaging(
             torch, np, dev)
         torch.cuda.empty_cache()
@@ -1908,6 +2335,19 @@ def main(argv=None) -> int:
         add(c, "reconstruct")
         rec_metrics = stage_seconds(out)
         rec_peak = torch.cuda.max_memory_allocated()
+        # The same reconstruct again on the same pair table: the model must
+        # repeat bit for bit (the BA sums are order-free).
+        again = work / f"reconstruct_{args.views}_again"
+        again.mkdir(parents=True, exist_ok=True)
+        (again / "pair_table.pkl").write_bytes((out / "pair_table.pkl").read_bytes())
+        check(cli.main(["--log_level", "WARNING", "--log_dir", str(work / "logs"), "reconstruct",
+                        "--data_dir", str(scene), "--output_dir", str(again), "--device", "cuda",
+                        "--no_mask"]) == 0, "the repeated reconstruct failed")
+        for f in ("reconstruction/poses.json", "reconstruction/points3D.json"):
+            check((again / f).read_bytes() == (out / f).read_bytes(),
+                  f"reconstruct: a second run on the same pair table wrote another {f}")
+        log("reconstruct repeated on the same pair table: poses.json and points3D.json "
+            "identical")
 
         # ---- path c: the guided rescue of an image whose pairs are all rejected
         cut_blob = pickle.loads((out / "pair_table.pkl").read_bytes())
@@ -1929,7 +2369,6 @@ def main(argv=None) -> int:
 
         # ---- path d: python -m sfm_tpu_torch pipeline on the retrieval-scale scene
         wait_for(large)
-        check(render.wait(timeout=900) == 0, "rendering the scenes failed")
         out_off = work / f"preprocess_{args.large_views}_off"
         out_large = work / f"pipeline_{args.large_views}"
         check(cli.main(["--log_level", "WARNING", "--log_dir", str(work / "logs"), "preprocess",
@@ -1941,6 +2380,7 @@ def main(argv=None) -> int:
         add(c, "pipeline")
         large_metrics = stage_seconds(out_large)
         large_peak = torch.cuda.max_memory_allocated()
+        log_model("pipeline", out_large)
 
         # ---- path e: reconstruct --global_init on path a's 36-view artifacts
         glob = work / f"global_{args.views}"
@@ -1974,9 +2414,32 @@ def main(argv=None) -> int:
         add(c, "orb")
         orb_metrics = stage_seconds(orb)
         orb_peak = torch.cuda.max_memory_allocated()
+
+        # ---- path h: pipeline past use_dense_schur_below images (PCG), then
+        # reconstruct with windowed local BA on its artifacts
+        wait_for(huge)
+        check(render.wait(timeout=900) == 0, "rendering the scenes failed")
+        out_huge = work / f"pipeline_{args.huge_views}"
+        c, huge_wall = run_path("pipeline_huge", ["pipeline", "--data_dir", str(huge),
+                                                  "--output_dir", str(out_huge)],
+                                HUGE_KERNELS, forbidden=DENSE_ENTRIES)
+        add(c, "pipeline_huge")
+        huge_metrics = stage_seconds(out_huge)
+        huge_peak = torch.cuda.max_memory_allocated()
+        log_model("pipeline_huge", out_huge)
+        windows = {}
+        for name, wcfg in WINDOW_CONFIGS.items():
+            win = work / f"{name}_{args.huge_views}"
+            win.mkdir(parents=True, exist_ok=True)
+            (win / "pair_table.pkl").write_bytes((out_huge / "pair_table.pkl").read_bytes())
+            c, w_wall = run_path(name, ["reconstruct", "--data_dir", str(huge), "--output_dir",
+                                        str(win), "--config", json.dumps(wcfg)], WINDOW_KERNELS)
+            add(c, name)
+            windows[name] = (win, w_wall, stage_seconds(win))
+            log_model(name, win)
     finally:
-        if render.poll() is None:
-            render.kill()
+        if render.poll() is None:   # the renderer and its pool workers
+            os.killpg(render.pid, signal.SIGKILL)
             render.wait()
 
     # ---- path a's checks: the verified pairs
@@ -2067,6 +2530,10 @@ def main(argv=None) -> int:
     orb_med = gt_epipolar_check(np, torch, scene, ob)
     os_ = json.loads((orb / "reconstruction" / "stats.json").read_text())
     check_model(os_, n_img, "orb")
+
+    # ---- path h's checks: every BA call on PCG, the model; then local BA
+    h_report = check_path_h(np, torch, huge, out_huge, huge_metrics, huge_wall, huge_peak,
+                            windows, args.huge_views)
     check("jax" not in sys.modules and "sfm_tpu" not in sys.modules, "JAX was imported")
 
     # ---- report
@@ -2132,6 +2599,8 @@ def main(argv=None) -> int:
     log(f"orb: {os_['num_cameras']}/{n_img} cameras, {os_['num_points']} points, mean "
         f"reprojection {os_['mean_reprojection_error']:.4f} px; {gt(os_)} (recorded, not "
         f"gated) | engine: {engine(orb_metrics)}")
+    for line in h_report:
+        log(line)
     log("launches by entry, all paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     kernels = []
     for name, (entries, source, replaces) in KERNELS.items():

@@ -40,9 +40,9 @@ SIGNATURES = {
     "sfm_dog_extrema": [_P, _I, _I, _I, _I, _F, _P, _P],
     "sfm_sift_describe": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _I, _P, _F, _F, _P, _P, _P],
-    "sfm_ba_linearize": [_P] * 12 + [_I] * 5 + [_F, _I] + [_P] * 10 + [_P],
-    "sfm_ba_cost": [_P] * 8 + [_I, _F, _P] + [_P],
-    "sfm_schur_coupling": [_P] * 10 + [_I] * 3 + [_P] + [_P],
+    "sfm_ba_linearize": [_P] * 12 + [_I] * 5 + [_F, _I] + [_P] * 13 + [_P],
+    "sfm_ba_cost": [_P] * 8 + [_I, _F, _P, _P] + [_P],
+    "sfm_schur_coupling": [_P] * 10 + [_I] * 3 + [_P] * 3 + [_P],
     "sfm_triangulate_tracks": [_P] * 9 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P, _P] + [_P],
     "sfm_reproj_stats": [_P] * 9 + [_I] * 3 + [_P, _P] + [_P],
     "sfm_p3p_solve": [_P, _P, _I, _P, _P, _P] + [_P],
@@ -52,7 +52,7 @@ SIGNATURES = {
     "sfm_build_pyramid": [_P] + [_I] * 6 + [_P] * 5 + [_P],
     "sfm_seed_score": [_P] * 5 + [_I] * 2 + [_P] * 5 + [_P],
     "sfm_pnp_refine": [_P] * 7 + [_I, _I, _F, _P, _I] + [_P] * 7 + [_P],
-    "sfm_schur_damp": [_P] * 14 + [_I] * 4 + [_F] + [_P] * 5 + [_P],
+    "sfm_schur_damp": [_P] * 14 + [_I] * 4 + [_F] + [_P] * 8 + [_P],
     "sfm_schur_back_substitute": [_P] * 11 + [_I] * 3 + [_P] + [_P],
     "sfm_fmat_hypotheses": [_P] * 3 + [_I] * 3 + [_P] + [_P],
     "sfm_fmat_refit_verify": [_P] * 5 + [_I] * 3 + [_F, _I, _F, _F, _F] + [_P] * 10 + [_P],
@@ -65,6 +65,10 @@ SIGNATURES = {
     "sfm_orb_fast_nms": [_P, _P] + [_I] * 3 + [_F, _P] + [_P],
     "sfm_orb_blur": [_P] + [_I] * 3 + [_P, _I, _P, _P] + [_P],
     "sfm_orb_describe": [_P] + [_I] * 3 + [_P] * 3 + [_I, _P, _F, _P, _P] + [_P],
+    "sfm_schur_block_jacobi": [_P] * 4 + [_I] + [_P] * 2 + [_P],
+    "sfm_schur_matvec": [_P] * 12 + [_I] * 3 + [_P] * 5 + [_P],
+    "sfm_pcg_init": [_P] * 3 + [_I] * 2 + [_F] + [_P] * 5 + [_P],
+    "sfm_pcg_step": [_P] * 3 + [_I] * 2 + [_F] + [_P] * 5 + [_P],
 }
 KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
            "ba_linearize", "ba_cost", "schur_coupling", "triangulate_tracks",
@@ -73,7 +77,7 @@ KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
            "schur_back_substitute", "fmat_hypotheses", "fmat_refit_verify", "dog_select",
            "dog_refine", "topk_rows", "match_epilogue", "match_compact", "relpose",
            "rotation_average", "translation_average", "orb_fast_nms", "orb_blur",
-           "orb_describe")
+           "orb_describe", "schur_block_jacobi", "schur_matvec", "pcg_init", "pcg_step")
 
 _launches = {k: 0 for k in KERNELS}
 _lib = None

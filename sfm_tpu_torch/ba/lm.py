@@ -1,14 +1,16 @@
 """The Levenberg-Marquardt outer loop (accept/reject with adaptive damping).
 
-Counterpart of ``sfm_tpu/ba/lm.py::run_ba`` for shared intrinsics on the
-exact dense-Schur path. The loop runs in Python: each iteration damps the
-CACHED linearization, solves the reduced system, back-substitutes the point
-step and compares the Huber cost (one host sync per iteration); the
-linearization is recomputed only after an accepted step, the reference's
-schedule (``lm.py:259-265``).
+Counterpart of ``sfm_tpu/ba/lm.py::run_ba`` for shared intrinsics. The
+loop runs in Python: each iteration damps the CACHED linearization, solves
+the reduced system, back-substitutes the point step and compares the Huber
+cost (one host sync per iteration); the linearization is recomputed only
+after an accepted step, the reference's schedule (``lm.py:259-265``). The
+solve routes on the problem's camera count as the reference's ``lm_solve``
+does (``lm.py:220-232``): the exact dense Schur solve up to
+``BAConfig.use_dense_schur_below`` cameras, the matrix-free block-Jacobi PCG
+(kernel K11; no host sync inside it) above.
 
-Routes off this path raise: per-camera intrinsics, the f64 island, and
-more cameras than ``BAConfig.use_dense_schur_below`` (the PCG path).
+Routes off these paths raise: per-camera intrinsics and the f64 island.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.ba.problem import BAProblem
 from sfm_tpu_torch.ba.residuals import total_huber_cost
 from sfm_tpu_torch.ba.schur import (
-    back_substitute, coobs_pairs, damp_operator, dense_schur_direct, linearize)
+    back_substitute, coobs_pairs, damp_operator, dense_schur_direct, linearize, pcg_solve)
 
 _REG_A = np.array([
     [1.0, 0.0, 0.0, 0.0],   # fx anchored to its initial value
@@ -39,18 +41,20 @@ def _intr_reg(intr, intr_ref, weight: float):
 
 
 def check_ba_config(config: BAConfig, num_cameras: int):
-    """Raise on a BA configuration this port does not run yet (ROADMAP)."""
+    """Raise on a BA configuration this port does not run yet (ROADMAP).
+    Any camera count runs: past ``use_dense_schur_below`` the PCG path."""
     if config.per_camera_intrinsics:
         raise NotImplementedError(
             "ba.per_camera_intrinsics is not ported yet (ROADMAP queue 1, item 6)")
     if config.f64_normal_equations:
         raise NotImplementedError(
             "ba.f64_normal_equations is not ported yet (ROADMAP queue 1, item 6)")
-    if num_cameras > config.use_dense_schur_below:
-        raise NotImplementedError(
-            f"{num_cameras} cameras > ba.use_dense_schur_below="
-            f"{config.use_dense_schur_below}: the PCG / blocked BA path is not ported "
-            "yet (ROADMAP queue 1, item 2)")
+
+
+def uses_pcg(config: BAConfig, num_cameras: int) -> bool:
+    """The reference's route (``sfm_tpu/ba/lm.py:223``): PCG above
+    ``use_dense_schur_below`` cameras, the dense Schur solve up to it."""
+    return num_cameras > config.use_dense_schur_below
 
 
 def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
@@ -63,6 +67,7 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
     """
     C, P = problem.num_cameras, problem.num_points
     check_ba_config(config, C)
+    pcg = uses_pcg(config, C)
     dev = problem.rvec.device
     if coobs is None:
         perm, pvm = coobs_pairs(problem.obs_point.cpu().numpy(),
@@ -104,9 +109,15 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
     lam = np.float32(config.init_lambda)
     it = n_acc = 0
     done = False
+    cg_steps = []
     while it < config.max_iterations and not done:
-        op, rhs_c, rhs_k = damp_operator(lin, float(lam), perm, perm_valid)
-        xc, xk = dense_schur_direct(op, lin, rhs_c, rhs_k, perm, perm_valid)
+        op, rhs_c, rhs_k = damp_operator(lin, float(lam), perm, perm_valid, precond=pcg)
+        if pcg:
+            xc, xk, steps = pcg_solve(lin, op, rhs_c, rhs_k, perm, perm_valid,
+                                      config.cg_iters, config.cg_tol)
+            cg_steps.append(steps)
+        else:
+            xc, xk = dense_schur_direct(op, lin, rhs_c, rhs_k, perm, perm_valid)
         dp = back_substitute(lin, op, xc, xk, perm, perm_valid)
         cand = (rvec + xc[:, :3], tvec + xc[:, 3:6], intr + xk, points + dp)
         new_cost = float(total_cost(*cand))          # the one host sync per iteration
@@ -132,5 +143,8 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
         "accepted_steps": n_acc,
         "final_lambda": float(lam),
         "rms_px": float(np.sqrt(2.0 * cost / max(num_obs, 1.0))),
+        "solver": "pcg" if pcg else "dense",
+        # CG steps over all LM iterations, read once here (not in the loop).
+        "cg_iterations": int(torch.stack(cg_steps).sum()) if cg_steps else 0,
     }
     return out, stats

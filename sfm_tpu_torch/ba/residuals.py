@@ -79,8 +79,9 @@ def total_huber_cost_cuda(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, 
             ("obs_xy", obs_xy, torch.float32, (O, 2)), ("obs_w", obs_w, torch.float32, (O,))):
         _kernels.check_tensor(x, name, dt, shape, dev)
     out = torch.zeros((1,), dtype=torch.float64, device=dev)
+    partial = torch.empty(512, dtype=torch.float64, device=dev)   # the blocks' sums
     _kernels.launch("ba_cost", dev, rvec, tvec, intr, points, obs_cam, obs_point, obs_xy,
-                    obs_w, O, float(delta), out)
+                    obs_w, O, float(delta), out, partial)
     return out[0].to(torch.float32)
 
 

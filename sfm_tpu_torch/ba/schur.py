@@ -1,7 +1,7 @@
-"""The linearized LM system and its exact dense Schur-complement solve.
+"""The linearized LM system, its exact dense Schur-complement solve and its
+matrix-free PCG solve.
 
-Counterpart of ``sfm_tpu/ba/schur.py`` on the path the main path runs
-(shared intrinsics, at most ``BAConfig.use_dense_schur_below`` cameras):
+Counterpart of ``sfm_tpu/ba/schur.py`` for shared intrinsics:
 
 * :func:`linearize` computes everything that depends only on the
   parameters (whitened Jacobians, undamped U/V blocks, gradients) -- kernel
@@ -18,15 +18,23 @@ Counterpart of ``sfm_tpu/ba/schur.py`` on the path the main path runs
   U_c + diag(lambda D_c)), its twin :func:`schur_matrix_plain` -- and
   solves it by Cholesky (``torch.linalg.cholesky_ex``, a library call);
 * :func:`back_substitute` recovers the point step -- K10's
-  ``schur_back_substitute``, its twin :func:`schur_back_substitute_plain`.
+  ``schur_back_substitute``, its twin :func:`schur_back_substitute_plain`;
+* past ``BAConfig.use_dense_schur_below`` cameras S is never formed:
+  :func:`block_jacobi` inverts the damped camera blocks (K10's
+  ``schur_block_jacobi``, twin :func:`block_jacobi_plain`),
+  :func:`schur_matvec` applies S (kernel K11, ``csrc/schur_pcg.cu``, twin
+  :func:`schur_matvec_plain`) and :func:`pcg_solve` runs the block-Jacobi
+  preconditioned CG (K11's ``pcg_init`` / ``pcg_step`` around the matvec,
+  twin :func:`pcg_solve_plain`).
 
 Not ported: the one-hot (O, C) camera reduction (a TPU matmul trick),
-``dense_schur_solve`` and the matrix-free PCG path (more than
-``use_dense_schur_below`` cameras; ROADMAP).
+``dense_schur_solve`` (the matvec-built dense S), and the per-camera
+Hessian additions ``U_extra`` of the 10-parameter camera block (zero with
+shared intrinsics; ROADMAP queue 2b).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,6 +62,7 @@ class Linearization(NamedTuple):
     g_k: torch.Tensor       # (4,), regularization gradient included
     g_p: torch.Tensor       # (P, 3)
     point_valid: torch.Tensor  # (P,) bool
+    Hreg_k: Optional[torch.Tensor] = None  # (4, 4) intrinsics regularization (in Uk too)
 
 
 class Damped(NamedTuple):
@@ -62,6 +71,8 @@ class Damped(NamedTuple):
     Vinv: torch.Tensor        # (P, 3, 3) damped inverse point blocks
     lam_diag_c: torch.Tensor  # (C, 6) damping diagonal (+ unit pin on dead entries)
     lam_diag_k: torch.Tensor  # (4,)
+    Mc: Optional[torch.Tensor] = None  # (C, 6, 6) block-Jacobi inverses (PCG only)
+    Mk: Optional[torch.Tensor] = None  # (4, 4)
 
 
 def _seg_sum(values, ids, n):
@@ -90,7 +101,7 @@ def linearize_system(Jc, Jk, Jp, r, w, obs_cam, obs_point, obs_valid, cam_free,
     g_p = _seg_sum((Jp.mT @ rw[..., None])[..., 0], obs_point, num_points)
     return Linearization(Jc=Jc, Jk=Jk, Jp=Jp, rw=rw, obs_cam=obs_cam, obs_point=obs_point,
                          V=V, U=U, Uk=Uk, g_c=g_c, g_k=g_k, g_p=g_p,
-                         point_valid=point_valid)
+                         point_valid=point_valid, Hreg_k=Hreg_k)
 
 
 def linearize_plain(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w, cam_free,
@@ -121,14 +132,18 @@ def linearize_cuda(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w, 
     e = lambda *s: torch.empty(s, dtype=f32, device=dev)
     z = lambda *s: torch.zeros(s, dtype=f32, device=dev)
     Jc, Jk, Jp, rw = e(O, 2, 6), e(O, 2, 4), e(O, 2, 3), e(O, 2)
-    U, g_c, Uk, g_k, V, g_p = z(C, 6, 6), z(C, 6), z(4, 4), z(4), z(P, 3, 3), z(P, 3)
+    U, g_c, Uk, g_k, V, g_p = e(C, 6, 6), e(C, 6), e(4, 4), e(4), z(P, 3, 3), z(P, 3)
+    # The order-free camera and intrinsics sums' scratch (ba_linearize.cu).
+    fx_max = torch.empty(7 * C + 5, dtype=torch.int32, device=dev)
+    fx_sh = torch.empty(27 * C + 14, dtype=torch.int32, device=dev)
+    fx_acc = torch.empty(27 * C + 14, dtype=torch.int64, device=dev)
     _kernels.launch("ba_linearize", dev, rvec, tvec, intr, points, obs_cam, obs_point,
                     obs_xy, obs_w, cam_free, pv, perm, perm_valid, C, P, O, G, Vs,
                     float(delta), int(bool(optimize_intrinsics)),
-                    Jc, Jk, Jp, rw, U, g_c, Uk, g_k, V, g_p)
+                    Jc, Jk, Jp, rw, U, g_c, Uk, g_k, V, g_p, fx_max, fx_sh, fx_acc)
     return Linearization(Jc=Jc, Jk=Jk, Jp=Jp, rw=rw, obs_cam=obs_cam, obs_point=obs_point,
                          V=V, U=U, Uk=Uk + Hreg_k, g_c=g_c, g_k=g_k + g_k_reg, g_p=g_p,
-                         point_valid=point_valid)
+                         point_valid=point_valid, Hreg_k=Hreg_k)
 
 
 def linearize(*args):
@@ -169,6 +184,14 @@ def schur_damp_plain(lin: Linearization, lam: float, perm=None, perm_valid=None)
     return Damped(Vinv=Vinv, lam_diag_c=lam_diag_c, lam_diag_k=lam_diag_k), rhs_c, rhs_k
 
 
+def _fx_scratch(n: int, dev):
+    """Scratch of an order-free sum over n targets (``csrc/sfm_common.cuh``):
+    the largest |term| of each target, its shift, its 64-bit integer sum."""
+    return (torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int64, device=dev))
+
+
 def _check_system(lin: Linearization, perm, perm_valid, extra=()):
     """Check the Linearization tensors a K10 kernel reads (and ``extra``)."""
     C, P, O = lin.U.shape[0], lin.V.shape[0], lin.Jc.shape[0]
@@ -196,21 +219,64 @@ def schur_damp_cuda(lin: Linearization, lam: float, perm, perm_valid):
     _kernels.launch("schur_damp", dev, lin.V, lin.point_valid, lin.U, lin.Uk, lin.g_c, lin.g_k,
                     lin.g_p, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam, lin.obs_point, perm,
                     perm_valid, P, C, G, Vs, float(lam), Vinv, lam_diag_c, lam_diag_k, rhs_c,
-                    rhs_k)
+                    rhs_k, *_fx_scratch(6 * C + 4, dev))
     return Damped(Vinv=Vinv, lam_diag_c=lam_diag_c, lam_diag_k=lam_diag_k), rhs_c, rhs_k
 
 
-def damp_operator(lin: Linearization, lam: float, perm, perm_valid):
+def damp_operator(lin: Linearization, lam: float, perm, perm_valid, precond: bool = False):
     """Kernel K10 ``schur_damp`` on CUDA tensors, :func:`schur_damp_plain` on CPU.
 
     perm / perm_valid: the :func:`coobs_pairs` grouping, which the kernel
-    walks for the reduced right-hand side."""
+    walks for the reduced right-hand side. ``precond``: also the
+    block-Jacobi inverses ``Mc`` / ``Mk`` of :func:`block_jacobi` (the PCG
+    path's; the dense path has no use for them)."""
     dev = lin.U.device
     if dev.type == "cuda":
-        return schur_damp_cuda(lin, lam, perm, perm_valid)
+        op, rhs_c, rhs_k = schur_damp_cuda(lin, lam, perm, perm_valid)
+    elif dev.type == "cpu":
+        op, rhs_c, rhs_k = schur_damp_plain(lin, lam, perm, perm_valid)
+    else:
+        raise ValueError(f"damp_operator: unsupported device {dev}")
+    if precond:
+        Mc, Mk = block_jacobi(lin.U, op.lam_diag_c, lin.Uk, op.lam_diag_k)
+        op = op._replace(Mc=Mc, Mk=Mk)
+    return op, rhs_c, rhs_k
+
+
+def block_jacobi_plain(U, lam_diag_c, Uk, lam_diag_k):
+    """The block-Jacobi preconditioner of the reduced system, as the
+    reference's ``damp_operator`` (``sfm_tpu/ba/schur.py:197-200``): the
+    inverses of the damped camera blocks and of the damped intrinsics block.
+    A pinned camera (U = 0, unit damping) gets the identity."""
+    dt, dev = U.dtype, U.device
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    Ud = U + lam_diag_c[..., None] * eye6
+    Mc = torch.linalg.inv(Ud + _EPS * eye6)
+    Mk = torch.linalg.inv(Uk + torch.diag(lam_diag_k) + _EPS * torch.eye(4, dtype=dt, device=dev))
+    return Mc, Mk
+
+
+def block_jacobi_cuda(U, lam_diag_c, Uk, lam_diag_k):
+    C, dev, f32 = U.shape[0], U.device, torch.float32
+    for name, x, shape in (("U", U, (C, 6, 6)), ("lam_diag_c", lam_diag_c, (C, 6)),
+                           ("Uk", Uk, (4, 4)), ("lam_diag_k", lam_diag_k, (4,))):
+        _kernels.check_tensor(x, name, f32, shape, dev)
+    Mc = torch.empty((C, 6, 6), dtype=f32, device=dev)
+    Mk = torch.empty((4, 4), dtype=f32, device=dev)
+    _kernels.launch("schur_block_jacobi", dev, U, lam_diag_c, Uk, lam_diag_k, C, Mc, Mk)
+    return Mc, Mk
+
+
+def block_jacobi(U, lam_diag_c, Uk, lam_diag_k):
+    """K10's ``schur_block_jacobi`` on CUDA tensors, :func:`block_jacobi_plain`
+    on CPU tensors: (Mc (C, 6, 6), Mk (4, 4))."""
+    dev = U.device
+    if dev.type == "cuda":
+        return block_jacobi_cuda(U.contiguous(), lam_diag_c.contiguous(), Uk.contiguous(),
+                                 lam_diag_k.contiguous())
     if dev.type == "cpu":
-        return schur_damp_plain(lin, lam, perm, perm_valid)
-    raise ValueError(f"damp_operator: unsupported device {dev}")
+        return block_jacobi_plain(U, lam_diag_c, Uk, lam_diag_k)
+    raise ValueError(f"block_jacobi: unsupported device {dev}")
 
 
 def coobs_pairs(obs_point, obs_valid, v_bucket: int = 8):
@@ -298,13 +364,16 @@ def schur_matrix_cuda(lin: Linearization, op: Damped, perm, perm_valid):
             ("perm_valid", perm_valid, torch.bool, (G, Vs)), ("U", lin.U, f32, (C, 6, 6)),
             ("lam_diag_c", op.lam_diag_c, f32, (C, 6))):
         _kernels.check_tensor(x, name, dt, shape, dev)
-    # The kernel adds the camera blocks U_c + diag(lam D_c) into the zeroed S.
+    # The kernel adds the camera blocks U_c + diag(lam D_c) into the zeroed S;
+    # the coupling's order-free sums take an (n, n) int64 scratch.
     n = 6 * C + 4
     S = torch.zeros((n, n), dtype=f32, device=dev)
     S[6 * C:, 6 * C:] = lin.Uk + torch.diag(op.lam_diag_k)
+    fx_acc = torch.empty((n, n), dtype=torch.int64, device=dev)
+    fx_row = torch.empty(n + 1, dtype=torch.int32, device=dev)
     _kernels.launch("schur_coupling", dev, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
                     lin.obs_point, op.Vinv, perm, perm_valid, lin.U, op.lam_diag_c, C, G, Vs,
-                    S)
+                    S, fx_acc, fx_row)
     return S
 
 
@@ -362,3 +431,149 @@ def back_substitute(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
     if dev.type == "cpu":
         return schur_back_substitute_plain(lin, op, xc, xk, perm, perm_valid)
     raise ValueError(f"back_substitute: unsupported device {dev}")
+
+
+# ------------------------------------------------------------ K11: matrix-free PCG
+
+def schur_matvec_plain(lin: Linearization, op: Damped, xc, xk, perm=None, perm_valid=None):
+    """S x for x = (xc (C, 6), xk (4,)), never forming S: the reference's
+    ``schur_matvec`` (``sfm_tpu/ba/schur.py:232``),
+    S x = Jc^T (B x - Jp Vinv Jp^T B x) + lam_diag o x (+ Hreg_k xk), with
+    B x = Jc x_c + Jk xk per observation. Plain twin of kernel K11's
+    ``schur_matvec`` (the grouping is not needed). The reference's
+    ``U_extra`` term is zero with shared intrinsics and is left out: the
+    per-camera 10-parameter block is not ported (ROADMAP queue 2b)."""
+    C, P = xc.shape[0], op.Vinv.shape[0]
+    a = (lin.Jc @ xc[lin.obs_cam.long()][..., None])[..., 0] + lin.Jk @ xk       # (O, 2)
+    u_p = _seg_sum((lin.Jp.mT @ a[..., None])[..., 0], lin.obs_point, P)
+    v_p = (op.Vinv @ u_p[..., None])[..., 0]
+    d = a - (lin.Jp @ v_p[lin.obs_point.long()][..., None])[..., 0]
+    Sx_c = _seg_sum((lin.Jc.mT @ d[..., None])[..., 0], lin.obs_cam, C)
+    Sx_k = torch.einsum("oci,oc->i", lin.Jk, d)
+    return Sx_c + op.lam_diag_c * xc, Sx_k + op.lam_diag_k * xk + lin.Hreg_k @ xk
+
+
+# A matvec's per-block camera sums live in shared memory: 6C + 4 64-bit
+# integers of the H100's 227 KB a block.
+_K11_MAX_CAMERAS = (232_448 // 8 - 4) // 6
+
+
+def _matvec_launch(lin: Linearization, op: Damped, x, perm, perm_valid, Sx, flag=None,
+                   scratch=None):
+    """K11's ``schur_matvec`` entry on the flat (6C + 4) vectors x -> Sx;
+    with ``flag`` (the PCG state's "active" entry) a no-op once it is 0.
+    ``scratch``: :func:`_fx_scratch` of 6C + 4, reused across a solve."""
+    C = lin.U.shape[0]
+    G, Vs = perm.shape
+    if scratch is None:
+        scratch = _fx_scratch(6 * C + 4, x.device)
+    _kernels.launch("schur_matvec", x.device, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
+                    lin.obs_point, perm, perm_valid, op.Vinv, op.lam_diag_c, op.lam_diag_k,
+                    lin.Hreg_k, x, C, G, Vs, flag, Sx, *scratch)
+
+
+def _check_pcg_system(lin: Linearization, op: Damped, perm, perm_valid, extra=()):
+    C, P = lin.U.shape[0], op.Vinv.shape[0]
+    if C > _K11_MAX_CAMERAS:
+        raise ValueError(f"K11: {C} cameras > {_K11_MAX_CAMERAS} (the camera sums of a "
+                         "block no longer fit in shared memory)")
+    f32 = torch.float32
+    _check_system(lin, perm, perm_valid, (
+        ("Vinv", op.Vinv, f32, (P, 3, 3)), ("lam_diag_c", op.lam_diag_c, f32, (C, 6)),
+        ("lam_diag_k", op.lam_diag_k, f32, (4,)), ("Hreg_k", lin.Hreg_k, f32, (4, 4)),
+        *extra))
+    return C
+
+
+def schur_matvec_cuda(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
+    C = _check_pcg_system(lin, op, perm, perm_valid)
+    x = torch.cat([xc.reshape(-1), xk]).to(torch.float32).contiguous()
+    Sx = torch.empty_like(x)
+    _matvec_launch(lin, op, x, perm, perm_valid, Sx)
+    return Sx[: 6 * C].reshape(C, 6), Sx[6 * C:]
+
+
+def schur_matvec(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
+    """Kernel K11's ``schur_matvec`` on CUDA tensors (walking the
+    :func:`coobs_pairs` grouping), :func:`schur_matvec_plain` on CPU
+    tensors: (Sx_c (C, 6), Sx_k (4,))."""
+    dev = xc.device
+    if dev.type == "cuda":
+        return schur_matvec_cuda(lin, op, xc, xk, perm, perm_valid)
+    if dev.type == "cpu":
+        return schur_matvec_plain(lin, op, xc, xk, perm, perm_valid)
+    raise ValueError(f"schur_matvec: unsupported device {dev}")
+
+
+def pcg_solve_plain(lin: Linearization, op: Damped, rhs_c, rhs_k, perm=None, perm_valid=None,
+                    iters: int = 50, tol: float = 1e-6):
+    """Block-Jacobi preconditioned CG on S x = rhs, the reference's
+    ``pcg_solve`` (``sfm_tpu/ba/schur.py:261``): at most ``iters`` steps,
+    stopping before a step once |r| <= tol |rhs|, with the same pAp and
+    r.z > 1e-10 guards. Returns (xc, xk, steps taken). Plain twin of K11's
+    ``pcg_init`` / ``pcg_step``."""
+    def precond(rc, rk):
+        return (op.Mc @ rc[..., None])[..., 0], op.Mk @ rk
+
+    def dot(ac, ak, bc, bk):
+        return (ac * bc).sum() + (ak * bk).sum()
+
+    xc, xk = torch.zeros_like(rhs_c), torch.zeros_like(rhs_k)
+    rc, rk = rhs_c, rhs_k
+    zc, zk = precond(rc, rk)
+    pc, pk = zc, zk
+    rz = dot(rc, rk, zc, zk)
+    rhs_norm = torch.sqrt(dot(rhs_c, rhs_k, rhs_c, rhs_k))
+    steps = 0
+    while steps < iters and bool(torch.sqrt(dot(rc, rk, rc, rk)) > tol * rhs_norm):
+        Apc, Apk = schur_matvec_plain(lin, op, pc, pk)
+        pAp = dot(pc, pk, Apc, Apk)
+        alpha = torch.where(pAp > _EPS, rz / pAp, 0.0)
+        xc, xk = xc + alpha * pc, xk + alpha * pk
+        rc, rk = rc - alpha * Apc, rk - alpha * Apk
+        zc, zk = precond(rc, rk)
+        rz_new = dot(rc, rk, zc, zk)
+        beta = torch.where(rz > _EPS, rz_new / rz, 0.0)
+        pc, pk = zc + beta * pc, zk + beta * pk
+        rz = rz_new
+        steps += 1
+    return xc, xk, torch.tensor(steps)
+
+
+def pcg_solve_cuda(lin: Linearization, op: Damped, rhs_c, rhs_k, perm, perm_valid,
+                   iters: int = 50, tol: float = 1e-6):
+    """The CG loop launches all ``iters`` steps and never reads the device
+    state: a converged state makes the remaining launches no-ops (reading
+    the state every few steps to stop early gained nothing on the card,
+    PERF.md)."""
+    f32 = torch.float32
+    C = lin.U.shape[0]
+    _check_pcg_system(lin, op, perm, perm_valid, (
+        ("Mc", op.Mc, f32, (C, 6, 6)), ("Mk", op.Mk, f32, (4, 4)),
+        ("rhs_c", rhs_c, f32, (C, 6)), ("rhs_k", rhs_k, f32, (4,))))
+    dev = rhs_c.device
+    rhs = torch.cat([rhs_c.reshape(-1), rhs_k])
+    x, r, z, p, Ap = (torch.empty_like(rhs) for _ in range(5))
+    state = torch.zeros(5, dtype=f32, device=dev)   # r.z, |rhs|^2, r.r, active, steps
+    cg = (op.Mc, op.Mk, C, int(iters), float(tol), x, r, z, p, state)
+    scratch = _fx_scratch(6 * C + 4, dev)
+    _kernels.launch("pcg_init", dev, rhs, *cg)
+    for _ in range(int(iters)):
+        _matvec_launch(lin, op, p, perm, perm_valid, Ap, flag=state[3:4], scratch=scratch)
+        _kernels.launch("pcg_step", dev, Ap, *cg)
+    return x[: 6 * C].reshape(C, 6), x[6 * C:], state[4]
+
+
+def pcg_solve(lin: Linearization, op: Damped, rhs_c, rhs_k, perm, perm_valid,
+              iters: int = 50, tol: float = 1e-6):
+    """Kernel K11 (``pcg_init``, then per step the ``schur_matvec`` and
+    ``pcg_step`` entries, no host sync) on CUDA tensors,
+    :func:`pcg_solve_plain` on CPU tensors. ``op`` must carry ``Mc`` / ``Mk``
+    (``damp_operator(..., precond=True)``). Returns (xc, xk, steps taken as a
+    0-dim tensor, on the device)."""
+    dev = rhs_c.device
+    if dev.type == "cuda":
+        return pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, perm_valid, iters, tol)
+    if dev.type == "cpu":
+        return pcg_solve_plain(lin, op, rhs_c, rhs_k, perm, perm_valid, iters, tol)
+    raise ValueError(f"pcg_solve: unsupported device {dev}")

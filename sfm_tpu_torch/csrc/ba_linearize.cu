@@ -6,7 +6,7 @@
 // linearize_system (:119, whitening + segment sums into V, g_p, U, g_c, Uk,
 // g_k), which XLA ran as separate passes over (O, 2, 13) Jacobian tensors.
 //
-// sfm_ba_linearize launches two kernels:
+// sfm_ba_linearize launches five kernels:
 //  1. one thread per observation row (grid-stride): Rodrigues with the
 //     theta^2 < 1e-8 Taylor branch of rotations.py::rodrigues, the projection
 //     with shared intrinsics, the residual, the analytic Jacobians (the
@@ -14,24 +14,54 @@
 //     finite values), the Huber weight and the whitening
 //     sqrt(w * obs_w) * cam_free (camera) / * point_valid (point). It writes
 //     the whitened Jc, Jk, Jp, rw (read by K10 and the back-substitution) and
-//     reduces the camera side (U, g_c) and the intrinsics (Uk, g_k). Few
-//     cameras, many observations: each block accumulates into its own copy
-//     in shared memory (42 floats a camera) and flushes it with one global
-//     atomic per nonzero entry; Uk/g_k are warp-reduced first.
-//  2. one thread per row of the per-point grouping (schur.py::coobs_pairs):
+//     takes the largest |entry| of every camera's Jc columns and residuals
+//     and of Jk's columns (atomic max, warp-reduced for the intrinsics);
+//  2. the shifts of the order-free sums (sfm_common.cuh) of U's upper
+//     triangle, g_c, Uk's upper triangle and g_k, from those maxima and the
+//     row count (a term is at most max_i * max_j, two rows an observation);
+//  3. one thread per observation row again: the camera side (U, g_c) and the
+//     intrinsics (Uk, g_k) as 64-bit fixed-point atomics (the intrinsics
+//     warp-reduced first), the same bits in any order;
+//  4. the sums rounded to float, U and Uk mirrored;
+//  5. one thread per row of the per-point grouping (schur.py::coobs_pairs):
 //     V and g_p as a plain loop over the point's observations, no atomics.
-// Dead rows (obs_w == 0) write zeros and skip all arithmetic.
+// Dead rows (obs_w == 0) write zeros and skip all arithmetic. So every
+// launch gives the same bits (float atomics did not: the LM path, and the
+// incremental engine's registrations after it, changed from run to run).
 // sfm_ba_cost: the Huber cost of every row with obs_w > 0 (the LM accept
-// test), each block's sum added once into an f64 accumulator.
+// test), each block's f64 sum written to its slot, then the slots added in
+// order by one warp: deterministic, with a grid that does not depend on the
+// card's SM count.
 //
 // What bounds it on the H100: ~400 FLOP per observation (200k rows: 80 MFLOP)
-// and ~140 bytes written per row (28 MB); both are microseconds, so launch
-// and the shared-memory flush dominate at the main path's sizes.
+// and ~140 bytes written per row (28 MB); both are microseconds, so launches
+// and the camera atomics dominate at the main path's sizes.
 #include "sfm_common.cuh"
 
 namespace {
 
 constexpr int NT = 256;
+constexpr int COST_BLOCKS = 512;  // the cost's partial sums (a fixed grid)
+constexpr int NU = 21;            // U's upper triangle
+constexpr int NCAM = NU + 6;      // + g_c: the fixed-point sums of a camera
+constexpr int NK = 10 + 4;        // Uk's upper triangle + g_k
+constexpr int CMAX = 7;           // a camera's maxima: Jc's 6 columns, rw
+
+// (i, j), i <= j, of the k-th entry of an n x n upper triangle (row-major).
+__device__ __forceinline__ void upper_ij(int k, int n, int& i, int& j) {
+  i = 0;
+  while (k >= n - i) {
+    k -= n - i;
+    ++i;
+  }
+  j = i + k;
+}
+
+// Max of v over the warp's lanes, then one atomic max per warp.
+__device__ __forceinline__ void warp_fx_max(unsigned int* m, float v) {
+  const unsigned int b = __reduce_max_sync(0xffffffffu, __float_as_uint(fabsf(v)));
+  if (threadIdx.x % 32 == 0 && b != 0u) atomicMax(m, b);
+}
 
 struct Obs {
   float r[2];
@@ -120,14 +150,7 @@ __global__ void __launch_bounds__(NT) ba_obs_kernel(
     const float* __restrict__ cam_free, const float* __restrict__ point_valid,
     int C, int O, float delta, int opt_k, float* __restrict__ Jc_out,
     float* __restrict__ Jk_out, float* __restrict__ Jp_out, float* __restrict__ rw_out,
-    float* __restrict__ U, float* __restrict__ g_c, float* __restrict__ Uk,
-    float* __restrict__ g_k) {
-  extern __shared__ float sm[];  // C x (36 U + 6 g_c), then 16 Uk + 4 g_k
-  float* sU = sm;
-  float* sg = sm + 36 * C;
-  float* sk = sm + 42 * C;
-  for (int i = threadIdx.x; i < 42 * C + 20; i += NT) sm[i] = 0.f;
-  __syncthreads();
+    unsigned int* __restrict__ cmax, unsigned int* __restrict__ kmax) {
   float in_k[4];
   for (int k = 0; k < 4; ++k) in_k[k] = intr[k];
 
@@ -179,45 +202,130 @@ __global__ void __launch_bounds__(NT) ba_obs_kernel(
         rw_out[(size_t)o * 2 + r] = rw[r];
       }
     }
+    const float rmax = fmaxf(fabsf(rw[0]), fabsf(rw[1]));
     if (wv != 0.f && cam_free[c] != 0.f) {
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
-#pragma unroll
-        for (int j = i; j < 6; ++j) {
-          const float v = ob.Jc[0][i] * ob.Jc[0][j] + ob.Jc[1][i] * ob.Jc[1][j];
-          atomicAdd(&sU[c * 36 + i * 6 + j], v);
-        }
-        atomicAdd(&sg[c * 6 + i], ob.Jc[0][i] * rw[0] + ob.Jc[1][i] * rw[1]);
-      }
+      for (int i = 0; i < 6; ++i)
+        sfm_fx_max(&cmax[c * CMAX + i], fmaxf(fabsf(ob.Jc[0][i]), fabsf(ob.Jc[1][i])));
+      sfm_fx_max(&cmax[c * CMAX + 6], rmax);
     }
     if (opt_k) {
-      float kk[20];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < 4; ++i)
+        warp_fx_max(&kmax[i], fmaxf(fabsf(ob.Jk[0][i]), fabsf(ob.Jk[1][i])));
+      warp_fx_max(&kmax[4], rmax);
+    }
+  }
+}
+
+// Shifts of the fixed-point sums: C x (21 U + 6 g_c), then 10 Uk + 4 g_k.
+__global__ void __launch_bounds__(NT) ba_shift_kernel(const unsigned int* __restrict__ cmax,
+                                                      const unsigned int* __restrict__ kmax,
+                                                      int C, double rows,
+                                                      int* __restrict__ sh) {
+  const int e = blockIdx.x * NT + threadIdx.x;
+  if (e < NCAM * C) {
+    const int c = e / NCAM, k = e % NCAM;
+    const unsigned int* m = cmax + c * CMAX;
+    int i = 6, j = k - NU;  // g_c: column j times the residual
+    if (k < NU) upper_ij(k, 6, i, j);
+    const double b = (double)__uint_as_float(m[i]) * (double)__uint_as_float(m[j]);
+    sh[e] = sfm_fx_shift(b * rows);
+  } else if (e < NCAM * C + NK) {
+    const int k = e - NCAM * C;
+    int i = 4, j = k - 10;
+    if (k < 10) upper_ij(k, 4, i, j);
+    const double b = (double)__uint_as_float(kmax[i]) * (double)__uint_as_float(kmax[j]);
+    sh[e] = sfm_fx_shift(b * rows);
+  }
+}
+
+// The camera and intrinsics sums, order-free, from the whitened Jc, Jk, rw.
+__global__ void __launch_bounds__(NT) ba_sum_kernel(
+    const int* __restrict__ obs_cam, const float* __restrict__ obs_w,
+    const float* __restrict__ cam_free, const float* __restrict__ Jc,
+    const float* __restrict__ Jk, const float* __restrict__ rw, int C, int O, int opt_k,
+    const int* __restrict__ sh, unsigned long long* __restrict__ acc) {
+  const int* ksh = sh + NCAM * C;
+  unsigned long long* kacc = acc + NCAM * C;
+  for (int base = blockIdx.x * NT; base < O; base += gridDim.x * NT) {
+    const int o = base + threadIdx.x;
+    const float wv = o < O ? obs_w[o] : 0.f;
+    if (wv != 0.f) {
+      const int c = obs_cam[o];
+      if (cam_free[c] != 0.f) {
+        const float* jc = Jc + (size_t)o * 12;
+        const float r0 = rw[(size_t)o * 2], r1 = rw[(size_t)o * 2 + 1];
+        const int* s = sh + c * NCAM;
+        unsigned long long* a = acc + (size_t)c * NCAM;
+        int k = 0;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) kk[i * 4 + j] = ob.Jk[0][i] * ob.Jk[0][j] + ob.Jk[1][i] * ob.Jk[1][j];
-        kk[16 + i] = ob.Jk[0][i] * rw[0] + ob.Jk[1][i] * rw[1];
+        for (int i = 0; i < 6; ++i)
+#pragma unroll
+          for (int j = i; j < 6; ++j, ++k)
+            sfm_fx_add(&a[k], jc[i] * jc[j] + jc[6 + i] * jc[6 + j], s[k]);
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+          sfm_fx_add(&a[NU + i], jc[i] * r0 + jc[6 + i] * r1, s[NU + i]);
+      }
+    }
+    if (opt_k) {  // warp sums of the integers (any order: the same bits)
+      long long v[NK];
+      if (wv != 0.f) {
+        const float* jk = Jk + (size_t)o * 8;
+        const float r0 = rw[(size_t)o * 2], r1 = rw[(size_t)o * 2 + 1];
+        int k = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = i; j < 4; ++j, ++k)
+            v[k] = ksh[k] == SFM_FX_BAD ? 0 : sfm_fx_of(jk[i] * jk[j] + jk[4 + i] * jk[4 + j], ksh[k]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[10 + i] = ksh[10 + i] == SFM_FX_BAD ? 0 : sfm_fx_of(jk[i] * r0 + jk[4 + i] * r1, ksh[10 + i]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < NK; ++k) v[k] = 0;
       }
 #pragma unroll
-      for (int k = 0; k < 20; ++k) {
-        float v = kk[k];
+      for (int k = 0; k < NK; ++k) {
+        long long t = v[k];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (threadIdx.x % 32 == 0 && v != 0.f) atomicAdd(&sk[k], v);
+        for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+        if (threadIdx.x % 32 == 0 && t != 0)
+          atomicAdd(&kacc[k], static_cast<unsigned long long>(t));
       }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 36 * C; i += NT) {
-    const int cam = i / 36, e = i % 36, r = e / 6, col = e % 6;
-    const float v = sU[cam * 36 + min(r, col) * 6 + max(r, col)];  // upper triangle
-    if (v != 0.f) atomicAdd(&U[i], v);
+}
+
+// The sums rounded to float; U and Uk mirrored from their upper triangles.
+__global__ void __launch_bounds__(NT) ba_finish_kernel(const unsigned long long* __restrict__ acc,
+                                                       const int* __restrict__ sh, int C,
+                                                       float* __restrict__ U,
+                                                       float* __restrict__ g_c,
+                                                       float* __restrict__ Uk,
+                                                       float* __restrict__ g_k) {
+  const int e = blockIdx.x * NT + threadIdx.x;
+  if (e < 36 * C) {
+    const int c = e / 36, r = e % 36 / 6, col = e % 6;
+    const int i = min(r, col), j = max(r, col);
+    const int k = c * NCAM + i * 6 - i * (i - 1) / 2 + (j - i);
+    U[e] = (float)sfm_fx_value(acc[k], sh[k]);
+  } else if (e < 42 * C) {
+    const int c = (e - 36 * C) / 6, i = (e - 36 * C) % 6;
+    const int k = c * NCAM + NU + i;
+    g_c[c * 6 + i] = (float)sfm_fx_value(acc[k], sh[k]);
+  } else if (e < 42 * C + 16) {
+    const int r = (e - 42 * C) / 4, col = (e - 42 * C) % 4;
+    const int i = min(r, col), j = max(r, col);
+    const int k = NCAM * C + i * 4 - i * (i - 1) / 2 + (j - i);
+    Uk[r * 4 + col] = (float)sfm_fx_value(acc[k], sh[k]);
+  } else if (e < 42 * C + 20) {
+    const int i = e - 42 * C - 16;
+    const int k = NCAM * C + 10 + i;
+    g_k[i] = (float)sfm_fx_value(acc[k], sh[k]);
   }
-  for (int i = threadIdx.x; i < 6 * C; i += NT)
-    if (sg[i] != 0.f) atomicAdd(&g_c[i], sg[i]);
-  if (threadIdx.x < 16 && sk[threadIdx.x] != 0.f) atomicAdd(&Uk[threadIdx.x], sk[threadIdx.x]);
-  if (threadIdx.x < 4 && sk[16 + threadIdx.x] != 0.f)
-    atomicAdd(&g_k[threadIdx.x], sk[16 + threadIdx.x]);
 }
 
 __global__ void __launch_bounds__(NT) ba_point_kernel(
@@ -249,7 +357,7 @@ __global__ void __launch_bounds__(NT) ba_cost_kernel(
     const float* __restrict__ intr, const float* __restrict__ points,
     const int* __restrict__ obs_cam, const int* __restrict__ obs_point,
     const float* __restrict__ obs_xy, const float* __restrict__ obs_w, int O,
-    float delta, double* __restrict__ out) {
+    float delta, double* __restrict__ partial) {
   __shared__ double warp_sum[NT / 32];
   float in_k[4];
   for (int k = 0; k < 4; ++k) in_k[k] = intr[k];
@@ -270,8 +378,18 @@ __global__ void __launch_bounds__(NT) ba_cost_kernel(
   if (threadIdx.x == 0) {
     double s = 0.0;
     for (int i = 0; i < NT / 32; ++i) s += warp_sum[i];
-    atomicAdd(out, s);
+    partial[blockIdx.x] = s;
   }
+}
+
+// The blocks' partial costs added in a fixed order by one warp.
+__global__ void ba_cost_sum_kernel(const double* __restrict__ partial, int n,
+                                   double* __restrict__ out) {
+  double s = 0.0;
+  for (int i = threadIdx.x; i < n; i += 32) s += partial[i];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (threadIdx.x == 0) *out = s;
 }
 
 int grid_for(int O) {
@@ -291,26 +409,49 @@ SFM_API int sfm_ba_linearize(const void* rvec, const void* tvec, const void* int
                              const void* perm_valid, int C, int P, int O, int G, int Vs,
                              float delta, int opt_k, void* Jc, void* Jk, void* Jp,
                              void* rw, void* U, void* g_c, void* Uk, void* g_k, void* V,
-                             void* g_p, void* stream) {
+                             void* g_p, void* fx_max, void* fx_sh, void* fx_acc,
+                             void* stream) {
+  // fx_max: C x 7 + 5 uint32; fx_sh: C x 27 + 14 int32; fx_acc: C x 27 + 14 uint64.
   (void)P;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)(42 * C + 20) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      ba_obs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int nfx = NCAM * C + NK;
+  unsigned int* cmax = static_cast<unsigned int*>(fx_max);
+  cudaError_t e = cudaMemsetAsync(cmax, 0, (size_t)(CMAX * C + 5) * sizeof(unsigned int), st);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(fx_acc, 0, (size_t)nfx * sizeof(unsigned long long), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (O > 0) {
-    ba_obs_kernel<<<grid_for(O), NT, smem, st>>>(
+    ba_obs_kernel<<<grid_for(O), NT, 0, st>>>(
         static_cast<const float*>(rvec), static_cast<const float*>(tvec),
         static_cast<const float*>(intr), static_cast<const float*>(points),
         static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),
         static_cast<const float*>(obs_xy), static_cast<const float*>(obs_w),
         static_cast<const float*>(cam_free), static_cast<const float*>(point_valid), C, O,
         delta, opt_k, static_cast<float*>(Jc), static_cast<float*>(Jk),
-        static_cast<float*>(Jp), static_cast<float*>(rw), static_cast<float*>(U),
-        static_cast<float*>(g_c), static_cast<float*>(Uk), static_cast<float*>(g_k));
+        static_cast<float*>(Jp), static_cast<float*>(rw), cmax, cmax + CMAX * C);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  ba_shift_kernel<<<(nfx + NT - 1) / NT, NT, 0, st>>>(cmax, cmax + CMAX * C, C,
+                                                      2.0 * (double)O,
+                                                      static_cast<int*>(fx_sh));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (O > 0) {
+    ba_sum_kernel<<<grid_for(O), NT, 0, st>>>(
+        static_cast<const int*>(obs_cam), static_cast<const float*>(obs_w),
+        static_cast<const float*>(cam_free), static_cast<const float*>(Jc),
+        static_cast<const float*>(Jk), static_cast<const float*>(rw), C, O, opt_k,
+        static_cast<const int*>(fx_sh), static_cast<unsigned long long*>(fx_acc));
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  ba_finish_kernel<<<(42 * C + 20 + NT - 1) / NT, NT, 0, st>>>(
+      static_cast<const unsigned long long*>(fx_acc), static_cast<const int*>(fx_sh), C,
+      static_cast<float*>(U), static_cast<float*>(g_c), static_cast<float*>(Uk),
+      static_cast<float*>(g_k));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (G > 0) {
     ba_point_kernel<<<(G + NT - 1) / NT, NT, 0, st>>>(
         static_cast<const int*>(obs_point), static_cast<const int*>(perm),
@@ -323,14 +464,21 @@ SFM_API int sfm_ba_linearize(const void* rvec, const void* tvec, const void* int
 SFM_API int sfm_ba_cost(const void* rvec, const void* tvec, const void* intr,
                         const void* points, const void* obs_cam, const void* obs_point,
                         const void* obs_xy, const void* obs_w, int O, float delta,
-                        void* out, void* stream) {
+                        void* out, void* partial, void* stream) {
+  // partial: COST_BLOCKS doubles of scratch.
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (O > 0) {
-    ba_cost_kernel<<<grid_for(O), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int grid = min((O + NT - 1) / NT, COST_BLOCKS);
+    ba_cost_kernel<<<grid, NT, 0, st>>>(
         static_cast<const float*>(rvec), static_cast<const float*>(tvec),
         static_cast<const float*>(intr), static_cast<const float*>(points),
         static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),
         static_cast<const float*>(obs_xy), static_cast<const float*>(obs_w), O, delta,
-        static_cast<double*>(out));
+        static_cast<double*>(partial));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ba_cost_sum_kernel<<<1, 32, 0, st>>>(static_cast<const double*>(partial), grid,
+                                         static_cast<double*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,6 +58,132 @@ __device__ __forceinline__ void sfm_block_sum(float* v, float (*red)[M]) {
   __syncthreads();
 }
 
+// ---- Order-free sums ------------------------------------------------------
+// Float atomics add in another order, and so round differently, on every run:
+// a model built on such sums is not repeatable, and an incremental engine
+// turns last-bit differences into other registrations. A sum that many threads
+// scatter into is kept instead as a 64-bit integer of x * 2^sh: integer
+// addition is associative, so every order gives the same bits, and the sum is
+// rounded to float once at the end. sh comes from a bound B on the sum of the
+// terms' magnitudes (B < 2^61 - sh, so the integer cannot overflow); the
+// resolution B * 2^-61 is far below float rounding. Where no a-priori bound
+// exists, a first pass takes each target's largest |term| with an atomic max
+// (order-free as well) and B = max * (number of terms).
+
+constexpr int SFM_FX_BAD = -100000;  // the shift of a non-finite bound
+
+// Largest |x| of a target, as the bits of a non-negative float (they order as
+// the floats do; NaN above inf).
+__device__ __forceinline__ void sfm_fx_max(unsigned int* m, float x) {
+  atomicMax(m, __float_as_uint(fabsf(x)));
+}
+
+// Shift for a sum whose terms' magnitudes add up to at most `bound`.
+__device__ __forceinline__ int sfm_fx_shift(double bound) {
+  if (!(bound <= 1e300)) return SFM_FX_BAD;  // inf or NaN terms
+  int e = 0;
+  frexp(bound, &e);  // bound < 2^e (e = 0 for bound = 0)
+  return 61 - e;
+}
+
+// Shift from a target's max |term| (sfm_fx_max's bits) and its term count.
+__device__ __forceinline__ int sfm_fx_shift_of(unsigned int max_bits, double count) {
+  return sfm_fx_shift((double)__uint_as_float(max_bits) * count);
+}
+
+__device__ __forceinline__ long long sfm_fx_of(float x, int sh) {
+  return __double2ll_rn(ldexp((double)x, sh));
+}
+
+__device__ __forceinline__ void sfm_fx_add(unsigned long long* acc, float x, int sh) {
+  if (sh == SFM_FX_BAD) return;
+  const long long v = sfm_fx_of(x, sh);
+  if (v != 0) atomicAdd(acc, static_cast<unsigned long long>(v));
+}
+
+// The sum (NaN for a non-finite bound).
+__device__ __forceinline__ double sfm_fx_value(unsigned long long acc, int sh) {
+  if (sh == SFM_FX_BAD) return __longlong_as_double(0x7ff8000000000000ll);
+  return ldexp(static_cast<double>(static_cast<long long>(acc)), -sh);
+}
+
+// A block's staging copy of a two-pass order-free sum over n targets, in
+// shared memory (n x 8 bytes): pass MAX keeps each target's largest |term|
+// (uint bits), pass ADD its fixed-point sum at the shifts `sh`. Zero it,
+// __syncthreads, put terms, __syncthreads, flush into the global copy.
+__device__ __forceinline__ void sfm_fx_stage_zero(unsigned long long* s, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = 0ull;
+}
+
+template <bool ADD>
+__device__ __forceinline__ void sfm_fx_put(unsigned long long* s, int i, float x,
+                                           const int* __restrict__ sh) {
+  if (ADD) {
+    sfm_fx_add(&s[i], x, sh[i]);
+  } else {
+    const unsigned int b = __float_as_uint(fabsf(x));
+    if (b != 0u) atomicMax(reinterpret_cast<unsigned int*>(s) + i, b);
+  }
+}
+
+// A thread's own running part of one target: ADD keeps its terms' integer
+// sum, MAX their largest |term|. sfm_fx_put_warp then combines the warp's
+// parts (any order: the same result) and stages them with one atomic.
+struct SfmFxPart {
+  long long q = 0;
+  unsigned int b = 0u;
+};
+
+template <bool ADD>
+__device__ __forceinline__ void sfm_fx_part(SfmFxPart& part, float x, int sh) {
+  if (ADD) {
+    if (sh != SFM_FX_BAD) part.q += sfm_fx_of(x, sh);
+  } else {
+    part.b = max(part.b, __float_as_uint(fabsf(x)));
+  }
+}
+
+// All 32 lanes must call it.
+template <bool ADD>
+__device__ __forceinline__ void sfm_fx_put_warp(unsigned long long* s, int i,
+                                                const SfmFxPart& part) {
+  if (ADD) {
+    long long q = part.q;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
+    if (threadIdx.x % 32 == 0 && q != 0) atomicAdd(&s[i], static_cast<unsigned long long>(q));
+  } else {
+    const unsigned int b = __reduce_max_sync(0xffffffffu, part.b);
+    if (threadIdx.x % 32 == 0 && b != 0u) atomicMax(reinterpret_cast<unsigned int*>(s) + i, b);
+  }
+}
+
+// Global copies: MAX into n uint32 (gmax), ADD into n uint64 (gacc).
+template <bool ADD>
+__device__ __forceinline__ void sfm_fx_flush(const unsigned long long* s, int n,
+                                             unsigned int* __restrict__ gmax,
+                                             unsigned long long* __restrict__ gacc) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (ADD) {
+      if (s[i] != 0ull) atomicAdd(&gacc[i], s[i]);
+    } else {
+      const unsigned int b = reinterpret_cast<const unsigned int*>(s)[i];
+      if (b != 0u) atomicMax(&gmax[i], b);
+    }
+  }
+}
+
+namespace {
+// sh[i] for a target whose terms, at most `count` of them, are at most
+// gmax[i] each; a no-op when `flag` is given and 0.
+__global__ void sfm_fx_shift_kernel(const unsigned int* __restrict__ gmax, int n, double count,
+                                    const float* __restrict__ flag, int* __restrict__ sh) {
+  if (flag != nullptr && *flag == 0.f) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) sh[i] = sfm_fx_shift_of(gmax[i], count);
+}
+}  // namespace
+
 // epipolar.py::symmetric_epipolar_distance of one row (x, y) <-> (u, v)
 // under the row-major F: lines F^T x2 in image 1 and F x1 in image 2.
 __device__ __forceinline__ float sfm_sym_epipolar(const float* f, float x, float y, float u,

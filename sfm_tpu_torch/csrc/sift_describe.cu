@@ -21,7 +21,11 @@
 // first argmax + parabolic peak. Pass 2: 256 rotated samples on the descriptor
 // grid, trilinear (2 x 2 spatial x 2 orientation) into the 4 x 4 x 8 histogram;
 // then normalise, clip, renormalise. Products are rounded as the plain twin
-// rounds them; only the order of the histogram sums differs (atomics).
+// rounds them. The histograms are order-free 64-bit fixed-point sums
+// (sfm_common.cuh; the bound is the block's sum of the sample weights),
+// rounded to float once: the same bits every run, where float atomics would
+// round in another order each time. They differ from the twin's sequential
+// float sums in the last bits only.
 #include "sfm_common.cuh"
 
 namespace {
@@ -87,7 +91,7 @@ __global__ void __launch_bounds__(NT) sift_describe_kernel(
   __shared__ float gx[PATCH * PATCH];
   __shared__ float gy[PATCH * PATCH];
   __shared__ float hist_a[ORI_BINS], hist_b[ORI_BINS];
-  __shared__ float dh[128];
+  __shared__ unsigned long long fx_ori[ORI_BINS], fx_desc[128];
   __shared__ float red[NT / 32];
   __shared__ float s_angle;
 
@@ -108,8 +112,8 @@ __global__ void __launch_bounds__(NT) sift_describe_kernel(
   const __half* src = canvas + ((size_t)b * S + lay) * sumH * Wmax;
   for (int e = t; e < GP * GP; e += NT)
     patch[e] = src[(size_t)(r0 + e / GP) * Wmax + c0 + e % GP];
-  if (t < ORI_BINS) hist_a[t] = 0.f;
-  if (t < 128) dh[t] = 0.f;
+  if (t < ORI_BINS) fx_ori[t] = 0ull;
+  if (t < 128) fx_desc[t] = 0ull;
   __syncthreads();
   for (int e = t; e < PATCH * PATCH; e += NT) {
     const int r = e / PATCH, c = e % PATCH;
@@ -122,6 +126,7 @@ __global__ void __launch_bounds__(NT) sift_describe_kernel(
   const float xmax = (float)w_o - 1.001f, ymax = (float)h_o - 1.001f;
 
   // ---- pass 1: orientation ------------------------------------------------
+  int sh = 0;
   {
     const float r = 4.5f * sig;
     const float xs = __fadd_rn(x, __fmul_rn(tables[T_ORI_GRID + 2 * t], r));
@@ -135,9 +140,12 @@ __global__ void __launch_bounds__(NT) sift_describe_kernel(
     const float b0f = floorf(bf);
     const float frac = __fsub_rn(bf, b0f);
     const int b0 = sfm_pos_mod((int)b0f, ORI_BINS);
-    atomicAdd(&hist_a[b0], __fmul_rn(wgt, __fsub_rn(1.f, frac)));
-    atomicAdd(&hist_a[(b0 + 1) % ORI_BINS], __fmul_rn(wgt, frac));
+    sh = sfm_fx_shift((double)block_sum(wgt, red));
+    sfm_fx_add(&fx_ori[b0], __fmul_rn(wgt, __fsub_rn(1.f, frac)), sh);
+    sfm_fx_add(&fx_ori[(b0 + 1) % ORI_BINS], __fmul_rn(wgt, frac), sh);
   }
+  __syncthreads();
+  if (t < ORI_BINS) hist_a[t] = (float)sfm_fx_value(fx_ori[t], sh);
   float* h = hist_a;
   float* g = hist_b;
   for (int round = 0; round < 2; ++round) {
@@ -189,6 +197,9 @@ __global__ void __launch_bounds__(NT) sift_describe_kernel(
     const int o1 = (o0 + 1) % 8;
     const float contrib =
         (inb && ok) ? __fmul_rn(magnitude(vx, vy), tables[T_DESC_WG + t]) : 0.f;
+    // The spatial weights are at most 1 each, so 16 x the contributions
+    // bounds every bin.
+    sh = sfm_fx_shift(16.0 * (double)block_sum(contrib, red));
     const float* wax = tables + T_W_AXIS;  // (16 samples per axis, 4 bins)
     const int i = t / 16, j = t % 16;      // sample row (y) and column (x)
 #pragma unroll
@@ -200,14 +211,14 @@ __global__ void __launch_bounds__(NT) sift_describe_kernel(
         const float wxv = wax[j * 4 + bj];
         if (wxv == 0.f) continue;
         const float base = __fmul_rn(__fmul_rn(wy, wxv), contrib);
-        float* cell = dh + (bi * 4 + bj) * 8;
-        atomicAdd(cell + o0, __fmul_rn(base, __fsub_rn(1.f, frac)));
-        atomicAdd(cell + o1, __fmul_rn(base, frac));
+        unsigned long long* cell = fx_desc + (bi * 4 + bj) * 8;
+        sfm_fx_add(cell + o0, __fmul_rn(base, __fsub_rn(1.f, frac)), sh);
+        sfm_fx_add(cell + o1, __fmul_rn(base, frac), sh);
       }
     }
   }
   __syncthreads();
-  float v = t < 128 ? dh[t] : 0.f;
+  float v = t < 128 ? (float)sfm_fx_value(fx_desc[t], sh) : 0.f;
   const float n1 = fmaxf(sqrtf(block_sum(v * v, red)), 1e-12f);
   v = fminf(__fdiv_rn(v, n1), clip);
   const float n2 = fmaxf(sqrtf(block_sum(t < 128 ? v * v : 0.f, red)), 1e-12f);

@@ -2,7 +2,9 @@
 
 Counterpart of ``sfm_tpu/reconstruction/incremental.py``: seed pair, batched
 P3P registration, triangulation of every active track, periodic and final LM
-BA on the flat dense-Schur path, and pruning; the one-shot global path
+BA on the flat observation table (dense Schur up to
+``ba.use_dense_schur_below`` cameras, PCG above; windowed local BA with
+``ba.local_window``), and pruning; the one-shot global path
 (``global_init.enabled``) and the pose-graph polish of the incremental model
 (``global_init.polish``), with the reference's routing, fallback, adoption
 gates and rollback. State is host numpy (poses, points, the track table), as
@@ -21,7 +23,10 @@ in the reference; every device program reads it as tensors on ``device``:
   :mod:`sfm_tpu_torch.reconstruction.global_init`).
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-windowed local BA, checkpoints, and the BA routes off the dense path.
+checkpoints, per-camera intrinsics and the f64 island. The reference's
+blocked (P, V) BA layout is not ported either: past
+``ba.use_dense_schur_below`` cameras the port always takes the flat PCG path
+(ROADMAP, divergences).
 """
 from __future__ import annotations
 
@@ -339,10 +344,6 @@ def _cap_observations(sel, V: int, max_obs: int):
 
 def check_config(config: SfMConfig, num_images: int):
     """Raise on a configuration that would route off the ported path."""
-    if config.ba.local_window > 0:
-        raise NotImplementedError(
-            "ba.local_window > 0 (windowed local BA) is not ported yet "
-            "(ROADMAP queue 1, item 2)")
     check_ba_config(config.ba, num_images)
 
 
@@ -790,11 +791,38 @@ class StructureFromMotion:
         return obs_cam[sel], obs_point[sel], obs_xy[sel], np.ones(len(sel), bool)
 
     def bundle_adjust(self, final: bool = False):
-        """LM on the flat table with the exact dense-Schur solve."""
+        """LM on the flat observation table (the reference's ``bundle_adjust``).
+
+        ``run_ba`` routes on the problem's camera count, the image count: the
+        exact dense Schur solve up to ``ba.use_dense_schur_below``, PCG
+        (kernel K11) above. With ``ba.local_window`` > 0 a periodic call
+        moves only the last ``local_window`` registrations and runs on the
+        restricted problem of :meth:`_bundle_adjust_local`; the final call is
+        always global. The reference sends a problem with more than 256
+        registered cameras whose track table is at least
+        ``ba.blocked_min_fill`` full to its blocked (P, V) layout; the port
+        has no blocked layout and logs the fill of every > 256-camera call."""
         cfg = self.config.ba
         cam_fixed = np.zeros(self.num_images, bool)
         if self.reg_order:
             cam_fixed[self.reg_order[0]] = True
+        if cfg.local_window > 0 and not final:
+            fixed = self.reg_order[:-cfg.local_window]
+            cam_fixed[fixed] = True
+            if len(fixed) > 0:
+                return self._bundle_adjust_local(cam_fixed)
+        if self.num_images > cfg.use_dense_schur_below:
+            ok = (self.view_valid & self.registered[np.clip(self.tracks.view_img, 0,
+                                                            self.num_images - 1)]
+                  & self.point_valid[:, None])
+            fill = float(ok.mean()) if ok.size else 0.0
+            n_reg = int(self.registered.sum())
+            logger.info("BA #%d: %d of %d cameras registered, track table fill %.4f (the "
+                        "reference runs its blocked layout past %d registered at a fill >= "
+                        "%.2f; the port runs the flat table)", self._ba_calls + 1, n_reg,
+                        self.num_images, fill, cfg.use_dense_schur_below,
+                        cfg.blocked_min_fill)
+            self.metrics.log("ba/fill", fill, call=self._ba_calls + 1, registered=n_reg)
         with self._stage("assemble"):
             obs_cam, obs_point, obs_xy, obs_valid = self._ba_problem_arrays()
         prob = build_problem(
@@ -805,11 +833,78 @@ class StructureFromMotion:
         with self._stage("ba"):
             out, stats = run_ba(prob, cfg, optimize_intrinsics=cfg.optimize_intrinsics)
             self._unpack_ba(out, stats)
-        self.metrics.log("ba/rms_px", float(stats["rms_px"]), call=self._ba_calls)
+        self._log_ba(stats, self.num_images, int(self.point_valid.sum()), local=False)
         if cfg.prune_multiplier > 0:
             self.prune_observations(cfg.prune_multiplier
                                     * self.config.triangulation.max_reproj_error)
         return stats
+
+    def _bundle_adjust_local(self, cam_fixed: np.ndarray):
+        """Windowed local BA on a restricted problem (the reference's
+        ``_bundle_adjust_local``): the tracks that a moving (registered, not
+        fixed) camera observes, and every registered camera observing them;
+        the fixed ones anchor the gauge, and when none made it in, the
+        oldest involved registration is fixed. Cameras and points are
+        remapped to the restricted set and written back after the solve.
+
+        The reference pads the restricted cameras to a multiple of 64 and the
+        points to one of 2,048 so that its jitted program is reused; eager
+        PyTorch does not pad. ``run_ba`` routes on the raw camera count, which
+        agrees with the reference's padded one because 256 is a multiple of
+        64: a restricted problem of more than 256 cameras takes PCG in both."""
+        cfg = self.config.ba
+        T, V = self.tracks.view_img.shape
+        cam_of = np.clip(self.tracks.view_img, 0, self.num_images - 1)
+        obs_ok_2d = self.view_valid & self.registered[cam_of] & self.point_valid[:, None]
+        moving = self.registered & ~cam_fixed
+        idx_t = np.nonzero((obs_ok_2d & moving[cam_of]).any(axis=1))[0]
+        if len(idx_t) == 0:
+            return None
+        cam_involved = np.zeros(self.num_images, bool)
+        cam_involved[cam_of[idx_t][obs_ok_2d[idx_t]]] = True
+        cam_ids = np.nonzero(cam_involved)[0]
+        if not cam_fixed[cam_ids].any():
+            first = next(r for r in self.reg_order if cam_involved[r])
+            cam_fixed = cam_fixed.copy()
+            cam_fixed[first] = True
+        remap = np.zeros(self.num_images, np.int32)
+        remap[cam_ids] = np.arange(len(cam_ids), dtype=np.int32)
+        with self._stage("assemble"):
+            prob = build_problem(
+                rvec=self.rvec[cam_ids], tvec=self.tvec[cam_ids],
+                cam_valid=np.ones(len(cam_ids), bool), intr=self.intr,
+                points=self.points[idx_t], point_valid=np.ones(len(idx_t), bool),
+                obs_cam=remap[cam_of[idx_t]].reshape(-1),
+                obs_point=np.repeat(np.arange(len(idx_t), dtype=np.int32), V),
+                obs_xy=self.tracks.view_xy[idx_t].reshape(-1, 2),
+                obs_valid=obs_ok_2d[idx_t].reshape(-1), cam_fixed=cam_fixed[cam_ids],
+                device=self.device)
+        with self._stage("ba"):
+            out, stats = run_ba(prob, cfg, optimize_intrinsics=cfg.optimize_intrinsics)
+            self._ba_calls += 1
+            logger.info("local BA #%d (%d cams, %d pts): cost %.1f -> %.1f (%d its, rms %.3f "
+                        "px)", self._ba_calls, len(cam_ids), len(idx_t),
+                        stats["initial_cost"], stats["final_cost"], stats["iterations"],
+                        stats["rms_px"])
+            self.rvec[cam_ids] = out.rvec.cpu().numpy()
+            self.tvec[cam_ids] = out.tvec.cpu().numpy()
+            self.intr = out.intr.cpu().numpy()
+            self.points[idx_t] = out.points.cpu().numpy()
+        self._log_ba(stats, len(cam_ids), len(idx_t), local=True)
+        if cfg.prune_multiplier > 0:
+            self.prune_observations(cfg.prune_multiplier
+                                    * self.config.triangulation.max_reproj_error)
+        return stats
+
+    def _log_ba(self, stats, cameras: int, points: int, local: bool):
+        """One ``ba/rms_px`` record per call, the reference's, and one
+        ``ba/solve`` record: its solver, costs, iterations and problem size."""
+        self.metrics.log("ba/rms_px", float(stats["rms_px"]), call=self._ba_calls)
+        self.metrics.log("ba/solve", stats["solver"], call=self._ba_calls, local=local,
+                         cameras=cameras, points=points,
+                         initial_cost=stats["initial_cost"], final_cost=stats["final_cost"],
+                         iterations=stats["iterations"],
+                         cg_iterations=stats["cg_iterations"])
 
     def _unpack_ba(self, out, stats):
         self._ba_calls += 1

@@ -16,11 +16,11 @@ per-pixel ray casting against axis-aligned textured quads, vectorized in
 numpy, optionally supersampled to keep the procedural textures band-limited
 under minification.
 
-    python -m sfm_tpu_torch.render_scene N OUT_DIR
+    python -m sfm_tpu_torch.render_scene N OUT_DIR [--supersample 2] [--workers 1]
 """
 from __future__ import annotations
 
-import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -234,11 +234,49 @@ def write_calib(path, K, R, C):
             f.write("%.10g %.10g %.10g %.10g\n" % tuple(row))
 
 
-def render_dataset(out_dir, n_cams, seed=0, supersample=2, log=print):
+def _scene(out, n_cams, seed, supersample):
+    """What every view of a dataset is rendered from."""
+    rng = np.random.default_rng(seed)
+    cam = CameraConfig()
+    K = cam.K().astype(np.float64)
+    quads = build_corridor(rng, n_cams * 0.5)
+    Rs, centers = corridor_poses(n_cams)
+    return quads, K, Rs, centers, cam, supersample, Path(out)
+
+
+def _render_and_write(scene, c):
+    """Render view ``c`` of ``scene`` and write its image and calib file;
+    returns the seconds it took."""
+    quads, K, Rs, centers, cam, supersample, out = scene
+    t0 = time.perf_counter()
+    img = render_view(quads, K, Rs[c], centers[c], cam.width, cam.height,
+                      supersample=supersample)
+    write_pgm(out / "images" / f"{c:04d}.pgm", img)
+    write_calib(out / "calib" / f"{c:04d}.txt", K, Rs[c], centers[c])
+    return time.perf_counter() - t0
+
+
+_worker_scene = None   # a pool worker's own copy of the scene (built by _init_worker)
+
+
+def _init_worker(*scene_args):
+    global _worker_scene
+    _worker_scene = _scene(*scene_args)
+
+
+def _pool_task(c):
+    return _render_and_write(_worker_scene, c)
+
+
+def render_dataset(out_dir, n_cams, seed=0, supersample=2, log=print, workers=1):
     """Render a full pixel dataset: images/NNNN.pgm + calib/NNNN.txt.
 
     Idempotent: returns immediately if the marker file says this exact
     (n_cams, seed, supersample, renderer-version) dataset is already there.
+    ``workers`` > 1 renders one view per task in a pool of that many
+    processes (spawned; each builds the scene from the seed); every view
+    depends only on the scene and its own pose, so the files are the same
+    bytes whatever the count.
     """
     out = Path(out_dir)
     marker = out / ".render_meta"
@@ -247,27 +285,36 @@ def render_dataset(out_dir, n_cams, seed=0, supersample=2, log=print):
         return out
     (out / "images").mkdir(parents=True, exist_ok=True)
     (out / "calib").mkdir(parents=True, exist_ok=True)
-    rng = np.random.default_rng(seed)
-    cam = CameraConfig()
-    K = cam.K().astype(np.float64)
-    quads = build_corridor(rng, n_cams * 0.5)
-    Rs, centers = corridor_poses(n_cams)
-    import time
-
     t0 = time.time()
-    for c in range(n_cams):
-        img = render_view(quads, K, Rs[c], centers[c], cam.width, cam.height,
-                          supersample=supersample)
-        write_pgm(out / "images" / f"{c:04d}.pgm", img)
-        write_calib(out / "calib" / f"{c:04d}.txt", K, Rs[c], centers[c])
-        if c % 50 == 49:
-            log(f"rendered {c + 1}/{n_cams} ({(time.time() - t0) / (c + 1):.2f}s/img)")
+    if workers <= 1:
+        scene = _scene(out, n_cams, seed, supersample)
+        busy = 0.0
+        for c in range(n_cams):
+            busy += _render_and_write(scene, c)
+            if c % 50 == 49:
+                log(f"rendered {c + 1}/{n_cams} ({(time.time() - t0) / (c + 1):.2f}s/img)")
+    else:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(workers, initializer=_init_worker,
+                      initargs=(out, n_cams, seed, supersample)) as pool:
+            busy = sum(pool.imap_unordered(_pool_task, range(n_cams)))
+    if workers > 1 or n_cams >= 50:
+        log(f"rendered {n_cams} views of {out} in {time.time() - t0:.2f} s with "
+            f"{max(workers, 1)} worker(s), {busy / max(n_cams, 1):.3f} s of one core a view")
     marker.write_text(key)
     return out
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 3:
-        raise SystemExit("usage: python -m sfm_tpu_torch.render_scene N OUT_DIR")
-    out = render_dataset(sys.argv[2], int(sys.argv[1]))
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Render the corridor dataset.")
+    ap.add_argument("n", type=int, help="number of views")
+    ap.add_argument("out_dir")
+    ap.add_argument("--supersample", type=int, default=2)
+    ap.add_argument("--workers", type=int, default=1, help="rendering processes")
+    a = ap.parse_args()
+    out = render_dataset(a.out_dir, a.n, supersample=a.supersample, workers=a.workers)
     print(f"dataset at {out}")

@@ -161,8 +161,9 @@ def test_routes_off_the_dense_path_raise():
         tlm.check_ba_config(PortBAConfig(per_camera_intrinsics=True), 10)
     with pytest.raises(NotImplementedError, match="f64"):
         tlm.check_ba_config(PortBAConfig(f64_normal_equations=True), 10)
-    with pytest.raises(NotImplementedError, match="use_dense_schur_below"):
-        tlm.check_ba_config(PortBAConfig(), 257)
+    # More cameras than use_dense_schur_below run, on the PCG path.
+    tlm.check_ba_config(PortBAConfig(), 257)
+    assert tlm.uses_pcg(PortBAConfig(), 257)
 
 
 def test_wrappers_refuse_other_devices():

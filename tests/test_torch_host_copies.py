@@ -209,3 +209,22 @@ def test_renderers_write_identical_files(tmp_path):
     assert files == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
     for f in files:
         assert (a / f).read_bytes() == (b / f).read_bytes(), f
+
+
+def test_pooled_render_writes_the_serial_bytes(tmp_path):
+    # chip_smoke renders its largest scene in a process pool, one view a
+    # task; the files are the original renderer's.
+    if str(SCRIPTS) not in sys.path:
+        sys.path.insert(0, str(SCRIPTS))
+    from render_scene import render_dataset as j_render
+
+    from sfm_tpu_torch.render_scene import render_dataset as t_render
+
+    quiet = lambda *_: None
+    a = j_render(tmp_path / "ref", 4, supersample=1, log=quiet)
+    b = t_render(tmp_path / "pool", 4, supersample=1, log=quiet, workers=3)
+    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    assert len(files) == 9
+    assert files == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    for f in files:
+        assert (a / f).read_bytes() == (b / f).read_bytes(), f
