@@ -15,7 +15,15 @@
    inverses run on a 300-camera / 60k-point / 600k-observation scene with
    20 cameras pinned; one ``run_ba`` at 256 cameras runs through PCG and
    through the dense path. The kernels with scattered sums (K5, K8-K11)
-   must give the same bits on a second launch.
+   must give the same bits on a second launch. The BA island's other
+   routes (``ISLAND_ROUTES``: per-camera intrinsics, B = 10; the f64 island;
+   both) run K8-K11's entries of that route on the same two scenes against
+   their twins (float64 bounds over the card's FP64 peak), then ``run_ba``
+   on the card: two focal groups (fx 1,140 / 1,270) recovered within 1% at
+   300 cameras through PCG and 200 through the dense path, PCG against
+   dense with the per-camera regularization, and the f64 island ending
+   below 0.75x the f32 cost on the reference's ill-conditioned
+   1,000-camera scene.
 3. Renders ``--views``, ``--large_views`` and ``--huge_views`` 1024x768
    views of the textured corridor (the port's own
    ``sfm_tpu_torch/render_scene.py``, in one background subprocess with a
@@ -73,7 +81,17 @@
       call's cost finite and down, the final call global on PCG; the run
       with the reference's long-sequence settings held to the model gates
       above, the window alone (intrinsics free) checked finite and printed.
-      Ground-truth pose and the track table's fill printed, not gated.
+      Ground-truth pose and the track table's fill printed, not gated;
+   i. ``reconstruct`` on the artifacts of paths a, d and h with the BA
+      island's other routes (``PATH_I``): per-camera intrinsics and the f64
+      island on the 150-view table (dense), per-camera intrinsics on the
+      300-view one (PCG at B = 10), both flags on the 36-view one, dense
+      and on PCG, and the f64 island alone on PCG: every entry of those
+      routes launched, every BA call on its route (``ba/solve``'s
+      ``cam_params`` and ``dtype``) with its cost finite and down; the runs
+      of ``PATH_I_GATED`` held to path d's model gates, the others checked
+      finite and printed; each run's ``engine/ba`` seconds beside path d's
+      and path h's.
 
 Prints the card (nvidia-smi), per-kernel and stage numbers, a JSON line of
 the kernels and, last, ``{"ok": true, "device": {...}}``. Any failure raises;
@@ -155,6 +173,29 @@ KERNELS = {
     "pcg": (("pcg_init", "pcg_step"), "sfm_tpu_torch/csrc/schur_pcg.cu",
             "sfm_tpu/ba/schur.py:261"),
 }
+# The BA island's other routes, one row a kernel and route: per-camera
+# intrinsics ("b10", the 10-parameter camera block), the f64 island ("f64")
+# and both ("b10_f64"); the entry points are the default route's with the
+# route's suffix (the cost at each camera's own K is ba_cost_b10, which the
+# b10_f64 route shares: it is the b10 row's).
+for _r in ("b10", "f64", "b10_f64"):
+    KERNELS.update({
+        f"ba_linearize_{_r}": (
+            (f"ba_linearize_{_r}",) + (("ba_cost_b10",) if _r == "b10" else ()),
+            "sfm_tpu_torch/csrc/ba_linearize.cu",
+            "sfm_tpu/ba/lm.py:204" if _r == "f64" else "sfm_tpu/ba/residuals.py:97"),
+        f"schur_coupling_{_r}": ((f"schur_coupling_{_r}",), "sfm_tpu_torch/csrc/schur_coupling.cu",
+                                 "sfm_tpu/ba/schur.py:348"),
+        f"schur_damp_{_r}": ((f"schur_damp_{_r}", f"schur_back_substitute_{_r}"),
+                             "sfm_tpu_torch/csrc/schur_damp.cu", "sfm_tpu/ba/schur.py:174"),
+        f"schur_block_jacobi_{_r}": ((f"schur_block_jacobi_{_r}",),
+                                     "sfm_tpu_torch/csrc/schur_damp.cu", "sfm_tpu/ba/schur.py:197"),
+        f"schur_matvec_{_r}": ((f"schur_matvec_{_r}",), "sfm_tpu_torch/csrc/schur_pcg.cu",
+                               "sfm_tpu/ba/schur.py:232"),
+        f"pcg_{_r}": ((f"pcg_init_{_r}", f"pcg_step_{_r}"), "sfm_tpu_torch/csrc/schur_pcg.cu",
+                      "sfm_tpu/ba/schur.py:261"),
+    })
+ISLAND_ROWS = tuple(k for k in KERNELS if k.endswith(("_b10", "_f64")))
 # The kernels each path must launch.
 PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
                       "pyramid", "fmat_solve", "dog_select", "topk_rows", "match_epilogue")
@@ -194,6 +235,30 @@ WINDOW_CONFIGS = {
                              "prune_multiplier": 3.0, "max_iterations": 15, "cg_iters": 40},
                       "triangulation": {"cadence": 2}},
 }
+# Path i: reconstruct on artifacts paths a, d and h wrote, with the BA
+# island's other routes. name: (the artifacts: "views" (36), "large" (150)
+# or "huge" (300), its --config, the (cam_params, dtype) every BA call must
+# record, the solver every BA call must take).
+_PERCAM, _F64 = {"per_camera_intrinsics": True}, {"f64_normal_equations": True}
+PATH_I = {
+    "percam_150": ("large", {"ba": _PERCAM}, (10, "float32"), "dense"),
+    "f64_150": ("large", {"ba": _F64}, (6, "float64"), "dense"),
+    "percam_300": ("huge", {"ba": _PERCAM}, (10, "float32"), "pcg"),
+    "both_36": ("views", {"ba": {**_PERCAM, **_F64}}, (10, "float64"), "dense"),
+    "both_pcg_36": ("views", {"ba": {**_PERCAM, **_F64, "use_dense_schur_below": 4}},
+                    (10, "float64"), "pcg"),
+    "f64_pcg_36": ("views", {"ba": {**_F64, "use_dense_schur_below": 4}}, (6, "float64"), "pcg"),
+}
+# The runs of path i held to path d's model gates (> 1,000 points, < 0.6 px)
+# and each one's camera gate, a share of the images: what the final tree's
+# three smokes read, less 5% (PERF.md, section 6). The others are
+# checked finite and printed. The per-camera runs are not gated because
+# the reference breaks the same way: on the card's 150-view table without
+# descriptors the JAX package's reconstruct with per-camera intrinsics, on
+# the CPU, kept 21 cameras and 7 points (fx 1,230.77), where the port on
+# the card kept 21 cameras and 30 points (fx 1,230.75)
+# (tests/local_window_report.py, cases percam and percam_nodesc).
+PATH_I_GATED = {"f64_150": 0.95 * 140 / 150}
 # The runs of path h whose model is gated, and each one's camera gate: all
 # but at most one image when None, else this share of the images. The BA
 # sums are order-free, so a tree reads the same models in every smoke; each
@@ -240,18 +305,21 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def result(err, ms, plain_ms, moved, ops, library_ms=None) -> dict:
+def result(err, ms, plain_ms, moved, ops, library_ms=None, peak=PEAK_F32_PER_S) -> dict:
     """A kernel phase's numbers. ``moved``: the bytes its function must move
     (each input read once, each output written once); ``ops``: the
     operations it does on this run's inputs (estimated from its loops);
-    ``library_ms``: one PyTorch call computing the same function, if any."""
+    ``library_ms``: one PyTorch call computing the same function, if any;
+    ``peak``: the operations' peak rate (float32, or float64 for the f64
+    island's entries)."""
     return {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "bytes": int(moved),
-            "ops": int(ops), "library_ms": library_ms}
+            "ops": int(ops), "library_ms": library_ms, "peak": peak}
 
 
 def bound(r: dict):
     """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = r["bytes"] / PEAK_BYTES_PER_S, r["ops"] / PEAK_F32_PER_S
+    t_bytes = r["bytes"] / PEAK_BYTES_PER_S
+    t_ops = r["ops"] / r.get("peak", PEAK_F32_PER_S)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -938,7 +1006,7 @@ def phase_ba(torch, np, dev):
     # reductions (fixed-point sums against the twin's float sums) 1e-3.
     for name in lk._fields:
         x = getattr(lk, name)
-        if x.is_floating_point():
+        if x is not None and x.is_floating_point():
             check(bool(torch.isfinite(x).all()), f"K8: {name} not finite")
     errs = {f: _rel(getattr(lk, f), getattr(lp, f))
             for f in ("Jc", "Jk", "Jp", "rw", "V", "g_p", "U", "g_c", "Uk", "g_k")}
@@ -1478,10 +1546,11 @@ def phase_schur_damp(torch, np, dev):
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     out_k2, st_k2 = run_ba(prob, cfg)
-    check(st_k2 == st_k and all(torch.equal(a, b) for a, b in zip(out_k, out_k2)),
+    check(st_k2 == st_k and all(torch.equal(a, b) for a, b in zip(out_k, out_k2)
+                                if a is not None),
           "K10 run_ba: a second run on the card gave another result")
     t0 = time.perf_counter()
-    _, st_p = run_ba(BAProblem(*(x.cpu() for x in prob)), cfg)
+    _, st_p = run_ba(BAProblem(*(None if x is None else x.cpu() for x in prob)), cfg)
     t_host = time.perf_counter() - t0
     cost_err = abs(st_k["final_cost"] - st_p["final_cost"]) / st_p["final_cost"]
     check(cost_err <= 1e-3 and st_k["final_cost"] < 0.5 * st_k["initial_cost"],
@@ -1694,6 +1763,442 @@ def phase_run_ba_pcg(torch, np, dev):
         f"{st_p['iterations']} iterations, {st_p['cg_iterations']} CG steps) vs "
         f"{st_d['final_cost']:.6g} dense ({t_d:.2f} s, {st_d['iterations']} iterations), rel "
         f"{cost_err:.2g}")
+
+
+# The BA island's other routes: per-camera intrinsics (B = 10), the f64
+# island, and both; each row's kernel entries, by route.
+ISLAND_ROUTES = {"b10": (10, "float32"), "f64": (6, "float64"), "b10_f64": (10, "float64")}
+ISLAND_REG_W = 5.0   # intrinsics_reg_weight: large enough that U_extra matters
+ISLAND_SCENE = (100, 20000, 2000)   # ba_scene's cameras, points, observations a camera
+# NVIDIA's H100 SXM float64 peak outside the tensor cores (data sheet).
+PEAK_F64_PER_S = 34e12
+
+
+def island_system(torch, np, dev, B, dt, n_cams, n_pts, obs_per_cam, seed, pinned=()):
+    """``ba_scene``'s problem with the ``pinned`` cameras unregistered and
+    camera 0 fixed, and the linearize arguments of the route (B, dt) as
+    ``run_ba`` passes them: at B = 10 each camera's own K (a few px off
+    the shared one) with the per-camera regularization at
+    ``ISLAND_REG_W``, at B = 6 the shared K with its regularization.
+    Returns (args, kwargs) of ``linearize_cuda`` / ``linearize_plain``."""
+    from sfm_tpu_torch.ba.lm import _intr_reg, percam_regularization
+    from sfm_tpu_torch.ba.schur import coobs_pairs
+
+    rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = ba_scene(
+        torch, np, dev, n_cams=n_cams, n_pts=n_pts, obs_per_cam=obs_per_cam, seed=seed)
+    C, P = rvec.shape[0], pts.shape[0]
+    cam_valid = torch.ones(C, dtype=torch.bool, device=dev)
+    cam_valid[list(pinned)] = False
+    cam_free = cam_valid.float()
+    cam_free[0] = 0.0
+    obs_w = cam_valid[obs_cam.long()].float()
+    perm, pvm = coobs_pairs(obs_point.cpu().numpy(), obs_w.cpu().numpy() > 0)
+    perm, pvm = torch.as_tensor(perm, device=dev), torch.as_tensor(pvm, device=dev)
+    kw = {"dtype": dt}
+    if B == 10:
+        rng = np.random.default_rng(seed + 1)
+        intr_c = intr[None] + torch.as_tensor(rng.normal(0, [8.0, 8.0, 3.0, 3.0], (C, 4)),
+                                              dtype=torch.float32, device=dev)
+        _, U_extra, g_c_extra = percam_regularization(intr_c, intr, ISLAND_REG_W,
+                                                      cam_valid.float())
+        kw.update(U_extra=U_extra.to(dt), g_c_extra=g_c_extra.to(dt))
+        Hreg, greg = torch.eye(4, device=dev), torch.zeros(4, device=dev)
+        intr = intr_c.contiguous()
+    else:
+        _, Hreg, greg = _intr_reg(intr, intr, ISLAND_REG_W)
+    args = (rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy, obs_w, cam_free,
+            torch.ones(P, dtype=torch.bool, device=dev), perm, pvm, 2.0, True,
+            Hreg.contiguous(), greg.contiguous())
+    return args, kw
+
+
+def phase_island(torch, np, dev, route):
+    """One route of the BA island (``ISLAND_ROUTES``): K8+K9's linearize and
+    K10's coupling and damping / back-substitution on ``ba_scene`` (100
+    cameras, 200k observations), K10's block-Jacobi inverses and K11's
+    matvec and PCG on the 300-camera / 600k-observation scene with 20
+    cameras pinned; each against its twin, with a second launch that must
+    give the same bits. Returns the six rows' results."""
+    from sfm_tpu_torch.ba import schur as S
+
+    B, dname = ISLAND_ROUTES[route]
+    dt = getattr(torch, dname)
+    f64 = dt == torch.float64
+    peak = PEAK_F64_PER_S if f64 else PEAK_F32_PER_S
+    el = 8 if f64 else 4
+    # Tolerances: float32 as the default route's phases; float64 the kernel
+    # against the float64 twin at 1e-10 of each tensor's largest entry (the
+    # Jacobians themselves are float32 in both, computed analytically by
+    # the kernel and by autodiff in the twin: 1e-4 as at float32, and the
+    # sums held against the twin's float64 sums of the kernel's own
+    # whitened Jacobians).
+    tol = (lambda t32: 1e-10) if f64 else (lambda t32: t32)
+    out = {}
+    tag = f"{route} (B = {B}, {dname})"
+
+    args, kw = island_system(torch, np, dev, B, dt, *ISLAND_SCENE, 0)
+    O = args[4].shape[0]
+    lk = S.linearize_cuda(*args, **kw)
+    lp = S.linearize_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check_repeatable(torch, f"K8+K9 ba_linearize {tag}", lambda: S.linearize_cuda(*args, **kw),
+                     lk)
+    for name in lk._fields:
+        x = getattr(lk, name)
+        if x is not None and x.is_floating_point():
+            check(bool(torch.isfinite(x).all()), f"K8 {tag}: {name} not finite")
+    errs = {f: _rel(getattr(lk, f), getattr(lp, f)) for f in ("Jc", "Jk", "Jp", "rw")}
+    if f64:   # the sums against float64 sums of the kernel's own Jacobians
+        ref = S.linearize_system(lk.Jc, lk.Jk, lk.Jp, lk.rw, torch.ones_like(args[7], dtype=dt),
+                                 lk.obs_cam, lk.obs_point, (args[7] > 0).to(dt),
+                                 torch.ones(lk.U.shape[0], dtype=dt, device=dev),
+                                 lk.point_valid, lk.Hreg_k, lk.U.shape[0], lk.V.shape[0],
+                                 g_k_extra=args[15].to(dt), U_extra=kw.get("U_extra"),
+                                 g_c_extra=kw.get("g_c_extra"))
+    else:
+        ref = lp
+    errs.update({f: _rel(getattr(lk, f), getattr(ref, f))
+                 for f in ("V", "g_p", "U", "g_c", "Uk", "g_k")})
+    for f, e in errs.items():
+        check(e <= (1e-4 if f in ("Jc", "Jk", "Jp", "rw") else tol(1e-3)),
+              f"K8/K9 {tag}: {f} rel err {e}")
+    if B == 10:   # the fixed camera 0: pose columns zero, intrinsics columns free
+        rows = args[4] == 0
+        check(float(lk.Jc[rows][..., :6].abs().max()) == 0.0
+              and float(lk.Jc[rows][..., 6:].abs().max()) > 0.0,
+              f"K8 {tag}: the fixed camera's columns")
+    if B == 10 and not f64:
+        cargs = (args[0], args[1], args[2], args[3], args[4], args[5], args[6], args[7], 2.0)
+        from sfm_tpu_torch.ba.residuals import total_huber_cost_cuda, total_huber_cost_plain
+
+        ck, cp = total_huber_cost_cuda(*cargs), total_huber_cost_plain(*cargs)
+        check_repeatable(torch, f"K8 ba_cost_b10", lambda: total_huber_cost_cuda(*cargs), ck)
+        cost_err = abs(float(ck) - float(cp)) / float(cp)
+        check(cost_err <= 1e-5, f"K8 ba_cost_b10: rel err {cost_err}")
+        errs["cost"] = cost_err
+    log(f"K8+K9 ba_linearize {tag}: rel err " + ", ".join(f"{f} {e:.2g}"
+                                                         for f, e in errs.items()))
+    ms = time_ms(torch, lambda: S.linearize_cuda(*args, **kw))
+    plain_ms = time_ms(torch, lambda: S.linearize_plain(*args, **kw))
+    lin_bytes = nbytes(*(a for a in args if isinstance(a, torch.Tensor))) + sum(
+        nbytes(getattr(lk, f)) for f in ("Jc", "Jk", "Jp", "rw", "V", "U", "Uk", "g_c", "g_k",
+                                         "g_p"))
+    n_sums = B * (B + 1) // 2 + B
+    # ~400 FLOP an observation at B = 6, 4 more for each further camera sum.
+    out["ba_linearize"] = result(max(errs.values()), ms, plain_ms, lin_bytes,
+                                 (400 + 4 * (n_sums - 27)) * O, peak=peak)
+
+    lam = 1e-3
+    perm, pvm = args[10], args[11]
+    op, rhs_c, rhs_k = S.damp_operator(lk, lam, perm, pvm)
+    Sk = S.schur_matrix_cuda(lk, op, perm, pvm)
+    Sp = S.schur_matrix_plain(lk, op, perm, pvm)
+    torch.cuda.synchronize()
+    check_repeatable(torch, f"K10 schur_coupling {tag}",
+                     lambda: S.schur_matrix_cuda(lk, op, perm, pvm), Sk)
+    s_err = _rel(Sk, Sp)
+    rhs = torch.cat([rhs_c.reshape(-1), rhs_k])[:, None]
+    solve = lambda M: torch.cholesky_solve(rhs.double(), torch.linalg.cholesky(M.double()))[:, 0]
+    x_err = _rel(solve(Sk), solve(Sp))
+    check(bool(torch.isfinite(Sk).all()) and s_err <= tol(1e-4)
+          and x_err <= (1e-8 if f64 else 1e-2), f"K10 {tag}: S rel err {s_err}, step rel err "
+          f"{x_err}")
+    log(f"K10 schur_coupling {tag}: S ({Sk.shape[0]}^2) rel err {s_err:.2g}, solved step "
+        f"rel err {x_err:.2g}")
+    ms = time_ms(torch, lambda: S.schur_matrix_cuda(lk, op, perm, pvm))
+    plain_ms = time_ms(torch, lambda: S.schur_matrix_plain(lk, op, perm, pvm), reps=3, warmup=1)
+    pairs = int((pvm.sum(1).long() ** 2).sum())
+    out["schur_coupling"] = result(
+        s_err, ms, plain_ms,
+        nbytes(lk.Jc, lk.Jk, lk.Jp, lk.obs_cam, lk.obs_point, op.Vinv, perm, pvm, Sk),
+        200 * B * B // 36 * pairs, peak=peak)
+
+    (opk, rck, rkk), (opp, rcp, rkp) = (S.schur_damp_cuda(lk, lam, perm, pvm),
+                                        S.schur_damp_plain(lk, lam))
+    xc, xk = S.dense_schur_direct(opk, lk, rck, rkk, perm, pvm)
+    dpk = S.schur_back_substitute_cuda(lk, opk, xc, xk, perm, pvm)
+    dpp = S.schur_back_substitute_plain(lk, opk, xc, xk)
+    torch.cuda.synchronize()
+    check_repeatable(torch, f"K10 schur_damp {tag}",
+                     lambda: S.schur_damp_cuda(lk, lam, perm, pvm), (opk, rck, rkk))
+    check_repeatable(torch, f"K10 schur_back_substitute {tag}",
+                     lambda: S.schur_back_substitute_cuda(lk, opk, xc, xk, perm, pvm), dpk)
+    diag = torch.diagonal(lk.V, dim1=-2, dim2=-1)
+    Vd = lk.V + (lam * diag + 1e-10)[..., None] * torch.eye(3, device=dev, dtype=dt)
+    well = lk.point_valid & (torch.linalg.cond(Vd.double()) <= 100)
+    v_err = float(_block_rel(opk.Vinv, opp.Vinv)[well].max())
+    derrs = {"rhs_c": _rel(rck, rcp), "rhs_k": _rel(rkk, rkp), "dp": _rel(dpk, dpp),
+             "Vinv": v_err}
+    check(max(derrs.values()) <= (1e-7 if f64 else 1e-3)
+          and torch.equal(opk.lam_diag_c, opp.lam_diag_c),
+          f"K10 schur_damp {tag}: {derrs}")
+    if B == 10:   # the per-entry pin: the fixed camera's pose rows only
+        check(bool((opk.lam_diag_c[0, :6] == 1).all())
+              and bool((torch.diagonal(lk.U[0])[6:] > 1e-10).all()),
+              f"K10 schur_damp {tag}: the fixed camera's pin")
+    log(f"K10 schur_damp / back_substitute {tag}: rel err " + ", ".join(
+        f"{k} {v:.2g}" for k, v in derrs.items()))
+    dk = time_ms(torch, lambda: S.schur_damp_cuda(lk, lam, perm, pvm))
+    bk = time_ms(torch, lambda: S.schur_back_substitute_cuda(lk, opk, xc, xk, perm, pvm))
+    dpl = time_ms(torch, lambda: S.schur_damp_plain(lk, lam))
+    bpl = time_ms(torch, lambda: S.schur_back_substitute_plain(lk, opk, xc, xk))
+    inv_ms = time_ms(torch, lambda: torch.linalg.inv(Vd))
+    P = lk.V.shape[0]
+    sys_in = nbytes(lk.Jc, lk.Jk, lk.Jp, lk.obs_cam, lk.obs_point, perm, pvm, lk.g_p)
+    out["schur_damp"] = result(
+        max(derrs.values()), dk + bk, dpl + bpl,
+        sys_in + nbytes(lk.V, lk.point_valid, lk.U, lk.Uk, lk.g_c, lk.g_k, opk.Vinv,
+                        opk.lam_diag_c, opk.lam_diag_k, rck, rkk)
+        + sys_in + nbytes(opk.Vinv, xc, xk, dpk),
+        78 * P + (56 + 8 * B) * O, library_ms=inv_ms, peak=peak)
+
+    # The PCG system: 300 cameras, 20 pinned.
+    args, kw = island_system(torch, np, dev, B, dt, K11_CAMS, K11_POINTS, K11_OBS_PER_CAM, 300,
+                             K11_PINNED)
+    lin = S.linearize_cuda(*args, **kw)
+    perm, pvm = args[10], args[11]
+    C = lin.U.shape[0]
+    op, rhs_c, rhs_k = S.damp_operator(lin, lam, perm, pvm)
+    Mc, Mk = S.block_jacobi_cuda(lin.U, op.lam_diag_c, lin.Uk, op.lam_diag_k)
+    Mc_p, Mk_p = S.block_jacobi_plain(lin.U, op.lam_diag_c, lin.Uk, op.lam_diag_k)
+    torch.cuda.synchronize()
+    check_repeatable(torch, f"K10 schur_block_jacobi {tag}", lambda: S.block_jacobi_cuda(
+        lin.U, op.lam_diag_c, lin.Uk, op.lam_diag_k), (Mc, Mk))
+    eyeB = torch.eye(B, device=dev, dtype=torch.float64)
+    Ud = lin.U.double() + op.lam_diag_c.double()[..., None] * eyeB + 1e-10 * eyeB
+    truth = torch.linalg.inv(Ud)
+    e_k, e_p = _block_rel(Mc.double(), truth), _block_rel(Mc_p.double(), truth)
+    cond = torch.linalg.cond(Ud)
+    # Tolerance: against the f64 inverse of the same blocks, within
+    # max(4x the twin's LU error, 1e-4) in float32, and in float64 within
+    # cond x 1e-14 of each block (both eliminate in f64).
+    lim = cond * 1e-14 if f64 else torch.clamp(4 * e_p, min=1e-4)
+    pin = list(K11_PINNED) + [0]
+    pin_err = float((Mc[pin][:, :6, :6] - torch.eye(6, device=dev, dtype=dt)).abs().max())
+    check(bool((e_k <= lim).all()) and pin_err <= 1e-6,
+          f"K10 schur_block_jacobi {tag}: Mc error {float(e_k.max())} (twin "
+          f"{float(e_p.max())}), pinned blocks {pin_err}")
+    log(f"K10 schur_block_jacobi {tag}: against the f64 inverse, Mc max rel err "
+        f"{float(e_k.max()):.2g} (twin {float(e_p.max()):.2g}; cond up to "
+        f"{float(cond.max()):.3g}); pinned / fixed pose blocks the identity within "
+        f"{pin_err:.2g}")
+    bj_ms = time_ms(torch, lambda: S.block_jacobi_cuda(lin.U, op.lam_diag_c, lin.Uk,
+                                                       op.lam_diag_k))
+    bj_plain = time_ms(torch, lambda: S.block_jacobi_plain(lin.U, op.lam_diag_c, lin.Uk,
+                                                           op.lam_diag_k))
+    bj_lib = time_ms(torch, lambda: torch.linalg.inv(Ud.to(dt)))
+    out["schur_block_jacobi"] = result(
+        float(e_k.max()), bj_ms, bj_plain,
+        nbytes(lin.U, op.lam_diag_c, lin.Uk, op.lam_diag_k, Mc, Mk),
+        2 * B ** 3 * C + 2 * 4 ** 3, library_ms=bj_lib, peak=peak)
+
+    op = op._replace(Mc=Mc, Mk=Mk)
+    g = torch.Generator(device=dev).manual_seed(9)
+    xc = (1e-2 * torch.randn((C, B), device=dev, generator=g)).to(dt)
+    xk = (1e-1 * torch.randn(4, device=dev, generator=g)).to(dt)
+    mk = S.schur_matvec_cuda(lin, op, xc, xk, perm, pvm)
+    Sx = torch.cat([t.reshape(-1) for t in mk])
+    Sx_p = torch.cat([t.reshape(-1) for t in S.schur_matvec_plain(lin, op, xc, xk)])
+    torch.cuda.synchronize()
+    check_repeatable(torch, f"K11 schur_matvec {tag}",
+                     lambda: S.schur_matvec_cuda(lin, op, xc, xk, perm, pvm), mk)
+    mv_err = _rel(Sx, Sx_p)
+    check(bool(torch.isfinite(Sx).all()) and mv_err <= tol(1e-4),
+          f"K11 schur_matvec {tag}: rel err {mv_err}")
+    mv_ms = time_ms(torch, lambda: S.schur_matvec_cuda(lin, op, xc, xk, perm, pvm))
+    mv_plain = time_ms(torch, lambda: S.schur_matvec_plain(lin, op, xc, xk))
+    n_obs, n_pts = int(pvm.sum()), int(pvm[:, 0].sum())
+    mv_bytes = (n_obs * ((2 * B + 8 + 6) * el + 8) + pvm.numel() + n_pts * (4 + 9 * el)
+                + nbytes(op.lam_diag_c, op.lam_diag_k, lin.Hreg_k, xc, xk, Sx)
+                + (nbytes(lin.U_extra) if lin.U_extra is not None else 0))
+    n = B * C + 4
+    mv_ops = (12 * B + 72) * n_obs + 18 * n_pts + 2 * n + (2 * B * B * C if B == 10 else 0)
+    log(f"K11 schur_matvec {tag}: rel err {mv_err:.2g}; {mv_ms:.4f} ms (plain torch "
+        f"{mv_plain:.4f} ms)")
+    out["schur_matvec"] = result(mv_err, mv_ms, mv_plain, mv_bytes, mv_ops, peak=peak)
+
+    xk_c, xk_k, st_k = S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, 10, 0.0)
+    xp_c, xp_k, st_p = S.pcg_solve_plain(lin, op, rhs_c, rhs_k, perm, pvm, 10, 0.0)
+    torch.cuda.synchronize()
+    check_repeatable(torch, f"K11 pcg {tag}", lambda: S.pcg_solve_cuda(
+        lin, op, rhs_c, rhs_k, perm, pvm, 10, 0.0), (xk_c, xk_k, st_k))
+    cat = lambda a, b: torch.cat([a.reshape(-1), b])
+    fixed_err = _rel(cat(xk_c, xk_k), cat(xp_c, xp_k))
+    pinned_zero = float(xk_c[list(K11_PINNED)].abs().max())
+    # Tolerance: 10 fixed steps 1e-3 in float32 (the recursion carries the
+    # sums' rounding), 1e-8 in float64 (the same, at f64 rounding).
+    check(int(st_k) == 10 and fixed_err <= (1e-8 if f64 else 1e-3) and pinned_zero == 0.0,
+          f"K11 pcg {tag}, 10 fixed steps: rel err {fixed_err}, steps {int(st_k)}, "
+          f"pinned cameras' step {pinned_zero}")
+    from sfm_tpu_torch.config import BAConfig
+
+    cfg = BAConfig()
+    run = lambda: S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, cfg.cg_iters, cfg.cg_tol)
+    pcg_ms = time_ms(torch, run)
+    pcg_plain = time_ms(torch, lambda: S.pcg_solve_plain(lin, op, rhs_c, rhs_k, perm, pvm,
+                                                         cfg.cg_iters, cfg.cg_tol),
+                        reps=3, warmup=1)
+    n_steps = int(run()[2])
+    log(f"K11 pcg {tag}: 10 fixed steps rel err {fixed_err:.2g} to the twin; cg_iters "
+        f"{cfg.cg_iters}, cg_tol {cfg.cg_tol}: {n_steps} steps, {pcg_ms:.4f} ms (plain torch "
+        f"{pcg_plain:.4f} ms)")
+    step_bytes = mv_bytes + nbytes(Mc, Mk) + el * 9 * n
+    step_ops = mv_ops + 20 * n + 2 * B * B * C
+    out["pcg"] = result(fixed_err, pcg_ms, pcg_plain,
+                        nbytes(rhs_c, rhs_k, Mc, Mk) + el * 5 * n + n_steps * step_bytes,
+                        n_steps * step_ops, peak=peak)
+    return {f"{k}_{route}": v for k, v in out.items()}
+
+
+def focal_scene(torch, np, dev, n_cams, n_pts, seed):
+    """``TestPerCameraIntrinsics``' two focal groups at scale: ``n_cams``
+    cameras on a circle of radius 6 around a cloud in [-1.5, 1.5]^3, each
+    looking at its center, fx = fy = 1,140 for the first half and 1,270 for
+    the rest, noiseless projections inside 1024 x 768; every camera starts
+    from the shared K (1,200, 1,200, 512, 384), camera 0 fixed. Returns
+    (BAProblem, the true fx of each camera)."""
+    from sfm_tpu_torch.ba.problem import BAProblem
+    from sfm_tpu_torch.ba.residuals import residuals
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1.5, 1.5, (n_pts, 3)).astype(np.float32)
+    ang = 2 * np.pi * np.arange(n_cams) / n_cams
+    fx = np.where(np.arange(n_cams) < n_cams // 2, 1140.0, 1270.0).astype(np.float32)
+    rvec = np.stack([np.zeros(n_cams), np.angle(np.exp(1j * ang)), np.zeros(n_cams)], 1)
+    c, s_ = np.cos(ang), np.sin(ang)
+    center = np.stack([6 * s_, 0.3 * np.sin(3 * ang), -6 * c], 1)
+    R = np.zeros((n_cams, 3, 3))
+    R[:, 0, 0], R[:, 0, 2], R[:, 1, 1], R[:, 2, 0], R[:, 2, 2] = c, s_, 1.0, -s_, c
+    tvec = -(R @ center[..., None])[..., 0]
+    T = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+    intr_c = np.stack([fx, fx, np.full(n_cams, 512.0), np.full(n_cams, 384.0)], 1)
+    obs_cam = np.repeat(np.arange(n_cams), n_pts).astype(np.int32)
+    obs_point = np.tile(np.arange(n_pts), n_cams).astype(np.int32)
+    xy = residuals(T(rvec), T(tvec), T(intr_c), T(pts), T(obs_cam, torch.int32),
+                   T(obs_point, torch.int32), torch.zeros((len(obs_cam), 2), device=dev))
+    keep = ((xy[:, 0] > 0) & (xy[:, 0] < 1024) & (xy[:, 1] > 0) & (xy[:, 1] < 768)).cpu().numpy()
+    O = int(keep.sum())
+    ones = lambda k: torch.ones(k, dtype=torch.bool, device=dev)
+    fixed = torch.zeros(n_cams, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    prob = BAProblem(T(rvec), T(tvec), ones(n_cams), fixed,
+                     T([1200.0, 1200.0, 512.0, 384.0]), T(pts), ones(n_pts),
+                     T(obs_cam[keep], torch.int32), T(obs_point[keep], torch.int32),
+                     xy[torch.as_tensor(keep, device=dev)].contiguous(), ones(O))
+    return prob, fx
+
+
+def ill_conditioned_problem(torch, np, dev, n_cams=1000, n_pts=6000, obs_per_cam=40):
+    """``TestF64NormalEquations._ill_conditioned_problem`` without JAX: an
+    uncentered far cloud, a 100k-px focal and noiseless observations (the
+    port's own residuals at the true parameters), so the cost floor is the
+    arithmetic; then poses and points perturbed, camera 0 fixed."""
+    from sfm_tpu_torch.ba.problem import BAProblem
+    from sfm_tpu_torch.ba.residuals import residuals
+
+    rng = np.random.default_rng(0)
+    offset, depth, f = 20000.0, 8000.0, 100000.0
+    pts = (rng.uniform(-1, 1, (n_pts, 3)) * np.array([20.0, 20.0, 5.0])
+           + np.array([offset, offset, depth])).astype(np.float32)
+    rvec = 0.001 * rng.normal(size=(n_cams, 3)).astype(np.float32)
+    tvec = (0.5 * rng.normal(size=(n_cams, 3))).astype(np.float32)
+    intr = np.array([f, f, 2000.0, 1500.0], np.float32)
+    obs_cam = np.repeat(np.arange(n_cams, dtype=np.int32), obs_per_cam)
+    obs_point = rng.integers(0, n_pts, n_cams * obs_per_cam).astype(np.int32)
+    T = lambda a: torch.as_tensor(a, device=dev)
+    xy = residuals(T(rvec), T(tvec), T(intr), T(pts), T(obs_cam), T(obs_point),
+                   torch.zeros((len(obs_cam), 2), device=dev))
+    ones = lambda k: torch.ones(k, dtype=torch.bool, device=dev)
+    fixed = torch.zeros(n_cams, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    rvec = rvec + 0.0005 * rng.normal(size=rvec.shape).astype(np.float32)
+    tvec = tvec + 0.02 * rng.normal(size=tvec.shape).astype(np.float32)
+    pts = pts + 0.05 * rng.normal(size=pts.shape).astype(np.float32)
+    return BAProblem(T(rvec), T(tvec), ones(n_cams), fixed, T(intr), T(pts), ones(n_pts),
+                     T(obs_cam), T(obs_point), xy.contiguous(), ones(len(obs_cam)))
+
+
+def phase_run_ba_island(torch, np, dev):
+    """``run_ba`` on the card with per-camera intrinsics and with the f64
+    island: the ports of ``TestPerCameraIntrinsics`` (two focal groups, 300
+    cameras through PCG and 200 through the dense path; PCG against dense
+    with the regularization) and of ``TestF64NormalEquations`` at its own
+    1,000 cameras (PCG)."""
+    from sfm_tpu_torch.ba.lm import run_ba
+    from sfm_tpu_torch.config import BAConfig
+
+    # Two focal groups: the loop run out (ftol 0), the fx anchor off, as the
+    # reference's test. Each camera's fx and fy within 1% of its truth; the
+    # shared K the valid cameras' mean.
+    for n_cams, solver in ((300, "pcg"), (200, "dense")):
+        prob, fx = focal_scene(torch, np, dev, n_cams, 2000, seed=n_cams)
+        cfg = BAConfig(per_camera_intrinsics=True, max_iterations=400,
+                       intrinsics_reg_weight=0.0, ftol=0.0)
+        t0 = time.perf_counter()
+        out, st = run_ba(prob, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        intr_c = out.intr_c.cpu().numpy()
+        err = np.abs(intr_c[:, :2] / fx[:, None] - 1).max()
+        mean_err = float((out.intr - out.intr_c.mean(0)).abs().max() / out.intr.abs().max())
+        check(st["solver"] == solver and st["cam_params"] == 10 and err <= 0.01
+              and mean_err <= 1e-5 and math.isfinite(st["final_cost"])
+              and st["final_cost"] < st["initial_cost"],
+              f"run_ba two focals C={n_cams} ({st['solver']}): fx/fy max rel err {err}, "
+              f"shared K vs mean {mean_err}, cost {st['initial_cost']} -> {st['final_cost']}")
+        log(f"run_ba two focals C={n_cams} O={prob.obs_cam.shape[0]} ({solver}, B = 10): fx, fy "
+            f"within {100 * err:.4f}% of 1,140 / 1,270; cost {st['initial_cost']:.6g} -> "
+            f"{st['final_cost']:.6g} in {st['iterations']} iterations "
+            f"({st['cg_iterations']} CG steps), {wall:.2f} s")
+
+    # PCG against dense with the per-camera regularization (U_extra in the
+    # matvec): final costs within 1e-3.
+    rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = ba_scene(
+        torch, np, dev, n_cams=200, n_pts=40000, obs_per_cam=2000, seed=200)
+    from sfm_tpu_torch.ba.problem import BAProblem
+
+    C, P, O = rvec.shape[0], pts.shape[0], obs_cam.shape[0]
+    ones = lambda k: torch.ones(k, dtype=torch.bool, device=dev)
+    fixed = torch.zeros(C, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    prob = BAProblem(rvec, tvec, ones(C), fixed, intr, pts, ones(P), obs_cam, obs_point, obs_xy,
+                     ones(O))
+    base = dict(per_camera_intrinsics=True, intrinsics_reg_weight=ISLAND_REG_W,
+                max_iterations=8, cg_iters=200, cg_tol=1e-10, ftol=0.0)
+    res = {}
+    for below in (0, 256):
+        t0 = time.perf_counter()
+        _, st = run_ba(prob, BAConfig(use_dense_schur_below=below, **base))
+        torch.cuda.synchronize()
+        res[st["solver"]] = (st, time.perf_counter() - t0)
+    (st_p, t_p), (st_d, t_d) = res["pcg"], res["dense"]
+    cost_err = abs(st_p["final_cost"] - st_d["final_cost"]) / max(st_p["final_cost"],
+                                                                   st_d["final_cost"])
+    check(cost_err <= 1e-3 and st_p["final_cost"] < st_p["initial_cost"],
+          f"run_ba B = 10 PCG vs dense C={C}: {st_p['final_cost']} vs {st_d['final_cost']}")
+    log(f"run_ba B = 10 C={C} O={O}, regularization {ISLAND_REG_W}: final cost "
+        f"{st_p['final_cost']:.6g} through PCG ({t_p:.2f} s, {st_p['cg_iterations']} CG steps) "
+        f"vs {st_d['final_cost']:.6g} dense ({t_d:.2f} s), rel {cost_err:.2g}")
+
+    # The f64 island past the f32 floor, at the reference's 1,000 cameras.
+    prob = ill_conditioned_problem(torch, np, dev)
+    base = dict(max_iterations=12, cg_iters=40, cg_tol=1e-10, ftol=0.0, use_dense_schur_below=0)
+    res = {}
+    for f64 in (False, True):
+        t0 = time.perf_counter()
+        _, st = run_ba(prob, BAConfig(f64_normal_equations=f64, **base),
+                       optimize_intrinsics=False)
+        torch.cuda.synchronize()
+        res[f64] = (st, time.perf_counter() - t0)
+    (s32, t32), (s64, t64) = res[False], res[True]
+    c32, c64 = s32["final_cost"], s64["final_cost"]
+    log(f"run_ba f64 vs f32, C=1000 O=40000 (PCG): f32 cost {c32:.6g} ({s32['rms_px']:.6g} px, "
+        f"{t32:.2f} s), f64 {c64:.6g} ({s64['rms_px']:.6g} px, {t64:.2f} s), ratio "
+        f"{c64 / c32:.4f}")
+    check(s64["dtype"] == "float64" and s32["dtype"] == "float32"
+          and math.isfinite(c32) and math.isfinite(c64) and c64 < 0.75 * c32
+          and s64["rms_px"] < s32["rms_px"],
+          f"run_ba f64 vs f32 at 1,000 cameras: {c64} vs {c32}")
 
 
 def phase_dog_select(torch, dev, images, cfg):
@@ -2168,6 +2673,55 @@ def check_path_h(np, torch, huge: Path, out_huge: Path, huge_metrics: dict, huge
     return out
 
 
+def check_path_i(runs: dict, counts: dict, views: dict, ref_metrics: dict) -> list:
+    """Path i's checks (see the module docstring); returns its report lines.
+    ``runs``: name -> (output dir, cli wall, stage seconds); ``counts``: the
+    launches over all of path i; ``views``: the image count of each source;
+    ``ref_metrics``: path d's and path h's stage seconds."""
+    for row in ISLAND_ROWS:
+        for entry in KERNELS[row][0]:
+            check(counts[entry] > 0, f"path i: kernel {entry} was not launched")
+    out = []
+    engine_ba = lambda m: m.get("engine/ba", float("nan"))
+    for name, (run_dir, wall, metrics) in runs.items():
+        src, _, (cam_params, dtype), solver = PATH_I[name]
+        st = json.loads((run_dir / "reconstruction" / "stats.json").read_text())
+        calls = ba_calls(run_dir, f"path i, {name}")
+        check(all(r["cam_params"] == cam_params and r["dtype"] == dtype for r in calls),
+              f"path i, {name}: a BA call off the route {cam_params} / {dtype}")
+        check(all(r["value"] == solver for r in calls if not r["local"]),
+              f"path i, {name}: a BA call not on {solver}")
+        check(st["num_cameras"] >= 2 and st["num_points"] > 0
+              and math.isfinite(st["mean_reprojection_error"]),
+              f"path i, {name}: {st['num_cameras']} cameras, {st['num_points']} points, "
+              f"{st['mean_reprojection_error']} px")
+        n = views[src]
+        if name in PATH_I_GATED:
+            gate = math.floor(PATH_I_GATED[name] * n)
+            check(st["num_cameras"] >= gate, f"path i, {name}: {st['num_cameras']}/{n} cameras, "
+                  f"gate {gate}")
+            check(st["num_points"] > 1000, f"path i, {name}: {st['num_points']} points")
+            check(st["mean_reprojection_error"] < 0.6,
+                  f"path i, {name}: mean reprojection {st['mean_reprojection_error']}")
+            gated = f"gate {gate} cameras, > 1,000 points, < 0.6 px"
+        else:
+            gated = "finite and printed, not gated"
+        intr = json.loads((run_dir / "reconstruction" / "intrinsics.json").read_text())
+        out.append(
+            f"path i, {name} {json.dumps(PATH_I[name][1])}: {st['num_cameras']}/{n} cameras, "
+            f"{st['num_points']} points, mean reprojection {st['mean_reprojection_error']:.4f} "
+            f"px, GT rotation median {st.get('gt_rot_err_deg_median', float('nan')):.4f} deg "
+            f"({gated}); intrinsics {json.dumps({k: round(v, 2) for k, v in intr.items()})}; "
+            f"{len(calls)} BA calls ({cam_params}, {dtype}), {sum(r['iterations'] for r in calls)} "
+            f"LM iterations, {sum(r['cg_iterations'] for r in calls)} CG steps; engine/ba "
+            f"{engine_ba(metrics):.3f} s (path d {engine_ba(ref_metrics['path d']):.3f} s, "
+            f"path h {engine_ba(ref_metrics['path h']):.3f} s), reconstruct stage "
+            f"{metrics['stage/reconstruct']:.3f} s, cli wall {wall:.3f} s")
+    out.append("path i launches: " + ", ".join(
+        f"{e} {counts[e]}" for row in ISLAND_ROWS for e in KERNELS[row][0]))
+    return out
+
+
 def log_model(name: str, out: Path):
     """Print a run's model as soon as it is written (path h's readings stay in
     the log whatever a later check finds)."""
@@ -2289,6 +2843,10 @@ def main(argv=None) -> int:
         results["schur_block_jacobi"], results["schur_matvec"], results["pcg"] = phase_pcg(
             torch, np, dev)
         phase_run_ba_pcg(torch, np, dev)
+        for route in ISLAND_ROUTES:
+            results.update(phase_island(torch, np, dev, route))
+            torch.cuda.empty_cache()
+        phase_run_ba_island(torch, np, dev)
         torch.cuda.empty_cache()
         results["rotation_average"], results["translation_average"] = phase_averaging(
             torch, np, dev)
@@ -2437,6 +2995,23 @@ def main(argv=None) -> int:
             add(c, name)
             windows[name] = (win, w_wall, stage_seconds(win))
             log_model(name, win)
+
+        # ---- path i: the BA island's other routes on those artifacts
+        sources = {"views": (scene, out), "large": (large, out_large), "huge": (huge, out_huge)}
+        island_runs, island_counts = {}, {k: 0 for k in _kernels.KERNELS}
+        for name, (src, icfg, _, _) in PATH_I.items():
+            data, art = sources[src]
+            run_dir = work / f"island_{name}"
+            run_dir.mkdir(parents=True, exist_ok=True)
+            (run_dir / "pair_table.pkl").write_bytes((art / "pair_table.pkl").read_bytes())
+            c, i_wall = run_path(name, ["reconstruct", "--data_dir", str(data), "--output_dir",
+                                        str(run_dir), "--config", json.dumps(icfg)],
+                                 ("pnp_ransac",))
+            add(c, name)
+            for k, v in c.items():
+                island_counts[k] += v
+            island_runs[name] = (run_dir, i_wall, stage_seconds(run_dir))
+            log_model(name, run_dir)
     finally:
         if render.poll() is None:   # the renderer and its pool workers
             os.killpg(render.pid, signal.SIGKILL)
@@ -2534,6 +3109,11 @@ def main(argv=None) -> int:
     # ---- path h's checks: every BA call on PCG, the model; then local BA
     h_report = check_path_h(np, torch, huge, out_huge, huge_metrics, huge_wall, huge_peak,
                             windows, args.huge_views)
+
+    # ---- path i's checks: every BA call on its route, every new entry launched
+    i_report = check_path_i(island_runs, island_counts,
+                            {"views": n_img, "large": args.large_views, "huge": args.huge_views},
+                            {"path d": large_metrics, "path h": huge_metrics})
     check("jax" not in sys.modules and "sfm_tpu" not in sys.modules, "JAX was imported")
 
     # ---- report
@@ -2599,7 +3179,7 @@ def main(argv=None) -> int:
     log(f"orb: {os_['num_cameras']}/{n_img} cameras, {os_['num_points']} points, mean "
         f"reprojection {os_['mean_reprojection_error']:.4f} px; {gt(os_)} (recorded, not "
         f"gated) | engine: {engine(orb_metrics)}")
-    for line in h_report:
+    for line in h_report + i_report:
         log(line)
     log("launches by entry, all paths: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
     kernels = []

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signature of each kernel entry point (all return int = cudaError_t);
 # the last argument is always the cudaStream_t.
 SIGNATURES = {
@@ -78,6 +78,28 @@ KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
            "dog_refine", "topk_rows", "match_epilogue", "match_compact", "relpose",
            "rotation_average", "translation_average", "orb_fast_nms", "orb_blur",
            "orb_describe", "schur_block_jacobi", "schur_matvec", "pcg_init", "pcg_step")
+# The BA island's other routes (ba/schur.py::variant): per-camera intrinsics
+# (B = 10), the f64 island, and both. Each entry of K8-K11 has one C entry
+# point a route, the same arguments as the default one's but for the ones
+# noted in SIGNATURES.
+ROUTES = ("b10", "f64", "b10_f64")
+_ROUTE_SIGNATURES = {
+    "ba_linearize": SIGNATURES["sfm_ba_linearize"][:-1] + [_P, _P, _P],  # + U_extra, g_c_extra
+    "schur_coupling": SIGNATURES["sfm_schur_coupling"],
+    "schur_damp": [_P] * 14 + [_I] * 4 + [_D] + [_P] * 8 + [_P],         # lam a double
+    "schur_back_substitute": SIGNATURES["sfm_schur_back_substitute"],
+    "schur_block_jacobi": SIGNATURES["sfm_schur_block_jacobi"],
+    "schur_matvec": SIGNATURES["sfm_schur_matvec"][:-1] + [_P, _P],       # + U_extra
+    "pcg_init": [_P] * 3 + [_I] * 2 + [_D] + [_P] * 5 + [_P],             # tol a double
+    "pcg_step": [_P] * 3 + [_I] * 2 + [_D] + [_P] * 5 + [_P],
+}
+for _route in ROUTES:
+    for _name, _sig in _ROUTE_SIGNATURES.items():
+        SIGNATURES[f"sfm_{_name}_{_route}"] = _sig
+    KERNELS += tuple(f"{_name}_{_route}" for _name in _ROUTE_SIGNATURES)
+# The cost at each camera's own intrinsics (the B = 10 routes).
+SIGNATURES["sfm_ba_cost_b10"] = SIGNATURES["sfm_ba_cost"]
+KERNELS += ("ba_cost_b10",)
 
 _launches = {k: 0 for k in KERNELS}
 _lib = None

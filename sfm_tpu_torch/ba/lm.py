@@ -1,16 +1,19 @@
 """The Levenberg-Marquardt outer loop (accept/reject with adaptive damping).
 
-Counterpart of ``sfm_tpu/ba/lm.py::run_ba`` for shared intrinsics. The
-loop runs in Python: each iteration damps the CACHED linearization, solves
-the reduced system, back-substitutes the point step and compares the Huber
-cost (one host sync per iteration); the linearization is recomputed only
+Counterpart of ``sfm_tpu/ba/lm.py::run_ba``. The loop runs in Python: each
+iteration damps the CACHED linearization, solves the reduced system,
+back-substitutes the point step and compares the Huber cost (one host sync
+per iteration); the linearization is recomputed only
 after an accepted step, the reference's schedule (``lm.py:259-265``). The
 solve routes on the problem's camera count as the reference's ``lm_solve``
 does (``lm.py:220-232``): the exact dense Schur solve up to
 ``BAConfig.use_dense_schur_below`` cameras, the matrix-free block-Jacobi PCG
-(kernel K11; no host sync inside it) above.
-
-Routes off these paths raise: per-camera intrinsics and the f64 island.
+(kernel K11; no host sync inside it) above. With
+``BAConfig.per_camera_intrinsics`` the camera block is 10 parameters (pose
+and each camera's fx, fy, cx, cy, regularized per camera; the shared K
+comes back as the valid cameras' mean), and with
+``BAConfig.f64_normal_equations`` the normal equations, from the whitening
+to the solved step, are float64 (the reference's ``lm.py:130-303``).
 """
 from __future__ import annotations
 
@@ -31,30 +34,51 @@ _REG_A = np.array([
 ], np.float32)
 
 
-def _intr_reg(intr, intr_ref, weight: float):
-    """Linear regularization residuals r = w (A intr - b) and their H, g."""
-    A = torch.as_tensor(_REG_A, device=intr.device) * weight
+def _reg_system(intr_ref, weight: float, dev):
+    """A and b of the regularization residuals r = A intr - b (weighted)."""
+    A = torch.as_tensor(_REG_A, device=dev) * weight
     b = weight * torch.stack([intr_ref[0], torch.zeros_like(intr_ref[0]), intr_ref[2],
                               intr_ref[3]])
+    return A, b
+
+
+def _intr_reg(intr, intr_ref, weight: float):
+    """Linear regularization residuals r = w (A intr - b) and their H, g."""
+    A, b = _reg_system(intr_ref, weight, intr.device)
     r = A @ intr - b
     return r, A.mT @ A, A.mT @ r
 
 
-def check_ba_config(config: BAConfig, num_cameras: int):
-    """Raise on a BA configuration this port does not run yet (ROADMAP).
-    Any camera count runs: past ``use_dense_schur_below`` the PCG path."""
-    if config.per_camera_intrinsics:
-        raise NotImplementedError(
-            "ba.per_camera_intrinsics is not ported yet (ROADMAP queue 1, item 6)")
-    if config.f64_normal_equations:
-        raise NotImplementedError(
-            "ba.f64_normal_equations is not ported yet (ROADMAP queue 1, item 6)")
+def percam_regularization(intr_c, intr_ref, weight: float, cam_valid):
+    """The per-camera intrinsics regularization, masked to the valid cameras
+    (the reference's ``_reg_percam``, ``sfm_tpu/ba/lm.py:139-144``), and its
+    place in the 10-parameter camera system (``:178-183``): r (C, 4),
+    U_extra (C, 10, 10) (A^T A on the intrinsics block) and g_c_extra
+    (C, 10) (A^T r on the intrinsics entries). ``cam_valid``: (C,) float."""
+    C, dev = len(intr_c), intr_c.device
+    A, b = _reg_system(intr_ref, weight, dev)
+    m = cam_valid[:, None]
+    r = (intr_c @ A.mT - b) * m
+    U_extra = torch.zeros((C, 10, 10), dtype=torch.float32, device=dev)
+    U_extra[:, 6:, 6:] = (A.mT @ A) * m[..., None]
+    g_c_extra = torch.cat([torch.zeros((C, 6), dtype=torch.float32, device=dev), r @ A], -1)
+    return r, U_extra, g_c_extra
 
 
 def uses_pcg(config: BAConfig, num_cameras: int) -> bool:
     """The reference's route (``sfm_tpu/ba/lm.py:223``): PCG above
     ``use_dense_schur_below`` cameras, the dense Schur solve up to it."""
     return num_cameras > config.use_dense_schur_below
+
+
+def ba_route(config: BAConfig, num_cameras: int, optimize_intrinsics: bool = True) -> dict:
+    """The route a BA call takes: its solver ("pcg" or "dense"), its camera
+    block (6, or 10 with per-camera intrinsics being optimized) and the
+    dtype of its normal equations ("float32" or "float64")."""
+    percam = bool(config.per_camera_intrinsics) and optimize_intrinsics
+    return {"solver": "pcg" if uses_pcg(config, num_cameras) else "dense",
+            "cam_params": 10 if percam else 6,
+            "dtype": "float64" if config.f64_normal_equations else "float32"}
 
 
 def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
@@ -66,8 +90,9 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
     from :func:`coobs_pairs` (computed here when not given).
     """
     C, P = problem.num_cameras, problem.num_points
-    check_ba_config(config, C)
-    pcg = uses_pcg(config, C)
+    route = ba_route(config, C, optimize_intrinsics)
+    pcg, percam = route["solver"] == "pcg", route["cam_params"] == 10
+    dtype = getattr(torch, route["dtype"])
     dev = problem.rvec.device
     if coobs is None:
         perm, pvm = coobs_pairs(problem.obs_point.cpu().numpy(),
@@ -81,6 +106,7 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
     delta = config.huber_delta
 
     cam_free = (problem.cam_valid & ~problem.cam_fixed).to(torch.float32)
+    cam_valid = problem.cam_valid.to(torch.float32)
     cam_ok = problem.cam_valid[problem.obs_cam.long()]
     pt_ok = problem.point_valid[problem.obs_point.long()]
     obs_w = (problem.obs_valid & cam_ok & pt_ok).to(torch.float32)
@@ -88,21 +114,37 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
 
     def total_cost(rvec, tvec, intr, points):
         c = total_huber_cost(rvec, tvec, intr, points, *obs, delta)
-        if optimize_intrinsics:
+        if percam:
+            r_reg = percam_regularization(intr, intr_ref, reg_w, cam_valid)[0]
+            c = c + 0.5 * (r_reg**2).sum()
+        elif optimize_intrinsics:
             r_reg, _, _ = _intr_reg(intr, intr_ref, reg_w)
             c = c + 0.5 * (r_reg**2).sum()
         return c
 
     def linearize_at(rvec, tvec, intr, points):
-        if optimize_intrinsics:
+        extra = {}
+        if optimize_intrinsics and not percam:
             _, Hreg, greg = _intr_reg(intr, intr_ref, reg_w)
         else:
+            # Frozen shared K, or the dead shared-k system of per-camera mode.
             Hreg = torch.eye(4, dtype=torch.float32, device=dev)
             greg = torch.zeros(4, dtype=torch.float32, device=dev)
+        if percam:
+            # The regularization joins the camera system.
+            _, U_extra, g_c_extra = percam_regularization(intr, intr_ref, reg_w, cam_valid)
+            extra = {"U_extra": U_extra.to(dtype), "g_c_extra": g_c_extra.to(dtype)}
         return linearize(rvec, tvec, intr, points, *obs, cam_free, problem.point_valid,
-                         perm, perm_valid, delta, optimize_intrinsics, Hreg, greg)
+                         perm, perm_valid, delta, optimize_intrinsics, Hreg, greg, dtype=dtype,
+                         **extra)
 
-    rvec, tvec, intr, points = problem.rvec, problem.tvec, problem.intr, problem.points
+    intr0 = problem.intr
+    if percam:
+        # Every camera starts from its own K, or from the shared one
+        # (the reference tiles it, lm.py:97-104).
+        intr0 = (problem.intr_c if problem.intr_c is not None
+                 else problem.intr[None].expand(C, 4)).contiguous()
+    rvec, tvec, intr, points = problem.rvec, problem.tvec, intr0, problem.points
     init_cost = total_cost(rvec, tvec, intr, points)
     lin = linearize_at(rvec, tvec, intr, points)
     cost = float(init_cost)
@@ -119,7 +161,10 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
         else:
             xc, xk = dense_schur_direct(op, lin, rhs_c, rhs_k, perm, perm_valid)
         dp = back_substitute(lin, op, xc, xk, perm, perm_valid)
-        cand = (rvec + xc[:, :3], tvec + xc[:, 3:6], intr + xk, points + dp)
+        # The step leaves the island as float32 (lm.py:229-231).
+        xc, xk, dp = (x.to(torch.float32) for x in (xc, xk, dp))
+        cand = (rvec + xc[:, :3], tvec + xc[:, 3:6], intr + (xc[:, 6:10] if percam else xk),
+                points + dp)
         new_cost = float(total_cost(*cand))          # the one host sync per iteration
         accept = new_cost < cost
         rel = np.float32(cost - new_cost) / np.float32(max(cost, 1e-12))
@@ -134,7 +179,12 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
             lam = np.float32(min(lam * np.float32(config.lambda_up), config.max_lambda))
         it += 1
 
-    out = problem._replace(rvec=rvec, tvec=tvec, intr=intr, points=points)
+    if percam:
+        # The shared K refreshed to the valid cameras' mean (lm.py:295-303).
+        mean = (intr * cam_valid[:, None]).sum(0) / cam_valid.sum().clamp(min=1.0)
+        out = problem._replace(rvec=rvec, tvec=tvec, intr=mean, points=points, intr_c=intr)
+    else:
+        out = problem._replace(rvec=rvec, tvec=tvec, intr=intr, points=points)
     num_obs = float(obs_w.sum())
     stats = {
         "initial_cost": float(init_cost),
@@ -143,7 +193,7 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
         "accepted_steps": n_acc,
         "final_lambda": float(lam),
         "rms_px": float(np.sqrt(2.0 * cost / max(num_obs, 1.0))),
-        "solver": "pcg" if pcg else "dense",
+        **route,
         # CG steps over all LM iterations, read once here (not in the loop).
         "cg_iterations": int(torch.stack(cg_steps).sum()) if cg_steps else 0,
     }

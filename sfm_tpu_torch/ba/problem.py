@@ -6,7 +6,7 @@ The arrays are tensors on one named device.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -26,6 +26,8 @@ class BAProblem(NamedTuple):
     obs_point: torch.Tensor   # (O,) int32
     obs_xy: torch.Tensor      # (O, 2) f32 pixels
     obs_valid: torch.Tensor   # (O,) bool
+    intr_c: Optional[torch.Tensor] = None  # (C, 4) per-camera intrinsics (only with
+                                           # BAConfig.per_camera_intrinsics)
 
     @property
     def num_cameras(self) -> int:
@@ -40,6 +42,7 @@ _DTYPES = {
     "rvec": np.float32, "tvec": np.float32, "cam_valid": bool, "cam_fixed": bool,
     "intr": np.float32, "points": np.float32, "point_valid": bool,
     "obs_cam": np.int32, "obs_point": np.int32, "obs_xy": np.float32, "obs_valid": bool,
+    "intr_c": np.float32,
 }
 
 
@@ -47,12 +50,14 @@ def problem_from_numpy(arrays, *, device) -> BAProblem:
     """A :class:`BAProblem` from host arrays, one per field, on ``device``.
 
     ``arrays`` is a mapping or any object with the fields as attributes
-    (a JAX ``BAProblem``'s arrays pass through ``np.asarray``).
+    (a JAX ``BAProblem``'s arrays pass through ``np.asarray``); an absent or
+    None ``intr_c`` stays None.
     """
-    get = arrays.get if isinstance(arrays, dict) else lambda k: getattr(arrays, k)
+    get = ((lambda k: arrays.get(k)) if isinstance(arrays, dict)
+           else lambda k: getattr(arrays, k, None))
     dev = torch.device(device)
     return BAProblem(**{
-        k: torch.as_tensor(np.array(get(k), dtype=dt), device=dev)
+        k: None if get(k) is None else torch.as_tensor(np.array(get(k), dtype=dt), device=dev)
         for k, dt in _DTYPES.items()
     })
 

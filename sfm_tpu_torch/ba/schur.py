@@ -1,7 +1,12 @@
 """The linearized LM system, its exact dense Schur-complement solve and its
 matrix-free PCG solve.
 
-Counterpart of ``sfm_tpu/ba/schur.py`` for shared intrinsics:
+Counterpart of ``sfm_tpu/ba/schur.py``. The camera block B (6, or 10 with
+``BAConfig.per_camera_intrinsics``: pose | fx fy cx cy) and the scalar type
+of the normal equations (float32, or float64 with
+``BAConfig.f64_normal_equations``) are properties of the system, read off
+its tensors; each kernel entry below has one instantiation a route
+(:func:`variant`), the default route's (B = 6, float32) unchanged:
 
 * :func:`linearize` computes everything that depends only on the
   parameters (whitened Jacobians, undamped U/V blocks, gradients) -- kernel
@@ -27,10 +32,12 @@ Counterpart of ``sfm_tpu/ba/schur.py`` for shared intrinsics:
   preconditioned CG (K11's ``pcg_init`` / ``pcg_step`` around the matvec,
   twin :func:`pcg_solve_plain`).
 
-Not ported: the one-hot (O, C) camera reduction (a TPU matmul trick),
-``dense_schur_solve`` (the matvec-built dense S), and the per-camera
-Hessian additions ``U_extra`` of the 10-parameter camera block (zero with
-shared intrinsics; ROADMAP queue 2b).
+The per-camera Hessian additions ``U_extra`` (the per-camera intrinsics
+regularization, (C, B, B)) are part of U but not of the Jc products, so the
+matvec adds them explicitly, as the reference's does.
+
+Not ported: the one-hot (O, C) camera reduction (a TPU matmul trick) and
+``dense_schur_solve`` (the matvec-built dense S).
 """
 from __future__ import annotations
 
@@ -40,38 +47,71 @@ import numpy as np
 import torch
 
 from sfm_tpu_torch import _kernels
-from sfm_tpu_torch.ba.residuals import huber_weights, residuals_and_jacobians
+from sfm_tpu_torch.ba.residuals import (
+    huber_weights, residuals_and_jacobians, residuals_and_jacobians_percam)
 
 _EPS = 1e-10
+# Bytes of shared memory a block of K10's rhs walk and K11's matvec holds
+# for its camera sums on the H100 (227 KB).
+_SMEM_BYTES = 232_448
+
+
+def variant(B: int, dtype) -> str:
+    """The route suffix of a K8-K11 entry point: "" for the default route
+    (B = 6, float32), "_b10" (per-camera intrinsics), "_f64" (the f64
+    island), "_b10_f64" (both)."""
+    if B not in (6, 10) or dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"BA kernels: no route for B = {B}, {dtype}")
+    return ("_b10" if B == 10 else "") + ("_f64" if dtype == torch.float64 else "")
+
+
+def _words(dtype) -> int:
+    """64-bit words of an order-free sum's target: two in the f64 island
+    (``csrc/sfm_common.cuh``)."""
+    return 2 if dtype == torch.float64 else 1
+
+
+def max_cameras(B: int, dtype) -> int:
+    """The most cameras K10's rhs walk and K11's matvec take: a block keeps
+    the WORDS x (BC + 4) 64-bit camera sums in shared memory."""
+    return (_SMEM_BYTES // (8 * _words(dtype)) - 4) // B
+
+
+def _check_cameras(C: int, B: int, dtype, what: str):
+    if C > max_cameras(B, dtype):
+        raise ValueError(f"{what}: {C} cameras > {max_cameras(B, dtype)} at B = {B}, {dtype} "
+                         "(the camera sums of a block no longer fit in shared memory)")
 
 
 class Linearization(NamedTuple):
     """Lambda-independent linearized system at the current parameters.
-    All Jacobians are whitened (sqrt Huber weight x validity masks)."""
+    All Jacobians are whitened (sqrt Huber weight x validity masks). B is the
+    camera block (6 or 10); every float tensor has the island's dtype."""
 
-    Jc: torch.Tensor        # (O, 2, 6), zero for fixed/invalid cams and obs
+    Jc: torch.Tensor        # (O, 2, B), zero for fixed/invalid cams and obs
     Jk: torch.Tensor        # (O, 2, 4), zero when the intrinsics are frozen
     Jp: torch.Tensor        # (O, 2, 3), zero for invalid points and obs
     rw: torch.Tensor        # (O, 2) whitened residuals
     obs_cam: torch.Tensor   # (O,) int32
     obs_point: torch.Tensor # (O,) int32
     V: torch.Tensor         # (P, 3, 3) undamped point blocks
-    U: torch.Tensor         # (C, 6, 6) undamped camera blocks
+    U: torch.Tensor         # (C, B, B) undamped camera blocks, U_extra included
     Uk: torch.Tensor        # (4, 4) intrinsics block, regularization included
-    g_c: torch.Tensor       # (C, 6)
+    g_c: torch.Tensor       # (C, B), g_c_extra included
     g_k: torch.Tensor       # (4,), regularization gradient included
     g_p: torch.Tensor       # (P, 3)
     point_valid: torch.Tensor  # (P,) bool
     Hreg_k: Optional[torch.Tensor] = None  # (4, 4) intrinsics regularization (in Uk too)
+    U_extra: Optional[torch.Tensor] = None  # (C, B, B) per-camera additions to U
 
 
 class Damped(NamedTuple):
     """The per-lambda part of the system."""
 
     Vinv: torch.Tensor        # (P, 3, 3) damped inverse point blocks
-    lam_diag_c: torch.Tensor  # (C, 6) damping diagonal (+ unit pin on dead entries)
+    lam_diag_c: torch.Tensor  # (C, B) damping diagonal (+ unit pin on dead entries)
     lam_diag_k: torch.Tensor  # (4,)
-    Mc: Optional[torch.Tensor] = None  # (C, 6, 6) block-Jacobi inverses (PCG only)
+    Mc: Optional[torch.Tensor] = None  # (C, B, B) block-Jacobi inverses (PCG only)
     Mk: Optional[torch.Tensor] = None  # (4, 4)
 
 
@@ -81,9 +121,12 @@ def _seg_sum(values, ids, n):
 
 
 def linearize_system(Jc, Jk, Jp, r, w, obs_cam, obs_point, obs_valid, cam_free,
-                     point_valid, Hreg_k, num_cameras, num_points, g_k_extra=None):
+                     point_valid, Hreg_k, num_cameras, num_points, g_k_extra=None,
+                     U_extra=None, g_c_extra=None):
     """Whiten Jacobians and reduce every lambda-independent block (twin of
-    kernel K9's reductions). cam_free: (C,) float, 1 for optimized poses."""
+    kernel K9's reductions). cam_free: (C,) float, 1 for optimized poses.
+    U_extra (C, B, B) / g_c_extra (C, B): per-camera additions to U and g_c
+    (the per-camera intrinsics regularization)."""
     sw = torch.sqrt(w * obs_valid)[:, None]
     free_o = cam_free[obs_cam.long()][:, None]
     pv_o = point_valid[obs_point.long()].to(Jc.dtype)[:, None]
@@ -93,86 +136,128 @@ def linearize_system(Jc, Jk, Jp, r, w, obs_cam, obs_point, obs_valid, cam_free,
     rw = r * sw
     V = _seg_sum(Jp.mT @ Jp, obs_point, num_points)
     U = _seg_sum(Jc.mT @ Jc, obs_cam, num_cameras)
+    if U_extra is not None:
+        U = U + U_extra
     Uk = torch.einsum("oci,ocj->ij", Jk, Jk) + Hreg_k
     g_c = _seg_sum((Jc.mT @ rw[..., None])[..., 0], obs_cam, num_cameras)
+    if g_c_extra is not None:
+        g_c = g_c + g_c_extra
     g_k = torch.einsum("oci,oc->i", Jk, rw)
     if g_k_extra is not None:
         g_k = g_k + g_k_extra
     g_p = _seg_sum((Jp.mT @ rw[..., None])[..., 0], obs_point, num_points)
     return Linearization(Jc=Jc, Jk=Jk, Jp=Jp, rw=rw, obs_cam=obs_cam, obs_point=obs_point,
                          V=V, U=U, Uk=Uk, g_c=g_c, g_k=g_k, g_p=g_p,
-                         point_valid=point_valid, Hreg_k=Hreg_k)
+                         point_valid=point_valid, Hreg_k=Hreg_k, U_extra=U_extra)
 
 
 def linearize_plain(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w, cam_free,
-                    point_valid, perm, perm_valid, delta, optimize_intrinsics, Hreg_k, g_k_reg):
-    r, Jc, Jk, Jp = residuals_and_jacobians(rvec, tvec, intr, points, obs_cam, obs_point,
-                                            obs_xy)
-    if not optimize_intrinsics:
-        Jk = Jk * 0.0
-    return linearize_system(Jc, Jk, Jp, r, huber_weights(r, delta), obs_cam, obs_point,
-                            obs_w, cam_free, point_valid, Hreg_k, rvec.shape[0],
-                            points.shape[0], g_k_extra=g_k_reg)
+                    point_valid, perm, perm_valid, delta, optimize_intrinsics, Hreg_k, g_k_reg,
+                    U_extra=None, g_c_extra=None, dtype=torch.float32):
+    if intr.dim() == 2:
+        # Per-camera intrinsics (the reference's lm.py:171-198): the dead
+        # shared-k system, and the gauge pins only the pose columns, so a
+        # fixed camera's intrinsics stay free (obs_w already drops the
+        # invalid cameras' rows, so every row's intrinsics columns count).
+        r, Jc, Jp = residuals_and_jacobians_percam(rvec, tvec, intr, points, obs_cam,
+                                                   obs_point, obs_xy)
+        Jk = torch.zeros(r.shape[:1] + (2, 4), dtype=r.dtype, device=r.device)
+        pose_free = cam_free[obs_cam.long()][:, None]
+        Jc = Jc * torch.cat([pose_free.expand(-1, 6), torch.ones_like(pose_free).expand(-1, 4)],
+                            -1)[:, None, :]
+        cam_free = torch.ones_like(cam_free)
+    else:
+        r, Jc, Jk, Jp = residuals_and_jacobians(rvec, tvec, intr, points, obs_cam, obs_point,
+                                                obs_xy)
+        if not optimize_intrinsics:
+            Jk = Jk * 0.0
+    w = huber_weights(r, delta)
+    # The f64 island (lm.py:204-212): everything from the whitening on.
+    cast = lambda x: None if x is None else x.to(dtype)
+    r, Jc, Jk, Jp, w, obs_w, cam_free, Hreg_k, g_k_reg, U_extra, g_c_extra = map(
+        cast, (r, Jc, Jk, Jp, w, obs_w, cam_free, Hreg_k, g_k_reg, U_extra, g_c_extra))
+    return linearize_system(Jc, Jk, Jp, r, w, obs_cam, obs_point, obs_w, cam_free, point_valid,
+                            Hreg_k, rvec.shape[0], points.shape[0], g_k_extra=g_k_reg,
+                            U_extra=U_extra, g_c_extra=g_c_extra)
 
 
 def linearize_cuda(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w, cam_free,
-                   point_valid, perm, perm_valid, delta, optimize_intrinsics, Hreg_k, g_k_reg):
+                   point_valid, perm, perm_valid, delta, optimize_intrinsics, Hreg_k, g_k_reg,
+                   U_extra=None, g_c_extra=None, dtype=torch.float32):
     C, P, O = rvec.shape[0], points.shape[0], obs_cam.shape[0]
     G, Vs = perm.shape
     dev = rvec.device
+    B = 10 if intr.dim() == 2 else 6
+    route = variant(B, dtype)
     f32, i32 = torch.float32, torch.int32
     for name, x, dt, shape in (
-            ("rvec", rvec, f32, (C, 3)), ("tvec", tvec, f32, (C, 3)), ("intr", intr, f32, (4,)),
+            ("rvec", rvec, f32, (C, 3)), ("tvec", tvec, f32, (C, 3)),
+            ("intr", intr, f32, (C, 4) if B == 10 else (4,)),
             ("points", points, f32, (P, 3)), ("obs_cam", obs_cam, i32, (O,)),
             ("obs_point", obs_point, i32, (O,)), ("obs_xy", obs_xy, f32, (O, 2)),
             ("obs_w", obs_w, f32, (O,)), ("cam_free", cam_free, f32, (C,)),
-            ("perm", perm, i32, (G, Vs)), ("perm_valid", perm_valid, torch.bool, (G, Vs))):
+            ("perm", perm, i32, (G, Vs)), ("perm_valid", perm_valid, torch.bool, (G, Vs)),
+            *((("U_extra", U_extra, dtype, (C, B, B)),) if U_extra is not None else ()),
+            *((("g_c_extra", g_c_extra, dtype, (C, B)),) if g_c_extra is not None else ())):
         _kernels.check_tensor(x, name, dt, shape, dev)
+    if not route and (U_extra is not None or g_c_extra is not None):
+        raise ValueError("ba_linearize: U_extra / g_c_extra need the per-camera route")
     pv = point_valid.to(f32).contiguous()
-    e = lambda *s: torch.empty(s, dtype=f32, device=dev)
-    z = lambda *s: torch.zeros(s, dtype=f32, device=dev)
-    Jc, Jk, Jp, rw = e(O, 2, 6), e(O, 2, 4), e(O, 2, 3), e(O, 2)
-    U, g_c, Uk, g_k, V, g_p = e(C, 6, 6), e(C, 6), e(4, 4), e(4), z(P, 3, 3), z(P, 3)
-    # The order-free camera and intrinsics sums' scratch (ba_linearize.cu).
-    fx_max = torch.empty(7 * C + 5, dtype=torch.int32, device=dev)
-    fx_sh = torch.empty(27 * C + 14, dtype=torch.int32, device=dev)
-    fx_acc = torch.empty(27 * C + 14, dtype=torch.int64, device=dev)
-    _kernels.launch("ba_linearize", dev, rvec, tvec, intr, points, obs_cam, obs_point,
+    e = lambda *s: torch.empty(s, dtype=dtype, device=dev)
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=dev)
+    Jc, Jk, Jp, rw = e(O, 2, B), e(O, 2, 4), e(O, 2, 3), e(O, 2)
+    U, g_c, Uk, g_k, V, g_p = e(C, B, B), e(C, B), e(4, 4), e(4), z(P, 3, 3), z(P, 3)
+    # The order-free camera and intrinsics sums' scratch (ba_linearize.cu):
+    # B + 1 maxima a camera (+ 5), B (B + 1) / 2 + B sums a camera (+ 14).
+    nfx = (B * (B + 1) // 2 + B) * C + 14
+    fx_max = torch.empty((B + 1) * C + 5, dtype=torch.int32, device=dev)
+    fx_sh = torch.empty(nfx, dtype=torch.int32, device=dev)
+    fx_acc = torch.empty(_words(dtype) * nfx, dtype=torch.int64, device=dev)
+    _kernels.launch("ba_linearize" + route, dev, rvec, tvec, intr, points, obs_cam, obs_point,
                     obs_xy, obs_w, cam_free, pv, perm, perm_valid, C, P, O, G, Vs,
-                    float(delta), int(bool(optimize_intrinsics)),
-                    Jc, Jk, Jp, rw, U, g_c, Uk, g_k, V, g_p, fx_max, fx_sh, fx_acc)
+                    float(delta), int(bool(optimize_intrinsics) and B == 6),
+                    Jc, Jk, Jp, rw, U, g_c, Uk, g_k, V, g_p, fx_max, fx_sh, fx_acc,
+                    *((U_extra, g_c_extra) if route else ()))
+    Hreg_k = Hreg_k.to(dtype)
     return Linearization(Jc=Jc, Jk=Jk, Jp=Jp, rw=rw, obs_cam=obs_cam, obs_point=obs_point,
-                         V=V, U=U, Uk=Uk + Hreg_k, g_c=g_c, g_k=g_k + g_k_reg, g_p=g_p,
-                         point_valid=point_valid, Hreg_k=Hreg_k)
+                         V=V, U=U, Uk=Uk + Hreg_k, g_c=g_c, g_k=g_k + g_k_reg.to(dtype),
+                         g_p=g_p, point_valid=point_valid, Hreg_k=Hreg_k, U_extra=U_extra)
 
 
-def linearize(*args):
+def linearize(*args, U_extra=None, g_c_extra=None, dtype=torch.float32):
     """Kernel K8+K9 on CUDA tensors, its plain twin on CPU tensors.
 
-    Arguments: rvec (C,3), tvec (C,3), intr (4,), points (P,3), obs_cam (O,)
-    int32, obs_point (O,) int32, obs_xy (O,2), obs_w (O,) f32 (0 = row
-    excluded), cam_free (C,) f32, point_valid (P,) bool, perm / perm_valid
-    (the :func:`coobs_pairs` grouping, which the kernel walks for the
-    point-side sums), delta (Huber), optimize_intrinsics, Hreg_k (4,4) and
-    g_k_reg (4,) (the intrinsics regularization).
+    Arguments: rvec (C,3), tvec (C,3), intr (4,) shared or (C,4) per camera
+    (the 10-parameter camera block), points (P,3), obs_cam (O,) int32,
+    obs_point (O,) int32, obs_xy (O,2), obs_w (O,) f32 (0 = row excluded),
+    cam_free (C,) f32 (with (C,4) intrinsics it pins the pose columns only),
+    point_valid (P,) bool, perm / perm_valid (the :func:`coobs_pairs`
+    grouping, which the kernel walks for the point-side sums), delta
+    (Huber), optimize_intrinsics (of the shared K), Hreg_k (4,4) and g_k_reg
+    (4,) (the shared intrinsics' regularization). U_extra (C,B,B) and
+    g_c_extra (C,B): the per-camera additions, added after the sums. dtype:
+    the island's (float64 with ``f64_normal_equations``); the Jacobians are
+    computed in float32 and whitened in it.
     """
     dev = args[0].device
+    kw = dict(U_extra=U_extra, g_c_extra=g_c_extra, dtype=dtype)
     if dev.type == "cuda":
-        return linearize_cuda(*args)
+        return linearize_cuda(*args, **kw)
     if dev.type == "cpu":
-        return linearize_plain(*args)
+        return linearize_plain(*args, **kw)
     raise ValueError(f"linearize: unsupported device {dev}")
 
 
 def schur_damp_plain(lin: Linearization, lam: float, perm=None, perm_valid=None):
-    """Apply LM damping at ``lam``; returns (Damped, rhs_c (C,6), rhs_k (4,)).
+    """Apply LM damping at ``lam``; returns (Damped, rhs_c (C,B), rhs_k (4,)).
     Plain twin of kernel K10's ``schur_damp`` (the grouping is not needed)."""
     dt, dev = lin.U.dtype, lin.U.device
     diagV = torch.diagonal(lin.V, dim1=-2, dim2=-1)
     Vd = lin.V + (lam * diagV + _EPS)[..., None] * torch.eye(3, dtype=dt, device=dev)
     Vinv = torch.where(lin.point_valid[:, None, None], torch.linalg.inv(Vd), 0.0).contiguous()
     diagU = torch.diagonal(lin.U, dim1=-2, dim2=-1)
-    # Unit pin on camera parameters with no observation support keeps S PD.
+    # Unit pin on camera parameters with no observation support keeps S PD
+    # (per entry: the pose rows of a camera whose intrinsics stay free).
     lam_diag_c = lam * diagU + (diagU <= _EPS).to(dt)
     lam_diag_k = lam * torch.diagonal(lin.Uk) + _EPS
     # rhs_reduced = -g + W Vinv g_p.
@@ -184,42 +269,51 @@ def schur_damp_plain(lin: Linearization, lam: float, perm=None, perm_valid=None)
     return Damped(Vinv=Vinv, lam_diag_c=lam_diag_c, lam_diag_k=lam_diag_k), rhs_c, rhs_k
 
 
-def _fx_scratch(n: int, dev):
+def _fx_scratch(n: int, dev, dtype=torch.float32):
     """Scratch of an order-free sum over n targets (``csrc/sfm_common.cuh``):
-    the largest |term| of each target, its shift, its 64-bit integer sum."""
+    the largest |term| of each target, its shift, its 64-bit integer sum
+    (two words a target in the f64 island)."""
     return (torch.empty(n, dtype=torch.int32, device=dev),
             torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty(n, dtype=torch.int64, device=dev))
+            torch.empty(_words(dtype) * n, dtype=torch.int64, device=dev))
+
+
+def _block(lin: Linearization):
+    """(B, dtype, route suffix) of a linearized system."""
+    B, dt = lin.U.shape[-1], lin.U.dtype
+    return B, dt, variant(B, dt)
 
 
 def _check_system(lin: Linearization, perm, perm_valid, extra=()):
     """Check the Linearization tensors a K10 kernel reads (and ``extra``)."""
     C, P, O = lin.U.shape[0], lin.V.shape[0], lin.Jc.shape[0]
     G, Vs = perm.shape
-    dev, f32 = lin.U.device, torch.float32
-    for name, x, dt, shape in (
-            ("Jc", lin.Jc, f32, (O, 2, 6)), ("Jk", lin.Jk, f32, (O, 2, 4)),
-            ("Jp", lin.Jp, f32, (O, 2, 3)), ("obs_cam", lin.obs_cam, torch.int32, (O,)),
-            ("obs_point", lin.obs_point, torch.int32, (O,)), ("g_p", lin.g_p, f32, (P, 3)),
+    B, dt, _ = _block(lin)
+    for name, x, dtype, shape in (
+            ("Jc", lin.Jc, dt, (O, 2, B)), ("Jk", lin.Jk, dt, (O, 2, 4)),
+            ("Jp", lin.Jp, dt, (O, 2, 3)), ("obs_cam", lin.obs_cam, torch.int32, (O,)),
+            ("obs_point", lin.obs_point, torch.int32, (O,)), ("g_p", lin.g_p, dt, (P, 3)),
             ("perm", perm, torch.int32, (G, Vs)),
             ("perm_valid", perm_valid, torch.bool, (G, Vs)), *extra):
-        _kernels.check_tensor(x, name, dt, shape, dev)
+        _kernels.check_tensor(x, name, dtype, shape, lin.U.device)
     return C, P, G, Vs
 
 
 def schur_damp_cuda(lin: Linearization, lam: float, perm, perm_valid):
     C, P = lin.U.shape[0], lin.V.shape[0]
-    dev, f32 = lin.U.device, torch.float32
+    B, dt, route = _block(lin)
+    dev = lin.U.device
+    _check_cameras(C, B, dt, "schur_damp")
     _, _, G, Vs = _check_system(lin, perm, perm_valid, (
-        ("V", lin.V, f32, (P, 3, 3)), ("point_valid", lin.point_valid, torch.bool, (P,)),
-        ("U", lin.U, f32, (C, 6, 6)), ("Uk", lin.Uk, f32, (4, 4)), ("g_c", lin.g_c, f32, (C, 6)),
-        ("g_k", lin.g_k, f32, (4,))))
-    e = lambda *s: torch.empty(s, dtype=f32, device=dev)
-    Vinv, lam_diag_c, lam_diag_k, rhs_c, rhs_k = e(P, 3, 3), e(C, 6), e(4), e(C, 6), e(4)
-    _kernels.launch("schur_damp", dev, lin.V, lin.point_valid, lin.U, lin.Uk, lin.g_c, lin.g_k,
-                    lin.g_p, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam, lin.obs_point, perm,
+        ("V", lin.V, dt, (P, 3, 3)), ("point_valid", lin.point_valid, torch.bool, (P,)),
+        ("U", lin.U, dt, (C, B, B)), ("Uk", lin.Uk, dt, (4, 4)), ("g_c", lin.g_c, dt, (C, B)),
+        ("g_k", lin.g_k, dt, (4,))))
+    e = lambda *s: torch.empty(s, dtype=dt, device=dev)
+    Vinv, lam_diag_c, lam_diag_k, rhs_c, rhs_k = e(P, 3, 3), e(C, B), e(4), e(C, B), e(4)
+    _kernels.launch("schur_damp" + route, dev, lin.V, lin.point_valid, lin.U, lin.Uk, lin.g_c,
+                    lin.g_k, lin.g_p, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam, lin.obs_point, perm,
                     perm_valid, P, C, G, Vs, float(lam), Vinv, lam_diag_c, lam_diag_k, rhs_c,
-                    rhs_k, *_fx_scratch(6 * C + 4, dev))
+                    rhs_k, *_fx_scratch(B * C + 4, dev, dt))
     return Damped(Vinv=Vinv, lam_diag_c=lam_diag_c, lam_diag_k=lam_diag_k), rhs_c, rhs_k
 
 
@@ -249,27 +343,28 @@ def block_jacobi_plain(U, lam_diag_c, Uk, lam_diag_k):
     inverses of the damped camera blocks and of the damped intrinsics block.
     A pinned camera (U = 0, unit damping) gets the identity."""
     dt, dev = U.dtype, U.device
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    Ud = U + lam_diag_c[..., None] * eye6
-    Mc = torch.linalg.inv(Ud + _EPS * eye6)
+    eyeB = torch.eye(U.shape[-1], dtype=dt, device=dev)
+    Ud = U + lam_diag_c[..., None] * eyeB
+    Mc = torch.linalg.inv(Ud + _EPS * eyeB)
     Mk = torch.linalg.inv(Uk + torch.diag(lam_diag_k) + _EPS * torch.eye(4, dtype=dt, device=dev))
     return Mc, Mk
 
 
 def block_jacobi_cuda(U, lam_diag_c, Uk, lam_diag_k):
-    C, dev, f32 = U.shape[0], U.device, torch.float32
-    for name, x, shape in (("U", U, (C, 6, 6)), ("lam_diag_c", lam_diag_c, (C, 6)),
+    C, B, dev, dt = U.shape[0], U.shape[-1], U.device, U.dtype
+    route = variant(B, dt)
+    for name, x, shape in (("U", U, (C, B, B)), ("lam_diag_c", lam_diag_c, (C, B)),
                            ("Uk", Uk, (4, 4)), ("lam_diag_k", lam_diag_k, (4,))):
-        _kernels.check_tensor(x, name, f32, shape, dev)
-    Mc = torch.empty((C, 6, 6), dtype=f32, device=dev)
-    Mk = torch.empty((4, 4), dtype=f32, device=dev)
-    _kernels.launch("schur_block_jacobi", dev, U, lam_diag_c, Uk, lam_diag_k, C, Mc, Mk)
+        _kernels.check_tensor(x, name, dt, shape, dev)
+    Mc = torch.empty((C, B, B), dtype=dt, device=dev)
+    Mk = torch.empty((4, 4), dtype=dt, device=dev)
+    _kernels.launch("schur_block_jacobi" + route, dev, U, lam_diag_c, Uk, lam_diag_k, C, Mc, Mk)
     return Mc, Mk
 
 
 def block_jacobi(U, lam_diag_c, Uk, lam_diag_k):
     """K10's ``schur_block_jacobi`` on CUDA tensors, :func:`block_jacobi_plain`
-    on CPU tensors: (Mc (C, 6, 6), Mk (4, 4))."""
+    on CPU tensors: (Mc (C, B, B), Mk (4, 4))."""
     dev = U.device
     if dev.type == "cuda":
         return block_jacobi_cuda(U.contiguous(), lam_diag_c.contiguous(), Uk.contiguous(),
@@ -313,65 +408,59 @@ def coobs_pairs(obs_point, obs_valid, v_bucket: int = 8):
 
 def _base_matrix(lin: Linearization, op: Damped):
     """S before the coupling: blockdiag(U + lam D) and Uk + diag(lam_k)."""
-    C = lin.U.shape[0]
-    n = 6 * C + 4
+    C, B = lin.U.shape[0], lin.U.shape[-1]
+    n = B * C + 4
     S = torch.zeros((n, n), dtype=lin.U.dtype, device=lin.U.device)
     Ud = lin.U + torch.diag_embed(op.lam_diag_c)
-    S[: 6 * C, : 6 * C] = torch.block_diag(*Ud) if C else S[:0, :0]
-    S[6 * C:, 6 * C:] = lin.Uk + torch.diag(op.lam_diag_k)
+    S[: B * C, : B * C] = torch.block_diag(*Ud) if C else S[:0, :0]
+    S[B * C:, B * C:] = lin.Uk + torch.diag(op.lam_diag_k)
     return S
 
 
 def schur_matrix_plain(lin: Linearization, op: Damped, perm, perm_valid):
-    """The dense reduced system S ((6C+4)^2): blockdiag(U + lam D) minus the
+    """The dense reduced system S ((BC+4)^2): blockdiag(U + lam D) minus the
     point-coupling sum over co-observation pairs, plus the k row/column."""
-    C = lin.U.shape[0]
+    C, B = lin.U.shape[0], lin.U.shape[-1]
     P = op.Vinv.shape[0]
     dt = lin.U.dtype
     pl = perm.long()
-    M = lin.Jc.mT @ lin.Jp                                      # (O, 6, 3)
-    A = M @ op.Vinv[lin.obs_point.long()]                       # (O, 6, 3)
+    M = lin.Jc.mT @ lin.Jp                                      # (O, B, 3)
+    A = M @ op.Vinv[lin.obs_point.long()]                       # (O, B, 3)
     pv = perm_valid.to(dt)[..., None, None]
-    Mg, Ag = M[pl] * pv, A[pl] * pv                             # (G, V, 6, 3)
+    Mg, Ag = M[pl] * pv, A[pl] * pv                             # (G, V, B, 3)
     onehot = torch.nn.functional.one_hot(lin.obs_cam.long()[pl], C).to(dt) * pv[..., 0]
-    Z1 = torch.einsum("pvc,pvik->pkci", onehot, Mg).reshape(-1, 6 * C)
-    Z2 = torch.einsum("pvc,pvik->pkci", onehot, Ag).reshape(-1, 6 * C)
+    Z1 = torch.einsum("pvc,pvik->pkci", onehot, Mg).reshape(-1, B * C)
+    Z2 = torch.einsum("pvc,pvik->pkci", onehot, Ag).reshape(-1, B * C)
     coupling = Z2.mT @ Z1
     coupling = 0.5 * (coupling + coupling.mT)
     S = _base_matrix(lin, op)
-    S[: 6 * C, : 6 * C] -= coupling
+    S[: B * C, : B * C] -= coupling
     Wk = _seg_sum(lin.Jk.mT @ lin.Jp, lin.obs_point, P)         # (P, 4, 3)
     AkT = op.Vinv @ Wk.mT                                       # (P, 3, 4)
-    cross = _seg_sum(lin.Jc.mT @ lin.Jk, lin.obs_cam, C)        # (C, 6, 4)
+    cross = _seg_sum(lin.Jc.mT @ lin.Jk, lin.obs_cam, C)        # (C, B, 4)
     coup_ck = _seg_sum(M @ AkT[lin.obs_point.long()], lin.obs_cam, C)
-    S_ck = (cross - coup_ck).reshape(6 * C, 4)
-    S[: 6 * C, 6 * C:] = S_ck
-    S[6 * C:, : 6 * C] = S_ck.mT
-    S[6 * C:, 6 * C:] -= torch.einsum("pik,pkj->ij", Wk, AkT)
+    S_ck = (cross - coup_ck).reshape(B * C, 4)
+    S[: B * C, B * C:] = S_ck
+    S[B * C:, : B * C] = S_ck.mT
+    S[B * C:, B * C:] -= torch.einsum("pik,pkj->ij", Wk, AkT)
     return S
 
 
 def schur_matrix_cuda(lin: Linearization, op: Damped, perm, perm_valid):
-    C, P, O = lin.U.shape[0], op.Vinv.shape[0], lin.Jc.shape[0]
-    G, Vs = perm.shape
+    C, P = lin.U.shape[0], op.Vinv.shape[0]
+    B, dt, route = _block(lin)
     dev = lin.U.device
-    f32 = torch.float32
-    for name, x, dt, shape in (
-            ("Jc", lin.Jc, f32, (O, 2, 6)), ("Jk", lin.Jk, f32, (O, 2, 4)),
-            ("Jp", lin.Jp, f32, (O, 2, 3)), ("obs_cam", lin.obs_cam, torch.int32, (O,)),
-            ("obs_point", lin.obs_point, torch.int32, (O,)),
-            ("Vinv", op.Vinv, f32, (P, 3, 3)), ("perm", perm, torch.int32, (G, Vs)),
-            ("perm_valid", perm_valid, torch.bool, (G, Vs)), ("U", lin.U, f32, (C, 6, 6)),
-            ("lam_diag_c", op.lam_diag_c, f32, (C, 6))):
-        _kernels.check_tensor(x, name, dt, shape, dev)
+    _, _, G, Vs = _check_system(lin, perm, perm_valid, (
+        ("Vinv", op.Vinv, dt, (P, 3, 3)), ("U", lin.U, dt, (C, B, B)),
+        ("lam_diag_c", op.lam_diag_c, dt, (C, B))))
     # The kernel adds the camera blocks U_c + diag(lam D_c) into the zeroed S;
-    # the coupling's order-free sums take an (n, n) int64 scratch.
-    n = 6 * C + 4
-    S = torch.zeros((n, n), dtype=f32, device=dev)
-    S[6 * C:, 6 * C:] = lin.Uk + torch.diag(op.lam_diag_k)
-    fx_acc = torch.empty((n, n), dtype=torch.int64, device=dev)
+    # the coupling's order-free sums take a WORDS x (n, n) int64 scratch.
+    n = B * C + 4
+    S = torch.zeros((n, n), dtype=dt, device=dev)
+    S[B * C:, B * C:] = lin.Uk + torch.diag(op.lam_diag_k)
+    fx_acc = torch.empty((_words(dt) * n, n), dtype=torch.int64, device=dev)
     fx_row = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    _kernels.launch("schur_coupling", dev, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
+    _kernels.launch("schur_coupling" + route, dev, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
                     lin.obs_point, op.Vinv, perm, perm_valid, lin.U, op.lam_diag_c, C, G, Vs,
                     S, fx_acc, fx_row)
     return S
@@ -388,9 +477,10 @@ def schur_matrix(lin: Linearization, op: Damped, perm, perm_valid):
 
 
 def dense_schur_direct(op: Damped, lin: Linearization, rhs_c, rhs_k, perm, perm_valid):
-    """Assemble S and solve S x = rhs by Cholesky. A factorization that
-    fails (S not positive definite) yields a NaN step, which LM rejects."""
-    C = rhs_c.shape[0]
+    """Assemble S and solve S x = rhs by Cholesky (cuSOLVER on the card, in
+    the island's dtype). A factorization that fails (S not positive
+    definite) yields a NaN step, which LM rejects."""
+    C, B = rhs_c.shape
     S = schur_matrix(lin, op, perm, perm_valid)
     n = S.shape[0]
     S = S + _EPS * torch.eye(n, dtype=S.dtype, device=S.device)
@@ -398,7 +488,7 @@ def dense_schur_direct(op: Damped, lin: Linearization, rhs_c, rhs_k, perm, perm_
     rhs = torch.cat([rhs_c.reshape(-1), rhs_k])[:, None]
     x = torch.cholesky_solve(rhs, L)[:, 0]
     x = torch.where(info == 0, x, torch.nan)
-    return x[: 6 * C].reshape(C, 6), x[6 * C:]
+    return x[: B * C].reshape(C, B), x[B * C:]
 
 
 def schur_back_substitute_plain(lin: Linearization, op: Damped, xc, xk, perm=None,
@@ -412,12 +502,13 @@ def schur_back_substitute_plain(lin: Linearization, op: Damped, xc, xk, perm=Non
 
 def schur_back_substitute_cuda(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
     C, P = lin.U.shape[0], lin.V.shape[0]
-    f32 = torch.float32
+    B, dt, route = _block(lin)
     _, _, G, Vs = _check_system(lin, perm, perm_valid, (
-        ("Vinv", op.Vinv, f32, (P, 3, 3)), ("xc", xc, f32, (C, 6)), ("xk", xk, f32, (4,))))
-    dp = torch.empty((P, 3), dtype=f32, device=xc.device)
-    _kernels.launch("schur_back_substitute", xc.device, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
-                    lin.obs_point, perm, perm_valid, op.Vinv, lin.g_p, xc, xk, P, G, Vs, dp)
+        ("Vinv", op.Vinv, dt, (P, 3, 3)), ("xc", xc, dt, (C, B)), ("xk", xk, dt, (4,))))
+    dp = torch.empty((P, 3), dtype=dt, device=xc.device)
+    _kernels.launch("schur_back_substitute" + route, xc.device, lin.Jc, lin.Jk, lin.Jp,
+                    lin.obs_cam, lin.obs_point, perm, perm_valid, op.Vinv, lin.g_p, xc, xk, P,
+                    G, Vs, dp)
     return dp
 
 
@@ -436,67 +527,68 @@ def back_substitute(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
 # ------------------------------------------------------------ K11: matrix-free PCG
 
 def schur_matvec_plain(lin: Linearization, op: Damped, xc, xk, perm=None, perm_valid=None):
-    """S x for x = (xc (C, 6), xk (4,)), never forming S: the reference's
+    """S x for x = (xc (C, B), xk (4,)), never forming S: the reference's
     ``schur_matvec`` (``sfm_tpu/ba/schur.py:232``),
-    S x = Jc^T (B x - Jp Vinv Jp^T B x) + lam_diag o x (+ Hreg_k xk), with
-    B x = Jc x_c + Jk xk per observation. Plain twin of kernel K11's
-    ``schur_matvec`` (the grouping is not needed). The reference's
-    ``U_extra`` term is zero with shared intrinsics and is left out: the
-    per-camera 10-parameter block is not ported (ROADMAP queue 2b)."""
+    S x = Jc^T (B x - Jp Vinv Jp^T B x) + lam_diag o x + U_extra x_c
+    (+ Hreg_k xk), with B x = Jc x_c + Jk xk per observation. U_extra (the
+    per-camera intrinsics regularization) is part of U that the Jc products
+    cannot rebuild, so it is applied here; without it PCG would solve
+    another system than the dense path. Plain twin of kernel K11's
+    ``schur_matvec`` (the grouping is not needed)."""
     C, P = xc.shape[0], op.Vinv.shape[0]
     a = (lin.Jc @ xc[lin.obs_cam.long()][..., None])[..., 0] + lin.Jk @ xk       # (O, 2)
     u_p = _seg_sum((lin.Jp.mT @ a[..., None])[..., 0], lin.obs_point, P)
     v_p = (op.Vinv @ u_p[..., None])[..., 0]
     d = a - (lin.Jp @ v_p[lin.obs_point.long()][..., None])[..., 0]
-    Sx_c = _seg_sum((lin.Jc.mT @ d[..., None])[..., 0], lin.obs_cam, C)
+    Sx_c = _seg_sum((lin.Jc.mT @ d[..., None])[..., 0], lin.obs_cam, C) + op.lam_diag_c * xc
+    if lin.U_extra is not None:
+        Sx_c = Sx_c + (lin.U_extra @ xc[..., None])[..., 0]
     Sx_k = torch.einsum("oci,oc->i", lin.Jk, d)
-    return Sx_c + op.lam_diag_c * xc, Sx_k + op.lam_diag_k * xk + lin.Hreg_k @ xk
-
-
-# A matvec's per-block camera sums live in shared memory: 6C + 4 64-bit
-# integers of the H100's 227 KB a block.
-_K11_MAX_CAMERAS = (232_448 // 8 - 4) // 6
+    return Sx_c, Sx_k + op.lam_diag_k * xk + lin.Hreg_k @ xk
 
 
 def _matvec_launch(lin: Linearization, op: Damped, x, perm, perm_valid, Sx, flag=None,
                    scratch=None):
-    """K11's ``schur_matvec`` entry on the flat (6C + 4) vectors x -> Sx;
+    """K11's ``schur_matvec`` entry on the flat (BC + 4) vectors x -> Sx;
     with ``flag`` (the PCG state's "active" entry) a no-op once it is 0.
-    ``scratch``: :func:`_fx_scratch` of 6C + 4, reused across a solve."""
+    ``scratch``: :func:`_fx_scratch` of BC + 4, reused across a solve."""
     C = lin.U.shape[0]
+    B, dt, route = _block(lin)
     G, Vs = perm.shape
     if scratch is None:
-        scratch = _fx_scratch(6 * C + 4, x.device)
-    _kernels.launch("schur_matvec", x.device, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
+        scratch = _fx_scratch(B * C + 4, x.device, dt)
+    _kernels.launch("schur_matvec" + route, x.device, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
                     lin.obs_point, perm, perm_valid, op.Vinv, op.lam_diag_c, op.lam_diag_k,
-                    lin.Hreg_k, x, C, G, Vs, flag, Sx, *scratch)
+                    lin.Hreg_k, x, C, G, Vs, flag, Sx, *scratch,
+                    *((lin.U_extra,) if route else ()))
 
 
 def _check_pcg_system(lin: Linearization, op: Damped, perm, perm_valid, extra=()):
     C, P = lin.U.shape[0], op.Vinv.shape[0]
-    if C > _K11_MAX_CAMERAS:
-        raise ValueError(f"K11: {C} cameras > {_K11_MAX_CAMERAS} (the camera sums of a "
-                         "block no longer fit in shared memory)")
-    f32 = torch.float32
+    B, dt, route = _block(lin)
+    _check_cameras(C, B, dt, "K11")
+    if not route and lin.U_extra is not None:
+        raise ValueError("K11: U_extra needs the per-camera route")
     _check_system(lin, perm, perm_valid, (
-        ("Vinv", op.Vinv, f32, (P, 3, 3)), ("lam_diag_c", op.lam_diag_c, f32, (C, 6)),
-        ("lam_diag_k", op.lam_diag_k, f32, (4,)), ("Hreg_k", lin.Hreg_k, f32, (4, 4)),
+        ("Vinv", op.Vinv, dt, (P, 3, 3)), ("lam_diag_c", op.lam_diag_c, dt, (C, B)),
+        ("lam_diag_k", op.lam_diag_k, dt, (4,)), ("Hreg_k", lin.Hreg_k, dt, (4, 4)),
+        *((("U_extra", lin.U_extra, dt, (C, B, B)),) if lin.U_extra is not None else ()),
         *extra))
-    return C
+    return C, B, dt
 
 
 def schur_matvec_cuda(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
-    C = _check_pcg_system(lin, op, perm, perm_valid)
-    x = torch.cat([xc.reshape(-1), xk]).to(torch.float32).contiguous()
+    C, B, dt = _check_pcg_system(lin, op, perm, perm_valid)
+    x = torch.cat([xc.reshape(-1), xk]).to(dt).contiguous()
     Sx = torch.empty_like(x)
     _matvec_launch(lin, op, x, perm, perm_valid, Sx)
-    return Sx[: 6 * C].reshape(C, 6), Sx[6 * C:]
+    return Sx[: B * C].reshape(C, B), Sx[B * C:]
 
 
 def schur_matvec(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
     """Kernel K11's ``schur_matvec`` on CUDA tensors (walking the
     :func:`coobs_pairs` grouping), :func:`schur_matvec_plain` on CPU
-    tensors: (Sx_c (C, 6), Sx_k (4,))."""
+    tensors: (Sx_c (C, B), Sx_k (4,))."""
     dev = xc.device
     if dev.type == "cuda":
         return schur_matvec_cuda(lin, op, xc, xk, perm, perm_valid)
@@ -546,22 +638,23 @@ def pcg_solve_cuda(lin: Linearization, op: Damped, rhs_c, rhs_k, perm, perm_vali
     state: a converged state makes the remaining launches no-ops (reading
     the state every few steps to stop early gained nothing on the card,
     PERF.md)."""
-    f32 = torch.float32
-    C = lin.U.shape[0]
+    C, B = lin.U.shape[0], lin.U.shape[-1]
+    dt = lin.U.dtype
     _check_pcg_system(lin, op, perm, perm_valid, (
-        ("Mc", op.Mc, f32, (C, 6, 6)), ("Mk", op.Mk, f32, (4, 4)),
-        ("rhs_c", rhs_c, f32, (C, 6)), ("rhs_k", rhs_k, f32, (4,))))
+        ("Mc", op.Mc, dt, (C, B, B)), ("Mk", op.Mk, dt, (4, 4)),
+        ("rhs_c", rhs_c, dt, (C, B)), ("rhs_k", rhs_k, dt, (4,))))
+    route = variant(B, dt)
     dev = rhs_c.device
     rhs = torch.cat([rhs_c.reshape(-1), rhs_k])
     x, r, z, p, Ap = (torch.empty_like(rhs) for _ in range(5))
-    state = torch.zeros(5, dtype=f32, device=dev)   # r.z, |rhs|^2, r.r, active, steps
+    state = torch.zeros(5, dtype=dt, device=dev)   # r.z, |rhs|^2, r.r, active, steps
     cg = (op.Mc, op.Mk, C, int(iters), float(tol), x, r, z, p, state)
-    scratch = _fx_scratch(6 * C + 4, dev)
-    _kernels.launch("pcg_init", dev, rhs, *cg)
+    scratch = _fx_scratch(B * C + 4, dev, dt)
+    _kernels.launch("pcg_init" + route, dev, rhs, *cg)
     for _ in range(int(iters)):
         _matvec_launch(lin, op, p, perm, perm_valid, Ap, flag=state[3:4], scratch=scratch)
-        _kernels.launch("pcg_step", dev, Ap, *cg)
-    return x[: 6 * C].reshape(C, 6), x[6 * C:], state[4]
+        _kernels.launch("pcg_step" + route, dev, Ap, *cg)
+    return x[: B * C].reshape(C, B), x[B * C:], state[4]
 
 
 def pcg_solve(lin: Linearization, op: Damped, rhs_c, rhs_k, perm, perm_valid,

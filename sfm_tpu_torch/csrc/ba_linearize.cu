@@ -2,9 +2,20 @@
 // lambda-independent reductions of the LM normal equations; plus the Huber cost.
 //
 // Replaces sfm_tpu/ba/residuals.py::residuals_and_jacobians (:68, vmapped
-// jax.jacrev of residual_one in 131k-row chunks) and ba/schur.py::
-// linearize_system (:119, whitening + segment sums into V, g_p, U, g_c, Uk,
-// g_k), which XLA ran as separate passes over (O, 2, 13) Jacobian tensors.
+// jax.jacrev of residual_one in 131k-row chunks), its per-camera variant
+// residuals_and_jacobians_percam (:90), and ba/schur.py::linearize_system
+// (:119, whitening + segment sums into V, g_p, U, g_c, Uk, g_k), which XLA
+// ran as separate passes over (O, 2, 13) Jacobian tensors.
+//
+// Templated on the camera block B and on the island's scalar T (ba/lm.py
+// :130-212): B = 6 (pose; shared intrinsics in Jk) or 10 (pose | fx fy cx
+// cy, BAConfig.per_camera_intrinsics: the intrinsics columns are the shared
+// path's Jk at the camera's own K, whitened by sqrt(w) alone, so a pinned
+// camera's intrinsics stay free; Jk is then the dead zero system), and
+// T = float or double (BAConfig.f64_normal_equations: the Jacobians are
+// f32, the whitening, the outputs and the sums are double, the sums two
+// words a target, sfm_common.cuh). B = 6, float is the default route, and
+// its arithmetic is the one the other instantiations generalize.
 //
 // sfm_ba_linearize launches five kernels:
 //  1. one thread per observation row (grid-stride): Rodrigues with the
@@ -21,8 +32,12 @@
 //     row count (a term is at most max_i * max_j, two rows an observation);
 //  3. one thread per observation row again: the camera side (U, g_c) and the
 //     intrinsics (Uk, g_k) as 64-bit fixed-point atomics (the intrinsics
-//     warp-reduced first), the same bits in any order;
-//  4. the sums rounded to float, U and Uk mirrored;
+//     warp-reduced first), the same bits in any order. At B = 6 a camera
+//     whose cam_free is 0 has zero columns and is skipped; at B = 10 its
+//     four intrinsics columns are summed (its pose columns are zero);
+//  4. the sums rounded to T, U and Uk mirrored; the per-camera additions
+//     U_extra and g_c_extra (the per-camera intrinsics regularization, zero
+//     for an invalid camera) added once, after the rounding;
 //  5. one thread per row of the per-point grouping (schur.py::coobs_pairs):
 //     V and g_p as a plain loop over the point's observations, no atomics.
 // Dead rows (obs_w == 0) write zeros and skip all arithmetic. So every
@@ -35,17 +50,25 @@
 //
 // What bounds it on the H100: ~400 FLOP per observation (200k rows: 80 MFLOP)
 // and ~140 bytes written per row (28 MB); both are microseconds, so launches
-// and the camera atomics dominate at the main path's sizes.
+// and the camera atomics dominate at the main path's sizes. B = 10 has 65
+// camera sums an observation where B = 6 has 27, and T = double two atomics
+// a term.
 #include "sfm_common.cuh"
 
 namespace {
 
 constexpr int NT = 256;
 constexpr int COST_BLOCKS = 512;  // the cost's partial sums (a fixed grid)
-constexpr int NU = 21;            // U's upper triangle
-constexpr int NCAM = NU + 6;      // + g_c: the fixed-point sums of a camera
 constexpr int NK = 10 + 4;        // Uk's upper triangle + g_k
-constexpr int CMAX = 7;           // a camera's maxima: Jc's 6 columns, rw
+
+// A camera's fixed-point sums: U's upper triangle (NU), then g_c (B); and its
+// maxima: Jc's B columns, then rw.
+template <int B>
+struct Cam {
+  static constexpr int NU = B * (B + 1) / 2;
+  static constexpr int NCAM = NU + B;
+  static constexpr int CMAX = B + 1;
+};
 
 // (i, j), i <= j, of the k-th entry of an n x n upper triangle (row-major).
 __device__ __forceinline__ void upper_ij(int k, int n, int& i, int& j) {
@@ -57,10 +80,21 @@ __device__ __forceinline__ void upper_ij(int k, int n, int& i, int& j) {
   j = i + k;
 }
 
-// Max of v over the warp's lanes, then one atomic max per warp.
-__device__ __forceinline__ void warp_fx_max(unsigned int* m, float v) {
-  const unsigned int b = __reduce_max_sync(0xffffffffu, __float_as_uint(fabsf(v)));
+// Max of |v| over the warp's lanes, then one atomic max per warp.
+template <typename T>
+__device__ __forceinline__ void warp_fx_max(unsigned int* m, T v) {
+  const unsigned int b = __reduce_max_sync(0xffffffffu, sfm_fx_mag(v));
   if (threadIdx.x % 32 == 0 && b != 0u) atomicMax(m, b);
+}
+
+__device__ __forceinline__ float t_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double t_abs(double x) { return fabs(x); }
+__device__ __forceinline__ float t_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double t_max(double a, double b) { return fmax(a, b); }
+// sqrt(w * obs_w) in the island's type (ba/lm.py:204-212 casts both to f64).
+__device__ __forceinline__ void whiten_scale(float hw, float wv, float* sw) { *sw = sqrtf(hw * wv); }
+__device__ __forceinline__ void whiten_scale(float hw, float wv, double* sw) {
+  *sw = sqrt((double)hw * (double)wv);
 }
 
 struct Obs {
@@ -142,204 +176,229 @@ __device__ __forceinline__ void residual_jac(const float* w, const float* t,
   o->Jk[1][0] = 0.f; o->Jk[1][1] = xc[1] / z; o->Jk[1][2] = 0.f; o->Jk[1][3] = 1.f;
 }
 
+template <int B, typename T>
 __global__ void __launch_bounds__(NT) ba_obs_kernel(
     const float* __restrict__ rvec, const float* __restrict__ tvec,
     const float* __restrict__ intr, const float* __restrict__ points,
     const int* __restrict__ obs_cam, const int* __restrict__ obs_point,
     const float* __restrict__ obs_xy, const float* __restrict__ obs_w,
     const float* __restrict__ cam_free, const float* __restrict__ point_valid,
-    int C, int O, float delta, int opt_k, float* __restrict__ Jc_out,
-    float* __restrict__ Jk_out, float* __restrict__ Jp_out, float* __restrict__ rw_out,
+    int C, int O, float delta, int opt_k, T* __restrict__ Jc_out,
+    T* __restrict__ Jk_out, T* __restrict__ Jp_out, T* __restrict__ rw_out,
     unsigned int* __restrict__ cmax, unsigned int* __restrict__ kmax) {
-  float in_k[4];
-  for (int k = 0; k < 4; ++k) in_k[k] = intr[k];
+  constexpr int CMAX = Cam<B>::CMAX;
+  float in_k[4];  // the shared K (B = 6); B = 10 reads each camera's own
+  if (B == 6)
+    for (int k = 0; k < 4; ++k) in_k[k] = intr[k];
 
   for (int base = blockIdx.x * NT; base < O; base += gridDim.x * NT) {
     const int o = base + threadIdx.x;
     const float wv = o < O ? obs_w[o] : 0.f;
-    Obs ob;
-    float rw[2] = {0.f, 0.f};
+    T jc[2][B], jk[2][4], jp[2][3];
+    T rw[2] = {T(0), T(0)};
     int c = 0;
     if (wv != 0.f) {
       c = obs_cam[o];
       const int p = obs_point[o];
-      residual_jac<true>(rvec + 3 * c, tvec + 3 * c, in_k, points + 3 * p, obs_xy[2 * o],
-                         obs_xy[2 * o + 1], &ob);
+      Obs ob;
+      residual_jac<true>(rvec + 3 * c, tvec + 3 * c, B == 6 ? in_k : intr + 4 * c,
+                         points + 3 * p, obs_xy[2 * o], obs_xy[2 * o + 1], &ob);
       const float nrm = sqrtf(ob.r[0] * ob.r[0] + ob.r[1] * ob.r[1]);
       const float hw = nrm <= delta ? 1.f : delta / fmaxf(nrm, 1e-12f);
-      const float sw = sqrtf(hw * wv);
-      const float sc = sw * cam_free[c], sp = sw * point_valid[p], sk_ = opt_k ? sw : 0.f;
+      T sw;
+      whiten_scale(hw, wv, &sw);
+      const T sc = sw * (T)cam_free[c], sp = sw * (T)point_valid[p], sk_ = opt_k ? sw : T(0);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        rw[r] = ob.r[r] * sw;
+        rw[r] = (T)ob.r[r] * sw;
 #pragma unroll
-        for (int j = 0; j < 6; ++j) ob.Jc[r][j] *= sc;
+        for (int j = 0; j < 6; ++j) jc[r][j] = (T)ob.Jc[r][j] * sc;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) ob.Jk[r][j] *= sk_;
+        for (int j = 6; j < B; ++j) jc[r][j] = (T)ob.Jk[r][j - 6] * sw;
 #pragma unroll
-        for (int j = 0; j < 3; ++j) ob.Jp[r][j] *= sp;
+        for (int j = 0; j < 4; ++j) jk[r][j] = (T)ob.Jk[r][j] * sk_;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) jp[r][j] = (T)ob.Jp[r][j] * sp;
       }
     } else {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
 #pragma unroll
-        for (int j = 0; j < 6; ++j) ob.Jc[r][j] = 0.f;
+        for (int j = 0; j < B; ++j) jc[r][j] = T(0);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) ob.Jk[r][j] = 0.f;
+        for (int j = 0; j < 4; ++j) jk[r][j] = T(0);
 #pragma unroll
-        for (int j = 0; j < 3; ++j) ob.Jp[r][j] = 0.f;
+        for (int j = 0; j < 3; ++j) jp[r][j] = T(0);
       }
     }
     if (o < O) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
 #pragma unroll
-        for (int j = 0; j < 6; ++j) Jc_out[(size_t)o * 12 + r * 6 + j] = ob.Jc[r][j];
+        for (int j = 0; j < B; ++j) Jc_out[(size_t)o * 2 * B + r * B + j] = jc[r][j];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) Jk_out[(size_t)o * 8 + r * 4 + j] = ob.Jk[r][j];
+        for (int j = 0; j < 4; ++j) Jk_out[(size_t)o * 8 + r * 4 + j] = jk[r][j];
 #pragma unroll
-        for (int j = 0; j < 3; ++j) Jp_out[(size_t)o * 6 + r * 3 + j] = ob.Jp[r][j];
+        for (int j = 0; j < 3; ++j) Jp_out[(size_t)o * 6 + r * 3 + j] = jp[r][j];
         rw_out[(size_t)o * 2 + r] = rw[r];
       }
     }
-    const float rmax = fmaxf(fabsf(rw[0]), fabsf(rw[1]));
-    if (wv != 0.f && cam_free[c] != 0.f) {
+    const T rmax = t_max(t_abs(rw[0]), t_abs(rw[1]));
+    if (wv != 0.f && (B == 10 || cam_free[c] != 0.f)) {
 #pragma unroll
-      for (int i = 0; i < 6; ++i)
-        sfm_fx_max(&cmax[c * CMAX + i], fmaxf(fabsf(ob.Jc[0][i]), fabsf(ob.Jc[1][i])));
-      sfm_fx_max(&cmax[c * CMAX + 6], rmax);
+      for (int i = 0; i < B; ++i)
+        atomicMax(&cmax[c * CMAX + i], sfm_fx_mag(t_max(t_abs(jc[0][i]), t_abs(jc[1][i]))));
+      atomicMax(&cmax[c * CMAX + B], sfm_fx_mag(rmax));
     }
     if (opt_k) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        warp_fx_max(&kmax[i], fmaxf(fabsf(ob.Jk[0][i]), fabsf(ob.Jk[1][i])));
+      for (int i = 0; i < 4; ++i) warp_fx_max(&kmax[i], t_max(t_abs(jk[0][i]), t_abs(jk[1][i])));
       warp_fx_max(&kmax[4], rmax);
     }
   }
 }
 
-// Shifts of the fixed-point sums: C x (21 U + 6 g_c), then 10 Uk + 4 g_k.
+// Shifts of the fixed-point sums: C x (NU U + B g_c), then 10 Uk + 4 g_k.
+template <int B, typename T>
 __global__ void __launch_bounds__(NT) ba_shift_kernel(const unsigned int* __restrict__ cmax,
                                                       const unsigned int* __restrict__ kmax,
                                                       int C, double rows,
                                                       int* __restrict__ sh) {
+  constexpr int NU = Cam<B>::NU, NCAM = Cam<B>::NCAM;
   const int e = blockIdx.x * NT + threadIdx.x;
   if (e < NCAM * C) {
     const int c = e / NCAM, k = e % NCAM;
-    const unsigned int* m = cmax + c * CMAX;
-    int i = 6, j = k - NU;  // g_c: column j times the residual
-    if (k < NU) upper_ij(k, 6, i, j);
+    const unsigned int* m = cmax + c * Cam<B>::CMAX;
+    int i = B, j = k - NU;  // g_c: column j times the residual
+    if (k < NU) upper_ij(k, B, i, j);
     const double b = (double)__uint_as_float(m[i]) * (double)__uint_as_float(m[j]);
-    sh[e] = sfm_fx_shift(b * rows);
+    sh[e] = sfm_fx_shift_t<T>(b * rows);
   } else if (e < NCAM * C + NK) {
     const int k = e - NCAM * C;
     int i = 4, j = k - 10;
     if (k < 10) upper_ij(k, 4, i, j);
     const double b = (double)__uint_as_float(kmax[i]) * (double)__uint_as_float(kmax[j]);
-    sh[e] = sfm_fx_shift(b * rows);
+    sh[e] = sfm_fx_shift_t<T>(b * rows);
   }
 }
 
-// The camera and intrinsics sums, order-free, from the whitened Jc, Jk, rw.
+// The camera and intrinsics sums, order-free, from the whitened Jc, Jk, rw
+// (nfx targets: a target's second word, for T = double, nfx further on).
+template <int B, typename T>
 __global__ void __launch_bounds__(NT) ba_sum_kernel(
     const int* __restrict__ obs_cam, const float* __restrict__ obs_w,
-    const float* __restrict__ cam_free, const float* __restrict__ Jc,
-    const float* __restrict__ Jk, const float* __restrict__ rw, int C, int O, int opt_k,
+    const float* __restrict__ cam_free, const T* __restrict__ Jc,
+    const T* __restrict__ Jk, const T* __restrict__ rw, int C, int O, int opt_k,
     const int* __restrict__ sh, unsigned long long* __restrict__ acc) {
+  constexpr int NU = Cam<B>::NU, NCAM = Cam<B>::NCAM, W = SfmFx<T>::WORDS;
+  const size_t nfx = (size_t)NCAM * C + NK;
   const int* ksh = sh + NCAM * C;
-  unsigned long long* kacc = acc + NCAM * C;
   for (int base = blockIdx.x * NT; base < O; base += gridDim.x * NT) {
     const int o = base + threadIdx.x;
     const float wv = o < O ? obs_w[o] : 0.f;
     if (wv != 0.f) {
       const int c = obs_cam[o];
-      if (cam_free[c] != 0.f) {
-        const float* jc = Jc + (size_t)o * 12;
-        const float r0 = rw[(size_t)o * 2], r1 = rw[(size_t)o * 2 + 1];
+      if (B == 10 || cam_free[c] != 0.f) {
+        const T* jc = Jc + (size_t)o * 2 * B;
+        const T r0 = rw[(size_t)o * 2], r1 = rw[(size_t)o * 2 + 1];
         const int* s = sh + c * NCAM;
-        unsigned long long* a = acc + (size_t)c * NCAM;
+        const size_t a = (size_t)c * NCAM;
         int k = 0;
 #pragma unroll
-        for (int i = 0; i < 6; ++i)
+        for (int i = 0; i < B; ++i)
 #pragma unroll
-          for (int j = i; j < 6; ++j, ++k)
-            sfm_fx_add(&a[k], jc[i] * jc[j] + jc[6 + i] * jc[6 + j], s[k]);
+          for (int j = i; j < B; ++j, ++k)
+            sfm_fx_add_t<T>(acc, nfx, a + k, jc[i] * jc[j] + jc[B + i] * jc[B + j], s[k]);
 #pragma unroll
-        for (int i = 0; i < 6; ++i)
-          sfm_fx_add(&a[NU + i], jc[i] * r0 + jc[6 + i] * r1, s[NU + i]);
+        for (int i = 0; i < B; ++i)
+          sfm_fx_add_t<T>(acc, nfx, a + NU + i, jc[i] * r0 + jc[B + i] * r1, s[NU + i]);
       }
     }
     if (opt_k) {  // warp sums of the integers (any order: the same bits)
-      long long v[NK];
+      long long v[NK][W];
       if (wv != 0.f) {
-        const float* jk = Jk + (size_t)o * 8;
-        const float r0 = rw[(size_t)o * 2], r1 = rw[(size_t)o * 2 + 1];
+        const T* jk = Jk + (size_t)o * 8;
+        const T r0 = rw[(size_t)o * 2], r1 = rw[(size_t)o * 2 + 1];
+        T x[NK];
         int k = 0;
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = i; j < 4; ++j, ++k)
-            v[k] = ksh[k] == SFM_FX_BAD ? 0 : sfm_fx_of(jk[i] * jk[j] + jk[4 + i] * jk[4 + j], ksh[k]);
+          for (int j = i; j < 4; ++j, ++k) x[k] = jk[i] * jk[j] + jk[4 + i] * jk[4 + j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          v[10 + i] = ksh[10 + i] == SFM_FX_BAD ? 0 : sfm_fx_of(jk[i] * r0 + jk[4 + i] * r1, ksh[10 + i]);
+        for (int i = 0; i < 4; ++i) x[10 + i] = jk[i] * r0 + jk[4 + i] * r1;
+#pragma unroll
+        for (int k = 0; k < NK; ++k) {
+          const SfmFxQ q = ksh[k] == SFM_FX_BAD ? SfmFxQ{0, 0} : sfm_fx_q(x[k], ksh[k]);
+          v[k][0] = q.hi;
+          if (W == 2) v[k][W - 1] = q.lo;
+        }
       } else {
 #pragma unroll
-        for (int k = 0; k < NK; ++k) v[k] = 0;
+        for (int k = 0; k < NK; ++k)
+#pragma unroll
+          for (int w = 0; w < W; ++w) v[k][w] = 0;
       }
 #pragma unroll
-      for (int k = 0; k < NK; ++k) {
-        long long t = v[k];
+      for (int k = 0; k < NK; ++k)
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
-        if (threadIdx.x % 32 == 0 && t != 0)
-          atomicAdd(&kacc[k], static_cast<unsigned long long>(t));
-      }
+        for (int w = 0; w < W; ++w) {
+          long long t = v[k][w];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+          if (threadIdx.x % 32 == 0 && t != 0)
+            atomicAdd(&acc[w * nfx + NCAM * C + k], static_cast<unsigned long long>(t));
+        }
     }
   }
 }
 
-// The sums rounded to float; U and Uk mirrored from their upper triangles.
-__global__ void __launch_bounds__(NT) ba_finish_kernel(const unsigned long long* __restrict__ acc,
-                                                       const int* __restrict__ sh, int C,
-                                                       float* __restrict__ U,
-                                                       float* __restrict__ g_c,
-                                                       float* __restrict__ Uk,
-                                                       float* __restrict__ g_k) {
+// The sums rounded to T; U and Uk mirrored from their upper triangles; then
+// U_extra (C, B, B) and g_c_extra (C, B) added where given.
+template <int B, typename T>
+__global__ void __launch_bounds__(NT) ba_finish_kernel(
+    const unsigned long long* __restrict__ acc, const int* __restrict__ sh, int C,
+    const T* __restrict__ U_extra, const T* __restrict__ g_c_extra, T* __restrict__ U,
+    T* __restrict__ g_c, T* __restrict__ Uk, T* __restrict__ g_k) {
+  constexpr int NU = Cam<B>::NU, NCAM = Cam<B>::NCAM, BB = B * B;
+  const size_t nfx = (size_t)NCAM * C + NK;
   const int e = blockIdx.x * NT + threadIdx.x;
-  if (e < 36 * C) {
-    const int c = e / 36, r = e % 36 / 6, col = e % 6;
+  if (e < BB * C) {
+    const int c = e / BB, r = e % BB / B, col = e % B;
     const int i = min(r, col), j = max(r, col);
-    const int k = c * NCAM + i * 6 - i * (i - 1) / 2 + (j - i);
-    U[e] = (float)sfm_fx_value(acc[k], sh[k]);
-  } else if (e < 42 * C) {
-    const int c = (e - 36 * C) / 6, i = (e - 36 * C) % 6;
+    const int k = c * NCAM + i * B - i * (i - 1) / 2 + (j - i);
+    const T v = (T)sfm_fx_value_t<T>(acc, nfx, k, sh[k]);
+    U[e] = U_extra != nullptr ? v + U_extra[e] : v;
+  } else if (e < (BB + B) * C) {
+    const int c = (e - BB * C) / B, i = (e - BB * C) % B;
     const int k = c * NCAM + NU + i;
-    g_c[c * 6 + i] = (float)sfm_fx_value(acc[k], sh[k]);
-  } else if (e < 42 * C + 16) {
-    const int r = (e - 42 * C) / 4, col = (e - 42 * C) % 4;
+    const T v = (T)sfm_fx_value_t<T>(acc, nfx, k, sh[k]);
+    g_c[c * B + i] = g_c_extra != nullptr ? v + g_c_extra[c * B + i] : v;
+  } else if (e < (BB + B) * C + 16) {
+    const int r = (e - (BB + B) * C) / 4, col = (e - (BB + B) * C) % 4;
     const int i = min(r, col), j = max(r, col);
     const int k = NCAM * C + i * 4 - i * (i - 1) / 2 + (j - i);
-    Uk[r * 4 + col] = (float)sfm_fx_value(acc[k], sh[k]);
-  } else if (e < 42 * C + 20) {
-    const int i = e - 42 * C - 16;
+    Uk[r * 4 + col] = (T)sfm_fx_value_t<T>(acc, nfx, k, sh[k]);
+  } else if (e < (BB + B) * C + 20) {
+    const int i = e - (BB + B) * C - 16;
     const int k = NCAM * C + 10 + i;
-    g_k[i] = (float)sfm_fx_value(acc[k], sh[k]);
+    g_k[i] = (T)sfm_fx_value_t<T>(acc, nfx, k, sh[k]);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(NT) ba_point_kernel(
     const int* __restrict__ obs_point, const int* __restrict__ perm,
     const uint8_t* __restrict__ perm_valid, int G, int Vs,
-    const float* __restrict__ Jp, const float* __restrict__ rw, float* __restrict__ V,
-    float* __restrict__ g_p) {
+    const T* __restrict__ Jp, const T* __restrict__ rw, T* __restrict__ V,
+    T* __restrict__ g_p) {
   const int g = blockIdx.x * NT + threadIdx.x;
   if (g >= G || !perm_valid[(size_t)g * Vs]) return;
-  float v[9] = {0.f}, gp[3] = {0.f, 0.f, 0.f};
+  T v[9] = {T(0)}, gp[3] = {T(0), T(0), T(0)};
   for (int s = 0; s < Vs && perm_valid[(size_t)g * Vs + s]; ++s) {
     const int o = perm[(size_t)g * Vs + s];
-    const float* J = Jp + (size_t)o * 6;
-    const float r0 = rw[(size_t)o * 2], r1 = rw[(size_t)o * 2 + 1];
+    const T* J = Jp + (size_t)o * 6;
+    const T r0 = rw[(size_t)o * 2], r1 = rw[(size_t)o * 2 + 1];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
 #pragma unroll
@@ -352,6 +411,8 @@ __global__ void __launch_bounds__(NT) ba_point_kernel(
   for (int k = 0; k < 3; ++k) g_p[(size_t)p * 3 + k] = gp[k];
 }
 
+// PERCAM: intr holds each camera's (fx, fy, cx, cy), else the shared four.
+template <bool PERCAM>
 __global__ void __launch_bounds__(NT) ba_cost_kernel(
     const float* __restrict__ rvec, const float* __restrict__ tvec,
     const float* __restrict__ intr, const float* __restrict__ points,
@@ -360,14 +421,15 @@ __global__ void __launch_bounds__(NT) ba_cost_kernel(
     float delta, double* __restrict__ partial) {
   __shared__ double warp_sum[NT / 32];
   float in_k[4];
-  for (int k = 0; k < 4; ++k) in_k[k] = intr[k];
+  if (!PERCAM)
+    for (int k = 0; k < 4; ++k) in_k[k] = intr[k];
   double acc = 0.0;
   for (int o = blockIdx.x * NT + threadIdx.x; o < O; o += gridDim.x * NT) {
     if (!(obs_w[o] > 0.f)) continue;
     const int c = obs_cam[o], p = obs_point[o];
     Obs ob;
-    residual_jac<false>(rvec + 3 * c, tvec + 3 * c, in_k, points + 3 * p, obs_xy[2 * o],
-                        obs_xy[2 * o + 1], &ob);
+    residual_jac<false>(rvec + 3 * c, tvec + 3 * c, PERCAM ? intr + 4 * c : in_k,
+                        points + 3 * p, obs_xy[2 * o], obs_xy[2 * o + 1], &ob);
     const float nrm = sqrtf(ob.r[0] * ob.r[0] + ob.r[1] * ob.r[1]);
     acc += nrm <= delta ? 0.5f * nrm * nrm : delta * (nrm - 0.5f * delta);
   }
@@ -399,6 +461,87 @@ int grid_for(int O) {
   return max(1, min((O + NT - 1) / NT, 4 * sms));
 }
 
+// fx_max: C x (B + 1) + 5 uint32; fx_sh: nfx int32; fx_acc: WORDS x nfx uint64,
+// nfx = C x (B (B + 1) / 2 + B) + 14.
+template <int B, typename T>
+int ba_linearize(const void* rvec, const void* tvec, const void* intr, const void* points,
+                 const void* obs_cam, const void* obs_point, const void* obs_xy,
+                 const void* obs_w, const void* cam_free, const void* point_valid,
+                 const void* perm, const void* perm_valid, int C, int O, int G, int Vs,
+                 float delta, int opt_k, void* Jc, void* Jk, void* Jp, void* rw, void* U,
+                 void* g_c, void* Uk, void* g_k, void* V, void* g_p, void* fx_max,
+                 void* fx_sh, void* fx_acc, const void* U_extra, const void* g_c_extra,
+                 cudaStream_t st) {
+  constexpr int NCAM = Cam<B>::NCAM, CMAX = Cam<B>::CMAX;
+  const int nfx = NCAM * C + NK;
+  unsigned int* cmax = static_cast<unsigned int*>(fx_max);
+  cudaError_t e = cudaMemsetAsync(cmax, 0, (size_t)(CMAX * C + 5) * sizeof(unsigned int), st);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(fx_acc, 0, (size_t)SfmFx<T>::WORDS * nfx * sizeof(unsigned long long),
+                        st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (O > 0) {
+    ba_obs_kernel<B, T><<<grid_for(O), NT, 0, st>>>(
+        static_cast<const float*>(rvec), static_cast<const float*>(tvec),
+        static_cast<const float*>(intr), static_cast<const float*>(points),
+        static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),
+        static_cast<const float*>(obs_xy), static_cast<const float*>(obs_w),
+        static_cast<const float*>(cam_free), static_cast<const float*>(point_valid), C, O,
+        delta, opt_k, static_cast<T*>(Jc), static_cast<T*>(Jk), static_cast<T*>(Jp),
+        static_cast<T*>(rw), cmax, cmax + CMAX * C);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  ba_shift_kernel<B, T><<<(nfx + NT - 1) / NT, NT, 0, st>>>(cmax, cmax + CMAX * C, C,
+                                                            2.0 * (double)O,
+                                                            static_cast<int*>(fx_sh));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (O > 0) {
+    ba_sum_kernel<B, T><<<grid_for(O), NT, 0, st>>>(
+        static_cast<const int*>(obs_cam), static_cast<const float*>(obs_w),
+        static_cast<const float*>(cam_free), static_cast<const T*>(Jc),
+        static_cast<const T*>(Jk), static_cast<const T*>(rw), C, O, opt_k,
+        static_cast<const int*>(fx_sh), static_cast<unsigned long long*>(fx_acc));
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  ba_finish_kernel<B, T><<<((B * B + B) * C + 20 + NT - 1) / NT, NT, 0, st>>>(
+      static_cast<const unsigned long long*>(fx_acc), static_cast<const int*>(fx_sh), C,
+      static_cast<const T*>(U_extra), static_cast<const T*>(g_c_extra), static_cast<T*>(U),
+      static_cast<T*>(g_c), static_cast<T*>(Uk), static_cast<T*>(g_k));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (G > 0) {
+    ba_point_kernel<T><<<(G + NT - 1) / NT, NT, 0, st>>>(
+        static_cast<const int*>(obs_point), static_cast<const int*>(perm),
+        static_cast<const uint8_t*>(perm_valid), G, Vs, static_cast<const T*>(Jp),
+        static_cast<const T*>(rw), static_cast<T*>(V), static_cast<T*>(g_p));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PERCAM>
+int ba_cost(const void* rvec, const void* tvec, const void* intr, const void* points,
+            const void* obs_cam, const void* obs_point, const void* obs_xy, const void* obs_w,
+            int O, float delta, void* out, void* partial, cudaStream_t st) {
+  // partial: COST_BLOCKS doubles of scratch.
+  if (O > 0) {
+    const int grid = min((O + NT - 1) / NT, COST_BLOCKS);
+    ba_cost_kernel<PERCAM><<<grid, NT, 0, st>>>(
+        static_cast<const float*>(rvec), static_cast<const float*>(tvec),
+        static_cast<const float*>(intr), static_cast<const float*>(points),
+        static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),
+        static_cast<const float*>(obs_xy), static_cast<const float*>(obs_w), O, delta,
+        static_cast<double*>(partial));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ba_cost_sum_kernel<<<1, 32, 0, st>>>(static_cast<const double*>(partial), grid,
+                                         static_cast<double*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 SFM_API int sfm_ba_linearize(const void* rvec, const void* tvec, const void* intr,
@@ -411,74 +554,48 @@ SFM_API int sfm_ba_linearize(const void* rvec, const void* tvec, const void* int
                              void* rw, void* U, void* g_c, void* Uk, void* g_k, void* V,
                              void* g_p, void* fx_max, void* fx_sh, void* fx_acc,
                              void* stream) {
-  // fx_max: C x 7 + 5 uint32; fx_sh: C x 27 + 14 int32; fx_acc: C x 27 + 14 uint64.
   (void)P;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nfx = NCAM * C + NK;
-  unsigned int* cmax = static_cast<unsigned int*>(fx_max);
-  cudaError_t e = cudaMemsetAsync(cmax, 0, (size_t)(CMAX * C + 5) * sizeof(unsigned int), st);
-  if (e == cudaSuccess)
-    e = cudaMemsetAsync(fx_acc, 0, (size_t)nfx * sizeof(unsigned long long), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (O > 0) {
-    ba_obs_kernel<<<grid_for(O), NT, 0, st>>>(
-        static_cast<const float*>(rvec), static_cast<const float*>(tvec),
-        static_cast<const float*>(intr), static_cast<const float*>(points),
-        static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),
-        static_cast<const float*>(obs_xy), static_cast<const float*>(obs_w),
-        static_cast<const float*>(cam_free), static_cast<const float*>(point_valid), C, O,
-        delta, opt_k, static_cast<float*>(Jc), static_cast<float*>(Jk),
-        static_cast<float*>(Jp), static_cast<float*>(rw), cmax, cmax + CMAX * C);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  ba_shift_kernel<<<(nfx + NT - 1) / NT, NT, 0, st>>>(cmax, cmax + CMAX * C, C,
-                                                      2.0 * (double)O,
-                                                      static_cast<int*>(fx_sh));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (O > 0) {
-    ba_sum_kernel<<<grid_for(O), NT, 0, st>>>(
-        static_cast<const int*>(obs_cam), static_cast<const float*>(obs_w),
-        static_cast<const float*>(cam_free), static_cast<const float*>(Jc),
-        static_cast<const float*>(Jk), static_cast<const float*>(rw), C, O, opt_k,
-        static_cast<const int*>(fx_sh), static_cast<unsigned long long*>(fx_acc));
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  ba_finish_kernel<<<(42 * C + 20 + NT - 1) / NT, NT, 0, st>>>(
-      static_cast<const unsigned long long*>(fx_acc), static_cast<const int*>(fx_sh), C,
-      static_cast<float*>(U), static_cast<float*>(g_c), static_cast<float*>(Uk),
-      static_cast<float*>(g_k));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (G > 0) {
-    ba_point_kernel<<<(G + NT - 1) / NT, NT, 0, st>>>(
-        static_cast<const int*>(obs_point), static_cast<const int*>(perm),
-        static_cast<const uint8_t*>(perm_valid), G, Vs, static_cast<const float*>(Jp),
-        static_cast<const float*>(rw), static_cast<float*>(V), static_cast<float*>(g_p));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return ba_linearize<6, float>(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w,
+                                cam_free, point_valid, perm, perm_valid, C, O, G, Vs, delta,
+                                opt_k, Jc, Jk, Jp, rw, U, g_c, Uk, g_k, V, g_p, fx_max, fx_sh,
+                                fx_acc, nullptr, nullptr, static_cast<cudaStream_t>(stream));
 }
+
+// The other routes: B = 10 (intr (C, 4), U_extra (C, 10, 10) and g_c_extra
+// (C, 10), or null) and the f64 island (T = double outputs and scratch).
+#define SFM_BA_LINEARIZE_VARIANT(NAME, B, T)                                                  \
+  SFM_API int NAME(const void* rvec, const void* tvec, const void* intr, const void* points,   \
+                   const void* obs_cam, const void* obs_point, const void* obs_xy,            \
+                   const void* obs_w, const void* cam_free, const void* point_valid,          \
+                   const void* perm, const void* perm_valid, int C, int P, int O, int G,      \
+                   int Vs, float delta, int opt_k, void* Jc, void* Jk, void* Jp, void* rw,    \
+                   void* U, void* g_c, void* Uk, void* g_k, void* V, void* g_p, void* fx_max, \
+                   void* fx_sh, void* fx_acc, const void* U_extra, const void* g_c_extra,     \
+                   void* stream) {                                                            \
+    (void)P;                                                                                  \
+    return ba_linearize<B, T>(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w,    \
+                              cam_free, point_valid, perm, perm_valid, C, O, G, Vs, delta,    \
+                              opt_k, Jc, Jk, Jp, rw, U, g_c, Uk, g_k, V, g_p, fx_max, fx_sh,  \
+                              fx_acc, U_extra, g_c_extra, static_cast<cudaStream_t>(stream)); \
+  }
+SFM_BA_LINEARIZE_VARIANT(sfm_ba_linearize_b10, 10, float)
+SFM_BA_LINEARIZE_VARIANT(sfm_ba_linearize_f64, 6, double)
+SFM_BA_LINEARIZE_VARIANT(sfm_ba_linearize_b10_f64, 10, double)
+#undef SFM_BA_LINEARIZE_VARIANT
 
 SFM_API int sfm_ba_cost(const void* rvec, const void* tvec, const void* intr,
                         const void* points, const void* obs_cam, const void* obs_point,
                         const void* obs_xy, const void* obs_w, int O, float delta,
                         void* out, void* partial, void* stream) {
-  // partial: COST_BLOCKS doubles of scratch.
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (O > 0) {
-    const int grid = min((O + NT - 1) / NT, COST_BLOCKS);
-    ba_cost_kernel<<<grid, NT, 0, st>>>(
-        static_cast<const float*>(rvec), static_cast<const float*>(tvec),
-        static_cast<const float*>(intr), static_cast<const float*>(points),
-        static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),
-        static_cast<const float*>(obs_xy), static_cast<const float*>(obs_w), O, delta,
-        static_cast<double*>(partial));
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ba_cost_sum_kernel<<<1, 32, 0, st>>>(static_cast<const double*>(partial), grid,
-                                         static_cast<double*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return ba_cost<false>(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w, O, delta,
+                        out, partial, static_cast<cudaStream_t>(stream));
+}
+
+// The cost with each camera's own intrinsics (intr (C, 4)).
+SFM_API int sfm_ba_cost_b10(const void* rvec, const void* tvec, const void* intr,
+                            const void* points, const void* obs_cam, const void* obs_point,
+                            const void* obs_xy, const void* obs_w, int O, float delta,
+                            void* out, void* partial, void* stream) {
+  return ba_cost<true>(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w, O, delta,
+                       out, partial, static_cast<cudaStream_t>(stream));
 }

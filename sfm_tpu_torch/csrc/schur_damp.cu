@@ -35,6 +35,12 @@
 // thread per grouping row overwrites its point's dp with
 // Vinv (-g_p - sum_o Jp_o^T (Jc_o xc + Jk_o xk)); no atomics, deterministic.
 //
+// All three are templated on the camera block B (6, or 10 with per-camera
+// intrinsics) and on the island's scalar T (float, or double with
+// BAConfig.f64_normal_equations: the right-hand side's sums take two words,
+// sfm_common.cuh). The unit pin is per entry (schur.py:188-192): at B = 10
+// it pins the pose rows of a camera whose intrinsics stay free.
+//
 // What bounds it on the H100: memory. At 200k observations and 20k points
 // the damping reads ~100 bytes an observation and ~60 a point (~21 MB, ~6 us
 // at 3.35 TB/s); ~80 FLOP an observation is nothing. Launch latency and the
@@ -44,156 +50,169 @@
 namespace {
 
 constexpr int NT = 256;
-constexpr float kEps = 1e-10f;
+
+template <typename T>
+__device__ __forceinline__ T eps() {
+  return T(1e-10);
+}
+__device__ __forceinline__ float t_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double t_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float t_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double t_abs(double x) { return fabs(x); }
 
 // Inverse of a 3x3 matrix by the adjugate after Jacobi scaling.
-__device__ void inv3_scaled(const float* A, float* out) {
-  float s[3];
+template <typename T>
+__device__ void inv3_scaled(const T* A, T* out) {
+  T s[3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) s[i] = A[i * 4] > 0.f ? 1.f / sqrtf(A[i * 4]) : 1.f;
-  float M[9];
+  for (int i = 0; i < 3; ++i) s[i] = A[i * 4] > T(0) ? T(1) / t_sqrt(A[i * 4]) : T(1);
+  T M[9];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) M[i * 3 + j] = A[i * 3 + j] * s[i] * s[j];
   // adj(M): its columns are the cross products of M's rows (linalg.py::_adjugate3).
-  const float c[3][3] = {
+  const T c[3][3] = {
       {M[4] * M[8] - M[5] * M[7], M[5] * M[6] - M[3] * M[8], M[3] * M[7] - M[4] * M[6]},
       {M[7] * M[2] - M[8] * M[1], M[8] * M[0] - M[6] * M[2], M[6] * M[1] - M[7] * M[0]},
       {M[1] * M[5] - M[2] * M[4], M[2] * M[3] - M[0] * M[5], M[0] * M[4] - M[1] * M[3]}};
-  const float det = M[0] * c[0][0] + M[1] * c[0][1] + M[2] * c[0][2];
+  const T det = M[0] * c[0][0] + M[1] * c[0][1] + M[2] * c[0][2];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) out[i * 3 + j] = s[i] * (c[j][i] / det) * s[j];
 }
 
+template <int B, typename T>
 __global__ void __launch_bounds__(NT) damp_point_kernel(
-    const float* __restrict__ V, const uint8_t* __restrict__ point_valid,
-    const float* __restrict__ U, const float* __restrict__ Uk, int P, int C, float lam,
-    float* __restrict__ Vinv, float* __restrict__ lam_diag_c, float* __restrict__ lam_diag_k) {
+    const T* __restrict__ V, const uint8_t* __restrict__ point_valid,
+    const T* __restrict__ U, const T* __restrict__ Uk, int P, int C, T lam,
+    T* __restrict__ Vinv, T* __restrict__ lam_diag_c, T* __restrict__ lam_diag_k) {
   const int i = blockIdx.x * NT + threadIdx.x;
   if (i < P) {
-    float out[9];
+    T out[9];
     if (point_valid[i]) {
-      float Vd[9];
+      T Vd[9];
 #pragma unroll
       for (int k = 0; k < 9; ++k) Vd[k] = V[(size_t)i * 9 + k];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) Vd[k * 4] = Vd[k * 4] + (lam * Vd[k * 4] + kEps);
-      inv3_scaled(Vd, out);
+      for (int k = 0; k < 3; ++k) Vd[k * 4] = Vd[k * 4] + (lam * Vd[k * 4] + eps<T>());
+      inv3_scaled<T>(Vd, out);
     } else {
 #pragma unroll
-      for (int k = 0; k < 9; ++k) out[k] = 0.f;
+      for (int k = 0; k < 9; ++k) out[k] = T(0);
     }
 #pragma unroll
     for (int k = 0; k < 9; ++k) Vinv[(size_t)i * 9 + k] = out[k];
   }
-  if (i < 6 * C) {
-    const float d = U[(size_t)(i / 6) * 36 + (i % 6) * 7];
-    lam_diag_c[i] = lam * d + (d <= kEps ? 1.f : 0.f);
+  if (i < B * C) {
+    const T d = U[(size_t)(i / B) * B * B + (i % B) * (B + 1)];
+    lam_diag_c[i] = lam * d + (d <= eps<T>() ? T(1) : T(0));
   }
-  if (i < 4) lam_diag_k[i] = lam * Uk[i * 5] + kEps;
+  if (i < 4) lam_diag_k[i] = lam * Uk[i * 5] + eps<T>();
 }
 
-template <bool ADD>
+template <int B, typename T, bool ADD>
 __global__ void __launch_bounds__(NT) damp_rhs_kernel(
-    const float* __restrict__ Jc, const float* __restrict__ Jk, const float* __restrict__ Jp,
+    const T* __restrict__ Jc, const T* __restrict__ Jk, const T* __restrict__ Jp,
     const int* __restrict__ obs_cam, const int* __restrict__ obs_point,
     const int* __restrict__ perm, const uint8_t* __restrict__ perm_valid, int G, int Vs, int C,
-    const float* __restrict__ Vinv, const float* __restrict__ g_p, const int* __restrict__ sh,
+    const T* __restrict__ Vinv, const T* __restrict__ g_p, const int* __restrict__ sh,
     unsigned int* __restrict__ gmax, unsigned long long* __restrict__ gacc) {
-  extern __shared__ unsigned long long s_rhs[];  // C x 6 camera sums, then 4 intrinsics sums
-  const int n = 6 * C + 4;
-  sfm_fx_stage_zero(s_rhs, n);
+  extern __shared__ unsigned long long s_rhs[];  // C x B camera sums, then 4 intrinsics sums
+  const int n = B * C + 4;
+  sfm_fx_stage_zero<T>(s_rhs, n);
   __syncthreads();
   const int g = blockIdx.x * NT + threadIdx.x;
   SfmFxPart rk[4];
   if (g < G && perm_valid[(size_t)g * Vs]) {
     const int p = obs_point[perm[(size_t)g * Vs]];
-    const float* Vi = Vinv + (size_t)p * 9;
-    const float* gp = g_p + (size_t)p * 3;
-    float h[3];
+    const T* Vi = Vinv + (size_t)p * 9;
+    const T* gp = g_p + (size_t)p * 3;
+    T h[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) h[i] = Vi[i * 3] * gp[0] + Vi[i * 3 + 1] * gp[1] + Vi[i * 3 + 2] * gp[2];
     for (int s = 0; s < Vs && perm_valid[(size_t)g * Vs + s]; ++s) {
       const int o = perm[(size_t)g * Vs + s];
-      const float* jp = Jp + (size_t)o * 6;
-      const float y0 = jp[0] * h[0] + jp[1] * h[1] + jp[2] * h[2];
-      const float y1 = jp[3] * h[0] + jp[4] * h[1] + jp[5] * h[2];
-      const float* jc = Jc + (size_t)o * 12;
-      const int c6 = 6 * obs_cam[o];
+      const T* jp = Jp + (size_t)o * 6;
+      const T y0 = jp[0] * h[0] + jp[1] * h[1] + jp[2] * h[2];
+      const T y1 = jp[3] * h[0] + jp[4] * h[1] + jp[5] * h[2];
+      const T* jc = Jc + (size_t)o * 2 * B;
+      const int cB = B * obs_cam[o];
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        const float v = jc[k] * y0 + jc[6 + k] * y1;
-        if (v != 0.f) sfm_fx_put<ADD>(s_rhs, c6 + k, v, sh);
+      for (int k = 0; k < B; ++k) {
+        const T v = jc[k] * y0 + jc[B + k] * y1;
+        if (v != T(0)) sfm_fx_put<T, ADD>(s_rhs, n, cB + k, v, sh);
       }
-      const float* jk = Jk + (size_t)o * 8;
+      const T* jk = Jk + (size_t)o * 8;
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        sfm_fx_part<ADD>(rk[k], jk[k] * y0 + jk[4 + k] * y1, ADD ? sh[6 * C + k] : 0);
+        sfm_fx_part<T, ADD>(rk[k], jk[k] * y0 + jk[4 + k] * y1, ADD ? sh[B * C + k] : 0);
     }
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) sfm_fx_put_warp<ADD>(s_rhs, 6 * C + k, rk[k]);
+  for (int k = 0; k < 4; ++k) sfm_fx_put_warp<T, ADD>(s_rhs, n, B * C + k, rk[k]);
   __syncthreads();
-  sfm_fx_flush<ADD>(s_rhs, n, gmax, gacc);
+  sfm_fx_flush<T, ADD>(s_rhs, n, gmax, gacc);
 }
 
 // rhs = -g + the sums, rounded once.
+template <int B, typename T>
 __global__ void __launch_bounds__(NT) damp_finish_kernel(
-    const float* __restrict__ g_c, const float* __restrict__ g_k,
+    const T* __restrict__ g_c, const T* __restrict__ g_k,
     const unsigned long long* __restrict__ gacc, const int* __restrict__ sh, int C,
-    float* __restrict__ rhs_c, float* __restrict__ rhs_k) {
+    T* __restrict__ rhs_c, T* __restrict__ rhs_k) {
   const int i = blockIdx.x * NT + threadIdx.x;
-  const int n6 = 6 * C;
-  if (i < n6) {
-    rhs_c[i] = (float)(-(double)g_c[i] + sfm_fx_value(gacc[i], sh[i]));
-  } else if (i < n6 + 4) {
-    rhs_k[i - n6] = (float)(-(double)g_k[i - n6] + sfm_fx_value(gacc[i], sh[i]));
+  const int nB = B * C, n = nB + 4;
+  if (i < nB) {
+    rhs_c[i] = (T)(-(double)g_c[i] + sfm_fx_value_t<T>(gacc, n, i, sh[i]));
+  } else if (i < n) {
+    rhs_k[i - nB] = (T)(-(double)g_k[i - nB] + sfm_fx_value_t<T>(gacc, n, i, sh[i]));
   }
 }
 
-__device__ __forceinline__ void point_step(const float* Vi, const float* gp, const float* u,
-                                           float* dp) {
-  const float r[3] = {-gp[0] - u[0], -gp[1] - u[1], -gp[2] - u[2]};
+template <typename T>
+__device__ __forceinline__ void point_step(const T* Vi, const T* gp, const T* u, T* dp) {
+  const T r[3] = {-gp[0] - u[0], -gp[1] - u[1], -gp[2] - u[2]};
 #pragma unroll
   for (int i = 0; i < 3; ++i) dp[i] = Vi[i * 3] * r[0] + Vi[i * 3 + 1] * r[1] + Vi[i * 3 + 2] * r[2];
 }
 
-__global__ void __launch_bounds__(NT) back_point_kernel(const float* __restrict__ Vinv,
-                                                        const float* __restrict__ g_p, int P,
-                                                        float* __restrict__ dp) {
+template <typename T>
+__global__ void __launch_bounds__(NT) back_point_kernel(const T* __restrict__ Vinv,
+                                                        const T* __restrict__ g_p, int P,
+                                                        T* __restrict__ dp) {
   const int p = blockIdx.x * NT + threadIdx.x;
   if (p >= P) return;
-  const float u[3] = {0.f, 0.f, 0.f};
-  point_step(Vinv + (size_t)p * 9, g_p + (size_t)p * 3, u, dp + (size_t)p * 3);
+  const T u[3] = {T(0), T(0), T(0)};
+  point_step<T>(Vinv + (size_t)p * 9, g_p + (size_t)p * 3, u, dp + (size_t)p * 3);
 }
 
+template <int B, typename T>
 __global__ void __launch_bounds__(NT) back_row_kernel(
-    const float* __restrict__ Jc, const float* __restrict__ Jk, const float* __restrict__ Jp,
+    const T* __restrict__ Jc, const T* __restrict__ Jk, const T* __restrict__ Jp,
     const int* __restrict__ obs_cam, const int* __restrict__ obs_point,
     const int* __restrict__ perm, const uint8_t* __restrict__ perm_valid, int G, int Vs,
-    const float* __restrict__ Vinv, const float* __restrict__ g_p, const float* __restrict__ xc,
-    const float* __restrict__ xk, float* __restrict__ dp) {
+    const T* __restrict__ Vinv, const T* __restrict__ g_p, const T* __restrict__ xc,
+    const T* __restrict__ xk, T* __restrict__ dp) {
   const int g = blockIdx.x * NT + threadIdx.x;
   if (g >= G || !perm_valid[(size_t)g * Vs]) return;
-  float k4[4];
+  T k4[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) k4[k] = xk[k];
-  float u[3] = {0.f, 0.f, 0.f};
+  T u[3] = {T(0), T(0), T(0)};
   for (int s = 0; s < Vs && perm_valid[(size_t)g * Vs + s]; ++s) {
     const int o = perm[(size_t)g * Vs + s];
-    const float* x = xc + (size_t)obs_cam[o] * 6;
-    const float* jc = Jc + (size_t)o * 12;
-    const float* jk = Jk + (size_t)o * 8;
-    const float* jp = Jp + (size_t)o * 6;
-    float a[2];
+    const T* x = xc + (size_t)obs_cam[o] * B;
+    const T* jc = Jc + (size_t)o * 2 * B;
+    const T* jk = Jk + (size_t)o * 8;
+    const T* jp = Jp + (size_t)o * 6;
+    T a[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float ac = 0.f, ak = 0.f;
+      T ac = T(0), ak = T(0);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) ac += jc[r * 6 + k] * x[k];
+      for (int k = 0; k < B; ++k) ac += jc[r * B + k] * x[k];
 #pragma unroll
       for (int k = 0; k < 4; ++k) ak += jk[r * 4 + k] * k4[k];
       a[r] = ac + ak;
@@ -202,40 +221,40 @@ __global__ void __launch_bounds__(NT) back_row_kernel(
     for (int i = 0; i < 3; ++i) u[i] += jp[i] * a[0] + jp[3 + i] * a[1];
   }
   const int p = obs_point[perm[(size_t)g * Vs]];
-  point_step(Vinv + (size_t)p * 9, g_p + (size_t)p * 3, u, dp + (size_t)p * 3);
+  point_step<T>(Vinv + (size_t)p * 9, g_p + (size_t)p * 3, u, dp + (size_t)p * 3);
 }
 
 // inv(A) by Gauss-Jordan elimination with partial pivoting (A is overwritten).
-template <int N>
-__device__ void inverse_pivoted(float (&a)[N][N], float (&inv)[N][N]) {
+template <int N, typename T>
+__device__ void inverse_pivoted(T (&a)[N][N], T (&inv)[N][N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < N; ++j) inv[i][j] = i == j ? 1.f : 0.f;
+    for (int j = 0; j < N; ++j) inv[i][j] = i == j ? T(1) : T(0);
   for (int col = 0; col < N; ++col) {
     int piv = col;
-    float best = fabsf(a[col][col]);
+    T best = t_abs(a[col][col]);
     for (int i = col + 1; i < N; ++i)
-      if (fabsf(a[i][col]) > best) {
-        best = fabsf(a[i][col]);
+      if (t_abs(a[i][col]) > best) {
+        best = t_abs(a[i][col]);
         piv = i;
       }
     if (piv != col)
       for (int j = 0; j < N; ++j) {
-        const float t = a[col][j], u = inv[col][j];
+        const T t = a[col][j], u = inv[col][j];
         a[col][j] = a[piv][j];
         inv[col][j] = inv[piv][j];
         a[piv][j] = t;
         inv[piv][j] = u;
       }
-    const float d = 1.f / a[col][col];
+    const T d = T(1) / a[col][col];
     for (int j = 0; j < N; ++j) {
       a[col][j] *= d;
       inv[col][j] *= d;
     }
     for (int i = 0; i < N; ++i) {
       if (i == col) continue;
-      const float f = a[i][col];
+      const T f = a[i][col];
       for (int j = 0; j < N; ++j) {
         a[i][j] -= f * a[col][j];
         inv[i][j] -= f * inv[col][j];
@@ -244,121 +263,163 @@ __device__ void inverse_pivoted(float (&a)[N][N], float (&inv)[N][N]) {
   }
 }
 
-template <int N>
-__device__ __forceinline__ void damped_block_inverse(const float* B, const float* lam_diag,
-                                                     float* out) {
-  float a[N][N], inv[N][N];
+template <int N, typename T>
+__device__ __forceinline__ void damped_block_inverse(const T* Bk, const T* lam_diag, T* out) {
+  T a[N][N], inv[N][N];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j)
-      a[i][j] = i == j ? (B[i * N + j] + lam_diag[i]) + kEps : B[i * N + j];
-  inverse_pivoted<N>(a, inv);
+      a[i][j] = i == j ? (Bk[i * N + j] + lam_diag[i]) + eps<T>() : Bk[i * N + j];
+  inverse_pivoted<N, T>(a, inv);
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) out[i * N + j] = inv[i][j];
 }
 
+template <int B, typename T>
 __global__ void __launch_bounds__(NT) block_jacobi_kernel(
-    const float* __restrict__ U, const float* __restrict__ lam_diag_c,
-    const float* __restrict__ Uk, const float* __restrict__ lam_diag_k, int C,
-    float* __restrict__ Mc, float* __restrict__ Mk) {
+    const T* __restrict__ U, const T* __restrict__ lam_diag_c,
+    const T* __restrict__ Uk, const T* __restrict__ lam_diag_k, int C,
+    T* __restrict__ Mc, T* __restrict__ Mk) {
   const int c = blockIdx.x * NT + threadIdx.x;
   if (c < C)
-    damped_block_inverse<6>(U + (size_t)c * 36, lam_diag_c + (size_t)c * 6, Mc + (size_t)c * 36);
+    damped_block_inverse<B, T>(U + (size_t)c * B * B, lam_diag_c + (size_t)c * B,
+                               Mc + (size_t)c * B * B);
   else if (c == C)
-    damped_block_inverse<4>(Uk, lam_diag_k, Mk);
+    damped_block_inverse<4, T>(Uk, lam_diag_k, Mk);
 }
 
-}  // namespace
-
-SFM_API int sfm_schur_block_jacobi(const void* U, const void* lam_diag_c, const void* Uk,
-                                   const void* lam_diag_k, int C, void* Mc, void* Mk,
-                                   void* stream) {
-  block_jacobi_kernel<<<C / NT + 1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(U), static_cast<const float*>(lam_diag_c),
-      static_cast<const float*>(Uk), static_cast<const float*>(lam_diag_k), C,
-      static_cast<float*>(Mc), static_cast<float*>(Mk));
+template <int B, typename T>
+int schur_block_jacobi(const void* U, const void* lam_diag_c, const void* Uk,
+                       const void* lam_diag_k, int C, void* Mc, void* Mk, cudaStream_t st) {
+  block_jacobi_kernel<B, T><<<C / NT + 1, NT, 0, st>>>(
+      static_cast<const T*>(U), static_cast<const T*>(lam_diag_c), static_cast<const T*>(Uk),
+      static_cast<const T*>(lam_diag_k), C, static_cast<T*>(Mc), static_cast<T*>(Mk));
   return static_cast<int>(cudaGetLastError());
 }
 
-SFM_API int sfm_schur_damp(const void* V, const void* point_valid, const void* U, const void* Uk,
-                           const void* g_c, const void* g_k, const void* g_p, const void* Jc,
-                           const void* Jk, const void* Jp, const void* obs_cam,
-                           const void* obs_point, const void* perm, const void* perm_valid,
-                           int P, int C, int G, int Vs, float lam, void* Vinv, void* lam_diag_c,
-                           void* lam_diag_k, void* rhs_c, void* rhs_k, void* fx_max,
-                           void* fx_sh, void* fx_acc, void* stream) {
-  // fx_max, fx_sh: n int32 each, fx_acc: n uint64, n = 6C + 4.
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n = 6 * C + 4;
-  const int n1 = max(max(P, 6 * C), 4);
+// fx_max, fx_sh: n int32 each, fx_acc: WORDS x n uint64, n = BC + 4.
+template <int B, typename T>
+int schur_damp(const void* V, const void* point_valid, const void* U, const void* Uk,
+               const void* g_c, const void* g_k, const void* g_p, const void* Jc,
+               const void* Jk, const void* Jp, const void* obs_cam, const void* obs_point,
+               const void* perm, const void* perm_valid, int P, int C, int G, int Vs, T lam,
+               void* Vinv, void* lam_diag_c, void* lam_diag_k, void* rhs_c, void* rhs_k,
+               void* fx_max, void* fx_sh, void* fx_acc, cudaStream_t st) {
+  const int n = B * C + 4;
+  const int n1 = max(max(P, B * C), 4);
   unsigned int* gmax = static_cast<unsigned int*>(fx_max);
   int* sh = static_cast<int*>(fx_sh);
   unsigned long long* gacc = static_cast<unsigned long long*>(fx_acc);
   cudaError_t e = cudaMemsetAsync(gmax, 0, (size_t)n * sizeof(unsigned int), st);
-  if (e == cudaSuccess) e = cudaMemsetAsync(gacc, 0, (size_t)n * sizeof(unsigned long long), st);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(gacc, 0, (size_t)SfmFx<T>::WORDS * n * sizeof(unsigned long long), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  damp_point_kernel<<<(n1 + NT - 1) / NT, NT, 0, st>>>(
-      static_cast<const float*>(V), static_cast<const uint8_t*>(point_valid),
-      static_cast<const float*>(U), static_cast<const float*>(Uk), P, C, lam,
-      static_cast<float*>(Vinv), static_cast<float*>(lam_diag_c),
-      static_cast<float*>(lam_diag_k));
+  damp_point_kernel<B, T><<<(n1 + NT - 1) / NT, NT, 0, st>>>(
+      static_cast<const T*>(V), static_cast<const uint8_t*>(point_valid),
+      static_cast<const T*>(U), static_cast<const T*>(Uk), P, C, lam, static_cast<T*>(Vinv),
+      static_cast<T*>(lam_diag_c), static_cast<T*>(lam_diag_k));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (G > 0) {
-    const size_t smem = (size_t)n * sizeof(unsigned long long);
-    e = cudaFuncSetAttribute(damp_rhs_kernel<false>,
+    const size_t smem = (size_t)SfmFx<T>::WORDS * n * sizeof(unsigned long long);
+    e = cudaFuncSetAttribute(damp_rhs_kernel<B, T, false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(damp_rhs_kernel<true>,
+      e = cudaFuncSetAttribute(damp_rhs_kernel<B, T, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int blocks = (G + NT - 1) / NT;
-#define DAMP_RHS_ARGS                                                                   \
-  static_cast<const float*>(Jc), static_cast<const float*>(Jk),                         \
-      static_cast<const float*>(Jp), static_cast<const int*>(obs_cam),                  \
-      static_cast<const int*>(obs_point), static_cast<const int*>(perm),                \
-      static_cast<const uint8_t*>(perm_valid), G, Vs, C, static_cast<const float*>(Vinv), \
-      static_cast<const float*>(g_p), sh, gmax, gacc
-    damp_rhs_kernel<false><<<blocks, NT, smem, st>>>(DAMP_RHS_ARGS);
-    sfm_fx_shift_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, (double)G * Vs, nullptr,
-                                                          sh);
-    damp_rhs_kernel<true><<<blocks, NT, smem, st>>>(DAMP_RHS_ARGS);
+#define DAMP_RHS_ARGS                                                                        \
+  static_cast<const T*>(Jc), static_cast<const T*>(Jk), static_cast<const T*>(Jp),           \
+      static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),                  \
+      static_cast<const int*>(perm), static_cast<const uint8_t*>(perm_valid), G, Vs, C,      \
+      static_cast<const T*>(Vinv), static_cast<const T*>(g_p), sh, gmax, gacc
+    damp_rhs_kernel<B, T, false><<<blocks, NT, smem, st>>>(DAMP_RHS_ARGS);
+    sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, (double)G * Vs, nullptr,
+                                                             sh);
+    damp_rhs_kernel<B, T, true><<<blocks, NT, smem, st>>>(DAMP_RHS_ARGS);
 #undef DAMP_RHS_ARGS
   } else {
-    sfm_fx_shift_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, 1.0, nullptr, sh);
+    sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, 1.0, nullptr, sh);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  damp_finish_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(
-      static_cast<const float*>(g_c), static_cast<const float*>(g_k), gacc, sh, C,
-      static_cast<float*>(rhs_c), static_cast<float*>(rhs_k));
+  damp_finish_kernel<B, T><<<(n + NT - 1) / NT, NT, 0, st>>>(
+      static_cast<const T*>(g_c), static_cast<const T*>(g_k), gacc, sh, C,
+      static_cast<T*>(rhs_c), static_cast<T*>(rhs_k));
   return static_cast<int>(cudaGetLastError());
 }
 
-SFM_API int sfm_schur_back_substitute(const void* Jc, const void* Jk, const void* Jp,
-                                      const void* obs_cam, const void* obs_point,
-                                      const void* perm, const void* perm_valid, const void* Vinv,
-                                      const void* g_p, const void* xc, const void* xk, int P,
-                                      int G, int Vs, void* dp, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <int B, typename T>
+int schur_back_substitute(const void* Jc, const void* Jk, const void* Jp, const void* obs_cam,
+                          const void* obs_point, const void* perm, const void* perm_valid,
+                          const void* Vinv, const void* g_p, const void* xc, const void* xk,
+                          int P, int G, int Vs, void* dp, cudaStream_t st) {
   if (P > 0) {
-    back_point_kernel<<<(P + NT - 1) / NT, NT, 0, st>>>(
-        static_cast<const float*>(Vinv), static_cast<const float*>(g_p), P,
-        static_cast<float*>(dp));
+    back_point_kernel<T><<<(P + NT - 1) / NT, NT, 0, st>>>(
+        static_cast<const T*>(Vinv), static_cast<const T*>(g_p), P, static_cast<T*>(dp));
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (G > 0) {
-    back_row_kernel<<<(G + NT - 1) / NT, NT, 0, st>>>(
-        static_cast<const float*>(Jc), static_cast<const float*>(Jk),
-        static_cast<const float*>(Jp), static_cast<const int*>(obs_cam),
-        static_cast<const int*>(obs_point), static_cast<const int*>(perm),
-        static_cast<const uint8_t*>(perm_valid), G, Vs, static_cast<const float*>(Vinv),
-        static_cast<const float*>(g_p), static_cast<const float*>(xc),
-        static_cast<const float*>(xk), static_cast<float*>(dp));
+    back_row_kernel<B, T><<<(G + NT - 1) / NT, NT, 0, st>>>(
+        static_cast<const T*>(Jc), static_cast<const T*>(Jk), static_cast<const T*>(Jp),
+        static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),
+        static_cast<const int*>(perm), static_cast<const uint8_t*>(perm_valid), G, Vs,
+        static_cast<const T*>(Vinv), static_cast<const T*>(g_p), static_cast<const T*>(xc),
+        static_cast<const T*>(xk), static_cast<T*>(dp));
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// The default route (B = 6, float; lam a float) and the others (lam a double,
+// exact for the LM loop's float32 lambda).
+#define SFM_SCHUR_DAMP(NAME, B, T, LAM)                                                       \
+  SFM_API int NAME(const void* V, const void* point_valid, const void* U, const void* Uk,     \
+                   const void* g_c, const void* g_k, const void* g_p, const void* Jc,         \
+                   const void* Jk, const void* Jp, const void* obs_cam, const void* obs_point, \
+                   const void* perm, const void* perm_valid, int P, int C, int G, int Vs,     \
+                   LAM lam, void* Vinv, void* lam_diag_c, void* lam_diag_k, void* rhs_c,      \
+                   void* rhs_k, void* fx_max, void* fx_sh, void* fx_acc, void* stream) {      \
+    return schur_damp<B, T>(V, point_valid, U, Uk, g_c, g_k, g_p, Jc, Jk, Jp, obs_cam,        \
+                            obs_point, perm, perm_valid, P, C, G, Vs, (T)lam, Vinv,           \
+                            lam_diag_c, lam_diag_k, rhs_c, rhs_k, fx_max, fx_sh, fx_acc,      \
+                            static_cast<cudaStream_t>(stream));                               \
+  }
+SFM_SCHUR_DAMP(sfm_schur_damp, 6, float, float)
+SFM_SCHUR_DAMP(sfm_schur_damp_b10, 10, float, double)
+SFM_SCHUR_DAMP(sfm_schur_damp_f64, 6, double, double)
+SFM_SCHUR_DAMP(sfm_schur_damp_b10_f64, 10, double, double)
+#undef SFM_SCHUR_DAMP
+
+#define SFM_SCHUR_BACK(NAME, B, T)                                                            \
+  SFM_API int NAME(const void* Jc, const void* Jk, const void* Jp, const void* obs_cam,       \
+                   const void* obs_point, const void* perm, const void* perm_valid,           \
+                   const void* Vinv, const void* g_p, const void* xc, const void* xk, int P,  \
+                   int G, int Vs, void* dp, void* stream) {                                   \
+    return schur_back_substitute<B, T>(Jc, Jk, Jp, obs_cam, obs_point, perm, perm_valid,      \
+                                       Vinv, g_p, xc, xk, P, G, Vs, dp,                      \
+                                       static_cast<cudaStream_t>(stream));                    \
+  }
+SFM_SCHUR_BACK(sfm_schur_back_substitute, 6, float)
+SFM_SCHUR_BACK(sfm_schur_back_substitute_b10, 10, float)
+SFM_SCHUR_BACK(sfm_schur_back_substitute_f64, 6, double)
+SFM_SCHUR_BACK(sfm_schur_back_substitute_b10_f64, 10, double)
+#undef SFM_SCHUR_BACK
+
+#define SFM_BLOCK_JACOBI(NAME, B, T)                                                          \
+  SFM_API int NAME(const void* U, const void* lam_diag_c, const void* Uk,                     \
+                   const void* lam_diag_k, int C, void* Mc, void* Mk, void* stream) {         \
+    return schur_block_jacobi<B, T>(U, lam_diag_c, Uk, lam_diag_k, C, Mc, Mk,                 \
+                                    static_cast<cudaStream_t>(stream));                       \
+  }
+SFM_BLOCK_JACOBI(sfm_schur_block_jacobi, 6, float)
+SFM_BLOCK_JACOBI(sfm_schur_block_jacobi_b10, 10, float)
+SFM_BLOCK_JACOBI(sfm_schur_block_jacobi_f64, 6, double)
+SFM_BLOCK_JACOBI(sfm_schur_block_jacobi_b10_f64, 10, double)
+#undef SFM_BLOCK_JACOBI

@@ -31,6 +31,16 @@
 // early exit at the same iteration, with no host sync inside the solve.
 // Block sums are deterministic (sfm_common.cuh::sfm_block_sum).
 //
+// Every entry is templated on the camera block B (6, or 10 with per-camera
+// intrinsics, schur.py:232's layout at 10C + 4) and on the island's scalar T
+// (float, or double with BAConfig.f64_normal_equations: the vectors, the
+// state and the dot products in double, the matvec's sums two words,
+// sfm_common.cuh). At B = 10 the matvec adds U_extra x_c (schur.py:253-256:
+// the per-camera intrinsics regularization, a part of U that the Jc
+// products cannot rebuild); the camera sums of a block live in shared
+// memory, WORDS x (BC + 4) x 8 bytes of 227 KB, which caps C: 4,842 at
+// B = 6 in float, 2,905 at B = 10, 2,420 and 1,452 in double.
+//
 // What bounds it on the H100: memory. A matvec reads each observation's
 // whitened Jacobians (13 x 2 floats), its camera and point ids and its slot
 // in the grouping (~120 bytes) and each point's Vinv (36 bytes): at 600k
@@ -43,151 +53,171 @@ namespace {
 
 constexpr int NT = 256;    // matvec threads a block
 constexpr int NB = 1024;   // the one block of the CG kernels
-constexpr float kEps = 1e-10f;
 
-// Sx = lam_diag o x (+ Hreg_k xk on the intrinsics) + the coupling sums.
+template <typename T>
+__device__ __forceinline__ T eps() {
+  return T(1e-10);
+}
+__device__ __forceinline__ float t_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double t_sqrt(double x) { return sqrt(x); }
+
+// Sx = lam_diag o x (+ U_extra_c x_c on the cameras, + Hreg_k xk on the
+// intrinsics) + the coupling sums.
+template <int B, typename T>
 __global__ void __launch_bounds__(NT) matvec_finish_kernel(
-    const float* __restrict__ lam_diag_c, const float* __restrict__ lam_diag_k,
-    const float* __restrict__ Hreg_k, const float* __restrict__ x, int C,
+    const T* __restrict__ lam_diag_c, const T* __restrict__ lam_diag_k,
+    const T* __restrict__ Hreg_k, const T* __restrict__ U_extra, const T* __restrict__ x, int C,
     const unsigned long long* __restrict__ gacc, const int* __restrict__ sh,
-    const float* __restrict__ flag, float* __restrict__ Sx) {
-  if (flag != nullptr && *flag == 0.f) return;
+    const T* __restrict__ flag, T* __restrict__ Sx) {
+  if (flag != nullptr && *flag == T(0)) return;
   const int i = blockIdx.x * NT + threadIdx.x;
-  const int n6 = 6 * C;
-  if (i < n6) {
-    Sx[i] = (float)((double)(lam_diag_c[i] * x[i]) + sfm_fx_value(gacc[i], sh[i]));
-  } else if (i < n6 + 4) {
-    const int k = i - n6;
-    float h = 0.f;
+  const int nB = B * C, n = nB + 4;
+  if (i < nB) {
+    T d = lam_diag_c[i] * x[i];
+    if (U_extra != nullptr) {
+      const int c = i / B, r = i % B;
+      T u = T(0);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) h += Hreg_k[k * 4 + j] * x[n6 + j];
-    Sx[i] = (float)((double)(lam_diag_k[k] * x[i] + h) + sfm_fx_value(gacc[i], sh[i]));
+      for (int j = 0; j < B; ++j) u += U_extra[(size_t)c * B * B + r * B + j] * x[c * B + j];
+      d += u;
+    }
+    Sx[i] = (T)((double)d + sfm_fx_value_t<T>(gacc, n, i, sh[i]));
+  } else if (i < n) {
+    const int k = i - nB;
+    T h = T(0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h += Hreg_k[k * 4 + j] * x[nB + j];
+    Sx[i] = (T)((double)(lam_diag_k[k] * x[i] + h) + sfm_fx_value_t<T>(gacc, n, i, sh[i]));
   }
 }
 
 // a_o = Jc_o xc + Jk_o xk for one observation (2 rows).
-__device__ __forceinline__ void apply_b(const float* jc, const float* jk, const float* xc,
-                                       const float* xk, float* a) {
+template <int B, typename T>
+__device__ __forceinline__ void apply_b(const T* jc, const T* jk, const T* xc, const T* xk,
+                                       T* a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float ac = 0.f, ak = 0.f;
+    T ac = T(0), ak = T(0);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) ac += jc[r * 6 + k] * xc[k];
+    for (int k = 0; k < B; ++k) ac += jc[r * B + k] * xc[k];
 #pragma unroll
     for (int k = 0; k < 4; ++k) ak += jk[r * 4 + k] * xk[k];
     a[r] = ac + ak;
   }
 }
 
-template <bool ADD>
+template <int B, typename T, bool ADD>
 __global__ void __launch_bounds__(NT) matvec_rows_kernel(
-    const float* __restrict__ Jc, const float* __restrict__ Jk, const float* __restrict__ Jp,
+    const T* __restrict__ Jc, const T* __restrict__ Jk, const T* __restrict__ Jp,
     const int* __restrict__ obs_cam, const int* __restrict__ obs_point,
     const int* __restrict__ perm, const uint8_t* __restrict__ perm_valid, int G, int Vs, int C,
-    const float* __restrict__ Vinv, const float* __restrict__ x,
-    const float* __restrict__ flag, const int* __restrict__ sh,
-    unsigned int* __restrict__ gmax, unsigned long long* __restrict__ gacc) {
-  if (flag != nullptr && *flag == 0.f) return;  // the same for the whole block
-  extern __shared__ unsigned long long s_acc[];  // C x 6 camera sums, then 4 intrinsics sums
-  const int n6 = 6 * C;
-  sfm_fx_stage_zero(s_acc, n6 + 4);
+    const T* __restrict__ Vinv, const T* __restrict__ x, const T* __restrict__ flag,
+    const int* __restrict__ sh, unsigned int* __restrict__ gmax,
+    unsigned long long* __restrict__ gacc) {
+  if (flag != nullptr && *flag == T(0)) return;  // the same for the whole block
+  extern __shared__ unsigned long long s_acc[];  // C x B camera sums, then 4 intrinsics sums
+  const int nB = B * C, n = nB + 4;
+  sfm_fx_stage_zero<T>(s_acc, n);
   __syncthreads();
   const int g = blockIdx.x * NT + threadIdx.x;
   SfmFxPart rk[4];
   if (g < G && perm_valid[(size_t)g * Vs]) {
-    float xk[4];
+    T xk[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) xk[k] = x[n6 + k];
+    for (int k = 0; k < 4; ++k) xk[k] = x[nB + k];
     const int* row = perm + (size_t)g * Vs;
     const uint8_t* ok = perm_valid + (size_t)g * Vs;
-    float u[3] = {0.f, 0.f, 0.f};
+    T u[3] = {T(0), T(0), T(0)};
     for (int s = 0; s < Vs && ok[s]; ++s) {
       const int o = row[s];
-      float a[2];
-      apply_b(Jc + (size_t)o * 12, Jk + (size_t)o * 8, x + (size_t)obs_cam[o] * 6, xk, a);
-      const float* jp = Jp + (size_t)o * 6;
+      T a[2];
+      apply_b<B, T>(Jc + (size_t)o * 2 * B, Jk + (size_t)o * 8, x + (size_t)obs_cam[o] * B, xk,
+                    a);
+      const T* jp = Jp + (size_t)o * 6;
 #pragma unroll
       for (int i = 0; i < 3; ++i) u[i] += jp[i] * a[0] + jp[3 + i] * a[1];
     }
-    const float* Vi = Vinv + (size_t)obs_point[row[0]] * 9;
-    float v[3];
+    const T* Vi = Vinv + (size_t)obs_point[row[0]] * 9;
+    T v[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
       v[i] = Vi[i * 3] * u[0] + Vi[i * 3 + 1] * u[1] + Vi[i * 3 + 2] * u[2];
     for (int s = 0; s < Vs && ok[s]; ++s) {
       const int o = row[s];
       const int c = obs_cam[o];
-      const float* jc = Jc + (size_t)o * 12;
-      const float* jk = Jk + (size_t)o * 8;
-      const float* jp = Jp + (size_t)o * 6;
-      float a[2];
-      apply_b(jc, jk, x + (size_t)c * 6, xk, a);
-      const float d0 = a[0] - (jp[0] * v[0] + jp[1] * v[1] + jp[2] * v[2]);
-      const float d1 = a[1] - (jp[3] * v[0] + jp[4] * v[1] + jp[5] * v[2]);
+      const T* jc = Jc + (size_t)o * 2 * B;
+      const T* jk = Jk + (size_t)o * 8;
+      const T* jp = Jp + (size_t)o * 6;
+      T a[2];
+      apply_b<B, T>(jc, jk, x + (size_t)c * B, xk, a);
+      const T d0 = a[0] - (jp[0] * v[0] + jp[1] * v[1] + jp[2] * v[2]);
+      const T d1 = a[1] - (jp[3] * v[0] + jp[4] * v[1] + jp[5] * v[2]);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        const float t = jc[k] * d0 + jc[6 + k] * d1;
-        if (t != 0.f) sfm_fx_put<ADD>(s_acc, 6 * c + k, t, sh);
+      for (int k = 0; k < B; ++k) {
+        const T t = jc[k] * d0 + jc[B + k] * d1;
+        if (t != T(0)) sfm_fx_put<T, ADD>(s_acc, n, B * c + k, t, sh);
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        sfm_fx_part<ADD>(rk[k], jk[k] * d0 + jk[4 + k] * d1, ADD ? sh[n6 + k] : 0);
+        sfm_fx_part<T, ADD>(rk[k], jk[k] * d0 + jk[4 + k] * d1, ADD ? sh[nB + k] : 0);
     }
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) sfm_fx_put_warp<ADD>(s_acc, n6 + k, rk[k]);
+  for (int k = 0; k < 4; ++k) sfm_fx_put_warp<T, ADD>(s_acc, n, nB + k, rk[k]);
   __syncthreads();
-  sfm_fx_flush<ADD>(s_acc, n6 + 4, gmax, gacc);
+  sfm_fx_flush<T, ADD>(s_acc, n, gmax, gacc);
 }
 
 // z = blockdiag(Mc, Mk) r, one thread a camera block (and one the 4x4 Mk).
-__device__ __forceinline__ void precondition(const float* __restrict__ Mc,
-                                             const float* __restrict__ Mk, const float* r,
-                                             float* z, int C) {
+template <int B, typename T>
+__device__ __forceinline__ void precondition(const T* __restrict__ Mc,
+                                             const T* __restrict__ Mk, const T* r, T* z,
+                                             int C) {
   for (int c = threadIdx.x; c <= C; c += NB) {
     if (c < C) {
-      const float* M = Mc + (size_t)c * 36;
-      const float* rc = r + 6 * c;
+      const T* M = Mc + (size_t)c * B * B;
+      const T* rc = r + B * c;
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        float s = 0.f;
+      for (int i = 0; i < B; ++i) {
+        T s = T(0);
 #pragma unroll
-        for (int j = 0; j < 6; ++j) s += M[i * 6 + j] * rc[j];
-        z[6 * c + i] = s;
+        for (int j = 0; j < B; ++j) s += M[i * B + j] * rc[j];
+        z[B * c + i] = s;
       }
     } else {
-      const float* rc = r + 6 * C;
+      const T* rc = r + B * C;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        float s = 0.f;
+        T s = T(0);
 #pragma unroll
         for (int j = 0; j < 4; ++j) s += Mk[i * 4 + j] * rc[j];
-        z[6 * C + i] = s;
+        z[B * C + i] = s;
       }
     }
   }
 }
 
 // state: [0] r.z, [1] |rhs|^2, [2] r.r, [3] active (1 or 0), [4] steps taken.
-__device__ __forceinline__ float still_active(float steps, int iters, float rr, float rhs2,
-                                              float tol) {
-  return (steps < (float)iters && sqrtf(rr) > tol * sqrtf(rhs2)) ? 1.f : 0.f;
+template <typename T>
+__device__ __forceinline__ T still_active(T steps, int iters, T rr, T rhs2, T tol) {
+  return (steps < (T)iters && t_sqrt(rr) > tol * t_sqrt(rhs2)) ? T(1) : T(0);
 }
 
+template <int B, typename T>
 __global__ void __launch_bounds__(NB) pcg_init_kernel(
-    const float* __restrict__ rhs, const float* __restrict__ Mc, const float* __restrict__ Mk,
-    int C, int iters, float tol, float* __restrict__ x, float* __restrict__ r,
-    float* __restrict__ z, float* __restrict__ p, float* __restrict__ state) {
-  __shared__ float red[NB / 32][2];
-  const int n = 6 * C + 4;
+    const T* __restrict__ rhs, const T* __restrict__ Mc, const T* __restrict__ Mk,
+    int C, int iters, T tol, T* __restrict__ x, T* __restrict__ r,
+    T* __restrict__ z, T* __restrict__ p, T* __restrict__ state) {
+  __shared__ T red[NB / 32][2];
+  const int n = B * C + 4;
   for (int i = threadIdx.x; i < n; i += NB) {
-    x[i] = 0.f;
+    x[i] = T(0);
     r[i] = rhs[i];
   }
   __syncthreads();
-  precondition(Mc, Mk, r, z, C);
+  precondition<B, T>(Mc, Mk, r, z, C);
   __syncthreads();
-  float v[2] = {0.f, 0.f};
+  T v[2] = {T(0), T(0)};
   for (int i = threadIdx.x; i < n; i += NB) {
     p[i] = z[i];
     v[0] += r[i] * z[i];
@@ -198,45 +228,113 @@ __global__ void __launch_bounds__(NB) pcg_init_kernel(
     state[0] = v[0];
     state[1] = v[1];
     state[2] = v[1];
-    state[4] = 0.f;
-    state[3] = still_active(0.f, iters, v[1], v[1], tol);
+    state[4] = T(0);
+    state[3] = still_active<T>(T(0), iters, v[1], v[1], tol);
   }
 }
 
+template <int B, typename T>
 __global__ void __launch_bounds__(NB) pcg_step_kernel(
-    const float* __restrict__ Ap, const float* __restrict__ Mc, const float* __restrict__ Mk,
-    int C, int iters, float tol, float* __restrict__ x, float* __restrict__ r,
-    float* __restrict__ z, float* __restrict__ p, float* __restrict__ state) {
-  __shared__ float red[NB / 32][2];
-  if (state[3] == 0.f) return;  // converged or out of steps: the same for the block
-  const int n = 6 * C + 4;
-  float v[2] = {0.f, 0.f};
+    const T* __restrict__ Ap, const T* __restrict__ Mc, const T* __restrict__ Mk,
+    int C, int iters, T tol, T* __restrict__ x, T* __restrict__ r,
+    T* __restrict__ z, T* __restrict__ p, T* __restrict__ state) {
+  __shared__ T red[NB / 32][2];
+  if (state[3] == T(0)) return;  // converged or out of steps: the same for the block
+  const int n = B * C + 4;
+  T v[2] = {T(0), T(0)};
   for (int i = threadIdx.x; i < n; i += NB) v[0] += p[i] * Ap[i];
   sfm_block_sum<NB, 2>(v, red);
-  const float rz = state[0];
-  const float alpha = v[0] > kEps ? rz / v[0] : 0.f;
+  const T rz = state[0];
+  const T alpha = v[0] > eps<T>() ? rz / v[0] : T(0);
   for (int i = threadIdx.x; i < n; i += NB) {
     x[i] += alpha * p[i];
     r[i] -= alpha * Ap[i];
   }
   __syncthreads();
-  precondition(Mc, Mk, r, z, C);
+  precondition<B, T>(Mc, Mk, r, z, C);
   __syncthreads();
-  v[0] = v[1] = 0.f;
+  v[0] = v[1] = T(0);
   for (int i = threadIdx.x; i < n; i += NB) {
     v[0] += r[i] * z[i];
     v[1] += r[i] * r[i];
   }
   sfm_block_sum<NB, 2>(v, red);
-  const float beta = rz > kEps ? v[0] / rz : 0.f;
+  const T beta = rz > eps<T>() ? v[0] / rz : T(0);
   for (int i = threadIdx.x; i < n; i += NB) p[i] = z[i] + beta * p[i];
   if (threadIdx.x == 0) {
-    const float steps = state[4] + 1.f;
+    const T steps = state[4] + T(1);
     state[0] = v[0];
     state[2] = v[1];
     state[4] = steps;
-    state[3] = still_active(steps, iters, v[1], state[1], tol);
+    state[3] = still_active<T>(steps, iters, v[1], state[1], tol);
   }
+}
+
+// fx_max, fx_sh: n int32 each, fx_acc: WORDS x n uint64, n = BC + 4.
+template <int B, typename T>
+int schur_matvec(const void* Jc, const void* Jk, const void* Jp, const void* obs_cam,
+                 const void* obs_point, const void* perm, const void* perm_valid,
+                 const void* Vinv, const void* lam_diag_c, const void* lam_diag_k,
+                 const void* Hreg_k, const void* x, int C, int G, int Vs, const void* flag,
+                 void* Sx, void* fx_max, void* fx_sh, void* fx_acc, const void* U_extra,
+                 cudaStream_t st) {
+  const int n = B * C + 4;
+  const T* fl = static_cast<const T*>(flag);
+  unsigned int* gmax = static_cast<unsigned int*>(fx_max);
+  int* sh = static_cast<int*>(fx_sh);
+  unsigned long long* gacc = static_cast<unsigned long long*>(fx_acc);
+  cudaError_t e = cudaMemsetAsync(gmax, 0, (size_t)n * sizeof(unsigned int), st);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(gacc, 0, (size_t)SfmFx<T>::WORDS * n * sizeof(unsigned long long), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (G > 0) {
+    const size_t smem = (size_t)SfmFx<T>::WORDS * n * sizeof(unsigned long long);
+    e = cudaFuncSetAttribute(matvec_rows_kernel<B, T, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(matvec_rows_kernel<B, T, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int blocks = (G + NT - 1) / NT;
+#define MATVEC_ROWS_ARGS                                                                     \
+  static_cast<const T*>(Jc), static_cast<const T*>(Jk), static_cast<const T*>(Jp),           \
+      static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),                  \
+      static_cast<const int*>(perm), static_cast<const uint8_t*>(perm_valid), G, Vs, C,      \
+      static_cast<const T*>(Vinv), static_cast<const T*>(x), fl, sh, gmax, gacc
+    matvec_rows_kernel<B, T, false><<<blocks, NT, smem, st>>>(MATVEC_ROWS_ARGS);
+    sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, (double)G * Vs, fl, sh);
+    matvec_rows_kernel<B, T, true><<<blocks, NT, smem, st>>>(MATVEC_ROWS_ARGS);
+#undef MATVEC_ROWS_ARGS
+  } else {
+    sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, 1.0, fl, sh);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  matvec_finish_kernel<B, T><<<(n + NT - 1) / NT, NT, 0, st>>>(
+      static_cast<const T*>(lam_diag_c), static_cast<const T*>(lam_diag_k),
+      static_cast<const T*>(Hreg_k), static_cast<const T*>(U_extra), static_cast<const T*>(x),
+      C, gacc, sh, fl, static_cast<T*>(Sx));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int B, typename T>
+int pcg_init(const void* rhs, const void* Mc, const void* Mk, int C, int iters, T tol, void* x,
+             void* r, void* z, void* p, void* state, cudaStream_t st) {
+  pcg_init_kernel<B, T><<<1, NB, 0, st>>>(
+      static_cast<const T*>(rhs), static_cast<const T*>(Mc), static_cast<const T*>(Mk), C,
+      iters, tol, static_cast<T*>(x), static_cast<T*>(r), static_cast<T*>(z),
+      static_cast<T*>(p), static_cast<T*>(state));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int B, typename T>
+int pcg_step(const void* Ap, const void* Mc, const void* Mk, int C, int iters, T tol, void* x,
+             void* r, void* z, void* p, void* state, cudaStream_t st) {
+  pcg_step_kernel<B, T><<<1, NB, 0, st>>>(
+      static_cast<const T*>(Ap), static_cast<const T*>(Mc), static_cast<const T*>(Mk), C,
+      iters, tol, static_cast<T*>(x), static_cast<T*>(r), static_cast<T*>(z),
+      static_cast<T*>(p), static_cast<T*>(state));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -247,65 +345,41 @@ SFM_API int sfm_schur_matvec(const void* Jc, const void* Jk, const void* Jp, con
                              const void* Hreg_k, const void* x, int C, int G, int Vs,
                              const void* flag, void* Sx, void* fx_max, void* fx_sh,
                              void* fx_acc, void* stream) {
-  // fx_max, fx_sh: n int32 each, fx_acc: n uint64, n = 6C + 4.
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n = 6 * C + 4;
-  const float* fl = static_cast<const float*>(flag);
-  unsigned int* gmax = static_cast<unsigned int*>(fx_max);
-  int* sh = static_cast<int*>(fx_sh);
-  unsigned long long* gacc = static_cast<unsigned long long*>(fx_acc);
-  cudaError_t e = cudaMemsetAsync(gmax, 0, (size_t)n * sizeof(unsigned int), st);
-  if (e == cudaSuccess) e = cudaMemsetAsync(gacc, 0, (size_t)n * sizeof(unsigned long long), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (G > 0) {
-    const size_t smem = (size_t)n * sizeof(unsigned long long);
-    e = cudaFuncSetAttribute(matvec_rows_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(matvec_rows_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int blocks = (G + NT - 1) / NT;
-#define MATVEC_ROWS_ARGS                                                                \
-  static_cast<const float*>(Jc), static_cast<const float*>(Jk),                         \
-      static_cast<const float*>(Jp), static_cast<const int*>(obs_cam),                  \
-      static_cast<const int*>(obs_point), static_cast<const int*>(perm),                \
-      static_cast<const uint8_t*>(perm_valid), G, Vs, C, static_cast<const float*>(Vinv), \
-      static_cast<const float*>(x), fl, sh, gmax, gacc
-    matvec_rows_kernel<false><<<blocks, NT, smem, st>>>(MATVEC_ROWS_ARGS);
-    sfm_fx_shift_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, (double)G * Vs, fl, sh);
-    matvec_rows_kernel<true><<<blocks, NT, smem, st>>>(MATVEC_ROWS_ARGS);
-#undef MATVEC_ROWS_ARGS
-  } else {
-    sfm_fx_shift_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, 1.0, fl, sh);
+  return schur_matvec<6, float>(Jc, Jk, Jp, obs_cam, obs_point, perm, perm_valid, Vinv,
+                                lam_diag_c, lam_diag_k, Hreg_k, x, C, G, Vs, flag, Sx, fx_max,
+                                fx_sh, fx_acc, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The other routes: U_extra (C, B, B) or null.
+#define SFM_SCHUR_MATVEC(NAME, B, T)                                                          \
+  SFM_API int NAME(const void* Jc, const void* Jk, const void* Jp, const void* obs_cam,       \
+                   const void* obs_point, const void* perm, const void* perm_valid,           \
+                   const void* Vinv, const void* lam_diag_c, const void* lam_diag_k,          \
+                   const void* Hreg_k, const void* x, int C, int G, int Vs, const void* flag, \
+                   void* Sx, void* fx_max, void* fx_sh, void* fx_acc, const void* U_extra,    \
+                   void* stream) {                                                            \
+    return schur_matvec<B, T>(Jc, Jk, Jp, obs_cam, obs_point, perm, perm_valid, Vinv,         \
+                              lam_diag_c, lam_diag_k, Hreg_k, x, C, G, Vs, flag, Sx, fx_max,  \
+                              fx_sh, fx_acc, U_extra, static_cast<cudaStream_t>(stream));     \
   }
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  matvec_finish_kernel<<<(n + NT - 1) / NT, NT, 0, st>>>(
-      static_cast<const float*>(lam_diag_c), static_cast<const float*>(lam_diag_k),
-      static_cast<const float*>(Hreg_k), static_cast<const float*>(x), C, gacc, sh, fl,
-      static_cast<float*>(Sx));
-  return static_cast<int>(cudaGetLastError());
-}
+SFM_SCHUR_MATVEC(sfm_schur_matvec_b10, 10, float)
+SFM_SCHUR_MATVEC(sfm_schur_matvec_f64, 6, double)
+SFM_SCHUR_MATVEC(sfm_schur_matvec_b10_f64, 10, double)
+#undef SFM_SCHUR_MATVEC
 
-SFM_API int sfm_pcg_init(const void* rhs, const void* Mc, const void* Mk, int C, int iters,
-                         float tol, void* x, void* r, void* z, void* p, void* state,
-                         void* stream) {
-  pcg_init_kernel<<<1, NB, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rhs), static_cast<const float*>(Mc),
-      static_cast<const float*>(Mk), C, iters, tol, static_cast<float*>(x),
-      static_cast<float*>(r), static_cast<float*>(z), static_cast<float*>(p),
-      static_cast<float*>(state));
-  return static_cast<int>(cudaGetLastError());
-}
-
-SFM_API int sfm_pcg_step(const void* Ap, const void* Mc, const void* Mk, int C, int iters,
-                         float tol, void* x, void* r, void* z, void* p, void* state,
-                         void* stream) {
-  pcg_step_kernel<<<1, NB, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(Ap), static_cast<const float*>(Mc),
-      static_cast<const float*>(Mk), C, iters, tol, static_cast<float*>(x),
-      static_cast<float*>(r), static_cast<float*>(z), static_cast<float*>(p),
-      static_cast<float*>(state));
-  return static_cast<int>(cudaGetLastError());
-}
+// The default route takes tol as a float, the others as a double.
+#define SFM_PCG(NAME, FN, B, T, TOL)                                                          \
+  SFM_API int NAME(const void* v, const void* Mc, const void* Mk, int C, int iters, TOL tol,  \
+                   void* x, void* r, void* z, void* p, void* state, void* stream) {           \
+    return FN<B, T>(v, Mc, Mk, C, iters, (T)tol, x, r, z, p, state,                           \
+                    static_cast<cudaStream_t>(stream));                                       \
+  }
+SFM_PCG(sfm_pcg_init, pcg_init, 6, float, float)
+SFM_PCG(sfm_pcg_step, pcg_step, 6, float, float)
+SFM_PCG(sfm_pcg_init_b10, pcg_init, 10, float, double)
+SFM_PCG(sfm_pcg_step_b10, pcg_step, 10, float, double)
+SFM_PCG(sfm_pcg_init_f64, pcg_init, 6, double, double)
+SFM_PCG(sfm_pcg_step_f64, pcg_step, 6, double, double)
+SFM_PCG(sfm_pcg_init_b10_f64, pcg_init, 10, double, double)
+SFM_PCG(sfm_pcg_step_b10_f64, pcg_step, 10, double, double)
+#undef SFM_PCG

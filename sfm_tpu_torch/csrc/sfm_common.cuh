@@ -35,11 +35,11 @@ __device__ __forceinline__ int64_t sfm_clamp_index(int64_t v, int64_t hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
 }
 
-// Block-wide sums of M floats per thread (warp shuffles, then the warps in a
-// fixed order: deterministic); every thread gets the result. red holds
-// NT / 32 x M floats; every thread of the block must call it.
-template <int NT, int M>
-__device__ __forceinline__ void sfm_block_sum(float* v, float (*red)[M]) {
+// Block-wide sums of M floats (or doubles) per thread (warp shuffles, then the
+// warps in a fixed order: deterministic); every thread gets the result. red
+// holds NT / 32 x M values; every thread of the block must call it.
+template <int NT, int M, typename T>
+__device__ __forceinline__ void sfm_block_sum(T* v, T (*red)[M]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int m = 0; m < M; ++m)
@@ -51,7 +51,7 @@ __device__ __forceinline__ void sfm_block_sum(float* v, float (*red)[M]) {
   __syncthreads();
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    float s = 0.f;
+    T s = T(0);
     for (int k = 0; k < NT / 32; ++k) s += red[k][m];
     v[m] = s;
   }
@@ -86,11 +86,6 @@ __device__ __forceinline__ int sfm_fx_shift(double bound) {
   return 61 - e;
 }
 
-// Shift from a target's max |term| (sfm_fx_max's bits) and its term count.
-__device__ __forceinline__ int sfm_fx_shift_of(unsigned int max_bits, double count) {
-  return sfm_fx_shift((double)__uint_as_float(max_bits) * count);
-}
-
 __device__ __forceinline__ long long sfm_fx_of(float x, int sh) {
   return __double2ll_rn(ldexp((double)x, sh));
 }
@@ -107,63 +102,170 @@ __device__ __forceinline__ double sfm_fx_value(unsigned long long acc, int sh) {
   return ldexp(static_cast<double>(static_cast<long long>(acc)), -sh);
 }
 
-// A block's staging copy of a two-pass order-free sum over n targets, in
-// shared memory (n x 8 bytes): pass MAX keeps each target's largest |term|
-// (uint bits), pass ADD its fixed-point sum at the shifts `sh`. Zero it,
-// __syncthreads, put terms, __syncthreads, flush into the global copy.
-__device__ __forceinline__ void sfm_fx_stage_zero(unsigned long long* s, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = 0ull;
+// ---- Order-free sums at the f64 island's precision ---------------------------
+// K8-K11 are templated on the scalar type of the normal-equation island:
+// float, or double with BAConfig.f64_normal_equations. One 64-bit word keeps
+// about 61 - log2(terms) bits of a target's bound (~41 at 10^6 rows), fewer
+// than f64's 53, and the island exists to keep the small terms an f32 sum
+// loses. So a double target takes two words: x * 2^sh with sh = 93 - e
+// (bound < 2^e) is split into hi = floor(x * 2^(sh - 32)) (|hi| < 2^61) and
+// lo = its 32 bits below that (an integer in [0, 2^32]); the hi words and the
+// lo words are summed apart, each with 64-bit integer atomics (any order, the
+// same bits; the lo sum cannot overflow below 2^32 terms), and the carry is
+// taken once at the end, where the two are joined and rounded to double. A
+// term keeps 93 bits below the bound, so the sum is the exact sum of the
+// double terms to within one rounding. Chosen over a deterministic
+// segmented sum in a fixed order: the scatter kernels keep their layout (the
+// same atomics, two words instead of one), where a fixed order would need
+// every target's terms sorted or walked per camera. A target's words lie n
+// apart: hi at i, lo at n + i.
+template <typename T>
+struct SfmFx;
+template <>
+struct SfmFx<float> {
+  static constexpr int WORDS = 1;
+  static constexpr int TOP = 61;
+};
+template <>
+struct SfmFx<double> {
+  static constexpr int WORDS = 2;
+  static constexpr int TOP = 93;
+};
+
+// sfm_fx_shift for a float (one word) or a double (two words) target.
+template <typename T>
+__device__ __forceinline__ int sfm_fx_shift_t(double bound) {
+  if (!(bound <= 1e300)) return SFM_FX_BAD;
+  int e = 0;
+  frexp(bound, &e);
+  return SfmFx<T>::TOP - e;
 }
 
-template <bool ADD>
-__device__ __forceinline__ void sfm_fx_put(unsigned long long* s, int i, float x,
+// |x| as the bits of a non-negative float, rounded up (a bound).
+__device__ __forceinline__ unsigned int sfm_fx_mag(float x) { return __float_as_uint(fabsf(x)); }
+__device__ __forceinline__ unsigned int sfm_fx_mag(double x) {
+  return __float_as_uint(__double2float_ru(fabs(x)));
+}
+
+// A term's words: from v = x 2^sh (already scaled), or from x at shift sh.
+struct SfmFxQ {
+  long long hi, lo;
+};
+template <typename T>
+__device__ __forceinline__ SfmFxQ sfm_fx_words(double v) {
+  if (SfmFx<T>::WORDS == 1) return {__double2ll_rn(v), 0};
+  const double y = v * 0x1p-32;  // exact: a power of two
+  const double h = floor(y);
+  return {__double2ll_rn(h), __double2ll_rn((y - h) * 0x1p32)};
+}
+__device__ __forceinline__ SfmFxQ sfm_fx_q(float x, int sh) { return {sfm_fx_of(x, sh), 0}; }
+__device__ __forceinline__ SfmFxQ sfm_fx_q(double x, int sh) {
+  return sfm_fx_words<double>(ldexp(x, sh));
+}
+
+// The words q added to target i of n (words at i and n + i).
+template <typename T>
+__device__ __forceinline__ void sfm_fx_add_q(unsigned long long* acc, size_t n, size_t i,
+                                             const SfmFxQ& q) {
+  if (q.hi != 0) atomicAdd(&acc[i], static_cast<unsigned long long>(q.hi));
+  if (SfmFx<T>::WORDS == 2 && q.lo != 0) atomicAdd(&acc[n + i], static_cast<unsigned long long>(q.lo));
+}
+
+// x added to target i of n at shift sh.
+template <typename T>
+__device__ __forceinline__ void sfm_fx_add_t(unsigned long long* acc, size_t n, size_t i, T x,
+                                             int sh) {
+  if (sh == SFM_FX_BAD) return;
+  sfm_fx_add_q<T>(acc, n, i, sfm_fx_q(x, sh));
+}
+
+// The two words joined (the carry of the lo sum taken here) and rounded.
+__device__ __forceinline__ double sfm_fx_value2(unsigned long long hi, unsigned long long lo,
+                                                int sh) {
+  if (sh == SFM_FX_BAD) return __longlong_as_double(0x7ff8000000000000ll);
+  const long long top = static_cast<long long>(hi) + static_cast<long long>(lo >> 32);
+  const double a = (double)top;
+  const long long err = top - static_cast<long long>(a);  // what rounding top dropped
+  return ldexp(a, 32 - sh) +
+         (ldexp((double)err, 32 - sh) + ldexp((double)(lo & 0xffffffffull), -sh));
+}
+
+template <typename T>
+__device__ __forceinline__ double sfm_fx_value_t(const unsigned long long* acc, size_t n,
+                                                 size_t i, int sh) {
+  if (SfmFx<T>::WORDS == 1) return sfm_fx_value(acc[i], sh);
+  return sfm_fx_value2(acc[i], acc[n + i], sh);
+}
+
+// A block's staging copy of a two-pass order-free sum over n targets, in
+// shared memory (WORDS x n x 8 bytes): pass MAX keeps each target's largest
+// |term| (uint bits), pass ADD its fixed-point sum at the shifts `sh`. Zero
+// it, __syncthreads, put terms, __syncthreads, flush into the global copy.
+template <typename T>
+__device__ __forceinline__ void sfm_fx_stage_zero(unsigned long long* s, int n) {
+  for (int i = threadIdx.x; i < SfmFx<T>::WORDS * n; i += blockDim.x) s[i] = 0ull;
+}
+
+template <typename T, bool ADD>
+__device__ __forceinline__ void sfm_fx_put(unsigned long long* s, int n, int i, T x,
                                            const int* __restrict__ sh) {
   if (ADD) {
-    sfm_fx_add(&s[i], x, sh[i]);
+    sfm_fx_add_t<T>(s, n, i, x, sh[i]);
   } else {
-    const unsigned int b = __float_as_uint(fabsf(x));
+    const unsigned int b = sfm_fx_mag(x);
     if (b != 0u) atomicMax(reinterpret_cast<unsigned int*>(s) + i, b);
   }
 }
 
 // A thread's own running part of one target: ADD keeps its terms' integer
-// sum, MAX their largest |term|. sfm_fx_put_warp then combines the warp's
-// parts (any order: the same result) and stages them with one atomic.
+// sums, MAX their largest |term|. sfm_fx_put_warp then combines the warp's
+// parts (any order: the same result) and stages them with one atomic a word.
 struct SfmFxPart {
-  long long q = 0;
+  long long q = 0, lo = 0;
   unsigned int b = 0u;
 };
 
-template <bool ADD>
-__device__ __forceinline__ void sfm_fx_part(SfmFxPart& part, float x, int sh) {
+template <typename T, bool ADD>
+__device__ __forceinline__ void sfm_fx_part(SfmFxPart& part, T x, int sh) {
   if (ADD) {
-    if (sh != SFM_FX_BAD) part.q += sfm_fx_of(x, sh);
+    if (sh != SFM_FX_BAD) {
+      const SfmFxQ q = sfm_fx_q(x, sh);
+      part.q += q.hi;
+      part.lo += q.lo;
+    }
   } else {
-    part.b = max(part.b, __float_as_uint(fabsf(x)));
+    part.b = max(part.b, sfm_fx_mag(x));
   }
 }
 
 // All 32 lanes must call it.
-template <bool ADD>
-__device__ __forceinline__ void sfm_fx_put_warp(unsigned long long* s, int i,
+template <typename T, bool ADD>
+__device__ __forceinline__ void sfm_fx_put_warp(unsigned long long* s, int n, int i,
                                                 const SfmFxPart& part) {
   if (ADD) {
-    long long q = part.q;
+    long long q = part.q, lo = part.lo;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) q += __shfl_xor_sync(0xffffffffu, q, off);
-    if (threadIdx.x % 32 == 0 && q != 0) atomicAdd(&s[i], static_cast<unsigned long long>(q));
+    for (int off = 16; off > 0; off >>= 1) {
+      q += __shfl_xor_sync(0xffffffffu, q, off);
+      if (SfmFx<T>::WORDS == 2) lo += __shfl_xor_sync(0xffffffffu, lo, off);
+    }
+    if (threadIdx.x % 32 == 0) {
+      if (q != 0) atomicAdd(&s[i], static_cast<unsigned long long>(q));
+      if (SfmFx<T>::WORDS == 2 && lo != 0) atomicAdd(&s[n + i], static_cast<unsigned long long>(lo));
+    }
   } else {
     const unsigned int b = __reduce_max_sync(0xffffffffu, part.b);
     if (threadIdx.x % 32 == 0 && b != 0u) atomicMax(reinterpret_cast<unsigned int*>(s) + i, b);
   }
 }
 
-// Global copies: MAX into n uint32 (gmax), ADD into n uint64 (gacc).
-template <bool ADD>
+// Global copies: MAX into n uint32 (gmax), ADD into WORDS x n uint64 (gacc).
+template <typename T, bool ADD>
 __device__ __forceinline__ void sfm_fx_flush(const unsigned long long* s, int n,
                                              unsigned int* __restrict__ gmax,
                                              unsigned long long* __restrict__ gacc) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+  const int m = ADD ? SfmFx<T>::WORDS * n : n;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
     if (ADD) {
       if (s[i] != 0ull) atomicAdd(&gacc[i], s[i]);
     } else {
@@ -176,11 +278,12 @@ __device__ __forceinline__ void sfm_fx_flush(const unsigned long long* s, int n,
 namespace {
 // sh[i] for a target whose terms, at most `count` of them, are at most
 // gmax[i] each; a no-op when `flag` is given and 0.
+template <typename T>
 __global__ void sfm_fx_shift_kernel(const unsigned int* __restrict__ gmax, int n, double count,
-                                    const float* __restrict__ flag, int* __restrict__ sh) {
-  if (flag != nullptr && *flag == 0.f) return;
+                                    const T* __restrict__ flag, int* __restrict__ sh) {
+  if (flag != nullptr && *flag == T(0)) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) sh[i] = sfm_fx_shift_of(gmax[i], count);
+  if (i < n) sh[i] = sfm_fx_shift_t<T>((double)__uint_as_float(gmax[i]) * count);
 }
 }  // namespace
 

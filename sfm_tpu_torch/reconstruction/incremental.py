@@ -22,8 +22,8 @@ in the reference; every device program reads it as tensors on ``device``:
   and translation averaging (K13,
   :mod:`sfm_tpu_torch.reconstruction.global_init`).
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-checkpoints, per-camera intrinsics and the f64 island. The reference's
+Not ported (``NotImplementedError`` naming its ROADMAP item): checkpoints.
+Per-camera intrinsics and the f64 island run through ``run_ba``. The reference's
 blocked (P, V) BA layout is not ported either: past
 ``ba.use_dense_schur_below`` cameras the port always takes the flat PCG path
 (ROADMAP, divergences).
@@ -44,7 +44,7 @@ from sfm_tpu_torch import _kernels
 from sfm_tpu_torch.config import SfMConfig, effective_guided_ratio
 from sfm_tpu_torch.reconstruction import global_init as gi
 from sfm_tpu_torch.reconstruction.tracks import TrackTable, build_tracks
-from sfm_tpu_torch.ba.lm import check_ba_config, run_ba
+from sfm_tpu_torch.ba.lm import run_ba
 from sfm_tpu_torch.ba.problem import build_problem
 from sfm_tpu_torch.estimators.pnp import pnp_ransac, pnp_ransac_batch
 from sfm_tpu_torch.geometry.projection import intrinsics_vector, project
@@ -342,11 +342,6 @@ def _cap_observations(sel, V: int, max_obs: int):
     return np.sort(np.concatenate([base, rest]))
 
 
-def check_config(config: SfMConfig, num_images: int):
-    """Raise on a configuration that would route off the ported path."""
-    check_ba_config(config.ba, num_images)
-
-
 @dataclasses.dataclass
 class ReconstructionResult:
     """Final scene: poses, cloud, per-track observations, stats (the
@@ -380,7 +375,6 @@ class StructureFromMotion:
         self.feat_valid = None if feat_valid is None else np.asarray(feat_valid, bool)
         self.config = config
         self.num_images = self.xy.shape[0]
-        check_config(config, self.num_images)
         self.K = config.camera.K()
         if config.verify.rescue_disconnected:
             n_rescued = rescue_disconnected(
@@ -898,9 +892,11 @@ class StructureFromMotion:
 
     def _log_ba(self, stats, cameras: int, points: int, local: bool):
         """One ``ba/rms_px`` record per call, the reference's, and one
-        ``ba/solve`` record: its solver, costs, iterations and problem size."""
+        ``ba/solve`` record: its route (solver, camera block, dtype of the
+        normal equations), costs, iterations and problem size."""
         self.metrics.log("ba/rms_px", float(stats["rms_px"]), call=self._ba_calls)
         self.metrics.log("ba/solve", stats["solver"], call=self._ba_calls, local=local,
+                         cam_params=stats["cam_params"], dtype=stats["dtype"],
                          cameras=cameras, points=points,
                          initial_cost=stats["initial_cost"], final_cost=stats["final_cost"],
                          iterations=stats["iterations"],

@@ -1,18 +1,22 @@
-"""Windowed local BA on the 300-view corridor: the port on the card, both
-packages on the CPU, on one pair table (not collected by pytest).
+"""Windowed local BA and per-camera intrinsics on the corridor: the port on
+the card, both packages on the CPU, on one pair table (not collected by
+pytest).
 
     python tests/local_window_report.py card [--views 300] [--work DIR] [--out DIR]
-                                             [--repeats 3]
+                                             [--repeats 3] [--cases NAME ...]
+                                             [--scene DIR --pipeline DIR]
     python tests/local_window_report.py cpu --data_dir D --table PKL --case NAME
                                             [--package jax|port]
 
 ``card`` (a CUDA card, no JAX): renders ``--views`` views of the corridor,
-runs the port's ``pipeline`` on them with no ``--config``, writes the pair
+runs the port's ``pipeline`` on them with no ``--config`` (or, with
+``--scene`` and ``--pipeline``, takes a rendered scene and that pipeline's
+output, as ``chip_smoke.py`` leaves them in ``.chip_smoke/``), writes the pair
 table without its descriptors and its rejected pairs
 (``pair_table_nodesc.pkl.gz``: the engine reads only accepted pairs, and
 without descriptors it runs no guided rescue) and the scene's ``calib/`` to
 ``--out``, then runs the port's ``reconstruct`` ``--repeats`` times for each
-case of ``CASES``: on the full table ("full") or on the reduced one
+case of ``CASES`` (or of ``--cases``): on the full table ("full") or on the reduced one
 ("nodesc", the input the CPU runs below can take). Each run prints one
 ``model`` line.
 
@@ -48,6 +52,8 @@ CASES = {
     "window16_fixed_intrinsics_nodesc": (
         "nodesc", {"ba": {"local_window": WINDOW, "optimize_intrinsics": False}}),
     "global_nodesc": ("nodesc", {}),
+    "percam": ("full", {"ba": {"per_camera_intrinsics": True}}),
+    "percam_nodesc": ("nodesc", {"ba": {"per_camera_intrinsics": True}}),
 }
 RENDERED = {"fx": 1228.0, "fy": 1228.0, "cx": 512.0, "cy": 384.0}
 
@@ -101,18 +107,22 @@ def card(args) -> int:
         raise SystemExit("no CUDA card")
     work, out = Path(args.work), Path(args.out)
     scene, pipe = work / f"scene_{args.views}", work / f"pipeline_{args.views}"
+    work.mkdir(parents=True, exist_ok=True)
     out.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    render_dataset(scene, args.views, supersample=1, log=lambda *_: None,
-                   workers=os.cpu_count() or 4)
-    print(f"render {args.views} views: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    rc = cli.main(["--log_level", "WARNING", "--log_dir", str(pipe / "logs"), "pipeline",
-                   "--data_dir", str(scene), "--output_dir", str(pipe), "--device", "cuda",
-                   "--no_mask"])
-    if rc != 0:
-        raise SystemExit(f"pipeline exited {rc}")
-    print(model_line("port-card", "pipeline", pipe, time.perf_counter() - t0), flush=True)
+    if args.scene:
+        scene, pipe = Path(args.scene), Path(args.pipeline)
+    else:
+        t0 = time.perf_counter()
+        render_dataset(scene, args.views, supersample=1, log=lambda *_: None,
+                       workers=os.cpu_count() or 4)
+        print(f"render {args.views} views: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        rc = cli.main(["--log_level", "WARNING", "--log_dir", str(pipe / "logs"), "pipeline",
+                       "--data_dir", str(scene), "--output_dir", str(pipe), "--device", "cuda",
+                       "--no_mask"])
+        if rc != 0:
+            raise SystemExit(f"pipeline exited {rc}")
+        print(model_line("port-card", "pipeline", pipe, time.perf_counter() - t0), flush=True)
     blob = pickle.loads((pipe / "pair_table.pkl").read_bytes())
     blob.pop("desc", None)
     table = blob["table"]
@@ -124,7 +134,8 @@ def card(args) -> int:
     tables["nodesc"].write_bytes(pickle.dumps(blob))
     (out / "pair_table_nodesc.pkl.gz").write_bytes(gzip.compress(tables["nodesc"].read_bytes()))
     shutil.copytree(scene / "calib", out / "calib", dirs_exist_ok=True)
-    for case, (which, cfg) in CASES.items():
+    for case in args.cases or CASES:
+        which, cfg = CASES[case]
         for i in range(args.repeats):
             run = work / f"{case}_{i}"
             wall = port_reconstruct(scene, tables[which], run, cfg, "cuda")
@@ -170,6 +181,9 @@ def main(argv=None) -> int:
     c.add_argument("--work", default=str(REPO / ".chip_smoke" / "local_window"))
     c.add_argument("--out", default=str(REPO / "chiprun_out" / "local_window"))
     c.add_argument("--repeats", type=int, default=3)
+    c.add_argument("--cases", nargs="*", choices=list(CASES))
+    c.add_argument("--scene", help="a rendered scene (skips the render and the pipeline)")
+    c.add_argument("--pipeline", help="the pipeline's output dir on --scene")
     p = sub.add_parser("cpu")
     p.add_argument("--data_dir", required=True, help="holds calib/")
     p.add_argument("--table", required=True, help="pair_table_nodesc.pkl.gz")

@@ -157,12 +157,17 @@ def test_run_ba_matches_reference(rng, optimize_intrinsics):
 
 
 def test_routes_off_the_dense_path_raise():
-    with pytest.raises(NotImplementedError, match="per_camera_intrinsics"):
-        tlm.check_ba_config(PortBAConfig(per_camera_intrinsics=True), 10)
-    with pytest.raises(NotImplementedError, match="f64"):
-        tlm.check_ba_config(PortBAConfig(f64_normal_equations=True), 10)
+    # Per-camera intrinsics and the f64 island route (no longer raise): the
+    # 10-parameter camera block, the float64 normal equations.
+    assert tlm.ba_route(PortBAConfig(per_camera_intrinsics=True), 10) == {
+        "solver": "dense", "cam_params": 10, "dtype": "float32"}
+    assert tlm.ba_route(PortBAConfig(f64_normal_equations=True), 10) == {
+        "solver": "dense", "cam_params": 6, "dtype": "float64"}
+    # Per-camera mode needs the intrinsics optimized.
+    assert tlm.ba_route(PortBAConfig(per_camera_intrinsics=True), 10,
+                        optimize_intrinsics=False)["cam_params"] == 6
     # More cameras than use_dense_schur_below run, on the PCG path.
-    tlm.check_ba_config(PortBAConfig(), 257)
+    assert tlm.ba_route(PortBAConfig(), 257)["solver"] == "pcg"
     assert tlm.uses_pcg(PortBAConfig(), 257)
 
 

@@ -169,13 +169,16 @@ def test_run_ba_pcg_matches_jax_and_the_dense_path(rng, optimize_intrinsics):
 
 
 def test_large_scenes_and_local_window_route_instead_of_raising():
-    tlm.check_ba_config(PortBAConfig(), 300)
+    assert tlm.ba_route(PortBAConfig(), 300)["solver"] == "pcg"
     assert tlm.uses_pcg(PortBAConfig(), 300) and not tlm.uses_pcg(PortBAConfig(), 256)
     base = PortConfig()
-    tinc.check_config(base.replace(ba=dataclasses.replace(base.ba, local_window=16)), 300)
-    for field in ("per_camera_intrinsics", "f64_normal_equations"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.check_ba_config(dataclasses.replace(PortBAConfig(), **{field: True}), 300)
+    window = base.replace(ba=dataclasses.replace(base.ba, local_window=16))
+    assert tlm.ba_route(window.ba, 300)["solver"] == "pcg"
+    # Per-camera intrinsics and the f64 island route on PCG too.
+    for field, key, value in (("per_camera_intrinsics", "cam_params", 10),
+                              ("f64_normal_equations", "dtype", "float64")):
+        route = tlm.ba_route(dataclasses.replace(PortBAConfig(), **{field: True}), 300)
+        assert route["solver"] == "pcg" and route[key] == value
 
 
 def test_k11_wrappers_refuse_other_devices():

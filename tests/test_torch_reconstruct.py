@@ -6,7 +6,6 @@ triangulation and reprojection statistics (K7's twins), seed-pair scoring
 not ported yet. Scenes are synthetic and numpy-seeded. Tolerances are stated
 per test.
 """
-import dataclasses
 
 import jax
 import numpy as np
@@ -26,8 +25,6 @@ from sfm_tpu.reconstruction.incremental import _reproj_stats as j_reproj_stats
 from sfm_tpu.reconstruction.incremental import _triangulate_tracks as j_triangulate
 from sfm_tpu.reconstruction.seed import find_best_initial_pair as j_seed
 from sfm_tpu_torch import cli
-from sfm_tpu_torch.ba.lm import uses_pcg
-from sfm_tpu_torch.config import SfMConfig as PortConfig
 from sfm_tpu_torch.estimators.pnp import pnp_ransac as t_pnp_ransac
 from sfm_tpu_torch.graph.view_selection import SfMGraphSelector as TSelector
 from sfm_tpu_torch.io import export as texport
@@ -274,19 +271,6 @@ def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--log_dir", str(tmp_path / "logs"), "pipeline", "--data_dir",
                   str(tmp_path), "--device", "cpu", flag])
-
-
-@pytest.mark.parametrize("field", [
-    ("ba", "per_camera_intrinsics", True), ("ba", "f64_normal_equations", True)])
-def test_unported_configs_raise(field):
-    sub, name, value = field
-    base = PortConfig()
-    cfg = base.replace(**{sub: dataclasses.replace(getattr(base, sub), **{name: value})})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinc.check_config(cfg, 8)
-    # More cameras than use_dense_schur_below run, on the PCG path.
-    tinc.check_config(PortConfig(), 300)
-    assert uses_pcg(PortConfig().ba, 300)
 
 
 def test_wrappers_refuse_other_devices():
