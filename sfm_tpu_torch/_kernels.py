@@ -52,7 +52,7 @@ SIGNATURES = {
     "sfm_build_pyramid": [_P] + [_I] * 6 + [_P] * 5 + [_P],
     "sfm_seed_score": [_P] * 5 + [_I] * 2 + [_P] * 5 + [_P],
     "sfm_pnp_refine": [_P] * 7 + [_I, _I, _F, _P, _I] + [_P] * 7 + [_P],
-    "sfm_schur_damp": [_P] * 14 + [_I] * 4 + [_F] + [_P] * 8 + [_P],
+    "sfm_schur_damp": [_P] * 14 + [_I] * 5 + [_F] + [_P] * 8 + [_P],
     "sfm_schur_back_substitute": [_P] * 11 + [_I] * 3 + [_P] + [_P],
     "sfm_fmat_hypotheses": [_P] * 3 + [_I] * 3 + [_P] + [_P],
     "sfm_fmat_refit_verify": [_P] * 5 + [_I] * 3 + [_F, _I, _F, _F, _F] + [_P] * 10 + [_P],
@@ -60,15 +60,16 @@ SIGNATURES = {
     "sfm_dog_refine": [_P] + [_I] * 4 + [_P] * 4 + [_I] + [_F] * 3 + [_P] * 4 + [_P],
     "sfm_topk_rows": [_P] + [_I] * 3 + [_P] * 2 + [_P],
     "sfm_relpose": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_P],
-    "sfm_rotation_average": [_P] * 4 + [_I] * 4 + [_P] * 4 + [_P],
-    "sfm_translation_average": [_P] * 4 + [_I] * 5 + [_P] * 4 + [_P],
+    "sfm_rotation_average": [_P] * 4 + [_I] * 4 + [_P] * 5 + [_P],
+    "sfm_translation_average": [_P] * 4 + [_I] * 5 + [_P] * 5 + [_P],
     "sfm_orb_fast_nms": [_P, _P] + [_I] * 3 + [_F, _P] + [_P],
     "sfm_orb_blur": [_P] + [_I] * 3 + [_P, _I, _P, _P] + [_P],
     "sfm_orb_describe": [_P] + [_I] * 3 + [_P] * 3 + [_I, _P, _F, _P, _P] + [_P],
     "sfm_schur_block_jacobi": [_P] * 4 + [_I] + [_P] * 2 + [_P],
-    "sfm_schur_matvec": [_P] * 12 + [_I] * 3 + [_P] * 5 + [_P],
+    "sfm_schur_matvec": [_P] * 12 + [_I] * 4 + [_P] * 5 + [_P],
     "sfm_pcg_init": [_P] * 3 + [_I] * 2 + [_F] + [_P] * 5 + [_P],
     "sfm_pcg_step": [_P] * 3 + [_I] * 2 + [_F] + [_P] * 5 + [_P],
+    "sfm_pnp_dlt_solve": [_P] * 5 + [_I] * 4 + [_P] * 2 + [_P],
 }
 KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
            "ba_linearize", "ba_cost", "schur_coupling", "triangulate_tracks",
@@ -77,7 +78,8 @@ KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
            "schur_back_substitute", "fmat_hypotheses", "fmat_refit_verify", "dog_select",
            "dog_refine", "topk_rows", "match_epilogue", "match_compact", "relpose",
            "rotation_average", "translation_average", "orb_fast_nms", "orb_blur",
-           "orb_describe", "schur_block_jacobi", "schur_matvec", "pcg_init", "pcg_step")
+           "orb_describe", "schur_block_jacobi", "schur_matvec", "pcg_init", "pcg_step",
+           "pnp_dlt_solve")
 # The BA island's other routes (ba/schur.py::variant): per-camera intrinsics
 # (B = 10), the f64 island, and both. Each entry of K8-K11 has one C entry
 # point a route, the same arguments as the default one's but for the ones
@@ -86,7 +88,7 @@ ROUTES = ("b10", "f64", "b10_f64")
 _ROUTE_SIGNATURES = {
     "ba_linearize": SIGNATURES["sfm_ba_linearize"][:-1] + [_P, _P, _P],  # + U_extra, g_c_extra
     "schur_coupling": SIGNATURES["sfm_schur_coupling"],
-    "schur_damp": [_P] * 14 + [_I] * 4 + [_D] + [_P] * 8 + [_P],         # lam a double
+    "schur_damp": [_P] * 14 + [_I] * 5 + [_D] + [_P] * 8 + [_P],         # lam a double
     "schur_back_substitute": SIGNATURES["sfm_schur_back_substitute"],
     "schur_block_jacobi": SIGNATURES["sfm_schur_block_jacobi"],
     "schur_matvec": SIGNATURES["sfm_schur_matvec"][:-1] + [_P, _P],       # + U_extra

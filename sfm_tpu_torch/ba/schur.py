@@ -72,15 +72,17 @@ def _words(dtype) -> int:
 
 
 def max_cameras(B: int, dtype) -> int:
-    """The most cameras K10's rhs walk and K11's matvec take: a block keeps
-    the WORDS x (BC + 4) 64-bit camera sums in shared memory."""
+    """The most cameras whose WORDS x (BC + 4) 64-bit sums a block of K10's
+    rhs walk or K11's matvec can stage in shared memory."""
     return (_SMEM_BYTES // (8 * _words(dtype)) - 4) // B
 
 
-def _check_cameras(C: int, B: int, dtype, what: str):
-    if C > max_cameras(B, dtype):
-        raise ValueError(f"{what}: {C} cameras > {max_cameras(B, dtype)} at B = {B}, {dtype} "
-                         "(the camera sums of a block no longer fit in shared memory)")
+def camera_sums_in_shared(C: int, B: int, dtype) -> bool:
+    """The route of K10's rhs walk and K11's matvec: each block stages its
+    camera sums in shared memory (True, up to :func:`max_cameras`), or adds
+    them straight into the global words (False, any C). Both add the same
+    64-bit integers, so they give the same bits."""
+    return C <= max_cameras(B, dtype)
 
 
 class Linearization(NamedTuple):
@@ -303,7 +305,6 @@ def schur_damp_cuda(lin: Linearization, lam: float, perm, perm_valid):
     C, P = lin.U.shape[0], lin.V.shape[0]
     B, dt, route = _block(lin)
     dev = lin.U.device
-    _check_cameras(C, B, dt, "schur_damp")
     _, _, G, Vs = _check_system(lin, perm, perm_valid, (
         ("V", lin.V, dt, (P, 3, 3)), ("point_valid", lin.point_valid, torch.bool, (P,)),
         ("U", lin.U, dt, (C, B, B)), ("Uk", lin.Uk, dt, (4, 4)), ("g_c", lin.g_c, dt, (C, B)),
@@ -312,8 +313,8 @@ def schur_damp_cuda(lin: Linearization, lam: float, perm, perm_valid):
     Vinv, lam_diag_c, lam_diag_k, rhs_c, rhs_k = e(P, 3, 3), e(C, B), e(4), e(C, B), e(4)
     _kernels.launch("schur_damp" + route, dev, lin.V, lin.point_valid, lin.U, lin.Uk, lin.g_c,
                     lin.g_k, lin.g_p, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam, lin.obs_point, perm,
-                    perm_valid, P, C, G, Vs, float(lam), Vinv, lam_diag_c, lam_diag_k, rhs_c,
-                    rhs_k, *_fx_scratch(B * C + 4, dev, dt))
+                    perm_valid, P, C, G, Vs, int(camera_sums_in_shared(C, B, dt)), float(lam),
+                    Vinv, lam_diag_c, lam_diag_k, rhs_c, rhs_k, *_fx_scratch(B * C + 4, dev, dt))
     return Damped(Vinv=Vinv, lam_diag_c=lam_diag_c, lam_diag_k=lam_diag_k), rhs_c, rhs_k
 
 
@@ -559,14 +560,14 @@ def _matvec_launch(lin: Linearization, op: Damped, x, perm, perm_valid, Sx, flag
         scratch = _fx_scratch(B * C + 4, x.device, dt)
     _kernels.launch("schur_matvec" + route, x.device, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
                     lin.obs_point, perm, perm_valid, op.Vinv, op.lam_diag_c, op.lam_diag_k,
-                    lin.Hreg_k, x, C, G, Vs, flag, Sx, *scratch,
+                    lin.Hreg_k, x, C, G, Vs, int(camera_sums_in_shared(C, B, dt)), flag, Sx,
+                    *scratch,
                     *((lin.U_extra,) if route else ()))
 
 
 def _check_pcg_system(lin: Linearization, op: Damped, perm, perm_valid, extra=()):
     C, P = lin.U.shape[0], op.Vinv.shape[0]
     B, dt, route = _block(lin)
-    _check_cameras(C, B, dt, "K11")
     if not route and lin.U_extra is not None:
         raise ValueError("K11: U_extra needs the per-camera route")
     _check_system(lin, perm, perm_valid, (

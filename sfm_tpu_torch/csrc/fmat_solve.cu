@@ -96,9 +96,9 @@ __global__ void __launch_bounds__(NT) fmat_hypotheses_kernel(
   float tr = 0.f;
 #pragma unroll
   for (int i = 0; i < 9; ++i) tr += A[sfm_pk(i, i)];
-  sfm_cholesky_clamped9(A, 1e-6f * (tr / 9.f) + 1e-20f, A);
+  sfm_cholesky_clamped<9>(A, 1e-6f * (tr / 9.f) + 1e-20f, A);
   float f[9], F[9];
-  sfm_inverse_iterate9(A, 3, f);
+  sfm_inverse_iterate<9>(A, 3, f);
   sfm_denormalize(f, T[0], T[1], F);
 #pragma unroll
   for (int k = 0; k < 9; ++k) Fs[(size_t)g * 9 + k] = F[k];

@@ -13,10 +13,12 @@
 // (graph_avg.cuh), the same sums in another order.
 //
 // Design: one block of 256 threads for the whole solve (a camera or a pair a
-// thread, looping); the stack X (later the rotations) and the CG vectors live
-// in shared memory (25 N floats: N <= 1024, 100 KB); per-pair residuals and
-// weights, and the incidence lists, in global scratch. Every reduction is a
-// deterministic block sum.
+// thread, looping); the stack X (later the rotations) and the CG vectors
+// (25 N floats) live in shared memory up to N = 1024 (100 KB), above it in a
+// global scratch the caller gives (`state`): one templated body, so the two
+// storages run the same arithmetic in the same order and N <= 1024 keeps
+// its bits. Per-pair residuals and weights, and the incidence lists, are in
+// global scratch. Every reduction is a deterministic block sum.
 //
 // What bounds it on the H100: latency. ~370 dependent passes over the pair
 // list (48 power steps with 5 Gram-Schmidt reductions each, 10 x 32 CG steps
@@ -28,7 +30,7 @@ namespace {
 
 using namespace sfm_avg;
 
-constexpr int kMaxN = 1024;
+constexpr int kMaxN = 1024;  // cameras whose state fits in shared memory
 
 // global_init.py::nearest_rotation of a row-major 3x3 (Davenport q-method).
 __device__ void nearest_rotation(const float* A, float* R) {
@@ -91,12 +93,13 @@ struct Edges {
   const float* w;  // (P,) normalized weights
 };
 
+template <bool kShared>
 __global__ void __launch_bounds__(NT) rotation_average_kernel(
     Edges g, int P, int N, int power_iters, int refine_iters, const float* __restrict__ X0,
     int* __restrict__ off, int* __restrict__ adj, float* __restrict__ res,
-    float* __restrict__ R_out) {
+    float* __restrict__ state, float* __restrict__ R_out) {
   extern __shared__ float smem[];
-  float* X = smem;               // 9N: the (3N, 3) stack, later the rotations
+  float* X = kShared ? smem : state;  // 9N: the (3N, 3) stack, later the rotations
   float* T = X + 9 * N;          // 15N: G X during the power steps, then CG's vectors
   float* dinv = T + 15 * N;      // N
   __shared__ float red[NT / 32][1];
@@ -273,18 +276,28 @@ __global__ void __launch_bounds__(NT) rotation_average_kernel(
 
 SFM_API int sfm_rotation_average(const void* pairs, const void* R_rel, const void* w,
                                  const void* X0, int P, int N, int power_iters,
-                                 int refine_iters, void* off, void* adj, void* res, void* R,
-                                 void* stream) {
-  if (N < 1 || N > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)25 * N * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(rotation_average_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
+                                 int refine_iters, void* off, void* adj, void* res,
+                                 void* state, void* R, void* stream) {
+  // state: nullptr (N <= kMaxN, the solve's vectors in shared memory) or 25 N
+  // floats of global scratch (any N).
+  if (N < 1 || (state == nullptr && N > kMaxN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Edges g{static_cast<const int*>(pairs), static_cast<const float*>(R_rel),
                 static_cast<const float*>(w)};
-  rotation_average_kernel<<<1, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      g, P, N, power_iters, refine_iters, static_cast<const float*>(X0),
-      static_cast<int*>(off), static_cast<int*>(adj), static_cast<float*>(res),
-      static_cast<float*>(R));
+#define ROTATION_AVERAGE_ARGS                                                                \
+  g, P, N, power_iters, refine_iters, static_cast<const float*>(X0), static_cast<int*>(off), \
+      static_cast<int*>(adj), static_cast<float*>(res), static_cast<float*>(state),          \
+      static_cast<float*>(R)
+  if (state == nullptr) {
+    const size_t smem = (size_t)25 * N * sizeof(float);
+    cudaError_t e = cudaFuncSetAttribute(rotation_average_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rotation_average_kernel<true><<<1, NT, smem, st>>>(ROTATION_AVERAGE_ARGS);
+  } else {
+    rotation_average_kernel<false><<<1, NT, 0, st>>>(ROTATION_AVERAGE_ARGS);
+  }
+#undef ROTATION_AVERAGE_ARGS
   return static_cast<int>(cudaGetLastError());
 }

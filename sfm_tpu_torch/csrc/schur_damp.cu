@@ -20,7 +20,10 @@
 //     rhs and as Jk_o^T y_o into rhs_k. These are order-free fixed-point
 //     sums (sfm_common.cuh): a first run of the kernel takes every target's
 //     largest |term|, the shifts follow, the second run adds (a per-block
-//     copy in shared memory, flushed with one global atomic per entry);
+//     copy in shared memory, flushed with one global atomic per entry, while
+//     the WORDS x (BC + 4) words fit in 227 KB; above that -- more than
+//     schur.py::max_cameras(B, T) cameras -- straight into the global words
+//     with 64-bit integer atomics: the same integer sums, so the same bits);
 //  3. rhs = -g + the sums, rounded once: the same bits every run.
 // sfm_schur_block_jacobi (the PCG path only, more than
 // use_dense_schur_below cameras): the block-Jacobi preconditioner of K11,
@@ -112,16 +115,19 @@ __global__ void __launch_bounds__(NT) damp_point_kernel(
   if (i < 4) lam_diag_k[i] = lam * Uk[i * 5] + eps<T>();
 }
 
-template <int B, typename T, bool ADD>
+// SH: the block stages its sums in shared memory; otherwise they go to the
+// global words directly (sfm_fx_target).
+template <int B, typename T, bool ADD, bool SH>
 __global__ void __launch_bounds__(NT) damp_rhs_kernel(
     const T* __restrict__ Jc, const T* __restrict__ Jk, const T* __restrict__ Jp,
     const int* __restrict__ obs_cam, const int* __restrict__ obs_point,
     const int* __restrict__ perm, const uint8_t* __restrict__ perm_valid, int G, int Vs, int C,
     const T* __restrict__ Vinv, const T* __restrict__ g_p, const int* __restrict__ sh,
     unsigned int* __restrict__ gmax, unsigned long long* __restrict__ gacc) {
-  extern __shared__ unsigned long long s_rhs[];  // C x B camera sums, then 4 intrinsics sums
+  extern __shared__ unsigned long long s_stage[];  // C x B camera sums, then 4 intrinsics sums
+  unsigned long long* s_rhs = sfm_fx_target<ADD, SH>(s_stage, gmax, gacc);
   const int n = B * C + 4;
-  sfm_fx_stage_zero<T>(s_rhs, n);
+  if (SH) sfm_fx_stage_zero<T>(s_rhs, n);
   __syncthreads();
   const int g = blockIdx.x * NT + threadIdx.x;
   SfmFxPart rk[4];
@@ -152,8 +158,10 @@ __global__ void __launch_bounds__(NT) damp_rhs_kernel(
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) sfm_fx_put_warp<T, ADD>(s_rhs, n, B * C + k, rk[k]);
-  __syncthreads();
-  sfm_fx_flush<T, ADD>(s_rhs, n, gmax, gacc);
+  if (SH) {
+    __syncthreads();
+    sfm_fx_flush<T, ADD>(s_rhs, n, gmax, gacc);
+  }
 }
 
 // rhs = -g + the sums, rounded once.
@@ -305,9 +313,10 @@ template <int B, typename T>
 int schur_damp(const void* V, const void* point_valid, const void* U, const void* Uk,
                const void* g_c, const void* g_k, const void* g_p, const void* Jc,
                const void* Jk, const void* Jp, const void* obs_cam, const void* obs_point,
-               const void* perm, const void* perm_valid, int P, int C, int G, int Vs, T lam,
-               void* Vinv, void* lam_diag_c, void* lam_diag_k, void* rhs_c, void* rhs_k,
-               void* fx_max, void* fx_sh, void* fx_acc, cudaStream_t st) {
+               const void* perm, const void* perm_valid, int P, int C, int G, int Vs,
+               int in_shared, T lam, void* Vinv, void* lam_diag_c, void* lam_diag_k,
+               void* rhs_c, void* rhs_k, void* fx_max, void* fx_sh, void* fx_acc,
+               cudaStream_t st) {
   const int n = B * C + 4;
   const int n1 = max(max(P, B * C), 4);
   unsigned int* gmax = static_cast<unsigned int*>(fx_max);
@@ -324,23 +333,30 @@ int schur_damp(const void* V, const void* point_valid, const void* U, const void
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (G > 0) {
-    const size_t smem = (size_t)SfmFx<T>::WORDS * n * sizeof(unsigned long long);
-    e = cudaFuncSetAttribute(damp_rhs_kernel<B, T, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(damp_rhs_kernel<B, T, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
     const int blocks = (G + NT - 1) / NT;
 #define DAMP_RHS_ARGS                                                                        \
   static_cast<const T*>(Jc), static_cast<const T*>(Jk), static_cast<const T*>(Jp),           \
       static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),                  \
       static_cast<const int*>(perm), static_cast<const uint8_t*>(perm_valid), G, Vs, C,      \
       static_cast<const T*>(Vinv), static_cast<const T*>(g_p), sh, gmax, gacc
-    damp_rhs_kernel<B, T, false><<<blocks, NT, smem, st>>>(DAMP_RHS_ARGS);
-    sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, (double)G * Vs, nullptr,
-                                                             sh);
-    damp_rhs_kernel<B, T, true><<<blocks, NT, smem, st>>>(DAMP_RHS_ARGS);
+    if (in_shared) {
+      const size_t smem = (size_t)SfmFx<T>::WORDS * n * sizeof(unsigned long long);
+      e = cudaFuncSetAttribute(damp_rhs_kernel<B, T, false, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(damp_rhs_kernel<B, T, true, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      damp_rhs_kernel<B, T, false, true><<<blocks, NT, smem, st>>>(DAMP_RHS_ARGS);
+      sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, (double)G * Vs,
+                                                               nullptr, sh);
+      damp_rhs_kernel<B, T, true, true><<<blocks, NT, smem, st>>>(DAMP_RHS_ARGS);
+    } else {
+      damp_rhs_kernel<B, T, false, false><<<blocks, NT, 0, st>>>(DAMP_RHS_ARGS);
+      sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, (double)G * Vs,
+                                                               nullptr, sh);
+      damp_rhs_kernel<B, T, true, false><<<blocks, NT, 0, st>>>(DAMP_RHS_ARGS);
+    }
 #undef DAMP_RHS_ARGS
   } else {
     sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, 1.0, nullptr, sh);
@@ -384,11 +400,12 @@ int schur_back_substitute(const void* Jc, const void* Jk, const void* Jp, const 
                    const void* g_c, const void* g_k, const void* g_p, const void* Jc,         \
                    const void* Jk, const void* Jp, const void* obs_cam, const void* obs_point, \
                    const void* perm, const void* perm_valid, int P, int C, int G, int Vs,     \
-                   LAM lam, void* Vinv, void* lam_diag_c, void* lam_diag_k, void* rhs_c,      \
-                   void* rhs_k, void* fx_max, void* fx_sh, void* fx_acc, void* stream) {      \
+                   int in_shared, LAM lam, void* Vinv, void* lam_diag_c, void* lam_diag_k,    \
+                   void* rhs_c, void* rhs_k, void* fx_max, void* fx_sh, void* fx_acc,         \
+                   void* stream) {                                                            \
     return schur_damp<B, T>(V, point_valid, U, Uk, g_c, g_k, g_p, Jc, Jk, Jp, obs_cam,        \
-                            obs_point, perm, perm_valid, P, C, G, Vs, (T)lam, Vinv,           \
-                            lam_diag_c, lam_diag_k, rhs_c, rhs_k, fx_max, fx_sh, fx_acc,      \
+                            obs_point, perm, perm_valid, P, C, G, Vs, in_shared, (T)lam,      \
+                            Vinv, lam_diag_c, lam_diag_k, rhs_c, rhs_k, fx_max, fx_sh, fx_acc, \
                             static_cast<cudaStream_t>(stream));                               \
   }
 SFM_SCHUR_DAMP(sfm_schur_damp, 6, float, float)

@@ -38,8 +38,11 @@
 // sfm_common.cuh). At B = 10 the matvec adds U_extra x_c (schur.py:253-256:
 // the per-camera intrinsics regularization, a part of U that the Jc
 // products cannot rebuild); the camera sums of a block live in shared
-// memory, WORDS x (BC + 4) x 8 bytes of 227 KB, which caps C: 4,842 at
-// B = 6 in float, 2,905 at B = 10, 2,420 and 1,452 in double.
+// memory, WORDS x (BC + 4) x 8 bytes of 227 KB, while they fit (C up to
+// 4,842 at B = 6 in float, 2,905 at B = 10, 2,420 and 1,452 in double:
+// schur.py::max_cameras); above that the rows add straight into the global
+// words with the same 64-bit integer atomics (the same bits), so C has no
+// cap.
 //
 // What bounds it on the H100: memory. A matvec reads each observation's
 // whitened Jacobians (13 x 2 floats), its camera and point ids and its slot
@@ -106,7 +109,9 @@ __device__ __forceinline__ void apply_b(const T* jc, const T* jk, const T* xc, c
   }
 }
 
-template <int B, typename T, bool ADD>
+// SH: the block stages its sums in shared memory; otherwise they go to the
+// global words directly (sfm_fx_target).
+template <int B, typename T, bool ADD, bool SH>
 __global__ void __launch_bounds__(NT) matvec_rows_kernel(
     const T* __restrict__ Jc, const T* __restrict__ Jk, const T* __restrict__ Jp,
     const int* __restrict__ obs_cam, const int* __restrict__ obs_point,
@@ -115,9 +120,10 @@ __global__ void __launch_bounds__(NT) matvec_rows_kernel(
     const int* __restrict__ sh, unsigned int* __restrict__ gmax,
     unsigned long long* __restrict__ gacc) {
   if (flag != nullptr && *flag == T(0)) return;  // the same for the whole block
-  extern __shared__ unsigned long long s_acc[];  // C x B camera sums, then 4 intrinsics sums
+  extern __shared__ unsigned long long s_stage[];  // C x B camera sums, then 4 intrinsics sums
+  unsigned long long* s_acc = sfm_fx_target<ADD, SH>(s_stage, gmax, gacc);
   const int nB = B * C, n = nB + 4;
-  sfm_fx_stage_zero<T>(s_acc, n);
+  if (SH) sfm_fx_stage_zero<T>(s_acc, n);
   __syncthreads();
   const int g = blockIdx.x * NT + threadIdx.x;
   SfmFxPart rk[4];
@@ -164,8 +170,10 @@ __global__ void __launch_bounds__(NT) matvec_rows_kernel(
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) sfm_fx_put_warp<T, ADD>(s_acc, n, nB + k, rk[k]);
-  __syncthreads();
-  sfm_fx_flush<T, ADD>(s_acc, n, gmax, gacc);
+  if (SH) {
+    __syncthreads();
+    sfm_fx_flush<T, ADD>(s_acc, n, gmax, gacc);
+  }
 }
 
 // z = blockdiag(Mc, Mk) r, one thread a camera block (and one the 4x4 Mk).
@@ -275,9 +283,9 @@ template <int B, typename T>
 int schur_matvec(const void* Jc, const void* Jk, const void* Jp, const void* obs_cam,
                  const void* obs_point, const void* perm, const void* perm_valid,
                  const void* Vinv, const void* lam_diag_c, const void* lam_diag_k,
-                 const void* Hreg_k, const void* x, int C, int G, int Vs, const void* flag,
-                 void* Sx, void* fx_max, void* fx_sh, void* fx_acc, const void* U_extra,
-                 cudaStream_t st) {
+                 const void* Hreg_k, const void* x, int C, int G, int Vs, int in_shared,
+                 const void* flag, void* Sx, void* fx_max, void* fx_sh, void* fx_acc,
+                 const void* U_extra, cudaStream_t st) {
   const int n = B * C + 4;
   const T* fl = static_cast<const T*>(flag);
   unsigned int* gmax = static_cast<unsigned int*>(fx_max);
@@ -288,22 +296,30 @@ int schur_matvec(const void* Jc, const void* Jk, const void* Jp, const void* obs
     e = cudaMemsetAsync(gacc, 0, (size_t)SfmFx<T>::WORDS * n * sizeof(unsigned long long), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (G > 0) {
-    const size_t smem = (size_t)SfmFx<T>::WORDS * n * sizeof(unsigned long long);
-    e = cudaFuncSetAttribute(matvec_rows_kernel<B, T, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(matvec_rows_kernel<B, T, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
     const int blocks = (G + NT - 1) / NT;
 #define MATVEC_ROWS_ARGS                                                                     \
   static_cast<const T*>(Jc), static_cast<const T*>(Jk), static_cast<const T*>(Jp),           \
       static_cast<const int*>(obs_cam), static_cast<const int*>(obs_point),                  \
       static_cast<const int*>(perm), static_cast<const uint8_t*>(perm_valid), G, Vs, C,      \
       static_cast<const T*>(Vinv), static_cast<const T*>(x), fl, sh, gmax, gacc
-    matvec_rows_kernel<B, T, false><<<blocks, NT, smem, st>>>(MATVEC_ROWS_ARGS);
-    sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, (double)G * Vs, fl, sh);
-    matvec_rows_kernel<B, T, true><<<blocks, NT, smem, st>>>(MATVEC_ROWS_ARGS);
+    if (in_shared) {
+      const size_t smem = (size_t)SfmFx<T>::WORDS * n * sizeof(unsigned long long);
+      e = cudaFuncSetAttribute(matvec_rows_kernel<B, T, false, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(matvec_rows_kernel<B, T, true, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      matvec_rows_kernel<B, T, false, true><<<blocks, NT, smem, st>>>(MATVEC_ROWS_ARGS);
+      sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, (double)G * Vs, fl,
+                                                               sh);
+      matvec_rows_kernel<B, T, true, true><<<blocks, NT, smem, st>>>(MATVEC_ROWS_ARGS);
+    } else {
+      matvec_rows_kernel<B, T, false, false><<<blocks, NT, 0, st>>>(MATVEC_ROWS_ARGS);
+      sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, (double)G * Vs, fl,
+                                                               sh);
+      matvec_rows_kernel<B, T, true, false><<<blocks, NT, 0, st>>>(MATVEC_ROWS_ARGS);
+    }
 #undef MATVEC_ROWS_ARGS
   } else {
     sfm_fx_shift_kernel<T><<<(n + NT - 1) / NT, NT, 0, st>>>(gmax, n, 1.0, fl, sh);
@@ -343,11 +359,12 @@ SFM_API int sfm_schur_matvec(const void* Jc, const void* Jk, const void* Jp, con
                              const void* obs_point, const void* perm, const void* perm_valid,
                              const void* Vinv, const void* lam_diag_c, const void* lam_diag_k,
                              const void* Hreg_k, const void* x, int C, int G, int Vs,
-                             const void* flag, void* Sx, void* fx_max, void* fx_sh,
-                             void* fx_acc, void* stream) {
+                             int in_shared, const void* flag, void* Sx, void* fx_max,
+                             void* fx_sh, void* fx_acc, void* stream) {
   return schur_matvec<6, float>(Jc, Jk, Jp, obs_cam, obs_point, perm, perm_valid, Vinv,
-                                lam_diag_c, lam_diag_k, Hreg_k, x, C, G, Vs, flag, Sx, fx_max,
-                                fx_sh, fx_acc, nullptr, static_cast<cudaStream_t>(stream));
+                                lam_diag_c, lam_diag_k, Hreg_k, x, C, G, Vs, in_shared, flag,
+                                Sx, fx_max, fx_sh, fx_acc, nullptr,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // The other routes: U_extra (C, B, B) or null.
@@ -355,12 +372,13 @@ SFM_API int sfm_schur_matvec(const void* Jc, const void* Jk, const void* Jp, con
   SFM_API int NAME(const void* Jc, const void* Jk, const void* Jp, const void* obs_cam,       \
                    const void* obs_point, const void* perm, const void* perm_valid,           \
                    const void* Vinv, const void* lam_diag_c, const void* lam_diag_k,          \
-                   const void* Hreg_k, const void* x, int C, int G, int Vs, const void* flag, \
-                   void* Sx, void* fx_max, void* fx_sh, void* fx_acc, const void* U_extra,    \
-                   void* stream) {                                                            \
+                   const void* Hreg_k, const void* x, int C, int G, int Vs, int in_shared,    \
+                   const void* flag, void* Sx, void* fx_max, void* fx_sh, void* fx_acc,       \
+                   const void* U_extra, void* stream) {                                       \
     return schur_matvec<B, T>(Jc, Jk, Jp, obs_cam, obs_point, perm, perm_valid, Vinv,         \
-                              lam_diag_c, lam_diag_k, Hreg_k, x, C, G, Vs, flag, Sx, fx_max,  \
-                              fx_sh, fx_acc, U_extra, static_cast<cudaStream_t>(stream));     \
+                              lam_diag_c, lam_diag_k, Hreg_k, x, C, G, Vs, in_shared, flag,   \
+                              Sx, fx_max, fx_sh, fx_acc, U_extra,                             \
+                              static_cast<cudaStream_t>(stream));                             \
   }
 SFM_SCHUR_MATVEC(sfm_schur_matvec_b10, 10, float)
 SFM_SCHUR_MATVEC(sfm_schur_matvec_f64, 6, double)

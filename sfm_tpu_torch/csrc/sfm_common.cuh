@@ -275,6 +275,19 @@ __device__ __forceinline__ void sfm_fx_flush(const unsigned long long* s, int n,
   }
 }
 
+// Where a kernel's terms go: with SH its block's staging copy in shared
+// memory (flushed at the end), else the global words themselves, in the same
+// layout (MAX: n uint32 bits; ADD: WORDS x n uint64), with the same integer
+// atomics: the same sums, so the same bits. The global route serves targets
+// too many for 227 KB of shared memory (BA with many cameras).
+template <bool ADD, bool SH>
+__device__ __forceinline__ unsigned long long* sfm_fx_target(unsigned long long* stage,
+                                                             unsigned int* gmax,
+                                                             unsigned long long* gacc) {
+  if (SH) return stage;
+  return ADD ? gacc : reinterpret_cast<unsigned long long*>(gmax);
+}
+
 namespace {
 // sh[i] for a target whose terms, at most `count` of them, are at most
 // gmax[i] each; a no-op when `flag` is given and 0.

@@ -168,7 +168,7 @@ __device__ inline void sfm_recover_pose(const float E[3][3], const float K[3][3]
 
 // ------------------------------------------------------------ eight-point
 
-// Packed lower triangle of a symmetric 9x9: entry (i, j), j <= i.
+// Packed lower triangle of a symmetric matrix: entry (i, j), j <= i.
 __device__ __forceinline__ constexpr int sfm_pk(int i, int j) { return i * (i + 1) / 2 + j; }
 
 // One row of eight_point's design matrix (x2^T F x1 = a . vec(F)), times w,
@@ -183,13 +183,15 @@ __device__ __forceinline__ void sfm_add_design_row(float x1, float y1, float x2,
     for (int j = 0; j <= i; ++j) A[sfm_pk(i, j)] += a[i] * a[j];
 }
 
-// utils/linalg.py::_cholesky_clamped of the packed A + shift I, column by
-// column, written to L (which may be A itself: each entry of A is read before
-// its place is written). Returns whether a pivot was nonpositive.
-__device__ __forceinline__ bool sfm_cholesky_clamped9(const float* A, float shift, float* L) {
+// utils/linalg.py::_cholesky_clamped of the packed N x N A + shift I, column
+// by column, written to L (which may be A itself: each entry of A is read
+// before its place is written). Returns whether a pivot was nonpositive.
+// N = 9: the eight-point normal matrices; N = 12: the DLT PnP's.
+template <int N>
+__device__ __forceinline__ bool sfm_cholesky_clamped(const float* A, float shift, float* L) {
   bool bad = false;
 #pragma unroll
-  for (int j = 0; j < 9; ++j) {
+  for (int j = 0; j < N; ++j) {
     float acc = 0.f;
 #pragma unroll
     for (int k = 0; k < j; ++k) acc += L[sfm_pk(j, k)] * L[sfm_pk(j, k)];
@@ -198,7 +200,7 @@ __device__ __forceinline__ bool sfm_cholesky_clamped9(const float* A, float shif
     const float d = sqrtf(fmaxf(s, 1e-30f));
     L[sfm_pk(j, j)] = d;
 #pragma unroll
-    for (int i = j + 1; i < 9; ++i) {
+    for (int i = j + 1; i < N; ++i) {
       float r = 0.f;
 #pragma unroll
       for (int k = 0; k < j; ++k) r += L[sfm_pk(i, k)] * L[sfm_pk(j, k)];
@@ -209,32 +211,33 @@ __device__ __forceinline__ bool sfm_cholesky_clamped9(const float* A, float shif
 }
 
 // smallest_eigvec's iteration on the factor: x <- (L L^T)^-1 x, normalized,
-// from x0 = 1 + 1e-3 * arange(9).
-__device__ __forceinline__ void sfm_inverse_iterate9(const float* L, int iters, float* x) {
+// from x0 = 1 + 1e-3 * arange(N).
+template <int N>
+__device__ __forceinline__ void sfm_inverse_iterate(const float* L, int iters, float* x) {
 #pragma unroll
-  for (int i = 0; i < 9; ++i) x[i] = 1.f + 1e-3f * (float)i;
+  for (int i = 0; i < N; ++i) x[i] = 1.f + 1e-3f * (float)i;
   for (int it = 0; it < iters; ++it) {
-    float y[9];
+    float y[N];
 #pragma unroll
-    for (int i = 0; i < 9; ++i) {
+    for (int i = 0; i < N; ++i) {
       float s = x[i];
 #pragma unroll
       for (int k = 0; k < i; ++k) s -= L[sfm_pk(i, k)] * y[k];
       y[i] = s / L[sfm_pk(i, i)];
     }
 #pragma unroll
-    for (int i = 8; i >= 0; --i) {
+    for (int i = N - 1; i >= 0; --i) {
       float s = y[i];
 #pragma unroll
-      for (int k = i + 1; k < 9; ++k) s -= L[sfm_pk(k, i)] * x[k];
+      for (int k = i + 1; k < N; ++k) s -= L[sfm_pk(k, i)] * x[k];
       x[i] = s / L[sfm_pk(i, i)];
     }
     float n2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < 9; ++i) n2 += x[i] * x[i];
+    for (int i = 0; i < N; ++i) n2 += x[i] * x[i];
     const float nrm = fmaxf(sqrtf(n2), 1e-30f);
 #pragma unroll
-    for (int i = 0; i < 9; ++i) x[i] /= nrm;
+    for (int i = 0; i < N; ++i) x[i] /= nrm;
   }
 }
 
@@ -370,10 +373,10 @@ __device__ void sfm_eight_point_block(const float* x1, const float* y1, const fl
     for (int i = 0; i < 9; ++i) tr += A[sfm_pk(i, i)];
     const float mean = tr / 9.f;
     float L[45];
-    if (sfm_cholesky_clamped9(A, 1e-6f * mean + 1e-20f, L))
-      sfm_cholesky_clamped9(A, 1e-3f * mean + 1e-20f, L);
+    if (sfm_cholesky_clamped<9>(A, 1e-6f * mean + 1e-20f, L))
+      sfm_cholesky_clamped<9>(A, 1e-3f * mean + 1e-20f, L);
     float f[9];
-    sfm_inverse_iterate9(L, 8, f);
+    sfm_inverse_iterate<9>(L, 8, f);
     sfm_rank2_project(f);
     const float t1[3] = {s1, c[0], c[1]}, t2[3] = {s2, c[2], c[3]};
     sfm_denormalize(f, t1, t2, F);

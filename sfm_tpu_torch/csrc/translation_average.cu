@@ -20,8 +20,10 @@
 // another order. The median-baseline scale gauge stays on the host.
 //
 // Design: one block of 256 threads for the whole solve; the layouts and the
-// CG vectors in shared memory (21 N floats: N <= 1024, 84 KB); per-pair
-// weights and projections, and the incidence lists, in global scratch.
+// CG vectors (21 N floats) in shared memory up to N = 1024 (84 KB), above it
+// in a global scratch the caller gives (`state`): one templated body, the same
+// arithmetic in the same order either way; per-pair weights and projections,
+// and the incidence lists, in global scratch.
 //
 // What bounds it on the H100: latency. Up to 6 x 80 dependent CG steps, two
 // block reductions each; at N = 150 and P = 1,102 a pass is ~30k FLOP. One
@@ -32,7 +34,7 @@ namespace {
 
 using namespace sfm_avg;
 
-constexpr int kMaxN = 1024;
+constexpr int kMaxN = 1024;  // cameras whose state fits in shared memory
 
 struct Graph {
   const int* pairs;
@@ -102,13 +104,14 @@ __device__ void pair_rhs(const Graph& g, const float* wp, const float* scale, fl
   __syncthreads();
 }
 
+template <bool kShared>
 __global__ void __launch_bounds__(NT) translation_average_kernel(
     const int* __restrict__ pairs, const float* __restrict__ dirs, const float* __restrict__ w,
     const float* __restrict__ C_init, int P, int N, int rounds, int cg_iters, int has_init,
     int* __restrict__ off, int* __restrict__ adj, float* __restrict__ scratch,
-    float* __restrict__ C_out) {
+    float* __restrict__ state, float* __restrict__ C_out) {
   extern __shared__ float smem[];
-  float* C = smem;         // 3N: the init, later the ALS layout
+  float* C = kShared ? smem : state;  // 3N: the init, later the ALS layout
   float* Cr = C + 3 * N;   // 3N: the ridge solution
   float* bv = Cr + 3 * N;  // 3N each: CG's right-hand side and vectors
   float* rv = bv + 3 * N;
@@ -211,17 +214,27 @@ __global__ void __launch_bounds__(NT) translation_average_kernel(
 
 SFM_API int sfm_translation_average(const void* pairs, const void* d, const void* w,
                                     const void* C_init, int P, int N, int rounds, int cg_iters,
-                                    int has_init, void* off, void* adj, void* scratch, void* C,
-                                    void* stream) {
-  if (N < 1 || N > kMaxN || P < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)21 * N * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(translation_average_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  translation_average_kernel<<<1, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(pairs), static_cast<const float*>(d),
-      static_cast<const float*>(w), static_cast<const float*>(C_init), P, N, rounds, cg_iters,
-      has_init, static_cast<int*>(off), static_cast<int*>(adj), static_cast<float*>(scratch),
-      static_cast<float*>(C));
+                                    int has_init, void* off, void* adj, void* scratch,
+                                    void* state, void* C, void* stream) {
+  // state: nullptr (N <= kMaxN, the solve's vectors in shared memory) or 21 N
+  // floats of global scratch (any N).
+  if (N < 1 || P < 1 || (state == nullptr && N > kMaxN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TRANSLATION_AVERAGE_ARGS                                                             \
+  static_cast<const int*>(pairs), static_cast<const float*>(d), static_cast<const float*>(w), \
+      static_cast<const float*>(C_init), P, N, rounds, cg_iters, has_init,                   \
+      static_cast<int*>(off), static_cast<int*>(adj), static_cast<float*>(scratch),          \
+      static_cast<float*>(state), static_cast<float*>(C)
+  if (state == nullptr) {
+    const size_t smem = (size_t)21 * N * sizeof(float);
+    cudaError_t e = cudaFuncSetAttribute(translation_average_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    translation_average_kernel<true><<<1, NT, smem, st>>>(TRANSLATION_AVERAGE_ARGS);
+  } else {
+    translation_average_kernel<false><<<1, NT, 0, st>>>(TRANSLATION_AVERAGE_ARGS);
+  }
+#undef TRANSLATION_AVERAGE_ARGS
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,18 +1,26 @@
-"""Perspective-n-Point: P3P RANSAC + Gauss-Newton polish, batched over candidates.
+"""Perspective-n-Point: RANSAC over minimal or DLT samples + Gauss-Newton
+polish, batched over candidates.
 
-Counterpart of ``sfm_tpu/estimators/pnp.py`` on the path the default config
-runs (``PnPConfig.sample_size = 3``, minimal P3P). Kernel K6
-(``csrc/pnp_ransac.cu``) has two entries: ``p3p_solve`` (Grunert's quartic
-by Durand-Kerner, up to 4 poses per sample) and ``pnp_score_select``
-(reprojection error + cheirality of every hypothesis over every
-correspondence, then ``ransac_select``'s winner); ``csrc/pnp_refine.cu``
-(entry ``pnp_refine``) runs everything from the winner on in one launch: the
-two 10-step Gauss-Newton refits on the consensus set, the re-derived
-weights, the final inliers and gates. Their plain twins are
-:func:`p3p_candidates`, :func:`pnp_score_select_plain` and
-:func:`pnp_refine_plain` (which keeps ``torch.func.jacfwd``, the reference's
-Jacobian). Samples come from a ``torch.Generator`` or are injected
-(``indices``), so a test can hand both packages the same draws.
+Counterpart of ``sfm_tpu/estimators/pnp.py``, both of its hypothesis
+branches. ``PnPConfig.sample_size = 3`` (the default) is minimal P3P:
+kernel K6 (``csrc/pnp_ransac.cu``) entry ``p3p_solve`` (Grunert's quartic by
+Durand-Kerner, up to 4 poses per sample). Any other sample size (>= 6) is
+the linear DLT branch (6 or more rows to determine P; fewer give junk that
+scores no consensus, as in the reference): ``csrc/pnp_dlt.cu`` entry
+``pnp_dlt_solve`` solves
+each sample's 12 x 12 DLT normal matrix, projects P onto SO(3) x R^3 and
+polishes the pose by two Gauss-Newton steps on its own sample, one thread a
+hypothesis. Both branches then run ``pnp_score_select`` (reprojection error
++ cheirality of every hypothesis over every correspondence, then
+``ransac_select``'s winner) and ``csrc/pnp_refine.cu`` (entry
+``pnp_refine``): everything from the winner on in one launch, the two
+10-step Gauss-Newton refits on the consensus set, the re-derived weights,
+the final inliers and gates. Their plain twins are :func:`p3p_candidates`,
+:func:`pnp_dlt_solve_plain` (:func:`pnp_dlt` and :func:`_gn_sample_step`),
+:func:`pnp_score_select_plain` and :func:`pnp_refine_plain` (which, like
+the DLT polish, keeps ``torch.func.jacfwd``, the reference's Jacobian).
+Samples come from a ``torch.Generator`` or are injected (``indices``), so a
+test can hand both packages the same draws.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from sfm_tpu_torch import _kernels
 from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
 from sfm_tpu_torch.geometry.projection import intrinsics_vector, project
 from sfm_tpu_torch.geometry.rotations import rodrigues, rotation_to_rvec
+from sfm_tpu_torch.utils.linalg import smallest_eigvec
 
 _EPS = 1e-12
 # One block holds a candidate's correspondences in shared memory (6 floats a row).
@@ -137,6 +146,114 @@ def p3p_solve(s3, s2n):
     raise ValueError(f"p3p_solve: unsupported device {s3.device}")
 
 
+def pnp_dlt(pts3d, pts2d_norm, weights=None, null_fallback: bool = True):
+    """Linear PnP from >= 6 correspondences in normalized camera coordinates
+    (the reference's ``pnp_dlt``), batched over leading dimensions.
+
+    pts3d (..., N, 3); pts2d_norm (..., N, 2), pixels premultiplied by
+    K^-1; weights (..., N) a soft row selector. The 2N x 12 DLT system
+    (weighted, each row normalized) gives P = [M | p4] up to scale as the
+    null vector of its normal matrix; P and -P are projected onto SO(3) x R^3
+    (12 Newton-Schulz steps for the polar factor, the det < 0 flip
+    X (I - 2 v v^T) with v the smallest right singular vector of M, the
+    scale 3 / trace(X^T M)), and the sign whose weighted mean depth is the
+    larger wins. Returns (R (..., 3, 3), t (..., 3)).
+    """
+    x, y = pts2d_norm[..., 0:1], pts2d_norm[..., 1:2]
+    X1 = torch.cat([pts3d, torch.ones_like(pts3d[..., :1])], dim=-1)      # (..., N, 4)
+    zeros = torch.zeros_like(X1)
+    A = torch.cat([torch.cat([X1, zeros, -x * X1], dim=-1),
+                   torch.cat([zeros, X1, -y * X1], dim=-1)], dim=-2)      # (..., 2N, 12)
+    if weights is not None:
+        A = A * torch.cat([weights, weights], dim=-1)[..., None]
+    A = A / torch.clamp(torch.linalg.vector_norm(A, dim=-1, keepdim=True), min=_EPS)
+    p = smallest_eigvec(A.mT @ A, fallback=null_fallback)
+    P = p.reshape(p.shape[:-1] + (3, 4))
+    if weights is None:
+        weights = torch.ones(pts3d.shape[:-1], dtype=pts3d.dtype, device=pts3d.device)
+
+    def decompose(Pm):
+        M = Pm[..., :3]
+        nrm = torch.sqrt((M * M).sum((-2, -1), keepdim=True))
+        X = M / torch.clamp(nrm, min=_EPS)          # sigma_max <= 1: Newton-Schulz converges
+        for _ in range(12):
+            X = 1.5 * X - 0.5 * (X @ X.mT @ X)
+        nuclear = (X * M).sum((-2, -1))              # trace(X^T M)
+        v = smallest_eigvec(M.mT @ M)                # (..., 3)
+        R_flip = X - 2.0 * (X @ v[..., None]) * v[..., None, :]
+        R = torch.where((torch.linalg.det(X) < 0)[..., None, None], R_flip, X)
+        t = Pm[..., 3] * (3.0 / torch.clamp(nuclear, min=_EPS))[..., None]
+        z = (pts3d @ R.mT)[..., 2] + t[..., 2:3]
+        mean_z = (z * weights).sum(-1) / torch.clamp(weights.sum(-1), min=_EPS)
+        return R, t, mean_z
+
+    R_p, t_p, z_p = decompose(P)
+    R_n, t_n, z_n = decompose(-P)
+    front = z_p >= z_n
+    return (torch.where(front[..., None, None], R_p, R_n),
+            torch.where(front[..., None], t_p, t_n))
+
+
+def _gn_sample_step(rvec, t, s3, s2, K):
+    """One Gauss-Newton step on a fixed sample, batched over leading
+    dimensions (the reference's per-hypothesis polish): the 6-column
+    Jacobian of the sample's reprojection residual by ``torch.func.jacfwd``,
+    (J^T J + 1e-4 I) delta = J^T r. Returns params - delta (..., 6)."""
+    def residual(params, p3, p2):
+        proj, _ = project(p3, rodrigues(params[:3]), params[3:], K)
+        return (proj - p2).reshape(-1)
+
+    lead = rvec.shape[:-1]
+    params = torch.cat([rvec, t], dim=-1).reshape(-1, 6)
+    p3, p2 = s3.reshape((-1,) + s3.shape[-2:]), s2.reshape((-1,) + s2.shape[-2:])
+    J = torch.func.vmap(torch.func.jacfwd(residual))(params, p3, p2)     # (n, 2S, 6)
+    r = torch.func.vmap(residual)(params, p3, p2)
+    JtJ = J.mT @ J + 1e-4 * torch.eye(6, dtype=J.dtype, device=J.device)
+    delta = torch.linalg.solve(JtJ, J.mT @ r[..., None])[..., 0]
+    return (params - delta).reshape(lead + (6,))
+
+
+def pnp_dlt_solve_plain(pts3d, pn, pts2d, idx, K):
+    """Plain twin of ``pnp_dlt_solve``: each (candidate, hypothesis)'s sample
+    (idx (B, H, S) rows of pts3d (B, N, 3), pn (B, N, 2) normalized and pts2d
+    (B, N, 2) pixels) through :func:`pnp_dlt` without its fallback, then two
+    :func:`_gn_sample_step` s from ``rotation_to_rvec(R0)``. Returns
+    (Rs (B, H, 3, 3), ts (B, H, 3))."""
+    B, H, S = idx.shape
+    flat = idx.reshape(B, -1).long()
+    take = lambda p: torch.gather(p, 1, flat[..., None].expand(-1, -1, p.shape[-1])).reshape(
+        B, H, S, p.shape[-1])
+    s3, s2n, s2 = take(pts3d), take(pn), take(pts2d)
+    R0, t0 = pnp_dlt(s3, s2n, null_fallback=False)
+    params = _gn_sample_step(rotation_to_rvec(R0), t0, s3, s2, K)
+    params = _gn_sample_step(params[..., :3], params[..., 3:], s3, s2, K)
+    return rodrigues(params[..., :3]), params[..., 3:]
+
+
+def pnp_dlt_solve_cuda(pts3d, pn, pts2d, idx, K):
+    B, H, S = idx.shape
+    N = pts3d.shape[1]
+    dev = pts3d.device
+    _kernels.check_tensor(pts3d, "pts3d", torch.float32, (B, N, 3), dev)
+    _kernels.check_tensor(pn, "pn", torch.float32, (B, N, 2), dev)
+    _kernels.check_tensor(pts2d, "pts2d", torch.float32, (B, N, 2), dev)
+    _kernels.check_tensor(idx, "idx", torch.int32, (B, H, S), dev)
+    Rs = torch.empty((B, H, 3, 3), dtype=torch.float32, device=dev)
+    ts = torch.empty((B, H, 3), dtype=torch.float32, device=dev)
+    _kernels.launch("pnp_dlt_solve", dev, pts3d, pn, pts2d, idx, intrinsics_vector(K), B, H, S,
+                    N, Rs, ts)
+    return Rs, ts
+
+
+def pnp_dlt_solve(pts3d, pn, pts2d, idx, K):
+    """Kernel ``pnp_dlt_solve`` on CUDA tensors, :func:`pnp_dlt_solve_plain` on CPU."""
+    if pts3d.is_cuda:
+        return pnp_dlt_solve_cuda(pts3d, pn, pts2d, idx.to(torch.int32).contiguous(), K)
+    if pts3d.device.type == "cpu":
+        return pnp_dlt_solve_plain(pts3d, pn, pts2d, idx, K)
+    raise ValueError(f"pnp_dlt_solve: unsupported device {pts3d.device}")
+
+
 def pnp_score_select_plain(Rs, ts, cand_ok, pts3d, pts2d, valid, K, threshold: float):
     """Reprojection errors of (B, H) hypotheses over (B, N) correspondences
     (behind the camera or a masked candidate = inf), then ``ransac_select``'s
@@ -219,13 +336,11 @@ def pnp_ransac_batch(pts3d, pts2d, valid, K, min_inliers, iters: int = 1024,
 
     pts3d: (B, N, 3); pts2d: (B, N, 2) pixels; valid: (B, N) bool, a leading
     prefix; K: (3, 3); min_inliers: (B,) consensus gates. ``indices``
-    (B, iters, 3) replaces the draw from ``generator``. Returns a dict of
-    R (B,3,3), rvec, t, inliers (B,N), num_inliers, errors, ok.
+    (B, iters, sample_size) replaces the draw from ``generator``. Sample size
+    3 takes P3P (up to 4 hypotheses a sample), any other (>= 6) the DLT with
+    its per-hypothesis polish (one a sample). Returns a dict of R (B,3,3),
+    rvec, t, inliers (B,N), num_inliers, errors, ok.
     """
-    if sample_size != 3:
-        raise NotImplementedError(
-            f"pnp.sample_size={sample_size}: only the P3P path (3) is ported; the DLT + "
-            "per-hypothesis GN path is on ROADMAP queue 1, item 5")
     pts3d = pts3d.to(torch.float32)
     pts2d = pts2d.to(torch.float32)
     valid = valid.to(torch.bool)
@@ -238,12 +353,19 @@ def pnp_ransac_batch(pts3d, pts2d, valid, K, min_inliers, iters: int = 1024,
         if generator is None:
             raise ValueError("pnp_ransac_batch needs a generator or indices")
         indices = ransac_sample_indices(valid, iters, sample_size, generator, prefix=True)
-    flat = indices.reshape(B, -1).long()
-    take = lambda p: torch.gather(p, 1, flat[..., None].expand(-1, -1, p.shape[-1])).reshape(
-        indices.shape + p.shape[-1:])
-    Rs, ts, cand_ok = p3p_solve(take(pts3d).contiguous(), take(pn).contiguous())
-    H = Rs.shape[1] * 4
-    Rs, ts, cand_ok = Rs.reshape(B, H, 3, 3), ts.reshape(B, H, 3), cand_ok.reshape(B, H)
+    if sample_size == 3:
+        flat = indices.reshape(B, -1).long()
+        take = lambda p: torch.gather(p, 1, flat[..., None].expand(-1, -1, p.shape[-1])).reshape(
+            indices.shape + p.shape[-1:])
+        Rs, ts, cand_ok = p3p_solve(take(pts3d).contiguous(), take(pn).contiguous())
+        H = Rs.shape[1] * 4
+        Rs, ts, cand_ok = Rs.reshape(B, H, 3, 3), ts.reshape(B, H, 3), cand_ok.reshape(B, H)
+    else:
+        # The reference masks no DLT hypothesis: a degenerate sample's junk
+        # pose simply scores no consensus.
+        Rs, ts = pnp_dlt_solve(pts3d.contiguous(), pn.contiguous(), pts2d.contiguous(),
+                               indices, K)
+        cand_ok = torch.ones(Rs.shape[:2], dtype=torch.bool, device=dev)
     best, _ = pnp_score_select(Rs, ts, cand_ok, pts3d.contiguous(), pts2d.contiguous(),
                                valid.contiguous(), K, threshold)
 

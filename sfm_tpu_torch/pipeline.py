@@ -59,11 +59,11 @@ class PipelineArgs:
         if self.visualize:
             raise NotImplementedError(
                 "--visualize (per-pair match overlays) is not ported yet "
-                "(ROADMAP queue 1, item 8)")
+                "(ROADMAP queue 1, item 3)")
         if self.checkpoint_dir or self.checkpoint_every or self.resume_checkpoint:
             raise NotImplementedError(
                 "--checkpoint_dir / --resume_checkpoint are not ported yet "
-                "(ROADMAP queue 1, item 7)")
+                "(ROADMAP queue 1, item 2)")
 
 
 class SfMPipeline:

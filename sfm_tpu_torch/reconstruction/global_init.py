@@ -45,9 +45,10 @@ logger = logging.getLogger(__name__)
 _EPS = 1e-12
 # relpose: one thread a row (global_init.pair_matches <= 256).
 _RELPOSE_MAX_ROWS = 256
-# rotation_average / translation_average: the solve's state lives in the
-# shared memory of one block (25 N and 21 N floats).
-_AVG_MAX_CAMERAS = 1024
+# rotation_average / translation_average: up to this many cameras the
+# solve's state (25 N and 21 N floats) lives in the shared memory of its one
+# block; above it, in a global scratch (the same arithmetic, any N).
+_AVG_SHARED_CAMERAS = 1024
 
 
 # ------------------------------------------------------------ K13-a: relative poses
@@ -328,12 +329,19 @@ def rotation_average_plain(pairs, R_rel, w, X, power_iters: int = 48, refine_ite
     return R_abs
 
 
+def _avg_state(floats_a_camera: int, N: int, dev):
+    """K13-b/c's global state scratch above ``_AVG_SHARED_CAMERAS`` cameras;
+    None (a null pointer: the state in shared memory) at or below it."""
+    if N <= _AVG_SHARED_CAMERAS:
+        return None
+    return torch.empty((floats_a_camera * N,), dtype=torch.float32, device=dev)
+
+
 def rotation_average_cuda(pairs, R_rel, w, X, power_iters: int = 48, refine_iters: int = 10):
     P, N = pairs.shape[0], X.shape[0] // 3
     dev = X.device
-    if not 1 <= N <= _AVG_MAX_CAMERAS:
-        raise ValueError(f"rotation_average: {N} cameras; the kernel takes 1.."
-                         f"{_AVG_MAX_CAMERAS}")
+    if N < 1:
+        raise ValueError("rotation_average: no cameras")
     _kernels.check_tensor(pairs, "pairs", torch.int32, (P, 2), dev)
     _kernels.check_tensor(R_rel, "R_rel", torch.float32, (P, 3, 3), dev)
     _kernels.check_tensor(w, "w", torch.float32, (P,), dev)
@@ -341,9 +349,10 @@ def rotation_average_cuda(pairs, R_rel, w, X, power_iters: int = 48, refine_iter
     off = torch.empty((N + 1,), dtype=torch.int32, device=dev)
     adj = torch.empty((max(2 * P, 1),), dtype=torch.int32, device=dev)
     scratch = torch.empty((max(4 * P, 1),), dtype=torch.float32, device=dev)
+    state = _avg_state(25, N, dev)
     R = torch.empty((N, 3, 3), dtype=torch.float32, device=dev)
     _kernels.launch("rotation_average", dev, pairs, R_rel, w, X, P, N, int(power_iters),
-                    int(refine_iters), off, adj, scratch, R)
+                    int(refine_iters), off, adj, scratch, state, R)
     return R
 
 
@@ -450,9 +459,9 @@ def translation_average_cuda(pairs, d, w, C, als_rounds: int = 3, cg_iters: int 
                              has_init: bool = False):
     P, N = pairs.shape[0], C.shape[0]
     dev = C.device
-    if not 1 <= N <= _AVG_MAX_CAMERAS or P < 1:
+    if N < 1 or P < 1:
         raise ValueError(f"translation_average: {N} cameras, {P} pairs; the kernel takes "
-                         f"1..{_AVG_MAX_CAMERAS} cameras and at least one pair")
+                         "at least one of each")
     _kernels.check_tensor(pairs, "pairs", torch.int32, (P, 2), dev)
     _kernels.check_tensor(d, "d", torch.float32, (P, 3), dev)
     _kernels.check_tensor(w, "w", torch.float32, (P,), dev)
@@ -460,9 +469,10 @@ def translation_average_cuda(pairs, d, w, C, als_rounds: int = 3, cg_iters: int 
     off = torch.empty((N + 1,), dtype=torch.int32, device=dev)
     adj = torch.empty((2 * P,), dtype=torch.int32, device=dev)
     scratch = torch.empty((2 * P,), dtype=torch.float32, device=dev)
+    state = _avg_state(21, N, dev)
     out = torch.empty((N, 3), dtype=torch.float32, device=dev)
     _kernels.launch("translation_average", dev, pairs, d, w, C, P, N, int(als_rounds),
-                    int(cg_iters), int(bool(has_init)), off, adj, scratch, out)
+                    int(cg_iters), int(bool(has_init)), off, adj, scratch, state, out)
     return out
 
 

@@ -16,7 +16,8 @@ in the reference; every device program reads it as tensors on ``device``:
   :func:`reproj_stats_plain`;
 * :func:`guided_match` -- kernel K1-g (``csrc/guided_match.cu``), the 2D-3D
   matcher of the guided rescue, twin :func:`guided_match_plain`;
-* PnP (K6, :mod:`sfm_tpu_torch.estimators.pnp`), BA (K8-K10,
+* PnP (K6, :mod:`sfm_tpu_torch.estimators.pnp`: P3P at ``pnp.sample_size``
+  3, the DLT with its per-hypothesis polish at any other), BA (K8-K11,
   :mod:`sfm_tpu_torch.ba`), seed scoring (K14,
   :mod:`sfm_tpu_torch.reconstruction.seed`), relative poses and rotation
   and translation averaging (K13,

@@ -1,10 +1,11 @@
-"""Windowed local BA and per-camera intrinsics on the corridor: the port on
-the card, both packages on the CPU, on one pair table (not collected by
-pytest).
+"""Windowed local BA, per-camera intrinsics, the default config and the DLT
+PnP branch on the corridor: the port on the card, both packages on the CPU,
+on one pair table (not collected by pytest).
 
     python tests/local_window_report.py card [--views 300] [--work DIR] [--out DIR]
                                              [--repeats 3] [--cases NAME ...]
                                              [--scene DIR --pipeline DIR]
+                                             [--full_table]
     python tests/local_window_report.py cpu --data_dir D --table PKL --case NAME
                                             [--package jax|port]
 
@@ -18,7 +19,10 @@ without descriptors it runs no guided rescue) and the scene's ``calib/`` to
 ``--out``, then runs the port's ``reconstruct`` ``--repeats`` times for each
 case of ``CASES`` (or of ``--cases``): on the full table ("full") or on the reduced one
 ("nodesc", the input the CPU runs below can take). Each run prints one
-``model`` line.
+``model`` line. ``--full_table`` also writes the whole table, descriptors
+and rejected pairs included, as ``pair_table_full.pkl.xz`` (its float16
+descriptors stored as two byte planes, which compress far better), the
+input of the CPU runs of the "full" cases.
 
 ``cpu`` (the CPU, JAX for ``--package jax``): the reconstruct stage of one
 package with one case's configuration on a table ``card`` wrote, and the
@@ -35,12 +39,15 @@ import argparse
 import dataclasses
 import gzip
 import json
+import lzma
 import os
 import pickle
 import shutil
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -54,6 +61,8 @@ CASES = {
     "global_nodesc": ("nodesc", {}),
     "percam": ("full", {"ba": {"per_camera_intrinsics": True}}),
     "percam_nodesc": ("nodesc", {"ba": {"per_camera_intrinsics": True}}),
+    "default": ("full", {}),
+    "dlt6": ("full", {"pnp": {"sample_size": 6}}),
 }
 RENDERED = {"fx": 1228.0, "fy": 1228.0, "cx": 512.0, "cy": 384.0}
 
@@ -77,11 +86,35 @@ def model_line(package: str, case: str, out: Path, wall: float) -> str:
     return line
 
 
+def pack_full_table(table: Path) -> bytes:
+    """The whole pair table, its float16 descriptors as (hi, lo) byte planes,
+    xz-compressed."""
+    blob = pickle.loads(table.read_bytes())
+    if "desc" in blob:
+        b = np.ascontiguousarray(blob.pop("desc")).view(np.uint8)
+        blob["desc_planes"] = (b.shape, np.ascontiguousarray(b[..., 1::2]),
+                               np.ascontiguousarray(b[..., 0::2]))
+    return lzma.compress(pickle.dumps(blob), preset=6)
+
+
+def unpack_full_table(data: bytes) -> bytes:
+    blob = pickle.loads(lzma.decompress(data))
+    if "desc_planes" in blob:
+        shape, hi, lo = blob.pop("desc_planes")
+        b = np.empty(shape, np.uint8)
+        b[..., 1::2], b[..., 0::2] = hi, lo
+        blob["desc"] = b.view(np.float16)
+    return pickle.dumps(blob)
+
+
 def copy_table(table: Path, out: Path):
     out.mkdir(parents=True, exist_ok=True)
     data = table.read_bytes()
-    (out / "pair_table.pkl").write_bytes(gzip.decompress(data) if table.suffix == ".gz"
-                                         else data)
+    if table.suffix == ".xz":
+        data = unpack_full_table(data)
+    elif table.suffix == ".gz":
+        data = gzip.decompress(data)
+    (out / "pair_table.pkl").write_bytes(data)
 
 
 def port_reconstruct(data_dir: Path, table: Path, out: Path, cfg: dict, device: str) -> float:
@@ -133,6 +166,10 @@ def card(args) -> int:
     tables = {"full": pipe / "pair_table.pkl", "nodesc": work / "pair_table_nodesc.pkl"}
     tables["nodesc"].write_bytes(pickle.dumps(blob))
     (out / "pair_table_nodesc.pkl.gz").write_bytes(gzip.compress(tables["nodesc"].read_bytes()))
+    if args.full_table:
+        packed = pack_full_table(tables["full"])
+        (out / "pair_table_full.pkl.xz").write_bytes(packed)
+        print(f"full pair table: {len(packed) / 2**20:.1f} MiB packed", flush=True)
     shutil.copytree(scene / "calib", out / "calib", dirs_exist_ok=True)
     for case in args.cases or CASES:
         which, cfg = CASES[case]
@@ -146,8 +183,8 @@ def card(args) -> int:
 
 def cpu(args) -> int:
     which, cfg = CASES[args.case]
-    if which != "nodesc":
-        raise SystemExit(f"{args.case} reads the full table, which stays on the card")
+    if which != "nodesc" and not args.table.endswith(".xz"):
+        raise SystemExit(f"{args.case} reads the full table: pair_table_full.pkl.xz")
     out = Path(args.output_dir)
     data_dir = Path(args.data_dir)
     if args.package == "port":
@@ -184,9 +221,12 @@ def main(argv=None) -> int:
     c.add_argument("--cases", nargs="*", choices=list(CASES))
     c.add_argument("--scene", help="a rendered scene (skips the render and the pipeline)")
     c.add_argument("--pipeline", help="the pipeline's output dir on --scene")
+    c.add_argument("--full_table", action="store_true",
+                   help="also write the whole table (pair_table_full.pkl.xz)")
     p = sub.add_parser("cpu")
     p.add_argument("--data_dir", required=True, help="holds calib/")
-    p.add_argument("--table", required=True, help="pair_table_nodesc.pkl.gz")
+    p.add_argument("--table", required=True,
+                   help="pair_table_nodesc.pkl.gz, or pair_table_full.pkl.xz")
     p.add_argument("--case", required=True, choices=list(CASES))
     p.add_argument("--package", default="jax", choices=["jax", "port"])
     p.add_argument("--output_dir", required=True)

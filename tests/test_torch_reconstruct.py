@@ -2,8 +2,8 @@
 
 PnP (kernel K6's twins, with JAX's own sample indices injected), track
 triangulation and reprojection statistics (K7's twins), seed-pair scoring
-(K14), view selection, pair rescue, the exporters, and the routes that are
-not ported yet. Scenes are synthetic and numpy-seeded. Tolerances are stated
+(K14), view selection, pair rescue, the exporters, and the DLT branch
+(``pnp.sample_size`` 6). Scenes are synthetic and numpy-seeded. Tolerances are stated
 per test.
 """
 
@@ -95,12 +95,18 @@ def test_pnp_ransac_with_jax_sample_indices(rng):
         assert np.arccos(np.clip((np.trace(Rt.T @ R_gt) - 1) / 2, -1, 1)) < 5e-3
 
 
-def test_pnp_needs_the_p3p_path():
-    z = torch.zeros((1, 8, 3))
-    with pytest.raises(NotImplementedError, match="sample_size"):
-        tinc.pnp_ransac_batch(z, z[..., :2], torch.ones((1, 8), dtype=torch.bool),
-                              torch.as_tensor(K), torch.tensor([4]), iters=4, sample_size=6,
-                              generator=torch.Generator().manual_seed(0))
+def test_pnp_runs_the_dlt_path(rng):
+    # sample_size != 3 takes the DLT branch (held against JAX in
+    # tests/test_torch_pnp_dlt.py): drawn samples, finite outputs, the
+    # rendered pose found.
+    p3, p2, valid, R_gt, _ = pnp_scene(rng)
+    out = tinc.pnp_ransac_batch(t(p3)[None], t(p2)[None], t(valid)[None], torch.as_tensor(K),
+                                torch.tensor([15]), iters=128, sample_size=6,
+                                generator=torch.Generator().manual_seed(0))
+    assert all(bool(torch.isfinite(out[k]).all()) for k in ("R", "rvec", "t"))
+    assert bool(out["ok"][0]) and int(out["num_inliers"][0]) > 100
+    Rt = n(out["R"][0])
+    assert np.arccos(np.clip((np.trace(Rt.T @ R_gt) - 1) / 2, -1, 1)) < 5e-3
 
 
 # --------------------------------------------------------------- triangulation

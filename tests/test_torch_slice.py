@@ -4,8 +4,9 @@ Renders the 8-view textured corridor of ``tests/test_pixel_pipeline.py``, runs
 ``python -m sfm_tpu_torch preprocess`` on the CPU (plain twins), compares the
 accepted pairs with ``sfm_tpu``'s ImageMatcher on the same pixels, and then
 runs ``sfm_tpu``'s reconstruct stage and the port's own on the port's
-``pair_table.pkl``, and the port's whole ``pipeline`` under the default
-config with retrieval on, under the pixel pipeline's quality gates (8/8
+``pair_table.pkl`` (also with ``{"pnp": {"sample_size": 6}}``, the DLT
+branch of PnP), and the port's whole ``pipeline`` under the default config
+with retrieval on, under the pixel pipeline's quality gates (8/8
 cameras, > 200 points, < 0.6 px, GT rotation median < 1 deg, ATE < 5%).
 """
 import pickle
@@ -147,6 +148,36 @@ def test_port_reconstruct_on_port_artifacts(scene, port_out, jax_result, tmp_pat
     assert s["num_cameras"] == jax_result.stats["num_cameras"]
     for f in ("cameras.txt", "images.txt", "points3D.txt"):
         assert (tmp_path / "exports" / "colmap" / f).exists()
+
+
+def test_dlt_pnp_reconstruct_through_both_packages(scene, port_out, tmp_path):
+    # reconstruct with {"pnp": {"sample_size": 6}}, the DLT branch of PnP,
+    # on the port's pair table through both packages (default config
+    # otherwise): the same seed pair and camera count, and a model each.
+    import json
+
+    from sfm_tpu.pipeline import PipelineArgs, SfMPipeline
+    from sfm_tpu_torch import cli
+
+    cfg = {"pnp": {"sample_size": 6}}
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    for d in (jdir, pdir):
+        d.mkdir()
+        shutil.copy(port_out / "pair_table.pkl", d / "pair_table.pkl")
+    pipe = SfMPipeline(PipelineArgs(data_dir=str(scene), output_dir=str(jdir), use_mask=False,
+                                    num_images=N_IMAGES, export_colmap=False,
+                                    export_meshlab=False), SfMConfig.from_dict(cfg))
+    assert pipe.run_reconstruction()
+    rc = cli.main(["--log_dir", str(pdir / "logs"), "reconstruct", "--data_dir", str(scene),
+                   "--output_dir", str(pdir), "--device", "cpu", "--no_mask",
+                   "--num_images", str(N_IMAGES), "--config", json.dumps(cfg)])
+    assert rc == 0
+    s = json.loads((pdir / "reconstruction" / "stats.json").read_text())
+    poses = json.loads((pdir / "reconstruction" / "poses.json").read_text())
+    seed = [int(name.split(".")[0]) for name in list(poses)[:2]]
+    assert seed == [int(i) for i in pipe.result.image_ids[:2]]
+    assert s["num_cameras"] == pipe.result.stats["num_cameras"] >= N_IMAGES - 1
+    assert s["num_points"] > 200 and s["mean_reprojection_error"] < 0.6
 
 
 def test_port_pipeline_end_to_end(scene, tmp_path):
