@@ -14,6 +14,7 @@ callers (:func:`check_tensor`) before any pointer is taken.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,7 +53,7 @@ SIGNATURES = {
     "sfm_build_pyramid": [_P] + [_I] * 6 + [_P] * 5 + [_P],
     "sfm_seed_score": [_P] * 5 + [_I] * 2 + [_P] * 5 + [_P],
     "sfm_pnp_refine": [_P] * 7 + [_I, _I, _F, _P, _I] + [_P] * 7 + [_P],
-    "sfm_schur_damp": [_P] * 14 + [_I] * 5 + [_F] + [_P] * 8 + [_P],
+    "sfm_schur_damp": [_P] * 12 + [_I] * 6 + [_F] + [_P] * 9 + [_P],
     "sfm_schur_back_substitute": [_P] * 11 + [_I] * 3 + [_P] + [_P],
     "sfm_fmat_hypotheses": [_P] * 3 + [_I] * 3 + [_P] + [_P],
     "sfm_fmat_refit_verify": [_P] * 5 + [_I] * 3 + [_F, _I, _F, _F, _F] + [_P] * 10 + [_P],
@@ -88,7 +89,7 @@ ROUTES = ("b10", "f64", "b10_f64")
 _ROUTE_SIGNATURES = {
     "ba_linearize": SIGNATURES["sfm_ba_linearize"][:-1] + [_P, _P, _P],  # + U_extra, g_c_extra
     "schur_coupling": SIGNATURES["sfm_schur_coupling"],
-    "schur_damp": [_P] * 14 + [_I] * 5 + [_D] + [_P] * 8 + [_P],         # lam a double
+    "schur_damp": [_P] * 12 + [_I] * 6 + [_D] + [_P] * 9 + [_P],         # lam a double
     "schur_back_substitute": SIGNATURES["sfm_schur_back_substitute"],
     "schur_block_jacobi": SIGNATURES["sfm_schur_block_jacobi"],
     "schur_matvec": SIGNATURES["sfm_schur_matvec"][:-1] + [_P, _P],       # + U_extra
@@ -103,8 +104,15 @@ for _route in ROUTES:
 SIGNATURES["sfm_ba_cost_b10"] = SIGNATURES["sfm_ba_cost"]
 KERNELS += ("ba_cost_b10",)
 
+# Called once, on the first launch, on that device's stream: per-function
+# attributes (the opt-in shared memory of K10's staged walk).
+SETUP = ("sfm_schur_damp_setup",)
+SIGNATURES.update({name: [_P] for name in SETUP})
+
 _launches = {k: 0 for k in KERNELS}
 _lib = None
+_setup_done = False
+_entries: dict = {}   # kernel -> its ctypes entry point
 build_info: dict = {}
 
 
@@ -178,6 +186,9 @@ def load_library():
 
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if (isinstance(t, torch.Tensor) and t.dtype == dtype and t.shape == tuple(shape)
+            and t.device == device and t.is_contiguous()):
+        return
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -190,17 +201,38 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index``, as its raw handle."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(kernel: str, device: torch.device, *args):
     """Call ``sfm_<kernel>`` on ``device``'s current stream; raise on a CUDA error.
 
     Tensor arguments are passed as their data pointers and must stay alive
-    for the call (they are referenced by ``args``).
+    for the call (they are referenced by ``args``). The device is made
+    current only when it is not already (the host work of a launch is most
+    of a small kernel's time).
     """
+    global _setup_done
     lib = load_library()
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"sfm_{kernel}")(*c_args, stream)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    switch = torch.cuda.current_device() != index
+    with torch.cuda.device(index) if switch else contextlib.nullcontext():
+        stream = _raw_stream(index)
+        if not _setup_done:
+            for name in SETUP:
+                rc = getattr(lib, name)(stream)
+                if rc != 0:
+                    raise RuntimeError(
+                        f"{name}: CUDA error {rc} ({lib.sfm_error_string(rc).decode()})")
+            _setup_done = True
+        fn = _entries.get(kernel)
+        if fn is None:
+            fn = _entries[kernel] = getattr(lib, f"sfm_{kernel}")
+        rc = fn(*c_args, stream)
     if rc != 0:
         raise RuntimeError(
             f"{kernel}: CUDA error {rc} ({lib.sfm_error_string(rc).decode()})")

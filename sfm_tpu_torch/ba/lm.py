@@ -24,7 +24,8 @@ from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.ba.problem import BAProblem
 from sfm_tpu_torch.ba.residuals import total_huber_cost
 from sfm_tpu_torch.ba.schur import (
-    back_substitute, coobs_pairs, damp_operator, dense_schur_direct, linearize, pcg_solve)
+    back_substitute, coobs_pairs, damp_operator, damp_workspace, dense_schur_direct, linearize,
+    pcg_solve)
 
 _REG_A = np.array([
     [1.0, 0.0, 0.0, 0.0],   # fx anchored to its initial value
@@ -147,13 +148,16 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
     rvec, tvec, intr, points = problem.rvec, problem.tvec, intr0, problem.points
     init_cost = total_cost(rvec, tvec, intr, points)
     lin = linearize_at(rvec, tvec, intr, points)
+    # K10's scratch, once for the problem's shapes (its kernel clears it).
+    work = damp_workspace(lin) if dev.type == "cuda" else None
     cost = float(init_cost)
     lam = np.float32(config.init_lambda)
     it = n_acc = 0
     done = False
     cg_steps = []
     while it < config.max_iterations and not done:
-        op, rhs_c, rhs_k = damp_operator(lin, float(lam), perm, perm_valid, precond=pcg)
+        op, rhs_c, rhs_k = damp_operator(lin, float(lam), perm, perm_valid, precond=pcg,
+                                         work=work)
         if pcg:
             xc, xk, steps = pcg_solve(lin, op, rhs_c, rhs_k, perm, perm_valid,
                                       config.cg_iters, config.cg_tol)

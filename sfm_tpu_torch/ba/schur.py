@@ -14,8 +14,8 @@ its tensors; each kernel entry below has one instantiation a route
   twin, ``residuals_and_jacobians`` + :func:`linearize_system`;
 * :func:`damp_operator` applies a given lambda -- kernel K10's
   ``schur_damp`` (``csrc/schur_damp.cu``: the adjugate inverses of the damped
-  point blocks and the reduced right-hand side, walking the grouping), its
-  twin :func:`schur_damp_plain`;
+  point blocks and the reduced right-hand side, its sums shifted by
+  :func:`rhs_term_bound`), its twin :func:`schur_damp_plain`;
 * :func:`dense_schur_direct` assembles the reduced camera + intrinsics
   system S from the per-point co-observation grouping
   (:func:`coobs_pairs`) -- the coupling accumulation is kernel K10
@@ -301,33 +301,92 @@ def _check_system(lin: Linearization, perm, perm_valid, extra=()):
     return C, P, G, Vs
 
 
-def schur_damp_cuda(lin: Linearization, lam: float, perm, perm_valid):
+class DampWork(NamedTuple):
+    """K10 ``schur_damp``'s scratch for one BA problem, allocated once and
+    reused across its LM iterations (``csrc/schur_damp.cu``): ``gmax``,
+    ``ctrl`` and ``acc`` are zero between calls (the kernel clears them)."""
+
+    h: torch.Tensor     # (P, 3) Vinv g_p
+    gmax: torch.Tensor  # (BC + 4,) int32: each target's largest |term| (float bits)
+    ctrl: torch.Tensor  # (2,) int32: the walk's blocks arrived, its finishers done
+    acc: torch.Tensor   # (WORDS (BC + 4),) int64 fixed-point sums
+
+
+def damp_workspace(lin: Linearization) -> DampWork:
+    """The :class:`DampWork` of ``lin``'s shapes, on its device."""
     C, P = lin.U.shape[0], lin.V.shape[0]
+    B, dt, _ = _block(lin)
+    dev = lin.U.device
+    n = B * C + 4
+    return DampWork(h=torch.empty((P, 3), dtype=dt, device=dev),
+                    gmax=torch.zeros(n, dtype=torch.int32, device=dev),
+                    ctrl=torch.zeros(2, dtype=torch.int32, device=dev),
+                    acc=torch.zeros(_words(dt) * n, dtype=torch.int64, device=dev))
+
+
+def rhs_term_bound(lin: Linearization, Vinv, count: int) -> torch.Tensor:
+    """The bound that shifts K10's reduced right-hand side sums, the twin of
+    ``csrc/schur_damp.cu``'s (float64, (BC + 4,): the camera entries, then the
+    four intrinsics): each target's largest term magnitude |Jc_o[:, r] .
+    Jp_o h_p| (|Jk_o[:, r] . Jp_o h_p|), h_p = Vinv_p g_p, rounded up to
+    float32 as the kernel keeps it, times ``count`` (the grouping's slots,
+    G x Vs). A target's terms add up to at most it."""
+    d = lambda x: x.double()
+    h = (Vinv @ lin.g_p[..., None])[..., 0]
+    y = d((lin.Jp @ h[lin.obs_point.long()][..., None])[..., 0])       # (O, 2)
+    tc = (d(lin.Jc) * y[..., None]).sum(1).abs()                        # (O, B)
+    tk = (d(lin.Jk) * y[..., None]).sum(1).abs()                        # (O, 4)
+    C, B = lin.U.shape[0], lin.U.shape[-1]
+    cam = torch.zeros((C, B), dtype=torch.float64).scatter_reduce_(
+        0, lin.obs_cam.long()[:, None].expand(-1, B), tc, "amax")
+    m = torch.cat([cam.reshape(-1), tk.amax(0) if len(tk) else torch.zeros(4,
+                                                                         dtype=torch.float64)])
+    up = m.float().double()
+    m32 = torch.where(up < m, torch.nextafter(m.float(), torch.tensor(float("inf"))).double(),
+                      up)
+    return m32 * count
+
+
+def schur_damp_cuda(lin: Linearization, lam: float, perm, perm_valid,
+                    work: Optional[DampWork] = None):
+    C, P, O = lin.U.shape[0], lin.V.shape[0], lin.Jc.shape[0]
     B, dt, route = _block(lin)
     dev = lin.U.device
     _, _, G, Vs = _check_system(lin, perm, perm_valid, (
         ("V", lin.V, dt, (P, 3, 3)), ("point_valid", lin.point_valid, torch.bool, (P,)),
         ("U", lin.U, dt, (C, B, B)), ("Uk", lin.Uk, dt, (4, 4)), ("g_c", lin.g_c, dt, (C, B)),
         ("g_k", lin.g_k, dt, (4,))))
+    if work is None:
+        work = damp_workspace(lin)
+    n = B * C + 4
+    for name, x, dtype, shape in (
+            ("h", work.h, dt, (P, 3)), ("gmax", work.gmax, torch.int32, (n,)),
+            ("ctrl", work.ctrl, torch.int32, (2,)),
+            ("acc", work.acc, torch.int64, (_words(dt) * n,))):
+        _kernels.check_tensor(x, name, dtype, shape, dev)
     e = lambda *s: torch.empty(s, dtype=dt, device=dev)
     Vinv, lam_diag_c, lam_diag_k, rhs_c, rhs_k = e(P, 3, 3), e(C, B), e(4), e(C, B), e(4)
     _kernels.launch("schur_damp" + route, dev, lin.V, lin.point_valid, lin.U, lin.Uk, lin.g_c,
-                    lin.g_k, lin.g_p, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam, lin.obs_point, perm,
-                    perm_valid, P, C, G, Vs, int(camera_sums_in_shared(C, B, dt)), float(lam),
-                    Vinv, lam_diag_c, lam_diag_k, rhs_c, rhs_k, *_fx_scratch(B * C + 4, dev, dt))
+                    lin.g_k, lin.g_p, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam, lin.obs_point, P, C,
+                    G, Vs, O, int(camera_sums_in_shared(C, B, dt)),
+                    float(lam), Vinv, lam_diag_c, lam_diag_k, rhs_c, rhs_k, work.h, work.gmax,
+                    work.ctrl, work.acc)
     return Damped(Vinv=Vinv, lam_diag_c=lam_diag_c, lam_diag_k=lam_diag_k), rhs_c, rhs_k
 
 
-def damp_operator(lin: Linearization, lam: float, perm, perm_valid, precond: bool = False):
+def damp_operator(lin: Linearization, lam: float, perm, perm_valid, precond: bool = False,
+                  work: Optional[DampWork] = None):
     """Kernel K10 ``schur_damp`` on CUDA tensors, :func:`schur_damp_plain` on CPU.
 
-    perm / perm_valid: the :func:`coobs_pairs` grouping, which the kernel
-    walks for the reduced right-hand side. ``precond``: also the
+    perm / perm_valid: the :func:`coobs_pairs` grouping, whose slot count
+    sets the kernel's shifts (:func:`rhs_term_bound`). ``precond``: also the
     block-Jacobi inverses ``Mc`` / ``Mk`` of :func:`block_jacobi` (the PCG
-    path's; the dense path has no use for them)."""
+    path's; the dense path has no use for them). ``work``: the kernel's
+    :func:`damp_workspace`, reused across an LM loop (allocated here when
+    None)."""
     dev = lin.U.device
     if dev.type == "cuda":
-        op, rhs_c, rhs_k = schur_damp_cuda(lin, lam, perm, perm_valid)
+        op, rhs_c, rhs_k = schur_damp_cuda(lin, lam, perm, perm_valid, work)
     elif dev.type == "cpu":
         op, rhs_c, rhs_k = schur_damp_plain(lin, lam, perm, perm_valid)
     else:

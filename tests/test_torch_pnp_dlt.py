@@ -250,9 +250,10 @@ def test_camera_sums_route_at_the_shared_memory_limit(monkeypatch, B, dt):
         tschur.schur_matvec_cuda(lin, op, m(C, B), m(4), perm, perm_valid)
     route = tschur.variant(B, dt)
     assert [c[0] for c in calls] == [f"schur_damp{route}", f"schur_matvec{route}"] * 2
-    # schur_damp: (..., P, C, G, Vs, in_shared, lam, ...); schur_matvec:
+    # schur_damp: (..., P, C, G, Vs, O, in_shared, lam, ...); schur_matvec:
     # (..., x, C, G, Vs, in_shared, flag, ...).
-    assert [c[1][18] for c in calls[::2]] == [1, 0]
+    assert [c[1][13] for c in calls[::2]] == [cap, cap + 1]
+    assert [c[1][17] for c in calls[::2]] == [1, 0]
     assert [c[1][12] for c in calls[1::2]] == [cap, cap + 1]
     assert [c[1][15] for c in calls[1::2]] == [1, 0]
 
