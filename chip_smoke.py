@@ -11,9 +11,14 @@
    times both with CUDA events (and one PyTorch library call where one
    computes the same function), and computes each kernel's bound: the larger
    of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s (f32).
+   ``topk_rows`` runs at each caller's shape (RANSAC's sampling without
+   replacement too: 16,384 rows of 1,024 -> 8), each case's wrapper and
+   ``torch.topk`` timed alike and its device time traced.
    K11 (the matrix-free S x and the block-Jacobi PCG) and K10's block-Jacobi
    inverses run on a 300-camera / 60k-point / 600k-observation scene with
-   20 cameras pinned; one ``run_ba`` at 256 cameras runs through PCG and
+   20 cameras pinned, the matvec also with the observations in point-major
+   order (the same bits) and each matvec and PCG entry with its wrapper and
+   device time; one ``run_ba`` at 256 cameras runs through PCG and
    through the dense path. The kernels with scattered sums (K5, K8-K11)
    must give the same bits on a second launch. The BA island's other
    routes (``ISLAND_ROUTES``: per-camera intrinsics, B = 10; the f64 island;
@@ -99,7 +104,9 @@
       ``cam_params`` and ``dtype``) with its cost finite and down; the runs
       of ``PATH_I_GATED`` held to path d's model gates, the others checked
       finite and printed; each run's ``engine/ba`` seconds beside path d's
-      and path h's;
+      and path h's. Paths h and i print each model beside the one it read
+      before K11's matvec was redesigned
+      (``MODELS_BEFORE_MATVEC_REDESIGN``);
    j. ``reconstruct`` on path a's artifacts with ``PATH_J_CONFIG``
       (``pnp.sample_size`` 6, PnP's DLT branch): ``pnp_dlt_solve``,
       ``pnp_score_select`` and ``pnp_refine`` launched and ``p3p_solve``
@@ -305,6 +312,23 @@ PATH_J_MIN_CAMERAS = 36 - 1
 # cameras less 5%, and its worst median plus 10%.
 PATH_D_MIN_CAMERAS = 140 - 7
 PATH_D_MAX_GT_DEG = 1.1 * 78.52
+# The models paths h and i read before K11's matvec was redesigned to read
+# the observations once (cameras, points, mean reprojection px, GT rotation
+# median deg; one smoke on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md
+# section 6). The redesign keeps every term, shift and rounding, so a run
+# must read the same; each run prints its model beside these, and the gates
+# above decide.
+MODELS_BEFORE_MATVEC_REDESIGN = {
+    "pipeline_huge": (235, 29097, 0.3227, 123.0414),
+    "local_window": (300, 4229, 0.2148, 78.3882),
+    "long_sequence": (153, 19836, 0.1570, 17.7777),
+    "percam_150": (21, 30, 0.1286, 16.7955),
+    "f64_150": (140, 18189, 0.2105, 1.4213),
+    "percam_300": (21, 31, 0.9718, 101.8903),
+    "both_36": (14, 351, 1.8570, 48.5770),
+    "both_pcg_36": (14, 356, 1.8879, 65.1932),
+    "f64_pcg_36": (36, 5140, 0.1322, 0.7697),
+}
 HUGE_MIN_CAMERA_SHARE = {"pipeline_huge": 0.95 * 235 / 300,
                          "long_sequence": 0.95 * 153 / 300}
 # FAST's contrast gate (u8 scale) on the rendered corridor. Its band-limited
@@ -1793,6 +1817,49 @@ def pcg_system(torch, np, dev, n_cams, n_pts, obs_per_cam, seed, pinned):
     return lin, perm, pvm
 
 
+def time_matvec(torch, S, lin, op, xc, xk, perm, pvm):
+    """K11's matvec as the PCG loop calls it (one ``matvec_workspace`` for
+    the problem): (wrapper ms, the median of five means of 10; device ms,
+    the profiler's)."""
+    work = S.matvec_workspace(lin, perm, pvm)
+    mv = lambda: S.schur_matvec_cuda(lin, op, xc, xk, perm, pvm, work)
+    return median_ms(torch, mv), device_ms(torch, mv)
+
+
+def time_pcg(torch, S, lin, op, rhs_c, rhs_k, perm, pvm, iters, tol):
+    """One PCG solve as ``run_ba`` runs it (the matvec's workspace made once):
+    (wrapper ms, device ms) as ``time_matvec``."""
+    work = S.matvec_workspace(lin, perm, pvm)
+    run = lambda: S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, iters, tol, work)
+    return median_ms(torch, run, batches=3, reps=3), device_ms(torch, run, reps=3)
+
+
+def point_major(torch, S, lin, perm, pvm):
+    """``lin`` with its observations sorted by point, stably (the engine's
+    layout: a track's views side by side), and the grouping of the sorted
+    observations. A point's observations keep their order, so K11's sums
+    see the same terms in the same slot order."""
+    valid = torch.zeros(lin.Jc.shape[0], dtype=torch.bool, device=perm.device)
+    valid[perm[pvm].long()] = True
+    order = torch.argsort(lin.obs_point, stable=True)
+    lin2 = lin._replace(**{f: getattr(lin, f)[order].contiguous()
+                           for f in ("Jc", "Jk", "Jp", "rw", "obs_cam", "obs_point")})
+    p2, v2 = S.coobs_pairs(lin2.obs_point.cpu().numpy(), valid[order].cpu().numpy())
+    return lin2, torch.as_tensor(p2, device=perm.device), torch.as_tensor(v2, device=perm.device)
+
+
+def matvec_point_major(torch, S, lin, op, xc, xk, perm, pvm, first, tag):
+    """K11's matvec on ``lin`` in point-major order: the same bits as
+    ``first`` (the same terms, slot orders and shifts), and its times as
+    ``time_matvec``'s."""
+    lin2, p2, v2 = point_major(torch, S, lin, perm, pvm)
+    again = S.schur_matvec_cuda(lin2, op, xc, xk, p2, v2)
+    torch.cuda.synchronize()
+    check(all(torch.equal(_bits(torch, a), _bits(torch, b)) for a, b in zip(again, first)),
+          f"K11 schur_matvec {tag}: point-major order gave other bits")
+    return time_matvec(torch, S, lin2, op, xc, xk, p2, v2)
+
+
 def _block_rel(A, B):
     """Per block: max |A - B| over max |B|."""
     return (A - B).flatten(1).abs().amax(1) / B.flatten(1).abs().amax(1).clamp(min=1e-30)
@@ -1864,7 +1931,8 @@ def phase_pcg(torch, np, dev):
     # Tolerance: 1e-4 of the largest entry (fixed-point sums against the
     # twin's float sums).
     check(bool(torch.isfinite(Sk).all()) and mv_err <= 1e-4, f"K11 schur_matvec: rel err {mv_err}")
-    mv_ms = time_ms(torch, lambda: S.schur_matvec_cuda(lin, op, xc, xk, perm, pvm))
+    mv_ms, mv_dev = time_matvec(torch, S, lin, op, xc, xk, perm, pvm)
+    pm_ms, pm_dev = matvec_point_major(torch, S, lin, op, xc, xk, perm, pvm, mk, "C=300")
     mv_plain = time_ms(torch, lambda: S.schur_matvec_plain(lin, op, xc, xk))
     # Bytes: the valid observations' Jacobians (12 + 8 + 6 floats), camera
     # id and grouping slot (the pinned cameras' observations are not in the
@@ -1876,9 +1944,12 @@ def phase_pcg(torch, np, dev):
     # ~150 FLOP an observation (B x twice, Jp^T a, Jp v, Jc^T d, Jk^T d),
     # 18 a point (Vinv u), 2 an entry (the damping).
     mv_ops = 150 * n_obs + 18 * n_pts + 2 * (6 * C + 4)
-    log(f"K11 schur_matvec C={C} P={P} O={O} ({n_obs} valid): rel err {mv_err:.2g}; "
-        f"{mv_ms:.4f} ms (plain torch {mv_plain:.4f} ms)")
-    mv = result(mv_err, mv_ms, mv_plain, mv_bytes, mv_ops)
+    mv = result(mv_err, mv_ms, mv_plain, mv_bytes, mv_ops, device_ms=mv_dev)
+    mv["point_major"] = {"ms": pm_ms, "device_ms": pm_dev}
+    log(f"K11 schur_matvec C={C} P={P} O={O} ({n_obs} valid): rel err {mv_err:.2g}; wrapper "
+        f"{mv_ms:.4f} ms, device {fmt_ms(mv_dev)}; point-major order (the same bits): wrapper "
+        f"{pm_ms:.4f} ms, device {fmt_ms(pm_dev)}; bound {bound(mv)[0]:.4f} ms (plain torch "
+        f"{mv_plain:.4f} ms)")
 
     # PCG: 10 fixed steps (tol 0), then converged, held against the twin and
     # against the dense solve of the same system (K10's S, factorized in f64).
@@ -1919,14 +1990,13 @@ def phase_pcg(torch, np, dev):
     from sfm_tpu_torch.config import BAConfig
 
     cfg = BAConfig()
-    run = lambda: S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, cfg.cg_iters, cfg.cg_tol)
-    pcg_ms = time_ms(torch, run)
+    pcg_ms, pcg_dev = time_pcg(torch, S, lin, op, rhs_c, rhs_k, perm, pvm, cfg.cg_iters,
+                               cfg.cg_tol)
     pcg_plain = time_ms(torch, lambda: S.pcg_solve_plain(lin, op, rhs_c, rhs_k, perm, pvm,
                                                          cfg.cg_iters, cfg.cg_tol),
                         reps=3, warmup=1)
-    n_steps = int(run()[2])
-    log(f"K11 pcg C={C}, cg_iters {cfg.cg_iters}, cg_tol {cfg.cg_tol}: {n_steps} steps, "
-        f"{pcg_ms:.4f} ms (plain torch {pcg_plain:.4f} ms)")
+    n_steps = int(S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, cfg.cg_iters,
+                                   cfg.cg_tol)[2])
     n = 6 * C + 4
     # A step: the matvec, then the CG update (reads Ap, p, r, x, Mc, Mk; writes
     # x, r, z, p): ~20 FLOP an entry and 72 a camera (the 6x6 apply).
@@ -1934,7 +2004,10 @@ def phase_pcg(torch, np, dev):
     step_ops = mv_ops + 20 * n + 72 * C
     pcg = result(max(fixed_err, conv_err), pcg_ms, pcg_plain,
                  nbytes(rhs_c, rhs_k, Mc, Mk) + 4 * 5 * n + n_steps * step_bytes,
-                 n_steps * step_ops)
+                 n_steps * step_ops, device_ms=pcg_dev)
+    log(f"K11 pcg C={C}, cg_iters {cfg.cg_iters}, cg_tol {cfg.cg_tol}: {n_steps} steps, "
+        f"wrapper {pcg_ms:.4f} ms, device {fmt_ms(pcg_dev)}, bound {bound(pcg)[0]:.4f} ms "
+        f"(plain torch {pcg_plain:.4f} ms)")
     return bj, mv, pcg
 
 
@@ -2215,7 +2288,8 @@ def phase_island(torch, np, dev, route):
     mv_err = _rel(Sx, Sx_p)
     check(bool(torch.isfinite(Sx).all()) and mv_err <= tol(1e-4),
           f"K11 schur_matvec {tag}: rel err {mv_err}")
-    mv_ms = time_ms(torch, lambda: S.schur_matvec_cuda(lin, op, xc, xk, perm, pvm))
+    mv_ms, mv_dev = time_matvec(torch, S, lin, op, xc, xk, perm, pvm)
+    pm_ms, pm_dev = matvec_point_major(torch, S, lin, op, xc, xk, perm, pvm, mk, tag)
     mv_plain = time_ms(torch, lambda: S.schur_matvec_plain(lin, op, xc, xk))
     n_obs, n_pts = int(pvm.sum()), int(pvm[:, 0].sum())
     mv_bytes = (n_obs * ((2 * B + 8 + 6) * el + 8) + pvm.numel() + n_pts * (4 + 9 * el)
@@ -2223,9 +2297,13 @@ def phase_island(torch, np, dev, route):
                 + (nbytes(lin.U_extra) if lin.U_extra is not None else 0))
     n = B * C + 4
     mv_ops = (12 * B + 72) * n_obs + 18 * n_pts + 2 * n + (2 * B * B * C if B == 10 else 0)
-    log(f"K11 schur_matvec {tag}: rel err {mv_err:.2g}; {mv_ms:.4f} ms (plain torch "
+    out["schur_matvec"] = result(mv_err, mv_ms, mv_plain, mv_bytes, mv_ops, peak=peak,
+                                 device_ms=mv_dev)
+    out["schur_matvec"]["point_major"] = {"ms": pm_ms, "device_ms": pm_dev}
+    log(f"K11 schur_matvec {tag}: rel err {mv_err:.2g}; wrapper {mv_ms:.4f} ms, device "
+        f"{fmt_ms(mv_dev)}; point-major order (the same bits): wrapper {pm_ms:.4f} ms, device "
+        f"{fmt_ms(pm_dev)}; bound {bound(out['schur_matvec'])[0]:.4f} ms (plain torch "
         f"{mv_plain:.4f} ms)")
-    out["schur_matvec"] = result(mv_err, mv_ms, mv_plain, mv_bytes, mv_ops, peak=peak)
 
     xk_c, xk_k, st_k = S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, 10, 0.0)
     xp_c, xp_k, st_p = S.pcg_solve_plain(lin, op, rhs_c, rhs_k, perm, pvm, 10, 0.0)
@@ -2243,20 +2321,22 @@ def phase_island(torch, np, dev, route):
     from sfm_tpu_torch.config import BAConfig
 
     cfg = BAConfig()
-    run = lambda: S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, cfg.cg_iters, cfg.cg_tol)
-    pcg_ms = time_ms(torch, run)
+    pcg_ms, pcg_dev = time_pcg(torch, S, lin, op, rhs_c, rhs_k, perm, pvm, cfg.cg_iters,
+                               cfg.cg_tol)
     pcg_plain = time_ms(torch, lambda: S.pcg_solve_plain(lin, op, rhs_c, rhs_k, perm, pvm,
                                                          cfg.cg_iters, cfg.cg_tol),
                         reps=3, warmup=1)
-    n_steps = int(run()[2])
-    log(f"K11 pcg {tag}: 10 fixed steps rel err {fixed_err:.2g} to the twin; cg_iters "
-        f"{cfg.cg_iters}, cg_tol {cfg.cg_tol}: {n_steps} steps, {pcg_ms:.4f} ms (plain torch "
-        f"{pcg_plain:.4f} ms)")
+    n_steps = int(S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm, cfg.cg_iters,
+                                   cfg.cg_tol)[2])
     step_bytes = mv_bytes + nbytes(Mc, Mk) + el * 9 * n
     step_ops = mv_ops + 20 * n + 2 * B * B * C
     out["pcg"] = result(fixed_err, pcg_ms, pcg_plain,
                         nbytes(rhs_c, rhs_k, Mc, Mk) + el * 5 * n + n_steps * step_bytes,
-                        n_steps * step_ops, peak=peak)
+                        n_steps * step_ops, peak=peak, device_ms=pcg_dev)
+    log(f"K11 pcg {tag}: 10 fixed steps rel err {fixed_err:.2g} to the twin; cg_iters "
+        f"{cfg.cg_iters}, cg_tol {cfg.cg_tol}: {n_steps} steps, wrapper {pcg_ms:.4f} ms, device "
+        f"{fmt_ms(pcg_dev)}, bound {bound(out['pcg'])[0]:.4f} ms (plain torch "
+        f"{pcg_plain:.4f} ms)")
     return {f"{k}_{route}": v for k, v in out.items()}
 
 
@@ -2313,7 +2393,7 @@ def phase_ba_above_cap(torch, np, dev):
         diag = torch.diagonal(lin.V, dim1=-2, dim2=-1)
         Vd = lin.V + (lam * diag + 1e-10)[..., None] * torch.eye(3, device=dev, dtype=dt)
         inv_ms = median_ms(torch, lambda: torch.linalg.inv(Vd))
-        mv_ms = time_ms(torch, lambda: S.schur_matvec_cuda(lin, opk, xc, xk, perm, pvm))
+        mv_ms, mv_dev = time_matvec(torch, S, lin, opk, xc, xk, perm, pvm)
         mv_plain = time_ms(torch, lambda: S.schur_matvec_plain(lin, opk, xc, xk), reps=3,
                            warmup=1)
         el, peak = (8, PEAK_F64_PER_S) if f64 else (4, PEAK_F32_PER_S)
@@ -2329,14 +2409,15 @@ def phase_ba_above_cap(torch, np, dev):
                     + nbytes(opk.lam_diag_c, opk.lam_diag_k, lin.Hreg_k, xc, xk, Sx)
                     + (nbytes(lin.U_extra) if lin.U_extra is not None else 0))
         mv_ops = (12 * B + 72) * n_obs + 18 * n_pts + 2 * n + (2 * B * B * C if B == 10 else 0)
-        mv_cost = result(mv_err, mv_ms, mv_plain, mv_bytes, mv_ops, peak=peak)
+        mv_cost = result(mv_err, mv_ms, mv_plain, mv_bytes, mv_ops, peak=peak,
+                         device_ms=mv_dev)
         log(f"{tag}: K10 schur_damp rel err " + ", ".join(f"{k} {v:.2g}"
                                                          for k, v in derrs.items())
             + f", wrapper {dk:.4f} ms, device {fmt_ms(dd)} (plain torch {dpl:.4f} ms, "
             f"torch.linalg.inv of the damped point blocks alone {inv_ms:.4f} ms, bound "
-            f"{bound(d_cost)[0]:.4f} ms); K11 schur_matvec rel err {mv_err:.2g}, "
-            f"{mv_ms:.4f} ms (plain torch {mv_plain:.4f} ms, bound {bound(mv_cost)[0]:.4f} ms); "
-            f"bitwise repeats")
+            f"{bound(d_cost)[0]:.4f} ms); K11 schur_matvec rel err {mv_err:.2g}, wrapper "
+            f"{mv_ms:.4f} ms, device {fmt_ms(mv_dev)} (plain torch {mv_plain:.4f} ms, bound "
+            f"{bound(mv_cost)[0]:.4f} ms); bitwise repeats")
         out[f"schur_damp{'_' + route if route else ''}"] = {"cameras": C, **d_cost}
         out[f"schur_matvec{'_' + route if route else ''}"] = {"cameras": C, **mv_cost}
         if not route:   # one PCG solve: the quadratic model ends finite and below its start
@@ -2351,18 +2432,18 @@ def phase_ba_above_cap(torch, np, dev):
                         / torch.sqrt((rhs_c ** 2).sum() + (rhs_k ** 2).sum()))
             check(math.isfinite(q) and q < 0.0 and math.isfinite(res) and res < 1.0,
                   f"K11 pcg {tag}: model {q} (0 at the start), residual {res} of |rhs|")
-            pcg_ms = time_ms(torch, lambda: S.pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, pvm,
-                                                             cfg.cg_iters, cfg.cg_tol), reps=3,
-                             warmup=1)
+            pcg_ms, pcg_dev = time_pcg(torch, S, lin, op, rhs_c, rhs_k, perm, pvm,
+                                       cfg.cg_iters, cfg.cg_tol)
             n_steps = int(steps)
             step_bytes = mv_bytes + nbytes(op.Mc, op.Mk) + el * 9 * n
             step_ops = mv_ops + 20 * n + 2 * B * B * C
             pcg_cost = result(res, pcg_ms, None,
                               nbytes(rhs_c, rhs_k, op.Mc, op.Mk) + el * 5 * n
-                              + n_steps * step_bytes, n_steps * step_ops, peak=peak)
+                              + n_steps * step_bytes, n_steps * step_ops, peak=peak,
+                              device_ms=pcg_dev)
             log(f"K11 pcg {tag}: {n_steps} steps, quadratic model {q:.6g} (0 at the "
-                f"start), residual {res:.3g} of |rhs|, {pcg_ms:.4f} ms (bound "
-                f"{bound(pcg_cost)[0]:.4f} ms)")
+                f"start), residual {res:.3g} of |rhs|, wrapper {pcg_ms:.4f} ms, device "
+                f"{fmt_ms(pcg_dev)} (bound {bound(pcg_cost)[0]:.4f} ms)")
             out["pcg"] = {"cameras": C, "steps": n_steps, "model": q, "residual": res,
                           **pcg_cost}
         del lin, opk, opp, args, kw
@@ -2581,9 +2662,14 @@ def phase_topk(torch, dev, cfg, merge_key):
     """K4's topk_rows at the frontend's global keypoint selection (12 images
     x every octave's budget -> max_keypoints, with planted ties and the -1
     rows of invalid candidates), the sweep's match compaction (32 pairs x
-    2,048 -> 1,024, -inf padding) and the ORB path's merge of the levels
-    (one sub-batch's real key, 12 x 3,800 -> all 3,800 rows, and that key
-    with more ties and -inf rows planted)."""
+    2,048 -> 1,024, -inf padding), the ORB path's merge of the levels (one
+    sub-batch's real key, 12 x 3,800 -> all 3,800 rows, and that key with
+    more ties and -inf rows planted) and RANSAC's sampling without
+    replacement (``ransac_sample_indices(prefix=False)``: 32 x 512 rows of
+    noise over 1,024 rows, a fifth of them -inf, -> 8). Each case: values
+    and indices identical to the twin; the wrapper's time and
+    ``torch.topk``'s (each the median of five means of 10), the kernel's
+    device time (profiler) and the bound."""
     from sfm_tpu_torch.estimators.ransac import top_k_cuda, top_k_plain
     from sfm_tpu_torch.features.frontend import _octave_budget
 
@@ -2601,28 +2687,49 @@ def phase_topk(torch, dev, cfg, merge_key):
     x3 = torch.where(torch.rand(B, n3, generator=g, device=dev) < 0.25,
                      torch.gather(merge_key, 1, src), merge_key)
     x3 = torch.where(torch.rand(B, n3, generator=g, device=dev) < 0.1, -torch.inf, x3)
-    cases = ((x1, fc.max_keypoints), (x2, 1024), (merge_key, n3), (x3.contiguous(), n3))
-    ms = plain_ms = lib_ms = 0.0
+    rows5, n5 = 32 * 512, 1024
+    x5 = torch.rand(rows5, n5, generator=g, device=dev)
+    dead = torch.argsort(torch.rand(rows5, n5, generator=g, device=dev), dim=1)[:, : n5 // 5]
+    x5 = x5.scatter(1, dead, -torch.inf)
+    cases = (("keypoint selection", x1, fc.max_keypoints), ("match compaction", x2, 1024),
+             ("ORB merge", merge_key, n3), ("ORB merge, ties planted", x3.contiguous(), n3),
+             ("RANSAC sampling", x5, 8))
+    ms = plain_ms = lib_ms = dev_ms = 0.0
     moved = ops = 0
-    for x, k in cases:
+    rows = []
+    for what, x, k in cases:
         vk, ik = top_k_cuda(x, k)
         vp, ip = top_k_plain(x, k)
         torch.cuda.synchronize()
         # Tolerance: values and indices identical (lax.top_k's order).
-        check(torch.equal(vk, vp) and torch.equal(ik, ip), f"K4 topk_rows {tuple(x.shape)} k={k}")
-        ms += time_ms(torch, lambda: top_k_cuda(x, k))
-        plain_ms += time_ms(torch, lambda: top_k_plain(x, k))
-        lib_ms += time_ms(torch, lambda: torch.topk(x, k))
-        moved += nbytes(x) + x.shape[0] * k * 8
-        ops += 5 * x.numel()
+        check(torch.equal(vk, vp) and torch.equal(ik, ip) and ik.dtype == torch.int64,
+              f"K4 topk_rows {what} {tuple(x.shape)} k={k}")
+        wrap = median_ms(torch, lambda: top_k_cuda(x, k))
+        dk = device_ms(torch, lambda: top_k_cuda(x, k))
+        lib = median_ms(torch, lambda: torch.topk(x, k))
+        plain = time_ms(torch, lambda: top_k_plain(x, k), reps=3, warmup=1)
+        # Bytes: the rows read once, k values and int64 indices a row
+        # written; a compare and a few integer steps an element.
+        case = result(0.0, wrap, plain, nbytes(x) + x.shape[0] * k * 12, 5 * x.numel(),
+                      library_ms=lib, device_ms=dk)
+        b_ms, _ = bound(case)
+        log(f"K4 topk_rows, {what} {tuple(x.shape)} k={k}: identical to the stable sort; "
+            f"wrapper {wrap:.4f} ms, device {fmt_ms(dk)}, torch.topk {lib:.4f} ms "
+            f"({'below' if wrap < lib else 'NOT below'} it), bound {b_ms:.4f} ms (plain torch "
+            f"{plain:.4f} ms)")
+        rows.append({"case": what, "shape": list(x.shape), "k": k, "ms": wrap, "device_ms": dk,
+                     "library_ms": lib, "plain_ms": plain, "bound_ms": b_ms})
+        ms, plain_ms, lib_ms = ms + wrap, plain_ms + plain, lib_ms + lib
+        dev_ms = None if dk is None or dev_ms is None else dev_ms + dk
+        moved, ops = moved + case["bytes"], ops + case["ops"]
     ties = int(((merge_key[:, 1:] == merge_key[:, :-1])
                 & torch.isfinite(merge_key[:, 1:])).sum())
-    log(f"K4 topk_rows: identical to the stable sort at {tuple(x1.shape)} k={fc.max_keypoints}, "
-        f"{tuple(x2.shape)} k=1024 and the ORB merge {tuple(merge_key.shape)} k={n3} "
-        f"({int(torch.isinf(merge_key).sum())} -inf rows, {ties} adjacent ties; and with "
-        f"ties planted); {ms:.4f} ms (plain torch {plain_ms:.4f} ms, torch.topk "
-        f"{lib_ms:.4f} ms)")
-    return result(0.0, ms, plain_ms, moved, ops, library_ms=lib_ms)
+    log(f"K4 topk_rows: the ORB merge key has {int(torch.isinf(merge_key).sum())} -inf rows and "
+        f"{ties} adjacent ties; all five cases {ms:.4f} ms (torch.topk {lib_ms:.4f} ms, plain "
+        f"torch {plain_ms:.4f} ms)")
+    out = result(0.0, ms, plain_ms, moved, ops, library_ms=lib_ms, device_ms=dev_ms)
+    out["cases"] = rows
+    return out
 
 
 # ---------------------------------------------------------------- ground truth
@@ -3060,14 +3167,21 @@ def check_path_i(runs: dict, counts: dict, views: dict, ref_metrics: dict) -> li
 
 def log_model(name: str, out: Path):
     """Print a run's model as soon as it is written (path h's readings stay in
-    the log whatever a later check finds)."""
+    the log whatever a later check finds), beside the model it read before
+    the matvec's redesign where ``MODELS_BEFORE_MATVEC_REDESIGN`` has one."""
     st = json.loads((out / "reconstruction" / "stats.json").read_text())
     intr = json.loads((out / "reconstruction" / "intrinsics.json").read_text())
+    now = (st["num_cameras"], st["num_points"], round(st["mean_reprojection_error"], 4),
+           round(st.get("gt_rot_err_deg_median", float("nan")), 4))
+    before = MODELS_BEFORE_MATVEC_REDESIGN.get(name)
+    was = ("" if before is None else
+           f" | before the matvec's redesign: {before[0]} cameras, {before[1]} points, "
+           f"{before[2]:.4f} px, {before[3]:.4f} deg: {'the same' if now == before else 'OTHER'}")
     log(f"{name}: {st['num_cameras']} cameras, {st['num_points']} points, mean reprojection "
         f"{st['mean_reprojection_error']:.4f} px, GT rotation median "
         f"{st.get('gt_rot_err_deg_median', float('nan')):.4f} deg, ATE "
         f"{100 * st.get('gt_ate_rel', float('nan')):.3f}% of the scene; final intrinsics "
-        f"{json.dumps(intr)} (rendered: fx = fy = 1228, cx 512, cy 384)")
+        f"{json.dumps(intr)} (rendered: fx = fy = 1228, cx 512, cy 384){was}")
 
 
 def check_model(st: dict, n_img: int, what: str, min_cameras=None):
@@ -3579,7 +3693,13 @@ def main(argv=None) -> int:
                 f"ms, bound {b_ms:.4f} ms by {b_by})")
         if "device_ms" in r:   # the profiler's kernel time beside the wrapper's
             row["device_ms"] = r["device_ms"]
-            log(f"  {name}: device {r['device_ms']:.4f} ms")
+            log(f"  {name}: device {fmt_ms(r['device_ms'])}")
+        if "cases" in r:   # one row a caller's shape (topk_rows)
+            row["cases"] = r["cases"]
+        if "point_major" in r:   # K11's matvec on the same system in point-major order
+            row["point_major"] = r["point_major"]
+            log(f"  {name} in point-major order: {r['point_major']['ms']:.4f} ms, device "
+                f"{fmt_ms(r['point_major']['device_ms'])}")
         if "c5000" in r:  # K10 / K11 with the camera sums in global memory
             b = r["c5000"]
             b_ms, b_by = bound(b)

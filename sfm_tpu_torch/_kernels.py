@@ -67,7 +67,7 @@ SIGNATURES = {
     "sfm_orb_blur": [_P] + [_I] * 3 + [_P, _I, _P, _P] + [_P],
     "sfm_orb_describe": [_P] + [_I] * 3 + [_P] * 3 + [_I, _P, _F, _P, _P] + [_P],
     "sfm_schur_block_jacobi": [_P] * 4 + [_I] + [_P] * 2 + [_P],
-    "sfm_schur_matvec": [_P] * 12 + [_I] * 4 + [_P] * 5 + [_P],
+    "sfm_schur_matvec": [_P] * 14 + [_I] * 5 + [_P] * 6 + [_P],
     "sfm_pcg_init": [_P] * 3 + [_I] * 2 + [_F] + [_P] * 5 + [_P],
     "sfm_pcg_step": [_P] * 3 + [_I] * 2 + [_F] + [_P] * 5 + [_P],
     "sfm_pnp_dlt_solve": [_P] * 5 + [_I] * 4 + [_P] * 2 + [_P],
@@ -105,8 +105,8 @@ SIGNATURES["sfm_ba_cost_b10"] = SIGNATURES["sfm_ba_cost"]
 KERNELS += ("ba_cost_b10",)
 
 # Called once, on the first launch, on that device's stream: per-function
-# attributes (the opt-in shared memory of K10's staged walk).
-SETUP = ("sfm_schur_damp_setup",)
+# attributes (the opt-in shared memory of K10's staged walk and K4's topk_rows).
+SETUP = ("sfm_schur_damp_setup", "sfm_topk_setup")
 SIGNATURES.update({name: [_P] for name in SETUP})
 
 _launches = {k: 0 for k in KERNELS}

@@ -25,7 +25,7 @@ from sfm_tpu_torch.ba.problem import BAProblem
 from sfm_tpu_torch.ba.residuals import total_huber_cost
 from sfm_tpu_torch.ba.schur import (
     back_substitute, coobs_pairs, damp_operator, damp_workspace, dense_schur_direct, linearize,
-    pcg_solve)
+    matvec_workspace, pcg_solve)
 
 _REG_A = np.array([
     [1.0, 0.0, 0.0, 0.0],   # fx anchored to its initial value
@@ -148,8 +148,10 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
     rvec, tvec, intr, points = problem.rvec, problem.tvec, intr0, problem.points
     init_cost = total_cost(rvec, tvec, intr, points)
     lin = linearize_at(rvec, tvec, intr, points)
-    # K10's scratch, once for the problem's shapes (its kernel clears it).
+    # K10's and K11's scratch, once for the problem's shapes (their kernels
+    # clear it), and K11's walk order of the grouping.
     work = damp_workspace(lin) if dev.type == "cuda" else None
+    mv_work = matvec_workspace(lin, perm, perm_valid) if pcg and dev.type == "cuda" else None
     cost = float(init_cost)
     lam = np.float32(config.init_lambda)
     it = n_acc = 0
@@ -160,7 +162,7 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
                                          work=work)
         if pcg:
             xc, xk, steps = pcg_solve(lin, op, rhs_c, rhs_k, perm, perm_valid,
-                                      config.cg_iters, config.cg_tol)
+                                      config.cg_iters, config.cg_tol, work=mv_work)
             cg_steps.append(steps)
         else:
             xc, xk = dense_schur_direct(op, lin, rhs_c, rhs_k, perm, perm_valid)

@@ -27,7 +27,8 @@ its tensors; each kernel entry below has one instantiation a route
 * past ``BAConfig.use_dense_schur_below`` cameras S is never formed:
   :func:`block_jacobi` inverts the damped camera blocks (K10's
   ``schur_block_jacobi``, twin :func:`block_jacobi_plain`),
-  :func:`schur_matvec` applies S (kernel K11, ``csrc/schur_pcg.cu``, twin
+  :func:`schur_matvec` applies S (kernel K11, ``csrc/schur_pcg.cu``, over
+  the :func:`matvec_layout` of the grouping, built once a problem; twin
   :func:`schur_matvec_plain`) and :func:`pcg_solve` runs the block-Jacobi
   preconditioned CG (K11's ``pcg_init`` / ``pcg_step`` around the matvec,
   twin :func:`pcg_solve_plain`).
@@ -51,8 +52,8 @@ from sfm_tpu_torch.ba.residuals import (
     huber_weights, residuals_and_jacobians, residuals_and_jacobians_percam)
 
 _EPS = 1e-10
-# Bytes of shared memory a block of K10's rhs walk and K11's matvec holds
-# for its camera sums on the H100 (227 KB).
+# Bytes of shared memory a block of K10's rhs walk holds for its camera sums
+# on the H100 (227 KB).
 _SMEM_BYTES = 232_448
 
 
@@ -73,15 +74,15 @@ def _words(dtype) -> int:
 
 def max_cameras(B: int, dtype) -> int:
     """The most cameras whose WORDS x (BC + 4) 64-bit sums a block of K10's
-    rhs walk or K11's matvec can stage in shared memory."""
+    rhs walk can stage in shared memory."""
     return (_SMEM_BYTES // (8 * _words(dtype)) - 4) // B
 
 
 def camera_sums_in_shared(C: int, B: int, dtype) -> bool:
-    """The route of K10's rhs walk and K11's matvec: each block stages its
-    camera sums in shared memory (True, up to :func:`max_cameras`), or adds
-    them straight into the global words (False, any C). Both add the same
-    64-bit integers, so they give the same bits."""
+    """The route of K10's rhs walk: each block stages its camera sums in
+    shared memory (True, up to :func:`max_cameras`), or adds them straight
+    into the global words (False, any C). Both add the same 64-bit integers,
+    so they give the same bits."""
     return C <= max_cameras(B, dtype)
 
 
@@ -269,15 +270,6 @@ def schur_damp_plain(lin: Linearization, lam: float, perm=None, perm_valid=None)
                                 lin.U.shape[0])
     rhs_k = -lin.g_k + torch.einsum("oci,oc->i", lin.Jk, y_o)
     return Damped(Vinv=Vinv, lam_diag_c=lam_diag_c, lam_diag_k=lam_diag_k), rhs_c, rhs_k
-
-
-def _fx_scratch(n: int, dev, dtype=torch.float32):
-    """Scratch of an order-free sum over n targets (``csrc/sfm_common.cuh``):
-    the largest |term| of each target, its shift, its 64-bit integer sum
-    (two words a target in the f64 island)."""
-    return (torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty(_words(dtype) * n, dtype=torch.int64, device=dev))
 
 
 def _block(lin: Linearization):
@@ -586,7 +578,8 @@ def back_substitute(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
 
 # ------------------------------------------------------------ K11: matrix-free PCG
 
-def schur_matvec_plain(lin: Linearization, op: Damped, xc, xk, perm=None, perm_valid=None):
+def schur_matvec_plain(lin: Linearization, op: Damped, xc, xk, perm=None, perm_valid=None,
+                       layout=None):
     """S x for x = (xc (C, B), xk (4,)), never forming S: the reference's
     ``schur_matvec`` (``sfm_tpu/ba/schur.py:232``),
     S x = Jc^T (B x - Jp Vinv Jp^T B x) + lam_diag o x + U_extra x_c
@@ -594,8 +587,13 @@ def schur_matvec_plain(lin: Linearization, op: Damped, xc, xk, perm=None, perm_v
     per-camera intrinsics regularization) is part of U that the Jc products
     cannot rebuild, so it is applied here; without it PCG would solve
     another system than the dense path. Plain twin of kernel K11's
-    ``schur_matvec`` (the grouping is not needed)."""
+    ``schur_matvec`` (the grouping is not needed). With ``layout`` (a
+    :func:`matvec_layout`) it walks the kernel's order instead of every
+    observation: u per point over ``walk``'s runs, each slot's terms, the
+    camera sums over the slots in ``cam_walk``'s order."""
     C, P = xc.shape[0], op.Vinv.shape[0]
+    if layout is not None:
+        return _schur_matvec_walk(lin, op, xc, xk, *(t.long() for t in layout))
     a = (lin.Jc @ xc[lin.obs_cam.long()][..., None])[..., 0] + lin.Jk @ xk       # (O, 2)
     u_p = _seg_sum((lin.Jp.mT @ a[..., None])[..., 0], lin.obs_point, P)
     v_p = (op.Vinv @ u_p[..., None])[..., 0]
@@ -607,21 +605,104 @@ def schur_matvec_plain(lin: Linearization, op: Damped, xc, xk, perm=None, perm_v
     return Sx_c, Sx_k + op.lam_diag_k * xk + lin.Hreg_k @ xk
 
 
-def _matvec_launch(lin: Linearization, op: Damped, x, perm, perm_valid, Sx, flag=None,
-                   scratch=None):
+def _schur_matvec_walk(lin: Linearization, op: Damped, xc, xk, walk, row_start, cam_walk,
+                       cam_of):
+    C, B = xc.shape
+    o = walk
+    R = len(row_start) - 1
+    rows = torch.repeat_interleave(torch.arange(R, device=o.device), row_start.diff())
+    Jc, Jk, Jp = lin.Jc[o], lin.Jk[o], lin.Jp[o]
+    a = (Jc @ xc[lin.obs_cam.long()[o]][..., None])[..., 0] + Jk @ xk         # (Ov, 2)
+    u = _seg_sum((Jp.mT @ a[..., None])[..., 0], rows, R)
+    v = (op.Vinv[lin.obs_point.long()[o[row_start[:-1]]]] @ u[..., None])[..., 0]
+    d = a - (Jp @ v[rows][..., None])[..., 0]
+    terms = torch.cat([(Jc.mT @ d[..., None])[..., 0], (Jk.mT @ d[..., None])[..., 0]], -1)
+    Sx_c = _seg_sum(terms[cam_walk, :B], cam_of, C) + op.lam_diag_c * xc
+    if lin.U_extra is not None:
+        Sx_c = Sx_c + (lin.U_extra @ xc[..., None])[..., 0]
+    return Sx_c, terms[:, B:].sum(0) + op.lam_diag_k * xk + lin.Hreg_k @ xk
+
+
+def matvec_layout(perm, perm_valid, obs_cam):
+    """K11's walk order of the :func:`coobs_pairs` grouping, on its device:
+    (walk, row_start, cam_walk, cam_of), int32. ``walk`` (Ov,): each row's
+    leading run of valid slots, rows in order, slots in order (the
+    observations point by point, as the reference's walk sums them);
+    ``row_start`` (R + 1,): the offsets of the rows that have a slot;
+    ``cam_walk`` (Ov,): the slots in camera-major order (a stable sort of
+    the slots by camera); ``cam_of`` (Ov,): the camera of each of those.
+    One host sync (the count of valid slots)."""
+    lead = torch.cumprod(perm_valid.to(torch.int32), dim=1).bool()
+    counts = lead.sum(1)
+    counts = counts[counts > 0]
+    walk = perm[lead]
+    row_start = torch.zeros(len(counts) + 1, dtype=torch.int64, device=perm.device)
+    torch.cumsum(counts, 0, out=row_start[1:])
+    cams = obs_cam[walk.long()]
+    cam_walk = torch.argsort(cams, stable=True)
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    return i32(walk), i32(row_start), i32(cam_walk), i32(cams[cam_walk])
+
+
+class MatvecWork(NamedTuple):
+    """K11 ``schur_matvec``'s layout (:func:`matvec_layout`) and scratch for
+    one BA problem, made once and reused by every matvec of its PCG solves
+    (``csrc/schur_pcg.cu``): ``gmax``, ``ctrl`` and ``acc`` are zero between
+    calls (the kernel clears them)."""
+
+    walk: torch.Tensor       # (Ov,) int32
+    row_start: torch.Tensor  # (R + 1,) int32
+    cam_walk: torch.Tensor   # (Ov,) int32
+    cam_of: torch.Tensor     # (Ov,) int32
+    terms: torch.Tensor      # ((B + 4) Ov,) each slot's terms, in walk order
+    gmax: torch.Tensor       # (BC + 4,) int32: each target's largest |term| (float bits)
+    ctrl: torch.Tensor       # (2,) int32: the add walk's blocks arrived, its finishers done
+    acc: torch.Tensor        # (WORDS (BC + 4),) int64 fixed-point sums
+
+
+def matvec_workspace(lin: Linearization, perm, perm_valid) -> MatvecWork:
+    """The :class:`MatvecWork` of ``lin``'s shapes and grouping, on its device."""
+    C = lin.U.shape[0]
+    B, dt, _ = _block(lin)
+    dev = lin.U.device
+    walk, row_start, cam_walk, cam_of = matvec_layout(perm, perm_valid, lin.obs_cam)
+    n = B * C + 4
+    return MatvecWork(walk=walk, row_start=row_start, cam_walk=cam_walk, cam_of=cam_of,
+                      terms=torch.empty((B + 4) * len(walk), dtype=dt, device=dev),
+                      gmax=torch.zeros(n, dtype=torch.int32, device=dev),
+                      ctrl=torch.zeros(2, dtype=torch.int32, device=dev),
+                      acc=torch.zeros(_words(dt) * n, dtype=torch.int64, device=dev))
+
+
+def _matvec_launch(lin: Linearization, op: Damped, x, perm, work: MatvecWork, Sx, flag=None):
     """K11's ``schur_matvec`` entry on the flat (BC + 4) vectors x -> Sx;
-    with ``flag`` (the PCG state's "active" entry) a no-op once it is 0.
-    ``scratch``: :func:`_fx_scratch` of BC + 4, reused across a solve."""
+    with ``flag`` (the PCG state's "active" entry) a no-op once it is 0."""
     C = lin.U.shape[0]
     B, dt, route = _block(lin)
     G, Vs = perm.shape
-    if scratch is None:
-        scratch = _fx_scratch(B * C + 4, x.device, dt)
+    R, Ov = work.row_start.shape[0] - 1, work.walk.shape[0]
     _kernels.launch("schur_matvec" + route, x.device, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
-                    lin.obs_point, perm, perm_valid, op.Vinv, op.lam_diag_c, op.lam_diag_k,
-                    lin.Hreg_k, x, C, G, Vs, int(camera_sums_in_shared(C, B, dt)), flag, Sx,
-                    *scratch,
+                    lin.obs_point, op.Vinv, op.lam_diag_c, op.lam_diag_k, lin.Hreg_k, x,
+                    work.walk, work.row_start, work.cam_walk, work.cam_of, C, G, Vs, R, Ov, flag,
+                    Sx, work.terms, work.gmax, work.ctrl, work.acc,
                     *((lin.U_extra,) if route else ()))
+
+
+def _check_work(lin: Linearization, work: MatvecWork):
+    C = lin.U.shape[0]
+    B, dt, _ = _block(lin)
+    R, Ov = work.row_start.shape[0] - 1, work.walk.shape[0]
+    n, i32 = B * C + 4, torch.int32
+    for name, x, dtype, shape in (
+            ("walk", work.walk, i32, (Ov,)), ("row_start", work.row_start, i32, (R + 1,)),
+            ("cam_walk", work.cam_walk, i32, (Ov,)), ("cam_of", work.cam_of, i32, (Ov,)),
+            ("terms", work.terms, dt, ((B + 4) * Ov,)), ("gmax", work.gmax, i32, (n,)),
+            ("ctrl", work.ctrl, i32, (2,)), ("acc", work.acc, torch.int64, (_words(dt) * n,))):
+        _kernels.check_tensor(x, name, dtype, shape, lin.U.device)
+    # The kernel reads the Jacobians' rows and the terms 16 or 8 bytes a load.
+    for name, x in (("Jc", lin.Jc), ("Jk", lin.Jk), ("Jp", lin.Jp), ("terms", work.terms)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"K11 schur_matvec: {name} is not 16-byte aligned")
 
 
 def _check_pcg_system(lin: Linearization, op: Damped, perm, perm_valid, extra=()):
@@ -637,21 +718,27 @@ def _check_pcg_system(lin: Linearization, op: Damped, perm, perm_valid, extra=()
     return C, B, dt
 
 
-def schur_matvec_cuda(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
+def schur_matvec_cuda(lin: Linearization, op: Damped, xc, xk, perm, perm_valid,
+                      work: Optional[MatvecWork] = None):
     C, B, dt = _check_pcg_system(lin, op, perm, perm_valid)
+    if work is None:
+        work = matvec_workspace(lin, perm, perm_valid)
+    _check_work(lin, work)
     x = torch.cat([xc.reshape(-1), xk]).to(dt).contiguous()
     Sx = torch.empty_like(x)
-    _matvec_launch(lin, op, x, perm, perm_valid, Sx)
+    _matvec_launch(lin, op, x, perm, work, Sx)
     return Sx[: B * C].reshape(C, B), Sx[B * C:]
 
 
-def schur_matvec(lin: Linearization, op: Damped, xc, xk, perm, perm_valid):
+def schur_matvec(lin: Linearization, op: Damped, xc, xk, perm, perm_valid,
+                 work: Optional[MatvecWork] = None):
     """Kernel K11's ``schur_matvec`` on CUDA tensors (walking the
-    :func:`coobs_pairs` grouping), :func:`schur_matvec_plain` on CPU
-    tensors: (Sx_c (C, B), Sx_k (4,))."""
+    :func:`coobs_pairs` grouping in the order of ``work``, a
+    :func:`matvec_workspace` made here when None),
+    :func:`schur_matvec_plain` on CPU tensors: (Sx_c (C, B), Sx_k (4,))."""
     dev = xc.device
     if dev.type == "cuda":
-        return schur_matvec_cuda(lin, op, xc, xk, perm, perm_valid)
+        return schur_matvec_cuda(lin, op, xc, xk, perm, perm_valid, work)
     if dev.type == "cpu":
         return schur_matvec_plain(lin, op, xc, xk, perm, perm_valid)
     raise ValueError(f"schur_matvec: unsupported device {dev}")
@@ -693,7 +780,7 @@ def pcg_solve_plain(lin: Linearization, op: Damped, rhs_c, rhs_k, perm=None, per
 
 
 def pcg_solve_cuda(lin: Linearization, op: Damped, rhs_c, rhs_k, perm, perm_valid,
-                   iters: int = 50, tol: float = 1e-6):
+                   iters: int = 50, tol: float = 1e-6, work: Optional[MatvecWork] = None):
     """The CG loop launches all ``iters`` steps and never reads the device
     state: a converged state makes the remaining launches no-ops (reading
     the state every few steps to stop early gained nothing on the card,
@@ -709,24 +796,29 @@ def pcg_solve_cuda(lin: Linearization, op: Damped, rhs_c, rhs_k, perm, perm_vali
     x, r, z, p, Ap = (torch.empty_like(rhs) for _ in range(5))
     state = torch.zeros(5, dtype=dt, device=dev)   # r.z, |rhs|^2, r.r, active, steps
     cg = (op.Mc, op.Mk, C, int(iters), float(tol), x, r, z, p, state)
-    scratch = _fx_scratch(B * C + 4, dev, dt)
+    if work is None:
+        work = matvec_workspace(lin, perm, perm_valid)
+    _check_work(lin, work)
+    flag = state[3:4]
     _kernels.launch("pcg_init" + route, dev, rhs, *cg)
     for _ in range(int(iters)):
-        _matvec_launch(lin, op, p, perm, perm_valid, Ap, flag=state[3:4], scratch=scratch)
+        _matvec_launch(lin, op, p, perm, work, Ap, flag=flag)
         _kernels.launch("pcg_step" + route, dev, Ap, *cg)
     return x[: B * C].reshape(C, B), x[B * C:], state[4]
 
 
 def pcg_solve(lin: Linearization, op: Damped, rhs_c, rhs_k, perm, perm_valid,
-              iters: int = 50, tol: float = 1e-6):
+              iters: int = 50, tol: float = 1e-6, work: Optional[MatvecWork] = None):
     """Kernel K11 (``pcg_init``, then per step the ``schur_matvec`` and
     ``pcg_step`` entries, no host sync) on CUDA tensors,
     :func:`pcg_solve_plain` on CPU tensors. ``op`` must carry ``Mc`` / ``Mk``
-    (``damp_operator(..., precond=True)``). Returns (xc, xk, steps taken as a
-    0-dim tensor, on the device)."""
+    (``damp_operator(..., precond=True)``). ``work``: the matvec's
+    :func:`matvec_workspace`, reused across an LM loop (made here when
+    None). Returns (xc, xk, steps taken as a 0-dim tensor, on the
+    device)."""
     dev = rhs_c.device
     if dev.type == "cuda":
-        return pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, perm_valid, iters, tol)
+        return pcg_solve_cuda(lin, op, rhs_c, rhs_k, perm, perm_valid, iters, tol, work)
     if dev.type == "cpu":
         return pcg_solve_plain(lin, op, rhs_c, rhs_k, perm, perm_valid, iters, tol)
     raise ValueError(f"pcg_solve: unsupported device {dev}")

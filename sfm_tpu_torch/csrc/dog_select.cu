@@ -16,14 +16,37 @@
 //  4. top-k2 of those 4 k1 cells (topk_rows_kernel);
 //  5. one thread per output slot: the cell's winning pixel (the first of its
 //     four whose score equals the cell max), clamped, padding past k2.
-// sfm_topk_rows exposes step 2 alone: estimators/ransac.py::top_k on a CUDA
-// tensor (the frontend's global keypoint selection, the sweep's match
-// compaction). topk_rows_kernel is lax.top_k's order exactly: largest first, ties to the
-// lower index. One block per row: a 4-pass radix select (8 bits a pass) on
+// topk_rows_kernel is lax.top_k's order exactly: largest first (in IEEE
+// total order), ties to the lower index. One block per row: a 4-pass radix select (8 bits a pass) on
 // the float bits mapped to an unsigned order finds the k-th largest key; one
 // ordered pass keeps every key above it and, of the keys equal to it, the
 // lowest-indexed ones (a block-wide scan ranks the ties in index order); a
 // bitonic sort of the k survivors in shared memory on (key desc, index asc).
+//
+// sfm_topk_rows: lax.top_k along the rows of a float32 (R, n) tensor,
+// values and int64 indices, for estimators/ransac.py::top_k on a CUDA
+// tensor (the frontend's global keypoint selection, 12 x 3,840 -> 2,048; the
+// sweep's match compaction, 32 x 2,048 -> 1,024; the ORB merge, a full
+// sort of 12 x 3,800; RANSAC's sampling without replacement, many rows,
+// k <= 8). It replaces the lax.top_k calls of sfm_tpu/features/frontend.py,
+// matching/core.py and features/binary.py. Three routes:
+//  - k <= 32: a warp a row (topk_warp_kernel). Each lane keeps the k
+//    largest (key, index) pairs of its strided share of the row in
+//    registers; the warp then takes the largest head k times (shuffles).
+//  - else, when the row and the sort buffers fit in shared memory: a block a
+//    row (topk_block_kernel). The row is read once into shared memory as
+//    order keys; the radix select's histograms add one atomic per digit a
+//    warp (__match_any_sync) and one warp scans them by shuffles; the
+//    compaction ranks each thread's contiguous share with one block scan, so
+//    the survivors land in index order; a stable LSD radix sort on the key
+//    alone (8-bit digits, each warp ranking its contiguous share 32 keys a
+//    round by __match_any_sync; digits that no key varies in skipped)
+//    orders them, the lower index first among ties.
+//  - else topk_rows_kernel, which reads the row from global memory in each
+//    pass.
+// The wrapper's host work is a large part of a call at these sizes: the
+// shared-memory limit is set once (sfm_topk_setup) and the kernel writes
+// the int64 indices itself.
 //
 // sfm_dog_refine: one thread per candidate. Every product and sum is rounded
 // as the plain twin rounds it (__fmul_rn / __fadd_rn, no FMA contraction), in
@@ -35,7 +58,10 @@
 // with S = 3: ~11 us at 3.35 TB/s), then the block maxima five times
 // (radix passes + compaction), one block per image: 12 of the 132 SMs stream
 // the 2.4 MB rows, so the rows' passes, not the card's rate, set the time.
-// The refinement reads 27 floats a candidate.
+// The refinement reads 27 floats a candidate. topk_rows must read each row
+// once and write k values and indices (12 x 3,840 floats: 0.18 MB, ~0.06
+// us); with a block a row on 12-32 rows its time is the latency of one
+// block's passes, and with a warp a row on 16k rows the read.
 #include "sfm_common.cuh"
 
 namespace {
@@ -43,9 +69,10 @@ namespace {
 constexpr int NT = 256;
 constexpr int TK_NT = 1024;
 
-// Float -> unsigned with the same order (-0 taken as +0).
+// Float -> unsigned in IEEE total order, as lax.top_k orders: +0.0 above
+// -0.0, a NaN above +inf (below -inf with its sign bit set).
 __device__ __forceinline__ uint32_t order_key(float v) {
-  const uint32_t b = __float_as_uint(v == 0.f ? 0.f : v);
+  const uint32_t b = __float_as_uint(v);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
@@ -83,10 +110,11 @@ __global__ void __launch_bounds__(NT) block_max_kernel(const float* __restrict__
 
 // lax.top_k of each row of x (rows of n): vals / idx (rows of k), k <= kpad,
 // kpad a power of two; kpad composite keys in dynamic shared memory.
+template <typename I>
 __global__ void __launch_bounds__(TK_NT) topk_rows_kernel(const float* __restrict__ x, int n,
                                                           int k, int kpad,
                                                           float* __restrict__ vals,
-                                                          int* __restrict__ idx) {
+                                                          I* __restrict__ idx) {
   extern __shared__ unsigned long long s_sel[];
   __shared__ int hist[256];
   __shared__ int s_warp[TK_NT / 32];
@@ -173,7 +201,7 @@ __global__ void __launch_bounds__(TK_NT) topk_rows_kernel(const float* __restric
   for (int i = tid; i < k; i += TK_NT) {
     const unsigned long long c = s_sel[i];
     vals[(size_t)blockIdx.x * k + i] = key_value((uint32_t)(c >> 32));
-    idx[(size_t)blockIdx.x * k + i] = (int)(0xffffffffu - (uint32_t)c);
+    idx[(size_t)blockIdx.x * k + i] = (I)(0xffffffffu - (uint32_t)c);
   }
 }
 
@@ -239,17 +267,335 @@ __global__ void __launch_bounds__(NT) select_final_kernel(
   top_out[t] = top;
 }
 
-cudaError_t launch_topk(const float* x, int rows, int n, int k, float* vals, int* idx,
+template <typename I>
+cudaError_t launch_topk(const float* x, int rows, int n, int k, float* vals, I* idx,
                         cudaStream_t st) {
   int kpad = 1;
   while (kpad < k) kpad <<= 1;
   const int smem = kpad * (int)sizeof(unsigned long long);
-  cudaError_t e = cudaFuncSetAttribute(topk_rows_kernel,
+  cudaError_t e = cudaFuncSetAttribute(topk_rows_kernel<I>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  topk_rows_kernel<<<rows, TK_NT, smem, st>>>(x, n, k, kpad, vals, idx);
+  topk_rows_kernel<I><<<rows, TK_NT, smem, st>>>(x, n, k, kpad, vals, idx);
   return cudaGetLastError();
 }
+
+constexpr int TKW_NT = 256;   // topk_warp_kernel: a warp a row
+constexpr int TKB_NT = 512;   // topk_block_kernel: a block a row
+constexpr int TKB_W = TKB_NT / 32;
+
+// (key desc, index asc) as one descending 64-bit word.
+__device__ __forceinline__ unsigned long long topk_pack(uint32_t key, int i) {
+  return ((unsigned long long)key << 32) | (0xffffffffu - (uint32_t)i);
+}
+
+// k <= KW: each lane keeps the KW largest packed pairs of its elements
+// (lane, lane + 32, ...; with vec4, the float4s lane, lane + 32, ..., four
+// in flight) sorted in registers, then the warp takes the largest head k
+// times. 0 sorts below every pair.
+template <int KW>
+__global__ void __launch_bounds__(TKW_NT) topk_warp_kernel(const float* __restrict__ x,
+                                                           int rows, int n, int k,
+                                                           float* __restrict__ vals,
+                                                           int64_t* __restrict__ idx,
+                                                           bool vec4) {
+  const int row = blockIdx.x * (TKW_NT / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;  // the whole warp
+  const float* xr = x + (size_t)row * n;
+  unsigned long long top[KW];
+#pragma unroll
+  for (int j = 0; j < KW; ++j) top[j] = 0ull;
+  auto insert = [&](float v, int i) {
+    const unsigned long long p = topk_pack(order_key(v), i);
+    if (p > top[KW - 1]) {
+#pragma unroll
+      for (int j = KW - 1; j > 0; --j) top[j] = p > top[j - 1] ? top[j - 1] : (p > top[j] ? p : top[j]);
+      top[0] = p > top[0] ? p : top[0];
+    }
+  };
+  if (vec4) {  // four float4 a lane in flight at once
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const int n4 = n / 4;
+    for (int b = lane; b < n4; b += 128) {
+      float4 q[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        q[u] = b + 32 * u < n4 ? x4[b + 32 * u] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (b + 32 * u >= n4) break;
+        const int i = 4 * (b + 32 * u);
+        insert(q[u].x, i);
+        insert(q[u].y, i + 1);
+        insert(q[u].z, i + 2);
+        insert(q[u].w, i + 3);
+      }
+    }
+  } else {
+    for (int i = lane; i < n; i += 32) insert(xr[i], i);
+  }
+  for (int r = 0; r < k; ++r) {
+    unsigned long long best = top[0];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(0xffffffffu, best, off);
+      best = o > best ? o : best;
+    }
+    if (top[0] == best) {  // pairs are distinct: one lane
+#pragma unroll
+      for (int j = 0; j < KW - 1; ++j) top[j] = top[j + 1];
+      top[KW - 1] = 0ull;
+    }
+    if (lane == 0) {
+      vals[(size_t)row * k + r] = key_value((uint32_t)(best >> 32));
+      idx[(size_t)row * k + r] = (int64_t)(0xffffffffu - (uint32_t)best);
+    }
+  }
+}
+
+// Exclusive block scan (in thread order) of M 64-bit counts a thread.
+// Every thread of the block calls it.
+template <int M>
+__device__ __forceinline__ void topk_scan(unsigned long long (&c)[M],
+                                          unsigned long long (*s_w)[M]) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  unsigned long long inc[M];
+#pragma unroll
+  for (int q = 0; q < M; ++q) inc[q] = c[q];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+    for (int q = 0; q < M; ++q) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, inc[q], off);
+      if (lane >= off) inc[q] += y;
+    }
+  if (lane == 31)
+#pragma unroll
+    for (int q = 0; q < M; ++q) s_w[w][q] = inc[q];
+  __syncthreads();
+  if (w == 0) {
+#pragma unroll
+    for (int q = 0; q < M; ++q) {
+      unsigned long long v = lane < TKB_W ? s_w[lane][q] : 0ull, sc = v;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned long long y = __shfl_up_sync(0xffffffffu, sc, off);
+        if (lane >= off) sc += y;
+      }
+      if (lane < TKB_W) s_w[lane][q] = sc - v;   // the warps before
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < M; ++q) c[q] = inc[q] - c[q] + s_w[w][q];
+}
+
+// A block a row, the row staged in shared memory as order keys. Dynamic
+// shared memory: n keys, then two buffers of k keys and two of k indices.
+__global__ void __launch_bounds__(TKB_NT) topk_block_kernel(const float* __restrict__ x, int n,
+                                                            int k, float* __restrict__ vals,
+                                                            int64_t* __restrict__ idx) {
+  extern __shared__ uint32_t s_dyn32[];
+  uint32_t* s_row = s_dyn32;
+  uint32_t* s_key[2] = {s_row + n, s_row + n + k};
+  int* s_idx[2] = {reinterpret_cast<int*>(s_row + n + 2 * k),
+                   reinterpret_cast<int*>(s_row + n + 3 * k)};
+  __shared__ int hist[256];
+  __shared__ unsigned long long s_w[TKB_W][2];
+  __shared__ uint32_t s_prefix, s_or, s_and;
+  __shared__ int s_need;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const float* row = x + (size_t)blockIdx.x * n;
+  const bool all = k == n;  // a full sort: every key survives
+  if (tid < 256) hist[tid] = 0;
+  if (tid == 0) {
+    s_prefix = 0u;
+    s_need = k;
+    s_or = 0u;
+    s_and = 0xffffffffu;
+  }
+  __syncthreads();
+  // Radix select, 8 bits a pass (the first one while staging the row): after
+  // the passes s_prefix is the k-th largest key and s_need the number of
+  // keys equal to it that belong to the top k.
+  uint32_t mask = 0u;
+  for (int shift = 24; shift >= 0 && !all; shift -= 8) {
+    const uint32_t prefix = s_prefix;
+    for (int base = 0; base < n; base += TKB_NT) {
+      const int i = base + tid;
+      uint32_t u = 0u;
+      if (i < n) {
+        if (shift == 24) {
+          u = order_key(row[i]);
+          s_row[i] = u;
+        } else {
+          u = s_row[i];
+        }
+      }
+      const bool in = i < n && (u & mask) == prefix;
+      const uint32_t d = in ? (u >> shift) & 255u : 256u + lane;  // out: a bin of its own
+      const unsigned peers = __match_any_sync(0xffffffffu, d);
+      if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
+    }
+    __syncthreads();
+    if (tid < 32) {  // the bins from the top, eight a lane; the first reaching s_need
+      const int need = s_need;
+      int cnt[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cnt[j] = hist[255 - 8 * lane - j];
+        sum += cnt[j];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      const unsigned hit = __ballot_sync(0xffffffffu, incl >= need);
+      const int L = __ffs(hit) - 1;  // need <= the keys left, so some lane hits
+      if (lane == L) {
+        int cum = incl - sum, j = 0;
+        for (; j < 7; ++j) {
+          if (cum + cnt[j] >= need) break;
+          cum += cnt[j];
+        }
+        const int d = 255 - 8 * lane - j;
+        s_need = need - cum;
+        s_prefix = prefix | ((uint32_t)d << shift);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) hist[255 - 8 * lane - j] = 0;  // the bins this lane read
+    }
+    mask |= 255u << shift;
+    __syncthreads();
+  }
+  if (all) {
+    for (int i = tid; i < n; i += TKB_NT) s_row[i] = order_key(row[i]);
+    __syncthreads();
+  }
+  const uint32_t T = all ? 0u : s_prefix;
+  const int need_eq = all ? n : s_need;
+  // Compaction in index order: thread t takes the contiguous share
+  // [t E, t E + E); one block scan ranks the keys above T and those equal.
+  // (An odd share: the threads of a warp then read distinct banks.)
+  const int E = ((n + TKB_NT - 1) / TKB_NT) | 1, i0 = min(tid * E, n), i1 = min(i0 + E, n);
+  unsigned long long c[2] = {0ull, 0ull};
+  for (int i = i0; i < i1; ++i) {
+    const uint32_t u = s_row[i];
+    c[0] += u > T || all ? 1ull : 0ull;
+    c[1] += u == T && !all ? 1ull : 0ull;
+  }
+  topk_scan<2>(c, s_w);
+  {
+    unsigned long long gt = c[0], eq = c[1];
+    for (int i = i0; i < i1; ++i) {
+      const uint32_t u = s_row[i];
+      const bool g = u > T || all, q = u == T && !all;
+      if (g || (q && eq < (unsigned long long)need_eq)) {
+        const int pos = (int)(gt + min(eq, (unsigned long long)need_eq));
+        s_key[0][pos] = ~u;  // ascending on ~key: the largest first
+        s_idx[0][pos] = i;
+      }
+      gt += g ? 1ull : 0ull;
+      eq += q ? 1ull : 0ull;
+    }
+  }
+  // The digits some survivor varies in.
+  __syncthreads();
+  {
+    uint32_t o = 0u, a = 0xffffffffu;
+    for (int i = tid; i < k; i += TKB_NT) {
+      o |= s_key[0][i];
+      a &= s_key[0][i];
+    }
+    o = __reduce_or_sync(0xffffffffu, o);
+    a = __reduce_and_sync(0xffffffffu, a);
+    if (lane == 0) {
+      atomicOr(&s_or, o);
+      atomicAnd(&s_and, a);
+    }
+  }
+  __syncthreads();
+  const uint32_t vary = s_or ^ s_and;
+  int cur = 0;
+  {
+    // Stable LSD radix sort, 8 bits a pass; warp w ranks its contiguous
+    // share in rounds of 32 (peers by __match_any_sync), so the survivors,
+    // in index order, keep the lower index first among equal keys.
+    __shared__ int s_wh[256][TKB_W + 1];
+    __shared__ int s_dsum[8];
+    const int w = tid / 32;
+    const int WC = (k + TKB_W - 1) / TKB_W, c0 = min(w * WC, k), c1 = min(c0 + WC, k);
+    for (int shift = 0; shift < 32; shift += 8) {
+      if (((vary >> shift) & 255u) == 0u) continue;  // the same for the block
+      const uint32_t* ks = s_key[cur];
+      const int* is = s_idx[cur];
+      for (int i = tid; i < 256 * (TKB_W + 1); i += TKB_NT) (&s_wh[0][0])[i] = 0;
+      __syncthreads();
+      for (int b = c0; b < c1; b += 32) {
+        const int j = b + lane;
+        const uint32_t d = j < c1 ? (ks[j] >> shift) & 255u : 256u + lane;
+        const unsigned peers = __match_any_sync(0xffffffffu, d);
+        if (j < c1 && lane == 31 - __clz(peers)) s_wh[d][w] += __popc(peers);
+        __syncwarp();
+      }
+      __syncthreads();
+      int tot = 0;
+      if (tid < 256) {
+        for (int ww = 0; ww < TKB_W; ++ww) {
+          const int v = s_wh[tid][ww];
+          s_wh[tid][ww] = tot;
+          tot += v;
+        }
+      }
+      int incl = tot;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      if (tid < 256 && lane == 31) s_dsum[tid / 32] = incl;
+      __syncthreads();
+      if (tid < 256) {
+        int base = incl - tot;
+        for (int q = 0; q < tid / 32; ++q) base += s_dsum[q];
+        for (int ww = 0; ww < TKB_W; ++ww) s_wh[tid][ww] += base;
+      }
+      __syncthreads();
+      uint32_t* kd = s_key[cur ^ 1];
+      int* id = s_idx[cur ^ 1];
+      for (int b = c0; b < c1; b += 32) {
+        const int j = b + lane;
+        const bool in = j < c1;
+        const uint32_t key = in ? ks[j] : 0u;
+        const uint32_t d = in ? (key >> shift) & 255u : 256u + lane;
+        const unsigned peers = __match_any_sync(0xffffffffu, d);
+        const int pos = in ? s_wh[d][w] + __popc(peers & ((1u << lane) - 1u)) : 0;
+        __syncwarp();
+        if (in && lane == 31 - __clz(peers)) s_wh[d][w] += __popc(peers);
+        __syncwarp();
+        if (in) {
+          kd[pos] = key;
+          id[pos] = is[j];
+        }
+      }
+      cur ^= 1;
+      __syncthreads();
+    }
+  }
+  for (int j = tid; j < k; j += TKB_NT) {
+    vals[(size_t)blockIdx.x * k + j] = key_value(~s_key[cur][j]);
+    idx[(size_t)blockIdx.x * k + j] = s_idx[cur][j];
+  }
+}
+
+// Dynamic shared memory of topk_block_kernel.
+__host__ __device__ constexpr size_t topk_block_smem(int n, int k) {
+  return (size_t)4 * ((size_t)n + 4 * (size_t)k);
+}
+
+int g_topk_smem = 0;  // the opt-in limit set by sfm_topk_setup
 
 // dog_refine's arithmetic, rounded after every operation.
 __device__ __forceinline__ float ad(float a, float b) { return __fadd_rn(a, b); }
@@ -330,8 +676,8 @@ SFM_API int sfm_dog_select(const void* score, int B, int S, int h, int w, int bu
       static_cast<const float*>(score), B * S, h, w, g.h4, g.w4, static_cast<float*>(blk));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_topk(static_cast<const float*>(blk), B, n1, k1, static_cast<float*>(bval),
-                  static_cast<int*>(bidx), st);
+  e = launch_topk<int>(static_cast<const float*>(blk), B, n1, k1, static_cast<float*>(bval),
+                       static_cast<int*>(bidx), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int ncell = B * k1 * 4;
   cell_gather_kernel<<<(ncell + NT - 1) / NT, NT, 0, st>>>(
@@ -339,8 +685,8 @@ SFM_API int sfm_dog_select(const void* score, int B, int S, int h, int w, int bu
       static_cast<float*>(cs));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_topk(static_cast<const float*>(cs), B, 4 * k1, k2, static_cast<float*>(ctop),
-                  static_cast<int*>(cpos), st);
+  e = launch_topk<int>(static_cast<const float*>(cs), B, 4 * k1, k2, static_cast<float*>(ctop),
+                       static_cast<int*>(cpos), st);
   if (e != cudaSuccess) return static_cast<int>(e);
   select_final_kernel<<<(B * budget + NT - 1) / NT, NT, 0, st>>>(
       static_cast<const float*>(score), g, B, k1, k2, budget, static_cast<const int*>(bidx),
@@ -365,11 +711,43 @@ SFM_API int sfm_dog_refine(const void* dog, int B, int Sp2, int h, int w, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// Once, on the first launch: topk_block_kernel may take the device's
+// opt-in shared memory (227 KB on the H100).
+SFM_API int sfm_topk_setup(void* /*stream*/) {
+  int dev = 0, bytes = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, topk_block_kernel);
+  if (e == cudaSuccess) {
+    g_topk_smem = bytes - (int)attr.sharedSizeBytes;
+    e = cudaFuncSetAttribute(topk_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             g_topk_smem);
+  }
+  return static_cast<int>(e);
+}
+
+// vals (rows, k) float, idx (rows, k) int64.
 SFM_API int sfm_topk_rows(const void* x, int rows, int n, int k, void* vals, void* idx,
                           void* stream) {
   if (rows == 0 || k == 0) return static_cast<int>(cudaGetLastError());
   if (k > n) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_topk(static_cast<const float*>(x), rows, n, k,
-                                      static_cast<float*>(vals), static_cast<int*>(idx),
-                                      static_cast<cudaStream_t>(stream)));
+  const float* xf = static_cast<const float*>(x);
+  float* v = static_cast<float*>(vals);
+  int64_t* id = static_cast<int64_t*>(idx);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int wblocks = (rows + TKW_NT / 32 - 1) / (TKW_NT / 32);
+  const bool vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (k <= 8) {
+    topk_warp_kernel<8><<<wblocks, TKW_NT, 0, st>>>(xf, rows, n, k, v, id, vec4);
+  } else if (k <= 32) {
+    topk_warp_kernel<32><<<wblocks, TKW_NT, 0, st>>>(xf, rows, n, k, v, id, vec4);
+  } else if (topk_block_smem(n, k) <= (size_t)g_topk_smem) {
+    topk_block_kernel<<<rows, TKB_NT, topk_block_smem(n, k), st>>>(xf, n, k, v, id);
+  } else {
+    return static_cast<int>(launch_topk<int64_t>(xf, rows, n, k, v, id, st));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
+

@@ -140,7 +140,7 @@ __global__ void __launch_bounds__(256) match_epilogue_kernel(
 }
 
 __global__ void __launch_bounds__(256) match_compact_kernel(
-    const float* __restrict__ top, const int* __restrict__ order,
+    const float* __restrict__ top, const int64_t* __restrict__ order,
     const int* __restrict__ best_j, int B, int K1, int k, int M,
     int64_t* __restrict__ idx1, int64_t* __restrict__ idx2, uint8_t* __restrict__ valid,
     float* __restrict__ dist) {
@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(256) match_compact_kernel(
   const int b = g / M, m = g % M;
   const float s = m < k ? top[(size_t)b * k + m] : -INFINITY;
   const bool ok = isfinite(s);
-  const int o = ok ? order[(size_t)b * k + m] : 0;
+  const int o = ok ? (int)order[(size_t)b * k + m] : 0;
   idx1[g] = o;
   idx2[g] = ok ? best_j[(size_t)b * K1 + o] : 0;
   valid[g] = ok;
@@ -198,7 +198,7 @@ SFM_API int sfm_match_compact(const void* top, const void* order, const void* be
                               void* dist, void* stream) {
   if (B * M > 0) {
     match_compact_kernel<<<(B * M + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(top), static_cast<const int*>(order),
+        static_cast<const float*>(top), static_cast<const int64_t*>(order),
         static_cast<const int*>(best_j), B, K1, k, M, static_cast<int64_t*>(idx1),
         static_cast<int64_t*>(idx2), static_cast<uint8_t*>(valid), static_cast<float*>(dist));
   }

@@ -116,13 +116,6 @@ __device__ void inv3_scaled(const T* A, T* out) {
     for (int j = 0; j < 3; ++j) out[i * 3 + j] = s[i] * (c[j][i] / det) * s[j];
 }
 
-// The shift of target i: its terms are at most gmax[i] each (float bits) and
-// number at most `count` (sfm_fx_shift_kernel's rule).
-template <typename T>
-__device__ __forceinline__ int max_shift(const unsigned int* gmax, int i, double count) {
-  return sfm_fx_shift_t<T>((double)__uint_as_float(gmax[i]) * count);
-}
-
 // Vinv of valid point p (the adjugate of the damped block), zero otherwise,
 // and h = Vinv g_p.
 template <typename T>
@@ -260,7 +253,7 @@ __global__ void __launch_bounds__(NT) damp_rhs_kernel(
   if (SH) sfm_fx_stage_zero<T>(s_stage, n);
   int shk[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) shk[k] = max_shift<T>(gmax, B * C + k, count);
+  for (int k = 0; k < 4; ++k) shk[k] = sfm_fx_max_shift<T>(gmax, B * C + k, count);
   __syncthreads();
   const int lane = threadIdx.x % 32;
   const int o0 = blockIdx.x * TILE + (threadIdx.x / 32) * WARP_OBS;
@@ -295,7 +288,7 @@ __global__ void __launch_bounds__(NT) damp_rhs_kernel(
       run = same ? c0 : -1;
       if (same)
 #pragma unroll
-        for (int k = 0; k < B; ++k) run_sh[k] = max_shift<T>(gmax, c0 * B + k, count);
+        for (int k = 0; k < B; ++k) run_sh[k] = sfm_fx_max_shift<T>(gmax, c0 * B + k, count);
     }
     if (same) {
       if (cam >= 0)
@@ -318,7 +311,7 @@ __global__ void __launch_bounds__(NT) damp_rhs_kernel(
     for (int k = 0; k < B; ++k) {
       SfmFxQ q = {0, 0};
       if (cam >= 0 && v[k] != T(0)) {
-        const int sh = max_shift<T>(gmax, cam * B + k, count);
+        const int sh = sfm_fx_max_shift<T>(gmax, cam * B + k, count);
         if (sh != SFM_FX_BAD) q = sfm_fx_q(v[k], sh);
       }
 #pragma unroll
@@ -369,7 +362,7 @@ __global__ void __launch_bounds__(NT) damp_rhs_kernel(
       if (i < n) {
         hi[u] = __ldcg(gacc + i);
         lo[u] = SfmFx<T>::WORDS == 2 ? __ldcg(gacc + n + i) : 0ull;
-        sh[u] = max_shift<T>(gmax, i, count);
+        sh[u] = sfm_fx_max_shift<T>(gmax, i, count);
         g[u] = i < B * C ? (double)g_c[i] : (double)g_k[i - B * C];
       }
     }

@@ -141,6 +141,13 @@ __device__ __forceinline__ int sfm_fx_shift_t(double bound) {
   return SfmFx<T>::TOP - e;
 }
 
+// The shift of target i whose terms, at most `count` of them, are at most
+// gmax[i] each (float bits, the two-pass sums' first pass).
+template <typename T>
+__device__ __forceinline__ int sfm_fx_max_shift(const unsigned int* gmax, int i, double count) {
+  return sfm_fx_shift_t<T>((double)__uint_as_float(gmax[i]) * count);
+}
+
 // |x| as the bits of a non-negative float, rounded up (a bound).
 __device__ __forceinline__ unsigned int sfm_fx_mag(float x) { return __float_as_uint(fabsf(x)); }
 __device__ __forceinline__ unsigned int sfm_fx_mag(double x) {
@@ -199,22 +206,11 @@ __device__ __forceinline__ double sfm_fx_value_t(const unsigned long long* acc, 
 
 // A block's staging copy of a two-pass order-free sum over n targets, in
 // shared memory (WORDS x n x 8 bytes): pass MAX keeps each target's largest
-// |term| (uint bits), pass ADD its fixed-point sum at the shifts `sh`. Zero
-// it, __syncthreads, put terms, __syncthreads, flush into the global copy.
+// |term| (uint bits), pass ADD its fixed-point sum. Zero it, __syncthreads,
+// put terms, __syncthreads, flush into the global copy.
 template <typename T>
 __device__ __forceinline__ void sfm_fx_stage_zero(unsigned long long* s, int n) {
   for (int i = threadIdx.x; i < SfmFx<T>::WORDS * n; i += blockDim.x) s[i] = 0ull;
-}
-
-template <typename T, bool ADD>
-__device__ __forceinline__ void sfm_fx_put(unsigned long long* s, int n, int i, T x,
-                                           const int* __restrict__ sh) {
-  if (ADD) {
-    sfm_fx_add_t<T>(s, n, i, x, sh[i]);
-  } else {
-    const unsigned int b = sfm_fx_mag(x);
-    if (b != 0u) atomicMax(reinterpret_cast<unsigned int*>(s) + i, b);
-  }
 }
 
 // A thread's own running part of one target: ADD keeps its terms' integer
@@ -274,31 +270,6 @@ __device__ __forceinline__ void sfm_fx_flush(const unsigned long long* s, int n,
     }
   }
 }
-
-// Where a kernel's terms go: with SH its block's staging copy in shared
-// memory (flushed at the end), else the global words themselves, in the same
-// layout (MAX: n uint32 bits; ADD: WORDS x n uint64), with the same integer
-// atomics: the same sums, so the same bits. The global route serves targets
-// too many for 227 KB of shared memory (BA with many cameras).
-template <bool ADD, bool SH>
-__device__ __forceinline__ unsigned long long* sfm_fx_target(unsigned long long* stage,
-                                                             unsigned int* gmax,
-                                                             unsigned long long* gacc) {
-  if (SH) return stage;
-  return ADD ? gacc : reinterpret_cast<unsigned long long*>(gmax);
-}
-
-namespace {
-// sh[i] for a target whose terms, at most `count` of them, are at most
-// gmax[i] each; a no-op when `flag` is given and 0.
-template <typename T>
-__global__ void sfm_fx_shift_kernel(const unsigned int* __restrict__ gmax, int n, double count,
-                                    const T* __restrict__ flag, int* __restrict__ sh) {
-  if (flag != nullptr && *flag == T(0)) return;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) sh[i] = sfm_fx_shift_t<T>((double)__uint_as_float(gmax[i]) * count);
-}
-}  // namespace
 
 // epipolar.py::symmetric_epipolar_distance of one row (x, y) <-> (u, v)
 // under the row-major F: lines F^T x2 in image 1 and F x1 in image 2.

@@ -12,38 +12,51 @@ import torch
 
 from sfm_tpu_torch import _kernels
 
-# topk_rows sorts a row's top-k survivors in shared memory (8 bytes each).
+# topk_rows sorts a row's top-k survivors in shared memory (8 bytes each on
+# its route for rows that do not fit there).
 _TOPK_MAX_K = 16384
 
 
 def top_k_plain(x: torch.Tensor, k: int):
-    """``lax.top_k`` on the last axis: largest first, ties to the lower index.
+    """``lax.top_k`` on the last axis of a float32 tensor: largest first in
+    IEEE total order (+0.0 above -0.0, a NaN above +inf, one with its sign
+    bit set below -inf, as ``lax.top_k`` orders), ties to the lower index.
 
-    ``torch.topk`` promises no order among ties; a stable descending sort
-    does.
+    ``torch.topk`` promises no order among ties and ``torch.sort`` takes -0.0
+    and +0.0 as equal; a stable descending sort of the floats' bits mapped to
+    integers of the same total order does neither.
     """
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    bits = x.contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    _, idx = torch.sort(key, dim=-1, descending=True, stable=True)
+    idx = idx[..., :k]
+    return torch.gather(x, -1, idx), idx
 
 
 def top_k_rows(rows: torch.Tensor, k: int):
     """Kernel K4's ``topk_rows`` on a contiguous (R, n) float32 CUDA tensor:
-    (values (R, k), indices (R, k) int32), ``lax.top_k``'s order."""
+    (values (R, k), indices (R, k) int64), ``lax.top_k``'s order."""
     R, n = rows.shape
     if k > min(n, _TOPK_MAX_K):
         raise ValueError(f"top_k: k={k} exceeds the row length {n} or {_TOPK_MAX_K}")
-    _kernels.check_tensor(rows, "x", torch.float32, (R, n), rows.device)
-    vals = torch.empty((R, k), dtype=torch.float32, device=rows.device)
-    idx = torch.empty((R, k), dtype=torch.int32, device=rows.device)
-    _kernels.launch("topk_rows", rows.device, rows, R, n, k, vals, idx)
+    dev = rows.device
+    _kernels.check_tensor(rows, "x", torch.float32, (R, n), dev)
+    vals = torch.empty((R, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((R, k), dtype=torch.int64, device=dev)
+    _kernels.launch("topk_rows", dev, rows, R, n, k, vals, idx)
     return vals, idx
 
 
 def top_k_cuda(x: torch.Tensor, k: int):
     n = x.shape[-1]
-    vals, idx = top_k_rows(x.reshape(-1, n).contiguous(), min(k, n))
-    lead = x.shape[:-1]
-    return vals.reshape(lead + (vals.shape[1],)), idx.long().reshape(lead + (vals.shape[1],))
+    rows = x if x.dim() == 2 else x.reshape(-1, n)
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
+    vals, idx = top_k_rows(rows, min(k, n))
+    if x.dim() == 2:
+        return vals, idx
+    shape = x.shape[:-1] + (vals.shape[1],)
+    return vals.view(shape), idx.view(shape)
 
 
 def top_k(x: torch.Tensor, k: int):

@@ -135,7 +135,7 @@ def match_compact_cuda(top_scores, order, best_j, max_matches: int):
     K1 = best_j.shape[1]
     dev = top_scores.device
     _kernels.check_tensor(top_scores, "top_scores", torch.float32, (B, k), dev)
-    _kernels.check_tensor(order, "order", torch.int32, (B, k), dev)
+    _kernels.check_tensor(order, "order", torch.int64, (B, k), dev)
     _kernels.check_tensor(best_j, "best_j", torch.int32, (B, K1), dev)
     M = max_matches
     out = {"idx1": torch.empty((B, M), dtype=torch.int64, device=dev),

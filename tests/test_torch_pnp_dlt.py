@@ -236,26 +236,32 @@ def _system(C, B, dt, P=4, O=8, G=4, Vs=2):
 
 @pytest.mark.parametrize("B,dt", ROUTES, ids=["b6_f32", "b10_f32", "b6_f64", "b10_f64"])
 def test_camera_sums_route_at_the_shared_memory_limit(monkeypatch, B, dt):
-    # Up to max_cameras a block stages its camera sums in shared memory,
-    # above it they go to global memory; the wrappers pass that choice to
-    # K10's rhs walk and K11's matvec and refuse no camera count.
+    # Up to max_cameras a block of K10's rhs walk stages its camera sums in
+    # shared memory, above it they go to global memory; the wrapper passes
+    # that choice. K11's matvec adds its camera-major runs straight into
+    # the global words at any camera count. No count is refused.
     cap = tschur.max_cameras(B, dt)
     assert tschur.camera_sums_in_shared(cap, B, dt)
     assert not tschur.camera_sums_in_shared(cap + 1, B, dt)
     calls = []
     monkeypatch.setattr(_kernels, "launch", lambda name, dev, *a: calls.append((name, a)))
+    Ov, R = 8, 4
     for C in (cap, cap + 1):
         lin, op, perm, perm_valid, m = _system(C, B, dt)
+        i32 = lambda *s: m(*s, dtype=torch.int32)
+        work = tschur.MatvecWork(walk=i32(Ov), row_start=i32(R + 1), cam_walk=i32(Ov),
+                                 cam_of=i32(Ov), terms=m((B + 4) * Ov), gmax=i32(B * C + 4),
+                                 ctrl=i32(2), acc=m(tschur._words(dt) * (B * C + 4),
+                                                    dtype=torch.int64))
         tschur.schur_damp_cuda(lin, 1e-3, perm, perm_valid)
-        tschur.schur_matvec_cuda(lin, op, m(C, B), m(4), perm, perm_valid)
+        tschur.schur_matvec_cuda(lin, op, m(C, B), m(4), perm, perm_valid, work)
     route = tschur.variant(B, dt)
     assert [c[0] for c in calls] == [f"schur_damp{route}", f"schur_matvec{route}"] * 2
     # schur_damp: (..., P, C, G, Vs, O, in_shared, lam, ...); schur_matvec:
-    # (..., x, C, G, Vs, in_shared, flag, ...).
+    # (..., x, walk, row_start, cam_walk, cam_of, C, G, Vs, R, Ov, flag, ...).
     assert [c[1][13] for c in calls[::2]] == [cap, cap + 1]
     assert [c[1][17] for c in calls[::2]] == [1, 0]
-    assert [c[1][12] for c in calls[1::2]] == [cap, cap + 1]
-    assert [c[1][15] for c in calls[1::2]] == [1, 0]
+    assert [c[1][14:19] for c in calls[1::2]] == [(cap, 4, 2, R, Ov), (cap + 1, 4, 2, R, Ov)]
 
 
 @pytest.mark.parametrize("which", ["rotation", "translation"])
