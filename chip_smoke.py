@@ -14,6 +14,14 @@
    ``topk_rows`` runs at each caller's shape (RANSAC's sampling without
    replacement too: 16,384 rows of 1,024 -> 8), each case's wrapper and
    ``torch.topk`` timed alike and its device time traced.
+   K10's coupling runs with its layout made once, as ``run_ba`` makes it,
+   and prints its wrapper and device time on every route; K7 runs its two
+   buckets, a bucket of the shape path d's engine launches most
+   (``PATH_D_TRIANGULATE``) and one of its whole-table launches
+   (``PATH_D_TABLE``), each case timed alone, with the camera tensors made
+   once as the engine makes them, and each also on the layout (a warp or a
+   thread a row) that the wrapper does not pick, which must give the same
+   bits.
    K11 (the matrix-free S x and the block-Jacobi PCG) and K10's block-Jacobi
    inverses run on a 300-camera / 60k-point / 600k-observation scene with
    20 cameras pinned, the matvec also with the observations in point-major
@@ -104,9 +112,8 @@
       ``cam_params`` and ``dtype``) with its cost finite and down; the runs
       of ``PATH_I_GATED`` held to path d's model gates, the others checked
       finite and printed; each run's ``engine/ba`` seconds beside path d's
-      and path h's. Paths h and i print each model beside the one it read
-      before K11's matvec was redesigned
-      (``MODELS_BEFORE_MATVEC_REDESIGN``);
+      and path h's. Every path prints its model beside the one it read
+      before K10's coupling and K7 were redesigned (``MODELS_BEFORE``);
    j. ``reconstruct`` on path a's artifacts with ``PATH_J_CONFIG``
       (``pnp.sample_size`` 6, PnP's DLT branch): ``pnp_dlt_solve``,
       ``pnp_score_select`` and ``pnp_refine`` launched and ``p3p_solve``
@@ -312,13 +319,19 @@ PATH_J_MIN_CAMERAS = 36 - 1
 # cameras less 5%, and its worst median plus 10%.
 PATH_D_MIN_CAMERAS = 140 - 7
 PATH_D_MAX_GT_DEG = 1.1 * 78.52
-# The models paths h and i read before K11's matvec was redesigned to read
-# the observations once (cameras, points, mean reprojection px, GT rotation
-# median deg; one smoke on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md
-# section 6). The redesign keeps every term, shift and rounding, so a run
-# must read the same; each run prints its model beside these, and the gates
-# above decide.
-MODELS_BEFORE_MATVEC_REDESIGN = {
+# The models every path read on the tree before K10's coupling and K7 were
+# redesigned (cameras, points, mean reprojection px, GT rotation median deg,
+# None where that run does not print it; one smoke on an NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md section 6). The redesigns keep
+# every term, shift, rounding and first-best rule, so a run must read the
+# same; each run prints its model beside these, and the gates decide.
+MODELS_BEFORE = {
+    "reconstruct": (36, 5138, 0.1318, 0.9620),
+    "rescue": (36, None, 0.1309, None),
+    "pipeline": (150, 18587, 0.5564, 22.6208),
+    "global": (36, 4813, 0.2279, 2.0195),
+    "polish": (150, 20221, 0.2495, 2.7112),
+    "orb": (36, 19316, 0.4209, 0.1754),
     "pipeline_huge": (235, 29097, 0.3227, 123.0414),
     "local_window": (300, 4229, 0.2148, 78.3882),
     "long_sequence": (153, 19836, 0.1570, 17.7777),
@@ -328,7 +341,15 @@ MODELS_BEFORE_MATVEC_REDESIGN = {
     "both_36": (14, 351, 1.8570, 48.5770),
     "both_pcg_36": (14, 356, 1.8879, 65.1932),
     "f64_pcg_36": (36, 5140, 0.1322, 0.7697),
+    "dlt": (36, 5137, 0.1312, 0.9771),
 }
+# The shape path d's engine launches K7 at most often: (rows, view slots,
+# cameras, seed pairs on); 548 of its 660 launches on the card's table
+# (PERF.md section 5).
+PATH_D_TRIANGULATE = (1024, 19, 150, True)
+# Its whole-table launch (27 of the 660, seed pairs off; path h's are 60 of
+# 41,090 rows): the wrapper runs it a thread a row.
+PATH_D_TABLE = (21267, 19, 150, False)
 HUGE_MIN_CAMERA_SHARE = {"pipeline_huge": 0.95 * 235 / 300,
                          "long_sequence": 0.95 * 153 / 300}
 # FAST's contrast gate (u8 scale) on the rendered corridor. Its band-limited
@@ -438,6 +459,17 @@ def median_ms(torch, fn, batches: int = 5, reps: int = 10) -> float:
 
 def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def coupling_ops(B, pvm) -> int:
+    """The operations of K10's coupling on this data, B parameters a camera:
+    5 B^2 for each of a point's slot pairs a <= b (the B x B block A_a M_b^T;
+    its mirror is a copy), 60 B + 48 for each valid slot (M = Jc^T Jp, A = M
+    Vinv, the k column Jc^T Jk - A Wk^T, its terms of Wk) and 140 for each
+    point (Wk Vinv Wk^T)."""
+    n = pvm.sum(1).long()
+    return int(5 * B * B * (n * (n + 1) // 2).sum() + (60 * B + 48) * n.sum()
+               + 140 * (n > 0).sum())
 
 
 def time_damp(torch, S, lin, lam, perm, pvm, op, xc, xk):
@@ -1114,8 +1146,8 @@ def phase_ba(torch, np, dev):
     """K8+K9 (linearize + cost) and K10 (Schur coupling) on the 100-camera scene."""
     from sfm_tpu_torch.ba.residuals import total_huber_cost_cuda, total_huber_cost_plain
     from sfm_tpu_torch.ba.schur import (
-        coobs_pairs, damp_operator, linearize_cuda, linearize_plain, schur_matrix_cuda,
-        schur_matrix_plain)
+        coobs_pairs, coupling_workspace, damp_operator, linearize_cuda, linearize_plain,
+        schur_matrix_cuda, schur_matrix_plain)
 
     rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = ba_scene(torch, np, dev)
     C, P, O = rvec.shape[0], pts.shape[0], obs_cam.shape[0]
@@ -1162,11 +1194,15 @@ def phase_ba(torch, np, dev):
     k89 = result(max(errs.values()), ms, plain_ms, lin_bytes, 400 * O)
 
     op, rhs_c, rhs_k = damp_operator(lk, 1e-3, perm, pvm)
-    Sk = schur_matrix_cuda(lk, op, perm, pvm)
+    # The layout and scratch once, as run_ba makes them for its LM loop.
+    cw = coupling_workspace(lk, perm, pvm)
+    coupling = lambda: schur_matrix_cuda(lk, op, perm, pvm, cw)
+    Sk = coupling()
     Sp = schur_matrix_plain(lk, op, perm, pvm)
     torch.cuda.synchronize()
-    check_repeatable(torch, "K10 schur_coupling", lambda: schur_matrix_cuda(lk, op, perm, pvm),
-                     Sk)
+    check_repeatable(torch, "K10 schur_coupling", coupling, Sk)
+    check_repeatable(torch, "K10 schur_coupling (its own layout)",
+                     lambda: schur_matrix_cuda(lk, op, perm, pvm), Sk)
     rhs = torch.cat([rhs_c.reshape(-1), rhs_k])[:, None]
     solve = lambda S: torch.cholesky_solve(rhs, torch.linalg.cholesky(S))[:, 0]
     s_err = _rel(Sk, Sp)
@@ -1178,15 +1214,17 @@ def phase_ba(torch, np, dev):
     check(bool(torch.isfinite(Sk).all()), "K10: S not finite")
     check(s_err <= 1e-4 and x_err <= 1e-2, f"K10: S rel err {s_err}, step rel err {x_err}")
     log(f"K10 schur_coupling: S ({Sk.shape[0]}^2) rel err {s_err:.2g}, solved step rel err "
-        f"{x_err:.2g} (grouping {tuple(perm.shape)})")
-    ms = time_ms(torch, lambda: schur_matrix_cuda(lk, op, perm, pvm))
+        f"{x_err:.2g} (grouping {tuple(perm.shape)}; layout {cw.pairs.shape[0]} slot pairs, "
+        f"{cw.items.shape[0]} target blocks)")
+    ms = median_ms(torch, coupling)
+    dev_ms = device_ms(torch, coupling)
     plain_ms = time_ms(torch, lambda: schur_matrix_plain(lk, op, perm, pvm))
-    # ~200 FLOP per pair of one point's observation slots (this scene's data).
-    pairs = int((pvm.sum(1).long() ** 2).sum())
-    coupling = result(s_err, ms, plain_ms,
-                      nbytes(lk.Jc, lk.Jk, lk.Jp, lk.obs_cam, lk.obs_point, op.Vinv, perm, pvm, Sk),
-                      200 * pairs)
-    return k89, coupling
+    out = result(s_err, ms, plain_ms,
+                 nbytes(lk.Jc, lk.Jk, lk.Jp, lk.obs_cam, lk.obs_point, op.Vinv, perm, pvm, Sk),
+                 coupling_ops(6, pvm), device_ms=dev_ms)
+    log(f"K10 schur_coupling: wrapper {ms:.4f} ms, device {fmt_ms(dev_ms)}, bound "
+        f"{bound(out)[0]:.4f} ms by {bound(out)[1]}")
+    return k89, out
 
 
 def track_scene(torch, np, dev, T, V=36, C=36, seed=0):
@@ -1228,40 +1266,76 @@ def track_scene(torch, np, dev, T, V=36, C=36, seed=0):
 
 def phase_triangulate(torch, np, dev):
     """K7 on a 2048-row bucket (seed pairs off) and a 1024-row bucket (seed
-    pairs on, 8 seed views), then reproj_stats on the 2048-row table."""
+    pairs on, 8 seed views), each case timed alone, then on a bucket of the
+    shape path d's engine launches most (``PATH_D_TRIANGULATE``) and on one of
+    its whole table's (``PATH_D_TABLE``); each case also on the layout the
+    wrapper does not pick, which must give the same bits; then reproj_stats
+    on the 2048-row table."""
     from sfm_tpu_torch.reconstruction.incremental import (
-        reproj_stats_cuda, reproj_stats_plain, triangulate_tracks_cuda,
-        triangulate_tracks_plain)
+        reproj_stats_cuda, reproj_stats_plain, triangulate_cameras, triangulate_layout,
+        triangulate_tracks_cuda, triangulate_tracks_plain)
 
-    worst, ms, plain_ms, moved, ops = 0.0, 0.0, 0.0, 0, 0
-    for T, seed_on in ((2048, False), (1024, True)):
-        view_img, view_xy, registered, rvec, tvec, K = track_scene(torch, np, dev, T, seed=T)
+    cases = (("bucket, seed pairs off", 2048, 36, 36, False, 2048),
+             ("failures, seed pairs on", 1024, 36, 36, True, 1024),
+             ("path d's bucket", *PATH_D_TRIANGULATE, 7),
+             ("path d's whole table", *PATH_D_TABLE, 11))
+    worst, ms, plain_ms, dev_ms, moved, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
+    rows = []
+    for what, T, V, C, seed_on, seed in cases:
+        view_img, view_xy, registered, rvec, tvec, K = track_scene(torch, np, dev, T, V=V, C=C,
+                                                                   seed=seed)
         use = (view_img >= 0) & registered[view_img.long().clamp(min=0)]
         active = torch.ones(T, dtype=torch.bool, device=dev)
         args = (view_img, view_xy, use, active, rvec, tvec, K, 4.0, 0.0, 1, seed_on, 8)
-        pk, ok_k = triangulate_tracks_cuda(*args)
+        # The camera tensors once, as the engine makes them for a pass's buckets.
+        cams = triangulate_cameras(rvec, tvec, K)
+        kernel = lambda: triangulate_tracks_cuda(*args, cams=cams)
+        pk, ok_k = kernel()
+        check_repeatable(torch, f"K7 {what} (its own camera tensors)",
+                         lambda: triangulate_tracks_cuda(*args), (pk, ok_k))
+        layout = triangulate_layout(T, seed_on)
+        other = lambda: triangulate_tracks_cuda(*args, cams=cams, layout=1 - layout)
+        po, ok_o = other()
         pp, ok_p = triangulate_tracks_plain(*args)
         torch.cuda.synchronize()
+        check(torch.equal(po.view(torch.int32), pk.view(torch.int32)) and torch.equal(ok_o, ok_k),
+              f"K7 {what}: the two layouts differ")
         # Tolerance: ok equal in >= 99.5% of rows (another summation order
         # moves rows that sit on a gate); points of rows ok in both within 1e-3
         # relative.
         both = ok_k & ok_p
         mism = int((ok_k != ok_p).sum())
         err = float(((pk - pp).norm(dim=-1) / pp.norm(dim=-1).clamp(min=1.0))[both].max())
-        check(mism <= 0.005 * T, f"K7: ok differs in {mism} of {T} rows")
-        check(err <= 1e-3, f"K7: point rel err {err}")
-        log(f"K7 triangulate_tracks T={T} seed_pairs={seed_on}: {int(ok_p.sum())} ok, "
-            f"{mism} rows differ in ok, point rel err {err:.2g}")
-        worst = max(worst, err)
-        ms += time_ms(torch, lambda: triangulate_tracks_cuda(*args))
-        plain_ms += time_ms(torch, lambda: triangulate_tracks_plain(*args))
+        check(mism <= 0.005 * T, f"K7 {what}: ok differs in {mism} of {T} rows")
+        check(err <= 1e-3, f"K7 {what}: point rel err {err}")
+        wrap = median_ms(torch, kernel)
+        dk = device_ms(torch, kernel)
+        dk_other = device_ms(torch, other)
+        plain = time_ms(torch, lambda: triangulate_tracks_plain(*args))
         # Per row of L used views: L DLT rows (~100 FLOP each with their
         # reprojection), 8 4x4 inverse-iteration steps (~300); with seed pairs,
         # ~200 FLOP per pair of its first 8 views.
         L = use.sum(1).long()
-        moved += nbytes(view_img, view_xy, use, active, rvec, tvec, pk, ok_k)
-        ops += int((100 * L + 300).sum()) + (int((200 * L.clamp(max=8) ** 2).sum()) if seed_on
-                                             else 0)
+        case = result(err, wrap, plain, nbytes(view_img, view_xy, use, active, rvec, tvec, pk,
+                                               ok_k),
+                      int((100 * L + 300).sum()) + (int((200 * L.clamp(max=8) ** 2).sum())
+                                                    if seed_on else 0), device_ms=dk)
+        b_ms, b_by = bound(case)
+        log(f"K7 triangulate_tracks, {what} (T={T}, V={V}, C={C}, seed pairs {seed_on}): "
+            f"{int(ok_p.sum())} ok, {mism} rows differ in ok, point rel err {err:.2g}; wrapper "
+            f"{wrap:.4f} ms, device {fmt_ms(dk)} a {('warp', 'thread')[layout]} a row (a "
+            f"{('warp', 'thread')[1 - layout]} a row: {fmt_ms(dk_other)}, the same bits), bound "
+            f"{b_ms:.4f} ms by {b_by} (plain torch {plain:.4f} ms)")
+        rows.append({"case": what, "shape": [T, V, C], "seed_pairs": seed_on, "ms": wrap,
+                     "device_ms": dk, "layout": layout, "other_layout_device_ms": dk_other,
+                     "plain_ms": plain, "bound_ms": b_ms, "max_abs_err": err})
+        if what.startswith("path d"):
+            continue
+        # The kernel's row: the two buckets of the first design's smoke.
+        worst = max(worst, err)
+        ms, plain_ms = ms + wrap, plain_ms + plain
+        dev_ms = None if dk is None or dev_ms is None else dev_ms + dk
+        moved, ops = moved + case["bytes"], ops + case["ops"]
         if T == 2048:
             rargs = (view_img, view_xy, view_img >= 0, rvec, tvec, registered, K, pp, ok_p)
             ek, uk = reproj_stats_cuda(*rargs)
@@ -1272,7 +1346,9 @@ def phase_triangulate(torch, np, dev):
             log(f"  reproj_stats: use equal, max abs err {e_err:.3g} px; "
                 f"{time_ms(torch, lambda: reproj_stats_cuda(*rargs)):.4f} ms (plain torch "
                 f"{time_ms(torch, lambda: reproj_stats_plain(*rargs)):.4f} ms)")
-    return result(worst, ms, plain_ms, moved, ops)
+    out = result(worst, ms, plain_ms, moved, ops, device_ms=dev_ms)
+    out["cases"] = rows
+    return out
 
 
 def phase_pnp(torch, np, dev):
@@ -2170,11 +2246,12 @@ def phase_island(torch, np, dev, route):
     lam = 1e-3
     perm, pvm = args[10], args[11]
     op, rhs_c, rhs_k = S.damp_operator(lk, lam, perm, pvm)
-    Sk = S.schur_matrix_cuda(lk, op, perm, pvm)
+    cw = S.coupling_workspace(lk, perm, pvm)
+    coupling = lambda: S.schur_matrix_cuda(lk, op, perm, pvm, cw)
+    Sk = coupling()
     Sp = S.schur_matrix_plain(lk, op, perm, pvm)
     torch.cuda.synchronize()
-    check_repeatable(torch, f"K10 schur_coupling {tag}",
-                     lambda: S.schur_matrix_cuda(lk, op, perm, pvm), Sk)
+    check_repeatable(torch, f"K10 schur_coupling {tag}", coupling, Sk)
     s_err = _rel(Sk, Sp)
     rhs = torch.cat([rhs_c.reshape(-1), rhs_k])[:, None]
     solve = lambda M: torch.cholesky_solve(rhs.double(), torch.linalg.cholesky(M.double()))[:, 0]
@@ -2184,13 +2261,16 @@ def phase_island(torch, np, dev, route):
           f"{x_err}")
     log(f"K10 schur_coupling {tag}: S ({Sk.shape[0]}^2) rel err {s_err:.2g}, solved step "
         f"rel err {x_err:.2g}")
-    ms = time_ms(torch, lambda: S.schur_matrix_cuda(lk, op, perm, pvm))
+    ms = median_ms(torch, coupling)
+    dev_ms = device_ms(torch, coupling)
     plain_ms = time_ms(torch, lambda: S.schur_matrix_plain(lk, op, perm, pvm), reps=3, warmup=1)
-    pairs = int((pvm.sum(1).long() ** 2).sum())
     out["schur_coupling"] = result(
         s_err, ms, plain_ms,
         nbytes(lk.Jc, lk.Jk, lk.Jp, lk.obs_cam, lk.obs_point, op.Vinv, perm, pvm, Sk),
-        200 * B * B // 36 * pairs, peak=peak)
+        coupling_ops(B, pvm), peak=peak, device_ms=dev_ms)
+    b_ms, b_by = bound(out["schur_coupling"])
+    log(f"K10 schur_coupling {tag}: wrapper {ms:.4f} ms, device {fmt_ms(dev_ms)}, bound "
+        f"{b_ms:.4f} ms by {b_by}")
 
     (opk, rck, rkk), (opp, rcp, rkp) = (S.schur_damp_cuda(lk, lam, perm, pvm),
                                         S.schur_damp_plain(lk, lam))
@@ -3168,15 +3248,17 @@ def check_path_i(runs: dict, counts: dict, views: dict, ref_metrics: dict) -> li
 def log_model(name: str, out: Path):
     """Print a run's model as soon as it is written (path h's readings stay in
     the log whatever a later check finds), beside the model it read before
-    the matvec's redesign where ``MODELS_BEFORE_MATVEC_REDESIGN`` has one."""
+    the coupling's and K7's redesign (``MODELS_BEFORE``)."""
     st = json.loads((out / "reconstruction" / "stats.json").read_text())
     intr = json.loads((out / "reconstruction" / "intrinsics.json").read_text())
     now = (st["num_cameras"], st["num_points"], round(st["mean_reprojection_error"], 4),
            round(st.get("gt_rot_err_deg_median", float("nan")), 4))
-    before = MODELS_BEFORE_MATVEC_REDESIGN.get(name)
+    before = MODELS_BEFORE.get(name)
+    fmt = lambda x, f: "-" if x is None else format(x, f)
     was = ("" if before is None else
-           f" | before the matvec's redesign: {before[0]} cameras, {before[1]} points, "
-           f"{before[2]:.4f} px, {before[3]:.4f} deg: {'the same' if now == before else 'OTHER'}")
+           f" | before the coupling's and K7's redesign: {before[0]} cameras, "
+           f"{fmt(before[1], 'd')} points, {fmt(before[2], '.4f')} px, {fmt(before[3], '.4f')} "
+           f"deg: {'the same' if all(b is None or a == b for a, b in zip(now, before)) else 'OTHER'}")
     log(f"{name}: {st['num_cameras']} cameras, {st['num_points']} points, mean reprojection "
         f"{st['mean_reprojection_error']:.4f} px, GT rotation median "
         f"{st.get('gt_rot_err_deg_median', float('nan')):.4f} deg, ATE "
@@ -3349,6 +3431,7 @@ def main(argv=None) -> int:
                                                "--output_dir", str(out)], RECONSTRUCT_KERNELS)
         add(c, "reconstruct")
         rec_metrics = stage_seconds(out)
+        log_model("reconstruct", out)
         rec_peak = torch.cuda.max_memory_allocated()
         # The same reconstruct again on the same pair table: the model must
         # repeat bit for bit (the BA sums are order-free).
@@ -3381,6 +3464,7 @@ def main(argv=None) -> int:
                         RESCUE_KERNELS)
         add(c, "rescue")
         rescue_metrics = stage_seconds(rescue)
+        log_model("rescue", rescue)
 
         # ---- path d: python -m sfm_tpu_torch pipeline on the retrieval-scale scene
         wait_for(large)
@@ -3406,6 +3490,7 @@ def main(argv=None) -> int:
                                 GLOBAL_KERNELS)
         add(c, "global")
         glob_metrics = stage_seconds(glob)
+        log_model("global", glob)
 
         # ---- path f: reconstruct --polish on path d's 150-view artifacts
         pol = work / f"polish_{args.large_views}"
@@ -3416,6 +3501,7 @@ def main(argv=None) -> int:
                                POLISH_KERNELS)
         add(c, "polish")
         pol_metrics = stage_seconds(pol)
+        log_model("polish", pol)
 
         # ---- path g: pipeline --feature_kind orb on the --views scene
         orb = work / f"orb_{args.views}"
@@ -3428,6 +3514,7 @@ def main(argv=None) -> int:
                                ORB_KERNELS, entries=ORB_ENTRIES, forbidden=SIFT_ONLY_ENTRIES)
         add(c, "orb")
         orb_metrics = stage_seconds(orb)
+        log_model("orb", orb)
         orb_peak = torch.cuda.max_memory_allocated()
 
         # ---- path h: pipeline past use_dense_schur_below images (PCG), then

@@ -43,8 +43,8 @@ SIGNATURES = {
                           _I, _P, _F, _F, _P, _P, _P],
     "sfm_ba_linearize": [_P] * 12 + [_I] * 5 + [_F, _I] + [_P] * 13 + [_P],
     "sfm_ba_cost": [_P] * 8 + [_I, _F, _P, _P] + [_P],
-    "sfm_schur_coupling": [_P] * 10 + [_I] * 3 + [_P] * 3 + [_P],
-    "sfm_triangulate_tracks": [_P] * 9 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P, _P] + [_P],
+    "sfm_schur_coupling": [_P] * 15 + [_I] * 5 + [_P] * 5 + [_P],
+    "sfm_triangulate_tracks": [_P] * 9 + [_I] * 3 + [_F, _F] + [_I] * 4 + [_P, _P] + [_P],
     "sfm_reproj_stats": [_P] * 9 + [_I] * 3 + [_P, _P] + [_P],
     "sfm_p3p_solve": [_P, _P, _I, _P, _P, _P] + [_P],
     "sfm_pnp_score_select": [_P] * 7 + [_I] * 3 + [_F] + [_P] * 3 + [_P],

@@ -24,8 +24,8 @@ from sfm_tpu_torch.config import BAConfig
 from sfm_tpu_torch.ba.problem import BAProblem
 from sfm_tpu_torch.ba.residuals import total_huber_cost
 from sfm_tpu_torch.ba.schur import (
-    back_substitute, coobs_pairs, damp_operator, damp_workspace, dense_schur_direct, linearize,
-    matvec_workspace, pcg_solve)
+    back_substitute, coobs_pairs, coupling_workspace, damp_operator, damp_workspace,
+    dense_schur_direct, linearize, matvec_workspace, pcg_solve)
 
 _REG_A = np.array([
     [1.0, 0.0, 0.0, 0.0],   # fx anchored to its initial value
@@ -149,9 +149,11 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
     init_cost = total_cost(rvec, tvec, intr, points)
     lin = linearize_at(rvec, tvec, intr, points)
     # K10's and K11's scratch, once for the problem's shapes (their kernels
-    # clear it), and K11's walk order of the grouping.
+    # clear it), and the coupling's and K11's walk orders of the grouping.
     work = damp_workspace(lin) if dev.type == "cuda" else None
     mv_work = matvec_workspace(lin, perm, perm_valid) if pcg and dev.type == "cuda" else None
+    s_work = (coupling_workspace(lin, perm, perm_valid) if not pcg and dev.type == "cuda"
+              else None)
     cost = float(init_cost)
     lam = np.float32(config.init_lambda)
     it = n_acc = 0
@@ -165,7 +167,7 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
                                       config.cg_iters, config.cg_tol, work=mv_work)
             cg_steps.append(steps)
         else:
-            xc, xk = dense_schur_direct(op, lin, rhs_c, rhs_k, perm, perm_valid)
+            xc, xk = dense_schur_direct(op, lin, rhs_c, rhs_k, perm, perm_valid, s_work)
         dp = back_substitute(lin, op, xc, xk, perm, perm_valid)
         # The step leaves the island as float32 (lm.py:229-231).
         xc, xk, dp = (x.to(torch.float32) for x in (xc, xk, dp))

@@ -18,9 +18,10 @@ its tensors; each kernel entry below has one instantiation a route
   :func:`rhs_term_bound`), its twin :func:`schur_damp_plain`;
 * :func:`dense_schur_direct` assembles the reduced camera + intrinsics
   system S from the per-point co-observation grouping
-  (:func:`coobs_pairs`) -- the coupling accumulation is kernel K10
-  (``csrc/schur_coupling.cu``, which also adds the camera blocks
-  U_c + diag(lambda D_c)), its twin :func:`schur_matrix_plain` -- and
+  (:func:`coobs_pairs`) -- kernel K10 (``csrc/schur_coupling.cu``: the
+  coupling, the camera blocks U_c + diag(lambda D_c) and the intrinsics
+  row and column, walking the :func:`coupling_layout` of the grouping,
+  built once a problem), its twin :func:`schur_matrix_plain` -- and
   solves it by Cholesky (``torch.linalg.cholesky_ex``, a library call);
 * :func:`back_substitute` recovers the point step -- K10's
   ``schur_back_substitute``, its twin :func:`schur_back_substitute_plain`;
@@ -52,6 +53,9 @@ from sfm_tpu_torch.ba.residuals import (
     huber_weights, residuals_and_jacobians, residuals_and_jacobians_percam)
 
 _EPS = 1e-10
+# A slot pair of K10's coupling layout keeps its orientation in the bits of
+# its second slot's number from here up (csrc/schur_coupling.cu).
+_PAIR_FLAG_SHIFT = 30
 # Bytes of shared memory a block of K10's rhs walk holds for its camera sums
 # on the H100 (227 KB).
 _SMEM_BYTES = 232_448
@@ -498,42 +502,140 @@ def schur_matrix_plain(lin: Linearization, op: Damped, perm, perm_valid):
     return S
 
 
-def schur_matrix_cuda(lin: Linearization, op: Damped, perm, perm_valid):
+def coupling_layout(perm, perm_valid, obs_cam, C: int):
+    """K10 ``schur_coupling``'s walk over the :func:`coobs_pairs` grouping, on
+    its device: (pairs, items, cam_slots, row_slot), int32.
+
+    The valid slots are numbered row by row, each row's leading valid run in
+    order (``row_slot`` (G,): the number of a row's first slot). ``pairs``
+    (Np, 2): every point's slot pairs a <= b, as (slot a, slot b | flags <<
+    30), sorted (stably) by their target block (P, Q) = (min, max) of the two
+    slots' cameras. flags 1: the term A_a M_b^T lands at (c_a, c_b) in block
+    (P, Q) as it is (c_a < c_b, or a == b); 2: at its mirror (c_a > c_b); 3:
+    both (a != b in one camera). ``items`` (Ni, 4): (P, Q, start, end) of
+    every camera's diagonal block, every camera pair with a slot pair, each
+    camera's k block (Q = C, a run of ``cam_slots``) and the k-k block
+    (P = Q = C), the longest runs first. ``cam_slots`` (Ov,): the slots in
+    camera-major order (a stable sort). Two host syncs."""
+    dev = perm.device
+    lead = torch.cumprod(perm_valid.to(torch.int32), dim=1).bool()
+    nv = lead.sum(1)
+    row_slot = torch.cumsum(nv, 0) - nv
+    g, a = torch.nonzero(lead, as_tuple=True)            # the valid slots, in their order
+    cnt = nv[g] - a                                       # the slots b >= a of each a
+    n_pairs = int(cnt.sum())
+    if n_pairs >= 2**31 or len(a) >= 2**_PAIR_FLAG_SHIFT:
+        raise ValueError(f"K10 schur_coupling: {n_pairs} slot pairs over {len(a)} slots "
+                         "exceed the int32 layout")
+    rep = torch.repeat_interleave(torch.arange(len(a), device=dev), cnt)
+    w_b = rep + (torch.arange(n_pairs, device=dev) - (torch.cumsum(cnt, 0) - cnt)[rep])
+    cam = obs_cam.long()[perm[g, a].long()]               # each slot's camera
+    ca, cb = cam[rep], cam[w_b]
+    flags = torch.where((w_b == rep) | (ca < cb), 1, torch.where(ca > cb, 2, 3))
+    key, order = torch.sort(torch.minimum(ca, cb) * C + torch.maximum(ca, cb), stable=True)
+    pairs = torch.stack([rep[order], w_b[order] | (flags[order] << _PAIR_FLAG_SHIFT)], 1)
+    # One item a target block: the diagonal blocks always (they hold U + lam D).
+    keys, counts = torch.unique_consecutive(key, return_counts=True)
+    ends = torch.cumsum(counts, 0)
+    diag = torch.arange(C, device=dev) * (C + 1)
+    empty = diag[~torch.isin(diag, keys)]          # cameras with no slot pair
+    zero = torch.zeros_like(empty)
+    keys = torch.cat([keys, empty])
+    starts, ends = torch.cat([ends - counts, zero]), torch.cat([ends, zero])
+    cam_slots = torch.argsort(cam, stable=True)
+    cam_start = torch.zeros(C + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.bincount(cam, minlength=C), 0, out=cam_start[1:])
+    cams = torch.arange(C, device=dev)
+    last = torch.tensor([[C, C, 0, 0]], device=dev)
+    items = torch.cat([torch.stack([keys // C, keys % C, starts, ends], 1),
+                       torch.stack([cams, torch.full_like(cams, C), cam_start[:-1],
+                                    cam_start[1:]], 1), last])
+    items = items[torch.argsort(items[:, 3] - items[:, 2], descending=True, stable=True)]
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    return i32(pairs), i32(items), i32(cam_slots), i32(row_slot)
+
+
+class CouplingWork(NamedTuple):
+    """K10 ``schur_coupling``'s layout (:func:`coupling_layout`) and scratch for
+    one BA problem, made once and reused by every S of its LM loop
+    (``csrc/schur_coupling.cu``): ``kk`` and ``ctrl`` are zero between calls
+    (the kernel clears them)."""
+
+    pairs: torch.Tensor      # (Np, 2) int32
+    items: torch.Tensor      # (Ni, 4) int32
+    cam_slots: torch.Tensor  # (Ov,) int32
+    row_slot: torch.Tensor   # (G,) int32
+    terms: torch.Tensor      # (12 B Ov,) each valid slot's A, M and k-column rows of 4
+    kk: torch.Tensor         # (16 WORDS,) int64 fixed-point sums of S_kk's coupling
+    ctrl: torch.Tensor       # (2,) int32: the walk's blocks arrived, a term out of bounds
+    er: torch.Tensor         # (BC + 4,) int32: each row's exponent, written a call
+
+
+def coupling_workspace(lin: Linearization, perm, perm_valid) -> CouplingWork:
+    """The :class:`CouplingWork` of ``lin``'s shapes and grouping, on its device."""
+    C = lin.U.shape[0]
+    B, dt, _ = _block(lin)
+    dev = lin.U.device
+    pairs, items, cam_slots, row_slot = coupling_layout(perm, perm_valid, lin.obs_cam, C)
+    return CouplingWork(pairs=pairs, items=items, cam_slots=cam_slots, row_slot=row_slot,
+                        terms=torch.empty(12 * B * len(cam_slots), dtype=dt, device=dev),
+                        kk=torch.zeros(16 * _words(dt), dtype=torch.int64, device=dev),
+                        ctrl=torch.zeros(2, dtype=torch.int32, device=dev),
+                        er=torch.empty(B * C + 4, dtype=torch.int32, device=dev))
+
+
+def schur_matrix_cuda(lin: Linearization, op: Damped, perm, perm_valid,
+                      work: Optional[CouplingWork] = None):
     C, P = lin.U.shape[0], op.Vinv.shape[0]
     B, dt, route = _block(lin)
     dev = lin.U.device
     _, _, G, Vs = _check_system(lin, perm, perm_valid, (
         ("Vinv", op.Vinv, dt, (P, 3, 3)), ("U", lin.U, dt, (C, B, B)),
-        ("lam_diag_c", op.lam_diag_c, dt, (C, B))))
-    # The kernel adds the camera blocks U_c + diag(lam D_c) into the zeroed S;
-    # the coupling's order-free sums take a WORDS x (n, n) int64 scratch.
+        ("lam_diag_c", op.lam_diag_c, dt, (C, B)), ("Uk", lin.Uk, dt, (4, 4)),
+        ("lam_diag_k", op.lam_diag_k, dt, (4,))))
+    if work is None:
+        work = coupling_workspace(lin, perm, perm_valid)
+    Np, Ni, Ov = work.pairs.shape[0], work.items.shape[0], work.cam_slots.shape[0]
+    for name, x, dtype, shape in (
+            ("pairs", work.pairs, torch.int32, (Np, 2)), ("items", work.items, torch.int32, (Ni, 4)),
+            ("cam_slots", work.cam_slots, torch.int32, (Ov,)),
+            ("row_slot", work.row_slot, torch.int32, (G,)),
+            ("terms", work.terms, dt, (12 * B * Ov,)),
+            ("kk", work.kk, torch.int64, (16 * _words(dt),)),
+            ("ctrl", work.ctrl, torch.int32, (2,)), ("er", work.er, torch.int32, (B * C + 4,))):
+        _kernels.check_tensor(x, name, dtype, shape, dev)
+    # The walk reads a slot pair 8 bytes, an item and a row of terms 16 bytes a load.
+    if work.pairs.data_ptr() % 8 or work.items.data_ptr() % 16 or work.terms.data_ptr() % 16:
+        raise ValueError("K10 schur_coupling: the layout is not aligned")
     n = B * C + 4
-    S = torch.zeros((n, n), dtype=dt, device=dev)
-    S[B * C:, B * C:] = lin.Uk + torch.diag(op.lam_diag_k)
-    fx_acc = torch.empty((_words(dt) * n, n), dtype=torch.int64, device=dev)
-    fx_row = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    _kernels.launch("schur_coupling" + route, dev, lin.Jc, lin.Jk, lin.Jp, lin.obs_cam,
-                    lin.obs_point, op.Vinv, perm, perm_valid, lin.U, op.lam_diag_c, C, G, Vs,
-                    S, fx_acc, fx_row)
+    S = torch.empty((n, n), dtype=dt, device=dev)
+    _kernels.launch("schur_coupling" + route, dev, lin.Jc, lin.Jk, lin.Jp, lin.obs_point,
+                    op.Vinv, perm, perm_valid, lin.U, op.lam_diag_c, lin.Uk, op.lam_diag_k,
+                    work.pairs, work.items, work.cam_slots, work.row_slot, C, G, Vs, Ni, Ov, S,
+                    work.terms, work.kk, work.ctrl, work.er)
     return S
 
 
-def schur_matrix(lin: Linearization, op: Damped, perm, perm_valid):
-    """Kernel K10 on CUDA tensors, its plain twin on CPU tensors."""
+def schur_matrix(lin: Linearization, op: Damped, perm, perm_valid,
+                 work: Optional[CouplingWork] = None):
+    """Kernel K10 on CUDA tensors (over ``work``, a :func:`coupling_workspace`
+    made here when None), its plain twin on CPU tensors."""
     dev = lin.U.device
     if dev.type == "cuda":
-        return schur_matrix_cuda(lin, op, perm, perm_valid)
+        return schur_matrix_cuda(lin, op, perm, perm_valid, work)
     if dev.type == "cpu":
         return schur_matrix_plain(lin, op, perm, perm_valid)
     raise ValueError(f"schur_matrix: unsupported device {dev}")
 
 
-def dense_schur_direct(op: Damped, lin: Linearization, rhs_c, rhs_k, perm, perm_valid):
+def dense_schur_direct(op: Damped, lin: Linearization, rhs_c, rhs_k, perm, perm_valid,
+                       work: Optional[CouplingWork] = None):
     """Assemble S and solve S x = rhs by Cholesky (cuSOLVER on the card, in
     the island's dtype). A factorization that fails (S not positive
-    definite) yields a NaN step, which LM rejects."""
+    definite) yields a NaN step, which LM rejects. ``work``: the coupling's
+    :func:`coupling_workspace`, reused across an LM loop."""
     C, B = rhs_c.shape
-    S = schur_matrix(lin, op, perm, perm_valid)
+    S = schur_matrix(lin, op, perm, perm_valid, work)
     n = S.shape[0]
     S = S + _EPS * torch.eye(n, dtype=S.dtype, device=S.device)
     L, info = torch.linalg.cholesky_ex(S)

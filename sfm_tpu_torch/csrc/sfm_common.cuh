@@ -330,12 +330,11 @@ __device__ SfmCand sfm_block_best(SfmCand best) {
 }
 
 // ---- DLT triangulation as sfm_tpu_torch/geometry/triangulation.py, shared by
-// K7 (triangulate_tracks.cu) and K14 (seed_score.cu).
+// K7 (triangulate_tracks.cu) and, through sfm_geom.cuh's two-view DLT, K13
+// and K14.
 //
-// Adds the two row-normalized DLT rows of pixel (x, y) under the 3x4 camera P
-// to the 4x4 normal matrix A (A += q q^T per row).
-__device__ __forceinline__ void sfm_dlt_add(const float* P, float x, float y, float A[4][4]) {
-  float q[2][4];
+// The two row-normalized DLT rows q of pixel (x, y) under the 3x4 camera P.
+__device__ __forceinline__ void sfm_dlt_rows(const float* P, float x, float y, float q[2][4]) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     q[0][k] = x * P[8 + k] - P[k];
@@ -348,11 +347,25 @@ __device__ __forceinline__ void sfm_dlt_add(const float* P, float x, float y, fl
         1e-12f);
 #pragma unroll
     for (int k = 0; k < 4; ++k) q[m][k] /= nrm;
+  }
+}
+
+// The 4x4 normal matrix A += q q^T for both rows, the first row first.
+__device__ __forceinline__ void sfm_dlt_accumulate(const float q[2][4], float A[4][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) A[i][j] += q[m][i] * q[m][j];
-  }
+}
+
+// Adds the two row-normalized DLT rows of pixel (x, y) under the 3x4 camera P
+// to the 4x4 normal matrix A (A += q q^T per row).
+__device__ __forceinline__ void sfm_dlt_add(const float* P, float x, float y, float A[4][4]) {
+  float q[2][4];
+  sfm_dlt_rows(P, x, y, q);
+  sfm_dlt_accumulate(q, A);
 }
 
 // Smallest eigenvector of the 4x4 normal matrix (8 steps of inverse iteration

@@ -62,6 +62,12 @@ logger = logging.getLogger(__name__)
 # seed-pair views' slots in a 32-entry register array.
 _K7_MAX_VIEWS = 256
 _K7_MAX_SEED_VIEWS = 32
+# K7 runs a warp a row, or a thread a row (its layout 1) on launches with seed
+# pairs off and at least this many rows: there the warp's lanes all run each
+# 4x4 solve, and a thread a row already fills the H100. On the 150-view
+# corridor's table the two cross between 8,192 and 12,288 rows (PERF.md
+# section 6, K7's two layouts).
+_K7_THREAD_ROWS_FROM = 10240
 # Kernel K1-g stages descriptors through shared memory in chunks of 32 floats.
 _K1G_D_MULTIPLE = 32
 
@@ -144,8 +150,29 @@ def triangulate_tracks_plain(view_img, view_xy, use, active, rvec, tvec, K, max_
     return X, ok & active
 
 
+def triangulate_cameras(rvec, tvec, K):
+    """K7's camera tensors of the poses rvec / tvec (C, 3) under K (3, 3):
+    (P = K [R | t] (C, 3, 4), R (C, 3, 3), t (C, 3), the camera centers
+    (C, 3), (fx, fy, cx, cy)), contiguous. The engine makes them once a
+    triangulation pass and hands them to every bucket's launch."""
+    Rs = rodrigues(rvec)
+    P_all = K @ torch.cat([Rs, tvec[..., None]], dim=-1)
+    centers = -(Rs.mT @ tvec[..., None])[..., 0]
+    return (P_all.contiguous(), Rs.contiguous(), tvec.contiguous(), centers.contiguous(),
+            intrinsics_vector(K))
+
+
+def triangulate_layout(T, seed_pairs_on):
+    """K7's layout for a launch of T rows: 1 (a thread a row) with seed pairs
+    off from ``_K7_THREAD_ROWS_FROM`` rows on, else 0 (a warp a row)."""
+    return int(not seed_pairs_on and T >= _K7_THREAD_ROWS_FROM)
+
+
 def triangulate_tracks_cuda(view_img, view_xy, use, active, rvec, tvec, K, max_err,
-                            min_parallax_deg, robust_rounds, seed_pairs_on, n_seed):
+                            min_parallax_deg, robust_rounds, seed_pairs_on, n_seed, cams=None,
+                            layout=None):
+    """``layout`` 0 runs K7 a warp a row, 1 a thread a row (the same bits);
+    None picks by the launch's shape."""
     T, V = view_img.shape
     C = rvec.shape[0]
     dev = view_img.device
@@ -159,25 +186,33 @@ def triangulate_tracks_cuda(view_img, view_xy, use, active, rvec, tvec, K, max_e
     _kernels.check_tensor(view_xy, "view_xy", torch.float32, (T, V, 2), dev)
     _kernels.check_tensor(use, "use", torch.bool, (T, V), dev)
     _kernels.check_tensor(active, "active", torch.bool, (T,), dev)
-    Rs = rodrigues(rvec)
-    P_all = (K @ torch.cat([Rs, tvec[..., None]], dim=-1)).contiguous()
-    centers = (-(Rs.mT @ tvec[..., None])[..., 0]).contiguous()
+    if cams is None:
+        cams = triangulate_cameras(rvec, tvec, K)
+    for name, x, shape in zip(("P", "R", "t", "centers", "intrinsics"), cams,
+                              ((C, 3, 4), (C, 3, 3), (C, 3), (C, 3), (4,))):
+        _kernels.check_tensor(x, name, torch.float32, shape, dev)
+    if layout is None:
+        layout = triangulate_layout(T, seed_pairs_on)
+    if layout not in (0, 1):
+        raise ValueError(f"triangulate_tracks: layout {layout} is not 0 or 1")
     pts = torch.empty((T, 3), dtype=torch.float32, device=dev)
     ok = torch.empty((T,), dtype=torch.bool, device=dev)
-    _kernels.launch("triangulate_tracks", dev, view_img, view_xy, use, active, P_all,
-                    Rs.contiguous(), tvec.contiguous(), centers, intrinsics_vector(K), T, V, C,
+    _kernels.launch("triangulate_tracks", dev, view_img, view_xy, use, active, *cams, T, V, C,
                     float(max_err), float(min_parallax_deg), int(robust_rounds),
-                    int(bool(seed_pairs_on)), int(n_seed), pts, ok)
+                    int(bool(seed_pairs_on)), int(n_seed), layout, pts, ok)
     return pts, ok
 
 
 def triangulate_tracks(view_img, view_xy, use, active, rvec, tvec, K, *, max_err=4.0,
-                       min_parallax_deg=0.0, robust_rounds=1, seed_pairs_on=True, n_seed=8):
-    """Kernel K7 on CUDA tensors, :func:`triangulate_tracks_plain` on CPU."""
+                       min_parallax_deg=0.0, robust_rounds=1, seed_pairs_on=True, n_seed=8,
+                       cams=None):
+    """Kernel K7 on CUDA tensors (with ``cams``, the poses'
+    :func:`triangulate_cameras` when the caller has them),
+    :func:`triangulate_tracks_plain` on CPU."""
     args = (view_img, view_xy, use, active, rvec, tvec, K, max_err, min_parallax_deg,
             robust_rounds, seed_pairs_on, n_seed)
     if view_img.is_cuda:
-        return triangulate_tracks_cuda(*args)
+        return triangulate_tracks_cuda(*args, cams=cams)
     if view_img.device.type == "cpu":
         return triangulate_tracks_plain(*args)
     raise ValueError(f"triangulate_tracks: unsupported device {view_img.device}")
@@ -456,12 +491,12 @@ class StructureFromMotion:
         """K7 over the track rows ``rows`` (all of them when None)."""
         sel = slice(None) if rows is None else rows
         view_img = self._t(self.tracks.view_img[sel])
-        registered, rvec, tvec, K = pose_args
+        registered, rvec, tvec, K, cams = pose_args
         use = self._t(self.view_valid[sel]) & registered[
             view_img.long().clamp(0, self.num_images - 1)]
         return triangulate_tracks(view_img, self._t(self.tracks.view_xy[sel]), use,
                                   common.pop("active"), rvec, tvec, K,
-                                  seed_pairs_on=seed_pairs_on, **common)
+                                  seed_pairs_on=seed_pairs_on, cams=cams, **common)
 
     def _triangulate(self, max_err_mult: float = 1.0):
         """(Re)triangulate all tracks that lack a point but are now viewable.
@@ -482,8 +517,10 @@ class StructureFromMotion:
             common = dict(max_err=cfg_t.max_reproj_error * max_err_mult,
                           min_parallax_deg=cfg_t.min_parallax_deg,
                           robust_rounds=cfg_t.robust_rounds, n_seed=cfg_t.seed_pair_views)
-            pose_args = (self._t(self.registered), self._t(self.rvec), self._t(self.tvec),
-                         self._t(self._camera_matrix()))
+            rvec, tvec, K = self._t(self.rvec), self._t(self.tvec), self._t(self._camera_matrix())
+            # K7's camera tensors once for every bucket of this pass.
+            cams = triangulate_cameras(rvec, tvec, K) if rvec.is_cuda else None
+            pose_args = (self._t(self.registered), rvec, tvec, K, cams)
             T = self.tracks.view_img.shape[0]
             n_active = int(active.sum())
 
