@@ -586,12 +586,30 @@ def phase_match_top2(torch, dev):
         err = max(err, e)
         log(f"K1 match_top2 ({what}, {tuple(a[0].shape)}): max_abs_err {e:.3g}, row and "
             f"column indices equal in all {idx_k.numel()} rows and {back_k.numel()} columns")
-    ms = time_ms(torch, lambda: match_top2_cuda(*args, mutual=True))
+    call = lambda: match_top2_cuda(*args, mutual=True)
+    ms, dev_ms = median_ms(torch, call), device_ms(torch, call)
     plain_ms = time_ms(torch, lambda: match_top2_plain(*args, mutual=True))
     idx_k, best_k, sec_k, back_k = match_top2_cuda(*args, mutual=True)
     # 2 K^2 D FMA-FLOP per pair: one product serves both directions.
-    return result(err, ms, plain_ms, nbytes(*args, idx_k, best_k, sec_k, back_k),
-                  2 * B * K * K * D)
+    out = result(err, ms, plain_ms, nbytes(*args, idx_k, best_k, sec_k, back_k),
+                 2 * B * K * K * D, device_ms=dev_ms)
+    out["bmm_ms"] = bmm_ms(torch, args[0], args[2])
+    log(f"K1 match_top2 {B} x {K} x {K} x {D}: wrapper {ms:.4f} ms, device {fmt_ms(dev_ms)}, "
+        f"bound {bound(out)[0]:.4f} ms by {bound(out)[1]}; torch.bmm of the product alone in "
+        f"f32 {out['bmm_ms']:.4f} ms (a reference, not the same function)")
+    return out
+
+
+def bmm_ms(torch, d1, d2) -> float:
+    """``torch.bmm`` of K1's product alone, in full f32 (TF32 off): a reference
+    beside the kernel, not a library call of the same function (no distance,
+    top-2 or column argmin)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return median_ms(torch, lambda: torch.bmm(d1, d2.mT))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def phase_match_epilogue(torch, dev):
@@ -1013,11 +1031,18 @@ def phase_match_binary(torch, dev):
         log(f"K1 at D=256 ({what}, {tuple(a[0].shape)}): top-2, column argmin, epilogue and "
             f"the (B, {M}) match table identical to the twins; {int(ok_['valid'].sum())} "
             "matches kept")
-    top2 = {"ms": time_ms(torch, lambda: match_top2_cuda(*args, mutual=True)),
+    call = lambda: match_top2_cuda(*args, mutual=True)
+    top2 = {"ms": median_ms(torch, call, batches=5, reps=3),
+            "device_ms": device_ms(torch, call, reps=5),
             "plain_ms": time_ms(torch, lambda: match_top2_plain(*args, mutual=True), reps=3,
-                                warmup=1)}
+                                warmup=1),
+            "bmm_ms": bmm_ms(torch, args[0], args[2])}
     tk = match_top2_cuda(*args, mutual=True)
     top2.update(bytes=nbytes(*args, *tk), ops=2 * B * K * K * D, max_abs_err=0.0)
+    log(f"K1 match_top2 {B} x {K} x {K} x {D}: wrapper {top2['ms']:.4f} ms, device "
+        f"{fmt_ms(top2['device_ms'])}, bound {bound(top2)[0]:.4f} ms by {bound(top2)[1]}; "
+        f"torch.bmm of the product alone in f32 {top2['bmm_ms']:.4f} ms (a reference, not the "
+        "same function)")
     ep = (tk[0], tk[1], tk[2], args[1], tk[3], ratio)
     sk = match_epilogue_cuda(*ep)
     vk, ik = top_k_rows(sk, M)
@@ -1142,12 +1167,39 @@ def ba_scene(torch, np, dev, n_cams=100, n_pts=20000, obs_per_cam=2000, seed=0):
     return T(rvec), T(tvec), intr, T(pts), T(obs_cam), T(obs_point), xy.contiguous()
 
 
+def linearize_result(torch, what, call, args, lk, err, plain_ms, ops, peak=PEAK_F32_PER_S):
+    """K8+K9's row: the wrapper's time (median of five means of 10, over the
+    workspace made once, as ``run_ba`` calls it), the profiler's device time
+    and the bound (each input read once, each output written once)."""
+    ms, dev_ms = median_ms(torch, call), device_ms(torch, call)
+    moved = nbytes(*(a for a in args if isinstance(a, torch.Tensor))) + sum(
+        nbytes(getattr(lk, f)) for f in ("Jc", "Jk", "Jp", "rw", "V", "U", "Uk", "g_c", "g_k",
+                                         "g_p"))
+    out = result(err, ms, plain_ms, moved, ops, peak=peak, device_ms=dev_ms)
+    log(f"{what}: wrapper {ms:.4f} ms, device {fmt_ms(dev_ms)}, bound {bound(out)[0]:.4f} ms "
+        f"by {bound(out)[1]} (plain torch {plain_ms:.4f} ms)")
+    return out
+
+
+def cost_result(torch, what, call, plain, cargs, err):
+    """K8's ``ba_cost`` (``_b10``): wrapper, device and bound; ~80 FLOP an
+    observation (rotation, projection, Huber), its inputs read once."""
+    ms, dev_ms = median_ms(torch, call), device_ms(torch, call)
+    O = cargs[4].shape[0]
+    out = result(err, ms, time_ms(torch, plain),
+                 nbytes(*(a for a in cargs if isinstance(a, torch.Tensor))) + 8, 80 * O,
+                 device_ms=dev_ms)
+    log(f"{what}: wrapper {ms:.4f} ms, device {fmt_ms(dev_ms)}, bound {bound(out)[0]:.4f} ms "
+        f"by {bound(out)[1]} (plain torch {out['plain_ms']:.4f} ms)")
+    return out
+
+
 def phase_ba(torch, np, dev):
     """K8+K9 (linearize + cost) and K10 (Schur coupling) on the 100-camera scene."""
     from sfm_tpu_torch.ba.residuals import total_huber_cost_cuda, total_huber_cost_plain
     from sfm_tpu_torch.ba.schur import (
         coobs_pairs, coupling_workspace, damp_operator, linearize_cuda, linearize_plain,
-        schur_matrix_cuda, schur_matrix_plain)
+        linearize_workspace, schur_matrix_cuda, schur_matrix_plain)
 
     rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = ba_scene(torch, np, dev)
     C, P, O = rvec.shape[0], pts.shape[0], obs_cam.shape[0]
@@ -1160,10 +1212,14 @@ def phase_ba(torch, np, dev):
     greg = torch.zeros(4, device=dev)
     args = (rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy, obs_w, cam_free,
             torch.ones(P, dtype=torch.bool, device=dev), perm, pvm, 2.0, True, Hreg, greg)
-    lk = linearize_cuda(*args)
+    # The layout and scratch once, as run_ba makes them for its LM loop.
+    lw = linearize_workspace(perm, pvm, obs_cam, obs_point, obs_w, C, P, 6, torch.float32)
+    lk = linearize_cuda(*args, work=lw)
     lp = linearize_plain(*args)
     torch.cuda.synchronize()
-    check_repeatable(torch, "K8+K9 ba_linearize", lambda: linearize_cuda(*args), lk)
+    check_repeatable(torch, "K8+K9 ba_linearize", lambda: linearize_cuda(*args, work=lw), lk)
+    check_repeatable(torch, "K8+K9 ba_linearize (its own layout)",
+                     lambda: linearize_cuda(*args), lk)
     # Tolerance: the analytic Jacobians against torch.func.jacrev (an
     # independent derivation), 1e-4 of each tensor's largest entry; the
     # reductions (fixed-point sums against the twin's float sums) 1e-3.
@@ -1182,16 +1238,12 @@ def phase_ba(torch, np, dev):
     check(cost_err <= 1e-5, f"K8 ba_cost: rel err {cost_err}")
     log("K8+K9 ba_linearize: rel err " + ", ".join(f"{f} {e:.2g}" for f, e in errs.items())
         + f"; ba_cost rel err {cost_err:.2g} ({O} obs, {C} cams, {P} points)")
-    ms = time_ms(torch, lambda: linearize_cuda(*args))
     plain_ms = time_ms(torch, lambda: linearize_plain(*args))
-    lin_bytes = nbytes(*(a for a in args if isinstance(a, torch.Tensor))) + sum(
-        nbytes(getattr(lk, f)) for f in ("Jc", "Jk", "Jp", "rw", "V", "U", "Uk", "g_c", "g_k",
-                                         "g_p"))
-    cost_ms = time_ms(torch, lambda: total_huber_cost_cuda(*cargs))
-    cost_plain_ms = time_ms(torch, lambda: total_huber_cost_plain(*cargs))
-    log(f"  ba_cost: {cost_ms:.4f} ms (plain torch {cost_plain_ms:.4f} ms)")
     # ~400 FLOP per observation (projection, analytic Jacobians, whitening, sums).
-    k89 = result(max(errs.values()), ms, plain_ms, lin_bytes, 400 * O)
+    k89 = linearize_result(torch, "K8+K9 ba_linearize", lambda: linearize_cuda(*args, work=lw),
+                           args, lk, max(errs.values()), plain_ms, 400 * O)
+    k89["cost"] = cost_result(torch, "K8 ba_cost", lambda: total_huber_cost_cuda(*cargs),
+                              lambda: total_huber_cost_plain(*cargs), cargs, cost_err)
 
     op, rhs_c, rhs_k = damp_operator(lk, 1e-3, perm, pvm)
     # The layout and scratch once, as run_ba makes them for its LM loop.
@@ -2193,11 +2245,16 @@ def phase_island(torch, np, dev, route):
 
     args, kw = island_system(torch, np, dev, B, dt, *ISLAND_SCENE, 0)
     O = args[4].shape[0]
-    lk = S.linearize_cuda(*args, **kw)
+    # The layout and scratch once, as run_ba makes them for its LM loop.
+    lw = S.linearize_workspace(args[10], args[11], args[4], args[5], args[7],
+                               args[0].shape[0], args[3].shape[0], B, dt)
+    lk = S.linearize_cuda(*args, **kw, work=lw)
     lp = S.linearize_plain(*args, **kw)
     torch.cuda.synchronize()
-    check_repeatable(torch, f"K8+K9 ba_linearize {tag}", lambda: S.linearize_cuda(*args, **kw),
-                     lk)
+    check_repeatable(torch, f"K8+K9 ba_linearize {tag}",
+                     lambda: S.linearize_cuda(*args, **kw, work=lw), lk)
+    check_repeatable(torch, f"K8+K9 ba_linearize {tag} (its own layout)",
+                     lambda: S.linearize_cuda(*args, **kw), lk)
     for name in lk._fields:
         x = getattr(lk, name)
         if x is not None and x.is_floating_point():
@@ -2231,17 +2288,18 @@ def phase_island(torch, np, dev, route):
         cost_err = abs(float(ck) - float(cp)) / float(cp)
         check(cost_err <= 1e-5, f"K8 ba_cost_b10: rel err {cost_err}")
         errs["cost"] = cost_err
+        cost = cost_result(torch, "K8 ba_cost_b10", lambda: total_huber_cost_cuda(*cargs),
+                           lambda: total_huber_cost_plain(*cargs), cargs, cost_err)
     log(f"K8+K9 ba_linearize {tag}: rel err " + ", ".join(f"{f} {e:.2g}"
                                                          for f, e in errs.items()))
-    ms = time_ms(torch, lambda: S.linearize_cuda(*args, **kw))
     plain_ms = time_ms(torch, lambda: S.linearize_plain(*args, **kw))
-    lin_bytes = nbytes(*(a for a in args if isinstance(a, torch.Tensor))) + sum(
-        nbytes(getattr(lk, f)) for f in ("Jc", "Jk", "Jp", "rw", "V", "U", "Uk", "g_c", "g_k",
-                                         "g_p"))
     n_sums = B * (B + 1) // 2 + B
     # ~400 FLOP an observation at B = 6, 4 more for each further camera sum.
-    out["ba_linearize"] = result(max(errs.values()), ms, plain_ms, lin_bytes,
-                                 (400 + 4 * (n_sums - 27)) * O, peak=peak)
+    out["ba_linearize"] = linearize_result(
+        torch, f"K8+K9 ba_linearize {tag}", lambda: S.linearize_cuda(*args, **kw, work=lw), args,
+        lk, max(errs.values()), plain_ms, (400 + 4 * (n_sums - 27)) * O, peak=peak)
+    if B == 10 and not f64:
+        out["ba_linearize"]["cost"] = cost
 
     lam = 1e-3
     perm, pvm = args[10], args[11]
@@ -3781,6 +3839,16 @@ def main(argv=None) -> int:
         if "device_ms" in r:   # the profiler's kernel time beside the wrapper's
             row["device_ms"] = r["device_ms"]
             log(f"  {name}: device {fmt_ms(r['device_ms'])}")
+        if "bmm_ms" in r:   # K1: torch.bmm of the product alone (not the same function)
+            row["bmm_ms"] = r["bmm_ms"]
+        if "cost" in r:   # K8's ba_cost entry beside the linearization
+            b = r["cost"]
+            b_ms, b_by = bound(b)
+            row["cost"] = {"ms": b["ms"], "device_ms": b["device_ms"],
+                           "plain_ms": b["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+                           "max_abs_err": b["max_abs_err"]}
+            log(f"  {name}'s cost: {b['ms']:.4f} ms, device {fmt_ms(b['device_ms'])} (plain "
+                f"torch {b['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
         if "cases" in r:   # one row a caller's shape (topk_rows)
             row["cases"] = r["cases"]
         if "point_major" in r:   # K11's matvec on the same system in point-major order
@@ -3801,7 +3869,8 @@ def main(argv=None) -> int:
             b = r["d256"]
             b_ms, b_by = bound(b)
             row["d256"] = {"ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b_ms,
-                           "bound_by": b_by, "max_abs_err": b["max_abs_err"]}
+                           "bound_by": b_by, "max_abs_err": b["max_abs_err"],
+                           **{k: b[k] for k in ("device_ms", "bmm_ms") if k in b}}
             log(f"  {name} at D=256: {b['ms']:.4f} ms (plain torch {b['plain_ms']:.4f} ms, "
                 f"bound {b_ms:.4f} ms by {b_by}: {b['bytes']} B, {b['ops']} op)")
         kernels.append(row)

@@ -41,7 +41,7 @@ SIGNATURES = {
     "sfm_dog_extrema": [_P, _I, _I, _I, _I, _F, _P, _P],
     "sfm_sift_describe": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _I, _P, _F, _F, _P, _P, _P],
-    "sfm_ba_linearize": [_P] * 12 + [_I] * 5 + [_F, _I] + [_P] * 13 + [_P],
+    "sfm_ba_linearize": [_P] * 17 + [_I] * 7 + [_F, _I] + [_P] * 13 + [_P],
     "sfm_ba_cost": [_P] * 8 + [_I, _F, _P, _P] + [_P],
     "sfm_schur_coupling": [_P] * 15 + [_I] * 5 + [_P] * 5 + [_P],
     "sfm_triangulate_tracks": [_P] * 9 + [_I] * 3 + [_F, _F] + [_I] * 4 + [_P, _P] + [_P],
@@ -105,8 +105,9 @@ SIGNATURES["sfm_ba_cost_b10"] = SIGNATURES["sfm_ba_cost"]
 KERNELS += ("ba_cost_b10",)
 
 # Called once, on the first launch, on that device's stream: per-function
-# attributes (the opt-in shared memory of K10's staged walk and K4's topk_rows).
-SETUP = ("sfm_schur_damp_setup", "sfm_topk_setup")
+# attributes (the opt-in shared memory of K10's staged walk, K4's topk_rows
+# and K1's resident rows).
+SETUP = ("sfm_schur_damp_setup", "sfm_topk_setup", "sfm_match_setup")
 SIGNATURES.update({name: [_P] for name in SETUP})
 
 _launches = {k: 0 for k in KERNELS}

@@ -25,7 +25,8 @@ from sfm_tpu_torch.ba.problem import BAProblem
 from sfm_tpu_torch.ba.residuals import total_huber_cost
 from sfm_tpu_torch.ba.schur import (
     back_substitute, coobs_pairs, coupling_workspace, damp_operator, damp_workspace,
-    dense_schur_direct, linearize, matvec_workspace, pcg_solve)
+    dense_schur_direct, grouping_order, linearize, linearize_workspace, matvec_workspace,
+    pcg_solve)
 
 _REG_A = np.array([
     [1.0, 0.0, 0.0, 0.0],   # fx anchored to its initial value
@@ -112,6 +113,14 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
     pt_ok = problem.point_valid[problem.obs_point.long()]
     obs_w = (problem.obs_valid & cam_ok & pt_ok).to(torch.float32)
     obs = (problem.obs_cam, problem.obs_point, problem.obs_xy, obs_w)
+    # The grouping's camera-major order and K8+K9's layout and scratch, once
+    # for the problem (its kernels clear the scratch); K10's and K11's walk
+    # orders start from the same order below.
+    cuda = dev.type == "cuda"
+    grouping = grouping_order(perm, perm_valid, problem.obs_cam) if cuda else None
+    lin_work = (linearize_workspace(perm, perm_valid, problem.obs_cam, problem.obs_point, obs_w,
+                                    C, P, route["cam_params"], dtype, grouping)
+                if cuda else None)
 
     def total_cost(rvec, tvec, intr, points):
         c = total_huber_cost(rvec, tvec, intr, points, *obs, delta)
@@ -137,7 +146,7 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
             extra = {"U_extra": U_extra.to(dtype), "g_c_extra": g_c_extra.to(dtype)}
         return linearize(rvec, tvec, intr, points, *obs, cam_free, problem.point_valid,
                          perm, perm_valid, delta, optimize_intrinsics, Hreg, greg, dtype=dtype,
-                         **extra)
+                         work=lin_work, **extra)
 
     intr0 = problem.intr
     if percam:
@@ -150,10 +159,9 @@ def run_ba(problem: BAProblem, config: BAConfig = BAConfig(), intr_ref=None,
     lin = linearize_at(rvec, tvec, intr, points)
     # K10's and K11's scratch, once for the problem's shapes (their kernels
     # clear it), and the coupling's and K11's walk orders of the grouping.
-    work = damp_workspace(lin) if dev.type == "cuda" else None
-    mv_work = matvec_workspace(lin, perm, perm_valid) if pcg and dev.type == "cuda" else None
-    s_work = (coupling_workspace(lin, perm, perm_valid) if not pcg and dev.type == "cuda"
-              else None)
+    work = damp_workspace(lin) if cuda else None
+    mv_work = matvec_workspace(lin, perm, perm_valid, grouping) if pcg and cuda else None
+    s_work = coupling_workspace(lin, perm, perm_valid, grouping) if not pcg and cuda else None
     cost = float(init_cost)
     lam = np.float32(config.init_lambda)
     it = n_acc = 0

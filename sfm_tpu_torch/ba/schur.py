@@ -10,8 +10,10 @@ its tensors; each kernel entry below has one instantiation a route
 
 * :func:`linearize` computes everything that depends only on the
   parameters (whitened Jacobians, undamped U/V blocks, gradients) -- kernel
-  K8+K9 (``csrc/ba_linearize.cu``) on a CUDA tensor; on a CPU tensor its
-  twin, ``residuals_and_jacobians`` + :func:`linearize_system`;
+  K8+K9 (``csrc/ba_linearize.cu``: a row pass and a sum pass over the
+  :func:`linearize_layout` of the grouping, chunks of one camera's rows,
+  built once a problem) on a CUDA tensor; on a CPU tensor its twin,
+  ``residuals_and_jacobians`` + :func:`linearize_system`;
 * :func:`damp_operator` applies a given lambda -- kernel K10's
   ``schur_damp`` (``csrc/schur_damp.cu``: the adjugate inverses of the damped
   point blocks and the reduced right-hand side, its sums shifted by
@@ -188,9 +190,115 @@ def linearize_plain(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w,
                             U_extra=U_extra, g_c_extra=g_c_extra)
 
 
+# K8+K9's chunk table (linearize_layout) aims at four blocks an SM of the
+# H100's 132, in chunks of at least this many rows.
+_LIN_GRID = 4 * 132
+_LIN_MIN_ROWS = 128
+
+
+def grouping_order(perm, perm_valid, obs_cam):
+    """The :func:`coobs_pairs` grouping's valid slots in camera-major order,
+    on its device: (walk, cams, cam_walk). ``walk`` (Ov,): each row's
+    leading run of valid slots, rows in order, as their observations;
+    ``cams`` (Ov,): each slot's camera; ``cam_walk`` (Ov,) int64: the slots
+    in camera-major order (a stable sort by camera). K8+K9's, K10's coupling
+    and K11's layouts start from it (:func:`linearize_layout`,
+    :func:`coupling_layout`, :func:`matvec_layout`), and ``run_ba`` makes it
+    once for all three."""
+    lead = torch.cumprod(perm_valid.to(torch.int32), dim=1).bool()
+    walk = perm[lead]
+    cams = obs_cam[walk.long()]
+    return walk, cams, torch.argsort(cams, stable=True)
+
+
+def linearize_layout(perm, perm_valid, obs_cam, obs_point, obs_w, C: int, P: int,
+                     grouping=None):
+    """K8+K9 ``ba_linearize``'s walk over the :func:`coobs_pairs` grouping, on
+    its device: (rows, chunks, rest, orphans), int32.
+
+    ``rows`` (Ov,): the grouping's valid rows in camera-major order
+    (:func:`grouping_order`, given as ``grouping`` or made here); ``chunks``
+    (N, 4): (camera, start, end, the camera's number of chunks), each
+    camera's run of ``rows`` cut into near-equal chunks of at most
+    max(``_LIN_MIN_ROWS``, Ov / ``_LIN_GRID``) rows, one empty chunk for a
+    camera with no row (one chunk of camera -1 when C = 0); ``rest``
+    (O - Ov,): the rows outside the grouping, in order; ``orphans``: the
+    points that no grouping row holds. The kernel writes zeros for both, so
+    every row with ``obs_w`` != 0 must be in the grouping, once: raises
+    otherwise, and for a grouping row whose camera is not in [0, C). A few
+    host syncs."""
+    dev = perm.device
+    O = obs_cam.shape[0]
+    walk, cams, cam_walk = (grouping if grouping is not None
+                            else grouping_order(perm, perm_valid, obs_cam))
+    Ov = walk.shape[0]
+    held = torch.zeros(O, dtype=torch.int32, device=dev).index_add_(
+        0, walk.long(), torch.ones(Ov, dtype=torch.int32, device=dev))
+    rest = torch.nonzero(held == 0).flatten()
+    bad = torch.stack([(held > 1).any(), (obs_w[rest] != 0).any(),
+                       ((cams < 0) | (cams >= C)).any()]).tolist()
+    if bad[0] or bad[2]:
+        raise ValueError("K8+K9 ba_linearize: a row twice in the grouping, or a grouping row's "
+                         f"camera outside [0, {C})")
+    if bad[1]:
+        raise ValueError("K8+K9 ba_linearize: a row with obs_w != 0 is outside the grouping")
+    counts = torch.bincount(cams.long(), minlength=C)
+    L = max(_LIN_MIN_ROWS, -(-Ov // _LIN_GRID))
+    n_ch = torch.clamp((counts + L - 1) // L, min=1)
+    cam_of = torch.repeat_interleave(torch.arange(C, device=dev), n_ch)
+    j = torch.arange(len(cam_of), device=dev) - (torch.cumsum(n_ch, 0) - n_ch)[cam_of]
+    n, k, base = counts[cam_of], n_ch[cam_of], (torch.cumsum(counts, 0) - counts)[cam_of]
+    chunks = torch.stack([cam_of, base + j * n // k, base + (j + 1) * n // k, k], 1)
+    if C == 0:
+        chunks = torch.tensor([[-1, 0, 0, 1]], device=dev)
+    pts = torch.zeros(P, dtype=torch.bool, device=dev)
+    pts[obs_point.long()[perm[:, 0][perm_valid[:, 0]].long()]] = True
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    return (i32(walk[cam_walk]), i32(chunks), i32(rest),
+            i32(torch.nonzero(~pts).flatten()))
+
+
+class LinearizeWork(NamedTuple):
+    """K8+K9 ``ba_linearize``'s layout (:func:`linearize_layout`) and scratch
+    for one BA problem, made once a ``run_ba`` and reused by every
+    linearization of its LM loop (``csrc/ba_linearize.cu``): ``cmax``,
+    ``acc`` and ``tickets`` are zero between calls (the kernels clear
+    them)."""
+
+    rows: torch.Tensor     # (Ov,) int32
+    chunks: torch.Tensor   # (N, 4) int32
+    rest: torch.Tensor     # (O - Ov,) int32
+    orphans: torch.Tensor  # (n,) int32
+    cmax: torch.Tensor     # ((B + 1) C + 5,) int32: the largest |entry|s (float bits)
+    acc: torch.Tensor      # (WORDS (C (B (B + 1) / 2 + B) + 14),) int64 fixed-point sums
+    tickets: torch.Tensor  # (C + 1,) int32: a camera's chunks arrived, then all chunks
+
+
+def _lin_sums(B: int, C: int) -> int:
+    """The order-free sums of a linearization: U's upper triangle and g_c a
+    camera, Uk's upper triangle and g_k."""
+    return (B * (B + 1) // 2 + B) * C + 14
+
+
+def linearize_workspace(perm, perm_valid, obs_cam, obs_point, obs_w, C: int, P: int, B: int,
+                        dtype, grouping=None) -> LinearizeWork:
+    """The :class:`LinearizeWork` of a problem with C cameras, P points and
+    camera block B in ``dtype`` (the island's), on the grouping's device."""
+    variant(B, dtype)
+    dev = perm.device
+    rows, chunks, rest, orphans = linearize_layout(perm, perm_valid, obs_cam, obs_point, obs_w,
+                                                   C, P, grouping)
+    return LinearizeWork(rows=rows, chunks=chunks, rest=rest, orphans=orphans,
+                         cmax=torch.zeros((B + 1) * C + 5, dtype=torch.int32, device=dev),
+                         acc=torch.zeros(_words(dtype) * _lin_sums(B, C), dtype=torch.int64,
+                                         device=dev),
+                         tickets=torch.zeros(C + 1, dtype=torch.int32, device=dev))
+
+
 def linearize_cuda(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w, cam_free,
                    point_valid, perm, perm_valid, delta, optimize_intrinsics, Hreg_k, g_k_reg,
-                   U_extra=None, g_c_extra=None, dtype=torch.float32):
+                   U_extra=None, g_c_extra=None, dtype=torch.float32,
+                   work: Optional[LinearizeWork] = None):
     C, P, O = rvec.shape[0], points.shape[0], obs_cam.shape[0]
     G, Vs = perm.shape
     dev = rvec.device
@@ -203,27 +311,41 @@ def linearize_cuda(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w, 
             ("points", points, f32, (P, 3)), ("obs_cam", obs_cam, i32, (O,)),
             ("obs_point", obs_point, i32, (O,)), ("obs_xy", obs_xy, f32, (O, 2)),
             ("obs_w", obs_w, f32, (O,)), ("cam_free", cam_free, f32, (C,)),
+            ("point_valid", point_valid, torch.bool, (P,)),
             ("perm", perm, i32, (G, Vs)), ("perm_valid", perm_valid, torch.bool, (G, Vs)),
             *((("U_extra", U_extra, dtype, (C, B, B)),) if U_extra is not None else ()),
             *((("g_c_extra", g_c_extra, dtype, (C, B)),) if g_c_extra is not None else ())):
         _kernels.check_tensor(x, name, dt, shape, dev)
     if not route and (U_extra is not None or g_c_extra is not None):
         raise ValueError("ba_linearize: U_extra / g_c_extra need the per-camera route")
-    pv = point_valid.to(f32).contiguous()
+    if work is None:
+        work = linearize_workspace(perm, perm_valid, obs_cam, obs_point, obs_w, C, P, B, dtype)
+    Ov, N = work.rows.shape[0], work.chunks.shape[0]
+    n_rest, n_orph = work.rest.shape[0], work.orphans.shape[0]
+    for name, x, dt, shape in (
+            ("rows", work.rows, i32, (Ov,)), ("chunks", work.chunks, i32, (N, 4)),
+            ("rest", work.rest, i32, (n_rest,)), ("orphans", work.orphans, i32, (n_orph,)),
+            ("cmax", work.cmax, i32, ((B + 1) * C + 5,)),
+            ("acc", work.acc, torch.int64, (_words(dtype) * _lin_sums(B, C),)),
+            ("tickets", work.tickets, i32, (C + 1,))):
+        _kernels.check_tensor(x, name, dt, shape, dev)
+    if Ov + n_rest != O or N < 1:
+        raise ValueError("ba_linearize: the layout is not this problem's")
+    # The kernels read a chunk 16 bytes a load.
+    if work.chunks.data_ptr() % 16:
+        raise ValueError("ba_linearize: the chunk table is not 16-byte aligned")
     e = lambda *s: torch.empty(s, dtype=dtype, device=dev)
-    z = lambda *s: torch.zeros(s, dtype=dtype, device=dev)
     Jc, Jk, Jp, rw = e(O, 2, B), e(O, 2, 4), e(O, 2, 3), e(O, 2)
-    U, g_c, Uk, g_k, V, g_p = e(C, B, B), e(C, B), e(4, 4), e(4), z(P, 3, 3), z(P, 3)
-    # The order-free camera and intrinsics sums' scratch (ba_linearize.cu):
-    # B + 1 maxima a camera (+ 5), B (B + 1) / 2 + B sums a camera (+ 14).
-    nfx = (B * (B + 1) // 2 + B) * C + 14
-    fx_max = torch.empty((B + 1) * C + 5, dtype=torch.int32, device=dev)
-    fx_sh = torch.empty(nfx, dtype=torch.int32, device=dev)
-    fx_acc = torch.empty(_words(dtype) * nfx, dtype=torch.int64, device=dev)
+    U, g_c, Uk, g_k, V, g_p = e(C, B, B), e(C, B), e(4, 4), e(4), e(P, 3, 3), e(P, 3)
+    # The per-camera route in f32 runs the first design's row kernel, which
+    # reads point_valid as float (csrc/ba_linearize.cu).
+    pv_f = point_valid.to(f32) if route == "_b10" else None
     _kernels.launch("ba_linearize" + route, dev, rvec, tvec, intr, points, obs_cam, obs_point,
-                    obs_xy, obs_w, cam_free, pv, perm, perm_valid, C, P, O, G, Vs,
-                    float(delta), int(bool(optimize_intrinsics) and B == 6),
-                    Jc, Jk, Jp, rw, U, g_c, Uk, g_k, V, g_p, fx_max, fx_sh, fx_acc,
+                    obs_xy, obs_w, cam_free, point_valid, pv_f, perm, perm_valid, work.rows,
+                    work.chunks, work.rest, work.orphans, C, O, G, Vs, N, n_rest, n_orph,
+                    float(delta),
+                    int(bool(optimize_intrinsics) and B == 6), Jc, Jk, Jp, rw, U, g_c, Uk, g_k,
+                    V, g_p, work.cmax, work.acc, work.tickets,
                     *((U_extra, g_c_extra) if route else ()))
     Hreg_k = Hreg_k.to(dtype)
     return Linearization(Jc=Jc, Jk=Jk, Jp=Jp, rw=rw, obs_cam=obs_cam, obs_point=obs_point,
@@ -231,7 +353,8 @@ def linearize_cuda(rvec, tvec, intr, points, obs_cam, obs_point, obs_xy, obs_w, 
                          g_p=g_p, point_valid=point_valid, Hreg_k=Hreg_k, U_extra=U_extra)
 
 
-def linearize(*args, U_extra=None, g_c_extra=None, dtype=torch.float32):
+def linearize(*args, U_extra=None, g_c_extra=None, dtype=torch.float32,
+              work: Optional[LinearizeWork] = None):
     """Kernel K8+K9 on CUDA tensors, its plain twin on CPU tensors.
 
     Arguments: rvec (C,3), tvec (C,3), intr (4,) shared or (C,4) per camera
@@ -244,12 +367,14 @@ def linearize(*args, U_extra=None, g_c_extra=None, dtype=torch.float32):
     (4,) (the shared intrinsics' regularization). U_extra (C,B,B) and
     g_c_extra (C,B): the per-camera additions, added after the sums. dtype:
     the island's (float64 with ``f64_normal_equations``); the Jacobians are
-    computed in float32 and whitened in it.
+    computed in float32 and whitened in it. ``work``: the kernel's
+    :func:`linearize_workspace`, reused across an LM loop (made here when
+    None); the twin needs none.
     """
     dev = args[0].device
     kw = dict(U_extra=U_extra, g_c_extra=g_c_extra, dtype=dtype)
     if dev.type == "cuda":
-        return linearize_cuda(*args, **kw)
+        return linearize_cuda(*args, **kw, work=work)
     if dev.type == "cpu":
         return linearize_plain(*args, **kw)
     raise ValueError(f"linearize: unsupported device {dev}")
@@ -502,7 +627,7 @@ def schur_matrix_plain(lin: Linearization, op: Damped, perm, perm_valid):
     return S
 
 
-def coupling_layout(perm, perm_valid, obs_cam, C: int):
+def coupling_layout(perm, perm_valid, obs_cam, C: int, grouping=None):
     """K10 ``schur_coupling``'s walk over the :func:`coobs_pairs` grouping, on
     its device: (pairs, items, cam_slots, row_slot), int32.
 
@@ -516,7 +641,9 @@ def coupling_layout(perm, perm_valid, obs_cam, C: int):
     every camera's diagonal block, every camera pair with a slot pair, each
     camera's k block (Q = C, a run of ``cam_slots``) and the k-k block
     (P = Q = C), the longest runs first. ``cam_slots`` (Ov,): the slots in
-    camera-major order (a stable sort). Two host syncs."""
+    camera-major order (a stable sort: the ``cam_walk`` of
+    :func:`grouping_order`, given as ``grouping`` or made here). Two host
+    syncs."""
     dev = perm.device
     lead = torch.cumprod(perm_valid.to(torch.int32), dim=1).bool()
     nv = lead.sum(1)
@@ -529,7 +656,9 @@ def coupling_layout(perm, perm_valid, obs_cam, C: int):
                          "exceed the int32 layout")
     rep = torch.repeat_interleave(torch.arange(len(a), device=dev), cnt)
     w_b = rep + (torch.arange(n_pairs, device=dev) - (torch.cumsum(cnt, 0) - cnt)[rep])
-    cam = obs_cam.long()[perm[g, a].long()]               # each slot's camera
+    _, slot_cams, cam_slots = (grouping if grouping is not None
+                               else grouping_order(perm, perm_valid, obs_cam))
+    cam = slot_cams.long()                                # each slot's camera
     ca, cb = cam[rep], cam[w_b]
     flags = torch.where((w_b == rep) | (ca < cb), 1, torch.where(ca > cb, 2, 3))
     key, order = torch.sort(torch.minimum(ca, cb) * C + torch.maximum(ca, cb), stable=True)
@@ -542,7 +671,6 @@ def coupling_layout(perm, perm_valid, obs_cam, C: int):
     zero = torch.zeros_like(empty)
     keys = torch.cat([keys, empty])
     starts, ends = torch.cat([ends - counts, zero]), torch.cat([ends, zero])
-    cam_slots = torch.argsort(cam, stable=True)
     cam_start = torch.zeros(C + 1, dtype=torch.int64, device=dev)
     torch.cumsum(torch.bincount(cam, minlength=C), 0, out=cam_start[1:])
     cams = torch.arange(C, device=dev)
@@ -571,12 +699,14 @@ class CouplingWork(NamedTuple):
     er: torch.Tensor         # (BC + 4,) int32: each row's exponent, written a call
 
 
-def coupling_workspace(lin: Linearization, perm, perm_valid) -> CouplingWork:
-    """The :class:`CouplingWork` of ``lin``'s shapes and grouping, on its device."""
+def coupling_workspace(lin: Linearization, perm, perm_valid, grouping=None) -> CouplingWork:
+    """The :class:`CouplingWork` of ``lin``'s shapes and grouping, on its device
+    (``grouping``: its :func:`grouping_order`, made here when None)."""
     C = lin.U.shape[0]
     B, dt, _ = _block(lin)
     dev = lin.U.device
-    pairs, items, cam_slots, row_slot = coupling_layout(perm, perm_valid, lin.obs_cam, C)
+    pairs, items, cam_slots, row_slot = coupling_layout(perm, perm_valid, lin.obs_cam, C,
+                                                        grouping)
     return CouplingWork(pairs=pairs, items=items, cam_slots=cam_slots, row_slot=row_slot,
                         terms=torch.empty(12 * B * len(cam_slots), dtype=dt, device=dev),
                         kk=torch.zeros(16 * _words(dt), dtype=torch.int64, device=dev),
@@ -725,23 +855,23 @@ def _schur_matvec_walk(lin: Linearization, op: Damped, xc, xk, walk, row_start, 
     return Sx_c, terms[:, B:].sum(0) + op.lam_diag_k * xk + lin.Hreg_k @ xk
 
 
-def matvec_layout(perm, perm_valid, obs_cam):
+def matvec_layout(perm, perm_valid, obs_cam, grouping=None):
     """K11's walk order of the :func:`coobs_pairs` grouping, on its device:
     (walk, row_start, cam_walk, cam_of), int32. ``walk`` (Ov,): each row's
     leading run of valid slots, rows in order, slots in order (the
     observations point by point, as the reference's walk sums them);
     ``row_start`` (R + 1,): the offsets of the rows that have a slot;
     ``cam_walk`` (Ov,): the slots in camera-major order (a stable sort of
-    the slots by camera); ``cam_of`` (Ov,): the camera of each of those.
-    One host sync (the count of valid slots)."""
+    the slots by camera: :func:`grouping_order`'s, given as ``grouping`` or
+    made here); ``cam_of`` (Ov,): the camera of each of those. One host
+    sync (the count of valid slots)."""
     lead = torch.cumprod(perm_valid.to(torch.int32), dim=1).bool()
     counts = lead.sum(1)
     counts = counts[counts > 0]
-    walk = perm[lead]
+    walk, cams, cam_walk = (grouping if grouping is not None
+                            else grouping_order(perm, perm_valid, obs_cam))
     row_start = torch.zeros(len(counts) + 1, dtype=torch.int64, device=perm.device)
     torch.cumsum(counts, 0, out=row_start[1:])
-    cams = obs_cam[walk.long()]
-    cam_walk = torch.argsort(cams, stable=True)
     i32 = lambda t: t.to(torch.int32).contiguous()
     return i32(walk), i32(row_start), i32(cam_walk), i32(cams[cam_walk])
 
@@ -762,12 +892,13 @@ class MatvecWork(NamedTuple):
     acc: torch.Tensor        # (WORDS (BC + 4),) int64 fixed-point sums
 
 
-def matvec_workspace(lin: Linearization, perm, perm_valid) -> MatvecWork:
-    """The :class:`MatvecWork` of ``lin``'s shapes and grouping, on its device."""
+def matvec_workspace(lin: Linearization, perm, perm_valid, grouping=None) -> MatvecWork:
+    """The :class:`MatvecWork` of ``lin``'s shapes and grouping, on its device
+    (``grouping``: its :func:`grouping_order`, made here when None)."""
     C = lin.U.shape[0]
     B, dt, _ = _block(lin)
     dev = lin.U.device
-    walk, row_start, cam_walk, cam_of = matvec_layout(perm, perm_valid, lin.obs_cam)
+    walk, row_start, cam_walk, cam_of = matvec_layout(perm, perm_valid, lin.obs_cam, grouping)
     n = B * C + 4
     return MatvecWork(walk=walk, row_start=row_start, cam_walk=cam_walk, cam_of=cam_of,
                       terms=torch.empty((B + 4) * len(walk), dtype=dt, device=dev),

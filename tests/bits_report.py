@@ -1,16 +1,22 @@
 """Kernels of one checkout against another's, bit for bit, on the card: K11's
-matvec and PCG, K10's coupling, K7's triangulation.
+matvec and PCG, K10's coupling, K7's triangulation, K8+K9's linearization
+and K1's top-2.
 
-    python tests/bits_report.py dump --scene D --pipeline P --out DIR
-    python tests/bits_report.py run --repo REPO [--cases matvec,coupling,triangulate]
+    python tests/bits_report.py dump --scene D --pipeline P [--orb G] --out DIR
+    python tests/bits_report.py run --repo REPO
+                                    [--cases matvec,coupling,triangulate,linearize,match]
                                     [--inputs DIR] [--vectors 8] --out FILE.pt
     python tests/bits_report.py compare A.pt B.pt
 
 ``dump`` runs this checkout's ``reconstruct`` on path d's artifacts (``P``,
 the 150-view ``pipeline`` output of ``chip_smoke.py``, on its scene ``D``)
 and writes to ``DIR`` the inputs of the largest dense BA call's S (the
-linearized system, its damping and grouping) and the engine's whole track
-table with its final poses (``_triangulate``'s inputs for every row).
+linearized system, its damping and grouping), the engine's whole track
+table with its final poses (``_triangulate``'s inputs for every row) and
+the inputs of its largest ``run_ba`` call (the problem and its config);
+then the first 32-pair chunk of ``P``'s sweep (its descriptors as the pair
+table stores them, float16) and, with ``--orb`` (path g's ``pipeline``
+output), the first chunk of its D = 256 sweep.
 
 ``run`` imports ``sfm_tpu_torch`` and ``chip_smoke`` from the checkout
 ``REPO`` (so each checkout runs its own kernels, built from its own sources)
@@ -25,6 +31,18 @@ and saves, for each case, its outputs, a digest of its inputs and its times:
 - ``coupling``: ``schur_matrix_cuda``'s S on ``phase_ba``'s scene, on
   ``phase_island``'s on each island route and (with ``--inputs``) on the
   dumped system; wrapper, device and the coupling kernels' own device time.
+- ``linearize``: ``linearize_cuda``'s ten outputs (Jc, Jk, Jp, rw, V, g_p,
+  U, g_c, Uk, g_k) and ``total_huber_cost_cuda``'s cost on ``phase_ba``'s
+  scene, on ``phase_island``'s on each island route, on the same scenes
+  with rotations of ~0.4 rad (every route) and (with
+  ``--inputs``) on the first linearization of the dumped ``run_ba`` call,
+  its arguments built as ``run_ba`` builds them; the linearization's and the
+  cost's wrapper, device and kernel times (the workspace made once where
+  the wrapper takes one, as ``run_ba`` makes it).
+- ``match``: ``match_top2_cuda``'s idx, best, second and back (mutual) on
+  ``phase_match_top2``'s chunk and tie-heavy input, ``phase_match_binary``'s
+  D = 256 chunk, ragged shapes (K1 != K2, neither a multiple of 128; D = 96
+  and 384) and (with ``--inputs``) the dumped chunks of paths d and g.
 - ``triangulate``: ``triangulate_tracks_cuda``'s points and flags on
   ``phase_triangulate``'s two buckets and (with ``--inputs``) on the dumped
   table: its first 2,048 to 16,384 rows, all of it and the table tiled to
@@ -43,15 +61,20 @@ processes, since both checkouts' packages share a name. Needs a card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import importlib.util
 import inspect
 import json
+import pickle
 import shutil
 import sys
 from pathlib import Path
 
-CASES = ("matvec", "coupling", "triangulate")
+CASES = ("matvec", "coupling", "triangulate", "linearize", "match")
+# The BAProblem fields the dump keeps of the largest run_ba call.
+BA_FIELDS = ("rvec", "tvec", "cam_valid", "cam_fixed", "intr", "points", "point_valid",
+             "obs_cam", "obs_point", "obs_xy", "obs_valid", "intr_c")
 # Path d's table sliced to these rows (then all of it, then tiled to path h's
 # whole-table launch): K7's two layouts across the engine's launch sizes.
 TABLE_ROWS = (2048, 4096, 8192, 12288, 16384)
@@ -81,8 +104,8 @@ def dump(args) -> int:
     run_dir = out / "reconstruct"
     run_dir.mkdir(parents=True, exist_ok=True)
     shutil.copy(Path(args.pipeline) / "pair_table.pkl", run_dir / "pair_table.pkl")
-    seen = {"ba": None, "engine": None}
-    real_s, real_t = S.schur_matrix_cuda, inc.StructureFromMotion._triangulate
+    seen = {"ba": None, "engine": None, "run_ba": None}
+    real_s, real_t, real_run = S.schur_matrix_cuda, inc.StructureFromMotion._triangulate, inc.run_ba
 
     def schur_matrix_cuda(lin, op, perm, perm_valid, *a, **kw):
         if seen["ba"] is None or lin.U.shape[0] >= seen["ba"][0].U.shape[0]:
@@ -95,7 +118,15 @@ def dump(args) -> int:
         seen["engine"] = self
         return real_t(self, *a, **kw)
 
+    def run_ba(problem, config, *a, **kw):
+        last = seen["run_ba"]
+        if last is None or problem.obs_cam.shape[0] >= last[0]["obs_cam"].shape[0]:
+            cpu = lambda f: None if getattr(problem, f) is None else getattr(problem, f).cpu()
+            seen["run_ba"] = ({f: cpu(f) for f in BA_FIELDS}, dataclasses.asdict(config), a, kw)
+        return real_run(problem, config, *a, **kw)
+
     S.schur_matrix_cuda, inc.StructureFromMotion._triangulate = schur_matrix_cuda, _triangulate
+    inc.run_ba = run_ba
     rc = cli.main(["--log_level", "WARNING", "reconstruct", "--data_dir", str(args.scene),
                    "--output_dir", str(run_dir), "--device", "cuda", "--no_mask"])
     if rc != 0 or seen["ba"] is None or seen["engine"] is None:
@@ -113,9 +144,24 @@ def dump(args) -> int:
                 "common": dict(max_err=cfg.max_reproj_error, min_parallax_deg=cfg.min_parallax_deg,
                                robust_rounds=cfg.robust_rounds, n_seed=cfg.seed_pair_views)},
                out / "tracks.pt")
+    prob, config, a, kw = seen["run_ba"]
+    torch.save({"problem": prob, "config": config, "args": a, "kwargs": kw}, out / "run_ba.pt")
+    chunks = [("match_d", Path(args.pipeline))] + ([("match_g", Path(args.orb))]
+                                                   if args.orb else [])
+    for name, where in chunks:
+        blob = pickle.loads((where / "pair_table.pkl").read_bytes())
+        ij = blob["table"].pairs[:32]
+        desc, valid = blob["desc"], blob["valid"]
+        f32 = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32))
+        torch.save({"d1": f32(desc[ij[:, 0]]), "v1": torch.as_tensor(valid[ij[:, 0]]),
+                    "d2": f32(desc[ij[:, 1]]), "v2": torch.as_tensor(valid[ij[:, 1]])},
+                   out / f"{name}.pt")
+        print(f"dumped: {name}, the first {len(ij)} pairs of {where} ({desc.shape[1]} x "
+              f"{desc.shape[2]} descriptors)", flush=True)
     print(f"dumped: S of a {lin.U.shape[0]}-camera BA call ({lin.Jc.shape[0]} observations), "
           f"{img.shape[0]} track rows x {img.shape[1]} slots, {int(eng.registered.sum())} "
-          f"registered cameras", flush=True)
+          f"registered cameras; the largest run_ba call: {prob['rvec'].shape[0]} cameras, "
+          f"{prob['obs_cam'].shape[0]} observations", flush=True)
     return 0
 
 
@@ -155,11 +201,13 @@ class Runner:
                  if any(k in e.key for k in names))
         return us / 1e3 / reps if us > 0 else None
 
-    def add(self, name, digest_in, outs, shape, times, ref=None):
+    def add(self, name, digest_in, outs, shape, times, ref=None, names=None):
         """Records a case; ``ref`` names the other checkout's case that its
-        outputs are held against (by default its own name)."""
+        outputs are held against (by default its own name); ``names``: the
+        outputs' names, for the report of which ones differ."""
         self.cases[name] = {"digest_in": digest_in, "out": [o.cpu() for o in outs],
-                            "shape": shape, "times": times, "ref": ref or name}
+                            "shape": shape, "times": times, "ref": ref or name,
+                            "names": names}
         shown = ", ".join(f"{k} {self.cs.fmt_ms(v)}" for k, v in times.items())
         print(f"{name}: {shape}; {shown}", flush=True)
 
@@ -327,6 +375,149 @@ def run_triangulate(r: Runner, args):
                 *(x[fail].contiguous() for x in table), *poses, tr["common"], True)
 
 
+LIN_KERNELS = ("ba_obs", "ba_shift", "ba_sum", "ba_finish", "ba_point", "lin_row", "lin_sum")
+LIN_OUTPUTS = ("Jc", "Jk", "Jp", "rw", "V", "g_p", "U", "g_c", "Uk", "g_k")
+
+
+def run_ba_args(torch, np, S, lm, prob, config, optimize_intrinsics, dev):
+    """The arguments of the first linearization of ``run_ba(prob, config)`` on
+    the default route (shared intrinsics, float32), as ``run_ba`` builds them."""
+    if config["per_camera_intrinsics"] or config["f64_normal_equations"]:
+        raise SystemExit("bits_report: the dumped run_ba call is not on the default route")
+    p = {k: None if v is None else v.to(dev) for k, v in prob.items()}
+    perm, pvm = S.coobs_pairs(p["obs_point"].cpu().numpy(), p["obs_valid"].cpu().numpy())
+    perm, pvm = torch.as_tensor(perm, device=dev), torch.as_tensor(pvm, device=dev)
+    cam_free = (p["cam_valid"] & ~p["cam_fixed"]).to(torch.float32)
+    obs_w = (p["obs_valid"] & p["cam_valid"][p["obs_cam"].long()]
+             & p["point_valid"][p["obs_point"].long()]).to(torch.float32)
+    if optimize_intrinsics:
+        _, Hreg, greg = lm._intr_reg(p["intr"], p["intr"],
+                                     float(np.float32(config["intrinsics_reg_weight"])))
+    else:
+        Hreg = torch.eye(4, dtype=torch.float32, device=dev)
+        greg = torch.zeros(4, dtype=torch.float32, device=dev)
+    return (p["rvec"], p["tvec"], p["intr"], p["points"], p["obs_cam"], p["obs_point"],
+            p["obs_xy"], obs_w, cam_free, p["point_valid"], perm, pvm, config["huber_delta"],
+            optimize_intrinsics, Hreg, greg)
+
+
+def run_linearize(r: Runner, args):
+    torch, cs, S = r.torch, r.cs, r.S
+    import numpy as np
+
+    from sfm_tpu_torch.ba import lm
+    from sfm_tpu_torch.ba.residuals import total_huber_cost_cuda
+
+    dev = torch.device("cuda")
+    takes_work = "work" in inspect.signature(S.linearize_cuda).parameters
+
+    def linearize(name, a, kw):
+        extra = {}
+        if takes_work:
+            B = 10 if a[2].dim() == 2 else 6
+            extra = {"work": S.linearize_workspace(a[10], a[11], a[4], a[5], a[7], a[0].shape[0],
+                                                   a[3].shape[0], B,
+                                                   kw.get("dtype", torch.float32))}
+        fn = lambda: S.linearize_cuda(*a, **kw, **extra)
+        cargs = a[:8] + (a[12],)
+        cost = lambda: total_huber_cost_cuda(*cargs)
+        lin, c = fn(), cost()
+        torch.cuda.synchronize()
+        times = r.timed(fn, LIN_KERNELS)
+        times.update({f"cost_{k}": v for k, v in r.timed(cost, ("ba_cost",)).items()})
+        r.add(name, _digest(*(x for x in (*a, *kw.values()) if isinstance(x, torch.Tensor))),
+              [getattr(lin, f) for f in LIN_OUTPUTS] + [c.reshape(1)],
+              f"C={lin.U.shape[0]}, B={lin.U.shape[-1]}, {lin.U.dtype}, {a[4].shape[0]} rows, "
+              f"{int(a[11].sum())} in the grouping", times, names=LIN_OUTPUTS + ("cost",))
+
+    rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy = cs.ba_scene(torch, np, dev)
+    C, P, O = rvec.shape[0], pts.shape[0], obs_cam.shape[0]
+    perm, pvm = S.coobs_pairs(obs_point.cpu().numpy(), np.ones(O, bool))
+    perm, pvm = torch.as_tensor(perm, device=dev), torch.as_tensor(pvm, device=dev)
+    cam_free = torch.ones(C, device=dev)
+    cam_free[0] = 0.0
+    linearize("linearize/phase_ba/default",
+              (rvec, tvec, intr, pts, obs_cam, obs_point, obs_xy, torch.ones(O, device=dev),
+               cam_free, torch.ones(P, dtype=torch.bool, device=dev), perm, pvm, 2.0, True,
+               torch.eye(4, device=dev), torch.zeros(4, device=dev)), {})
+    for route, (B, dname) in cs.ISLAND_ROUTES.items():
+        a, kw = cs.island_system(torch, np, dev, B, getattr(torch, dname), *cs.ISLAND_SCENE, 0)
+        linearize(f"linearize/phase_island/{route}", a, kw)
+        torch.cuda.empty_cache()
+    # The same scenes with rotations of ~0.4 rad: there R's last bit reaches
+    # the outputs (small rotations round it away next to the identity).
+    big = lambda C: torch.as_tensor(
+        (0.4 * np.random.default_rng(C).normal(size=(C, 3))).astype(np.float32), device=dev)
+    linearize("linearize/large_rotation/default",
+              (big(C), tvec, intr, pts, obs_cam, obs_point, obs_xy, torch.ones(O, device=dev),
+               cam_free, torch.ones(P, dtype=torch.bool, device=dev), perm, pvm, 2.0, True,
+               torch.eye(4, device=dev), torch.zeros(4, device=dev)), {})
+    for route, (B, dname) in cs.ISLAND_ROUTES.items():
+        a, kw = cs.island_system(torch, np, dev, B, getattr(torch, dname), *cs.ISLAND_SCENE, 0)
+        linearize(f"linearize/large_rotation/{route}", (big(a[0].shape[0]),) + tuple(a[1:]), kw)
+        torch.cuda.empty_cache()
+    if args.inputs:
+        ba = torch.load(Path(args.inputs) / "run_ba.pt", weights_only=False)
+        opt = ba["kwargs"].get("optimize_intrinsics", True)
+        linearize("linearize/path_d/largest_run_ba",
+                  run_ba_args(torch, np, S, lm, ba["problem"], ba["config"], opt, dev), {})
+
+
+def ragged_descriptors(torch, dev, B, K1, K2, D, seed):
+    """Unit descriptors at shapes the tiles must mask: K1 != K2, ragged
+    tails, every 7th row and 5th column invalid, pair 0's rows all invalid
+    and pair 1's columns; exact ties from rows copied twice into the other
+    set (columns 3 i + 1 and 3 i + 2 are row i)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    unit = lambda x: x / x.norm(dim=-1, keepdim=True)
+    d1 = unit(torch.randn(B, K1, D, generator=g, device=dev))
+    d2 = unit(torch.randn(B, K2, D, generator=g, device=dev))
+    n = min(len(range(1, K2, 3)), K1)
+    d2[:, 1:3 * n:3] = d1[:, :n]
+    m = len(range(2, min(3 * n, K2), 3))
+    d2[:, 2:3 * n:3] = d1[:, :m]
+    v1 = torch.ones(B, K1, dtype=torch.bool, device=dev)
+    v2 = torch.ones(B, K2, dtype=torch.bool, device=dev)
+    v1[:, ::7] = False
+    v2[:, ::5] = False
+    v1[0] = False
+    v2[1 % B] = False
+    return d1.contiguous(), v1, d2.contiguous(), v2
+
+
+def run_match(r: Runner, args):
+    torch, cs = r.torch, r.cs
+
+    from sfm_tpu_torch.matching.core import match_top2_cuda
+
+    dev = torch.device("cuda")
+
+    def match(name, d1, v1, d2, v2):
+        fn = lambda: match_top2_cuda(d1, v1, d2, v2, mutual=True)
+        outs = fn()
+        torch.cuda.synchronize()
+        r.add(name, _digest(d1, v1, d2, v2), list(outs),
+              f"B={d1.shape[0]}, K1={d1.shape[1]}, K2={d2.shape[1]}, D={d1.shape[2]}",
+              r.timed(fn, ("match_top2",)), names=("idx", "best", "second", "back"))
+
+    match("match/phase_match_top2/random", *cs.sweep_descriptors(torch, dev, 32, 2048, 128, 1))
+    match("match/phase_match_top2/tie_heavy", *cs.tie_heavy_descriptors(torch, dev, 8, 2048))
+    d1, v1, d2, v2 = cs.sweep_descriptors(torch, dev, 32, 3800, 256, 10)
+    match("match/phase_match_binary/d256", cs.binary_descriptors(torch, d1), v1,
+          cs.binary_descriptors(torch, d2), v2)
+    del d1, d2
+    for B, K1, K2, D in ((4, 2047, 1501, 96), (3, 3800, 2047, 256), (2, 700, 900, 384)):
+        match(f"match/ragged/{B}x{K1}x{K2}x{D}",
+              *ragged_descriptors(torch, dev, B, K1, K2, D, seed=K1 + D))
+    for name in ("match_d", "match_g"):
+        f = Path(args.inputs or "") / f"{name}.pt"
+        if args.inputs and f.exists():
+            m = torch.load(f, weights_only=False)
+            match(f"match/path_{name[-1]}/first_chunk", *(m[k].to(dev) for k in
+                                                          ("d1", "v1", "d2", "v2")))
+    torch.cuda.empty_cache()
+
+
 def run(args) -> int:
     repo = Path(args.repo).resolve()
     sys.path.insert(0, str(repo))
@@ -343,7 +534,8 @@ def run(args) -> int:
         raise SystemExit(f"bits_report: --cases takes {', '.join(CASES)}")
     r = Runner(torch, cs, S, inc)
     for case, fn in (("matvec", run_matvec), ("coupling", run_coupling),
-                     ("triangulate", run_triangulate)):
+                     ("triangulate", run_triangulate), ("linearize", run_linearize),
+                     ("match", run_match)):
         if case in cases:
             fn(r, args)
     torch.save({"repo": str(repo), "card": cs.card_line(), "cases": r.cases,
@@ -370,13 +562,16 @@ def compare(args) -> int:
         matched.add(rb["ref"])
         eq_in = ra["digest_in"] == rb["digest_in"]
         eq_out = all(torch.equal(bits(x), bits(y)) for x, y in zip(ra["out"], rb["out"]))
-        diff = sum(int((bits(x) != bits(y)).sum()) for x, y in zip(ra["out"], rb["out"]))
+        per = [int((bits(x) != bits(y)).sum()) for x, y in zip(ra["out"], rb["out"])]
+        diff = sum(per)
+        names = rb.get("names") or [str(i) for i in range(len(per))]
+        which = ", ".join(f"{k} {v}" for k, v in zip(names, per) if v)
         same = same and eq_in and eq_out
         times = "; ".join(f"{k} A {fmt(ra['times'].get(k))} / B {fmt(v)} ms"
                           for k, v in rb["times"].items())
+        outs = "identical" if eq_out else f"NOT identical ({diff} entries differ: {which})"
         print(f"{name} ({rb['shape']}; A: {rb['ref']}): inputs {'equal' if eq_in else 'DIFFER'}, "
-              f"outputs {'identical' if eq_out else f'NOT identical ({diff} entries differ)'}; "
-              f"{times}")
+              f"outputs {outs}; {times}")
         rows.append({"case": name, "against": rb["ref"], "inputs_equal": eq_in,
                      "identical": eq_out, "entries_differing": diff,
                      "times": {k: [ra["times"].get(k), v] for k, v in rb["times"].items()}})
@@ -394,6 +589,7 @@ def main(argv=None) -> int:
     d = sub.add_parser("dump")
     d.add_argument("--scene", required=True, help="path d's rendered scene")
     d.add_argument("--pipeline", required=True, help="path d's pipeline output (pair_table.pkl)")
+    d.add_argument("--orb", default=None, help="path g's pipeline output (pair_table.pkl)")
     d.add_argument("--out", required=True)
     r = sub.add_parser("run")
     r.add_argument("--repo", required=True, help="the checkout whose kernels run")

@@ -107,6 +107,79 @@ def test_match_top2_ties_and_invalid_rows():
     assert n(second[0])[0] == pytest.approx(0.0, abs=1e-6)   # the tied twin
 
 
+def _exact_descriptors(rng, B, K1, K2, D):
+    """Entries in {-2, -1, 1, 2} / 16: every product and sum is exact in f32
+    in any order, so JAX's and torch's distances agree bit for bit and every
+    index can be compared exactly. Columns 3 i + 1 and 3 i + 2 copy row i
+    (exact ties); every 7th row and 5th column invalid."""
+    vals = np.array([-2.0, -1.0, 1.0, 2.0], np.float32) / 16
+    d1 = vals[rng.integers(0, 4, (B, K1, D))]
+    d2 = vals[rng.integers(0, 4, (B, K2, D))]
+    n_ = min(len(range(1, K2, 3)), K1)
+    d2[:, 1:3 * n_:3] = d1[:, :n_]
+    m = len(range(2, min(3 * n_, K2), 3))
+    d2[:, 2:3 * n_:3] = d1[:, :m]
+    v1 = np.ones((B, K1), bool)
+    v2 = np.ones((B, K2), bool)
+    v1[:, ::7] = False
+    v2[:, ::5] = False
+    return d1, v1, d2, v2
+
+
+def _jax_top2(d1, v1, d2, v2):
+    """The distance, top-2 and column argmin of ``sfm_tpu/matching/core.py``'s
+    ``_match_descriptors`` (:62-80), in jnp (the function itself returns only
+    the compacted table)."""
+    dist = jnp.maximum(2.0 - 2.0 * (jnp.asarray(d1) @ jnp.asarray(d2).T), 0.0)
+    dist = dist + jnp.where(v2[None, :], 0.0, jnp.inf)
+    dist = jnp.where(v1[:, None], dist, jnp.inf)
+    best_j = jnp.argmin(dist, axis=1)
+    cols = jnp.arange(dist.shape[1])[None, :]
+    second = jnp.min(jnp.where(cols == best_j[:, None], jnp.inf, dist), axis=1)
+    return best_j, jnp.min(dist, axis=1), second, jnp.argmin(dist, axis=0)
+
+
+@pytest.mark.parametrize("shape", [(3, 2047, 1999, 128), (1, 3800, 2047, 256),
+                                   (1, 300, 3800, 256), (3, 130, 129, 32)])
+def test_match_top2_twin_on_ragged_shapes_matches_jax(shape):
+    # K1's twin at the shapes the kernel's 128-row and 128-column tiles must
+    # mask (K1 != K2, K not a multiple of 128, D = 256), with all-invalid
+    # rows and columns and exact ties: indices, distances and the column
+    # argmin equal to JAX's (no tolerance: the arithmetic is exact).
+    B, K1, K2, D = shape
+    d1, v1, d2, v2 = _exact_descriptors(np.random.default_rng(K1 + K2), B, K1, K2, D)
+    v2[B - 1, K2 // 2:] = False          # half of a pair's columns invalid
+    if B > 1:
+        v1[0, :] = False                 # a pair whose rows are all invalid
+        v2[1, :] = False                 # a pair whose columns are all invalid
+    got = match_top2(t(d1), t(v1), t(d2), t(v2), mutual=True)
+    for b in range(B):
+        ref = _jax_top2(d1[b], v1[b], d2[b], v2[b])
+        for name, g, r in zip(("best index", "best", "second", "column argmin"), got, ref):
+            np.testing.assert_array_equal(n(g[b]), np.asarray(r), err_msg=f"pair {b}: {name}")
+    if B > 1:
+        for b in (0, 1):
+            assert np.isinf(n(got[1][b])).all() and (n(got[0][b]) == 0).all()
+    best, second = n(got[1][B - 1]), n(got[2][B - 1])
+    assert ((best == second) & np.isfinite(best)).sum() > 10   # exact ties were met
+
+
+def test_match_descriptors_matches_jax_on_ragged_exact_shapes():
+    # The whole matcher (top-2, ratio, mutual check, compaction) at a ragged
+    # shape with exact distances: the same match set and distances as JAX's.
+    d1, v1, d2, v2 = _exact_descriptors(np.random.default_rng(3), 1, 2047, 1500, 128)
+    ref = j_match(d1[0], v1[0], d2[0], v2[0], ratio_threshold=0.9, max_matches=1024,
+                  mutual_check=True)
+    got = t_match(t(d1), t(v1), t(d2), t(v2), ratio_threshold=0.9, max_matches=1024,
+                  mutual_check=True)
+    rv, gv = n(ref["valid"]), n(got["valid"][0])
+    assert rv.sum() > 10 and rv.sum() == gv.sum()
+    rs = set(zip(n(ref["idx1"])[rv], n(ref["idx2"])[rv]))
+    gs = set(zip(n(got["idx1"][0])[gv], n(got["idx2"][0])[gv]))
+    assert rs == gs
+    np.testing.assert_array_equal(np.sort(n(got["distance"][0])), np.sort(n(ref["distance"])))
+
+
 @pytest.mark.parametrize("prefix", [True, False])
 def test_fundamental_ransac_same_indices(prefix):
     # Same hypotheses on both sides: F up to sign within 1e-4, inliers equal.
