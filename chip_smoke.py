@@ -14,6 +14,13 @@
    ``topk_rows`` runs at each caller's shape (RANSAC's sampling without
    replacement too: 16,384 rows of 1,024 -> 8), each case's wrapper and
    ``torch.topk`` timed alike and its device time traced.
+   K3's pyramid and K4's ``dog_select`` / ``dog_refine`` (every octave of
+   one detection sub-batch, ``dog_select`` also on path g's FAST planes) must
+   be bit-identical to their twins and repeat bit for bit; each prints its
+   wrapper and device time (``dog_select`` and ``dog_refine`` on rows of
+   their own). The dense BA route's Cholesky factorization and solve
+   (``torch.linalg.cholesky_ex`` + ``cholesky_solve``, a library call) is
+   timed at path d's largest S (``DENSE_SOLVE_N``) beside its bound.
    K10's coupling runs with its layout made once, as ``run_ba`` makes it,
    and prints its wrapper and device time on every route; K7 runs its two
    buckets, a bucket of the shape path d's engine launches most
@@ -72,7 +79,9 @@
       (``--match_mode off``) preprocess accepts, >= ``PATH_D_MIN_CAMERAS``
       cameras, > 1,000 points, < 0.6 px, ground-truth rotation median <
       ``PATH_D_MAX_GT_DEG`` (both from the JAX reference's seeds on the
-      card's own table);
+      card's own table); then its preprocess once more with the CLI's
+      ``torch.profiler`` trace, whose device time of K3's and K4's kernels
+      (``PATH_D_TRACED``) is printed beside ``stage/detect``;
    e. ``reconstruct --global_init`` on path a's artifacts (global SfM):
       kernel K13 launched, all but at most one camera, > 1,000 points,
       < 0.6 px, the global model kept (median pair-rotation residual < 1 deg,
@@ -178,7 +187,9 @@ KERNELS = {
                    "sfm_tpu/ba/schur.py:174"),
     "fmat_solve": (("fmat_hypotheses", "fmat_refit_verify"), "sfm_tpu_torch/csrc/fmat_solve.cu",
                    "sfm_tpu/estimators/fundamental.py:20"),
-    "dog_select": (("dog_select", "dog_refine"), "sfm_tpu_torch/csrc/dog_select.cu",
+    "dog_select": (("dog_select",), "sfm_tpu_torch/csrc/dog_select.cu",
+                   "sfm_tpu/features/detect.py:230"),
+    "dog_refine": (("dog_refine",), "sfm_tpu_torch/csrc/dog_select.cu",
                    "sfm_tpu/features/detect.py:121"),
     "topk_rows": (("topk_rows",), "sfm_tpu_torch/csrc/dog_select.cu",
                   "sfm_tpu/features/frontend.py:169"),
@@ -229,7 +240,8 @@ for _r in ("b10", "f64", "b10_f64"):
 ISLAND_ROWS = tuple(k for k in KERNELS if k.endswith(("_b10", "_f64")))
 # The kernels each path must launch.
 PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
-                      "pyramid", "fmat_solve", "dog_select", "topk_rows", "match_epilogue")
+                      "pyramid", "fmat_solve", "dog_select", "dog_refine", "topk_rows",
+                      "match_epilogue")
 RECONSTRUCT_KERNELS = ("pnp_ransac", "triangulate_tracks", "ba_linearize", "schur_coupling",
                        "seed_score", "pnp_refine", "schur_damp")
 RESCUE_KERNELS = RECONSTRUCT_KERNELS + ("guided_match",)
@@ -239,10 +251,8 @@ GLOBAL_KERNELS = K13_KERNELS + ("triangulate_tracks", "ba_linearize", "schur_cou
                                 "schur_damp")
 POLISH_KERNELS = RECONSTRUCT_KERNELS + K13_KERNELS
 K12_KERNELS = ("orb_fast_nms", "orb_blur", "orb_describe")
-# Path g: K4's dog_select and dog_refine share a row; only dog_select runs there.
-ORB_KERNELS = K12_KERNELS + ("topk_rows", "match_top2", "match_epilogue", "fmat_score_select",
-                             "fmat_solve") + RECONSTRUCT_KERNELS
-ORB_ENTRIES = ("dog_select",)
+ORB_KERNELS = K12_KERNELS + ("dog_select", "topk_rows", "match_top2", "match_epilogue",
+                             "fmat_score_select", "fmat_solve") + RECONSTRUCT_KERNELS
 SIFT_ONLY_ENTRIES = ("build_pyramid", "dog_extrema", "dog_refine", "sift_describe")
 # Path h: more images than ba.use_dense_schur_below, so every BA call of the
 # pipeline is a PCG call (K11 and K10's block-Jacobi inverses) and no dense S
@@ -899,24 +909,26 @@ def phase_orb_blur(torch, dev, levels):
     r = _blur_radius(BLUR_SIGMA)
     taps = torch.as_tensor(_gaussian_taps(BLUR_SIGMA, r), device=dev)
     k2d = (taps[:, None] * taps[None, :])[None, None]
-    worst, ms, plain_ms, lib_ms, moved, ops = 0.0, 0.0, 0.0, 0.0, 0, 0
+    worst, ms, dms, plain_ms, lib_ms, moved, ops = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
     for lvl, im, _ in levels:
         k, p = orb_blur_cuda(im), orb_blur_plain(im)
         torch.cuda.synchronize()
-        # Tolerance: within 1e-6 after the bf16 rounding (the kernel rounds
-        # every product and sum as the twin does: expected bit-identical).
+        # Tolerance: bit-identical (the kernel rounds every product and sum
+        # as the twin does, then to bf16 as torch does).
         err = float((k.float() - p.float()).abs().max())
-        check(err <= 1e-6, f"K12 orb_blur level {lvl}: max_abs_err {err}")
+        check(torch.equal(k.view(torch.int16), p.view(torch.int16)),
+              f"K12 orb_blur level {lvl}: not bit-identical, max_abs_err {err}")
         worst = max(worst, err)
-        log(f"K12 orb_blur level {lvl} {tuple(im.shape)}: "
-            f"{'bit-identical' if torch.equal(k, p) else f'max_abs_err {err:.3g}'}")
+        log(f"K12 orb_blur level {lvl} {tuple(im.shape)}: bit-identical")
         ms += time_ms(torch, lambda: orb_blur_cuda(im))
+        d = device_ms(torch, lambda: orb_blur_cuda(im))
+        dms = None if None in (dms, d) else dms + d
         plain_ms += time_ms(torch, lambda: orb_blur_plain(im))
         lib_ms += time_ms(torch, lambda: F.conv2d(im[:, None], k2d, padding=r))
         # f32 in, bf16 out; two passes of 2r + 1 taps, a multiply and an add each.
         moved += nbytes(im, k)
         ops += 2 * 2 * (2 * r + 1) * im.numel()
-    return result(worst, ms, plain_ms, moved, ops, library_ms=lib_ms)
+    return result(worst, ms, plain_ms, moved, ops, library_ms=lib_ms, device_ms=dms)
 
 
 def phase_orb_describe(torch, dev, levels):
@@ -1679,36 +1691,33 @@ def phase_guided_match(torch, dev):
 
 def phase_pyramid(torch, dev, images, cfg):
     """K3 on one detection sub-batch of rendered images, the -1 octave included."""
-    from sfm_tpu_torch.features.detect import dog_extrema_scores_cuda
     from sfm_tpu_torch.features.pyramid import build_pyramid_cuda, build_pyramid_plain
 
     fc = cfg.features
     kw = dict(num_octaves=fc.num_octaves, scales_per_octave=fc.scales_per_octave,
               sigma0=fc.sigma0, assumed_blur=fc.assumed_blur, upsample=fc.upsample_first_octave)
-    gk, dk = build_pyramid_cuda(images, **kw)
+    call = lambda: build_pyramid_cuda(images, **kw)
+    gk, dk = call()
     gp, dp = build_pyramid_plain(images, **kw)
     torch.cuda.synchronize()
     check(tuple(dk[0].shape[-2:]) == (1536, 2048), f"octave -1 is {tuple(dk[0].shape)}")
-    # Tolerance: bit-identical (the kernel rounds every product and sum as
-    # the twin does); otherwise the DoG difference is printed and K4's
-    # extremum sets must be equal.
-    exact = all(torch.equal(a, b) for a, b in zip(gk + dk, gp + dp))
-    err = max(float((a - b).abs().max()) for a, b in zip(dk, dp))
-    if not exact:
-        log(f"K3 pyramid: not bit-identical, max |dDoG| {err:.3g}")
-        ct, et = fc.contrast_threshold, fc.edge_threshold
-        for a, b in zip(dk, dp):
-            check(torch.equal(dog_extrema_scores_cuda(a, ct, et)["score"] > 0,
-                              dog_extrema_scores_cuda(b, ct, et)["score"] > 0),
-                  f"K3: extremum sets differ on octave {tuple(a.shape)}")
-    log(f"K3 pyramid: {'bit-identical' if exact else 'equal extremum sets'} on "
-        f"{images.shape[0]} images x {len(dk)} octaves")
-    ms = time_ms(torch, lambda: build_pyramid_cuda(images, **kw))
+    # Tolerance: bit-identical on every octave's Gaussian and DoG layers (the
+    # kernel rounds every product and sum as the twin does), and the same
+    # bits on a second launch.
+    for o, (a, b, c, d) in enumerate(zip(gk, gp, dk, dp)):
+        check(torch.equal(a, b) and torch.equal(c, d),
+              f"K3 pyramid octave {o - 1}: not bit-identical to the twin (max |dG| "
+              f"{float((a - b).abs().max()):.3g}, |dDoG| {float((c - d).abs().max()):.3g})")
+    check_repeatable(torch, "K3 pyramid", call, (gk, dk))
+    log(f"K3 pyramid: bit-identical on {images.shape[0]} images x {len(dk)} octaves, repeatable")
+    ms = median_ms(torch, call)
+    dms = device_ms(torch, call)
     plain_ms = time_ms(torch, lambda: build_pyramid_plain(images, **kw), reps=3, warmup=1)
+    log(f"  K3 pyramid: wrapper {ms:.4f} ms, device {fmt_ms(dms)} (plain torch {plain_ms:.4f} ms)")
     # The images in, every Gaussian and DoG layer out; ~76 FLOP per Gaussian
     # pixel (two separable passes of ~19 taps, a multiply and an add each).
-    return result(err, ms, plain_ms, nbytes(images, *gk, *dk),
-                  76 * sum(g.numel() for g in gk))
+    return result(0.0, ms, plain_ms, nbytes(images, *gk, *dk),
+                  76 * sum(g.numel() for g in gk), device_ms=dms)
 
 
 def phase_seed_score(torch, np, dev):
@@ -1799,6 +1808,41 @@ def phase_pnp_refine(torch, np, dev):
         moved += nbytes(*args[:6]) + sum(nbytes(v) for v in k.values())
         ops += 20 * 250 * int(k["num_inliers"].sum()) + 3 * 30 * B * N
     return result(worst, ms, plain_ms, moved, ops)
+
+
+# Path d's largest reduced camera system: 150 cameras of 6 parameters and the
+# 4 shared intrinsics.
+DENSE_SOLVE_N = 6 * 150 + 4
+
+
+def phase_dense_solve(torch, np, dev):
+    """The dense route's factorization and solve of S x = rhs
+    (``ba/schur.py::dense_schur_direct``: ``torch.linalg.cholesky_ex``, then
+    ``torch.cholesky_solve``), a library call and no kernel of the port, at
+    path d's largest S: its wrapper and device time and its bound (n^3 / 3
+    operations of the factorization and 2 n^2 of the two triangular solves,
+    against S and rhs read and x written once)."""
+    n = DENSE_SOLVE_N
+    rng = np.random.default_rng(16)
+    a = torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32), device=dev) / n ** 0.5
+    S = (a @ a.T + torch.eye(n, device=dev)).contiguous()
+    rhs = torch.as_tensor(rng.standard_normal((n, 1)).astype(np.float32), device=dev)
+
+    def solve():
+        L, info = torch.linalg.cholesky_ex(S)
+        return torch.cholesky_solve(rhs, L), info
+
+    x, info = solve()
+    torch.cuda.synchronize()
+    res = float((S @ x - rhs).abs().max() / rhs.abs().max())
+    check(int(info) == 0 and res < 1e-4, f"dense solve: info {int(info)}, residual {res:.3g}")
+    ms, dms = median_ms(torch, solve), device_ms(torch, solve)
+    r = result(res, ms, None, nbytes(S, rhs, x), n ** 3 // 3 + 2 * n * n, device_ms=dms)
+    r["bound_ms"], r["bound_by"] = bound(r)
+    log(f"dense solve (cholesky_ex + cholesky_solve, n = {n}, f32; a library call): wrapper "
+        f"{ms:.4f} ms, device {fmt_ms(dms)}, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+        f"({r['ops']} op, {r['bytes']} B), relative residual {res:.3g}")
+    return r
 
 
 def phase_schur_damp(torch, np, dev):
@@ -2741,8 +2785,9 @@ def phase_run_ba_island(torch, np, dev):
 
 
 def phase_dog_select(torch, dev, images, cfg):
-    """K4's dog_select and dog_refine on octave 0 and the -1 octave of one
-    detection sub-batch of rendered images."""
+    """K4's dog_select and dog_refine on every octave of one detection
+    sub-batch of rendered images, timed on octave 0 and the -1 octave; one
+    result each."""
     from sfm_tpu_torch.features.detect import (
         dog_extrema_scores_cuda, dog_refine_cuda, dog_refine_plain,
         select_octave_candidates_cuda, select_octave_candidates_plain)
@@ -2754,46 +2799,60 @@ def phase_dog_select(torch, dev, images, cfg):
                                  scales_per_octave=fc.scales_per_octave, sigma0=fc.sigma0,
                                  assumed_blur=fc.assumed_blur, upsample=fc.upsample_first_octave)
     ct, et = fc.contrast_threshold, fc.edge_threshold
-    worst, ms, plain_ms, moved, ops = 0.0, 0.0, 0.0, 0, 0
-    for o in (1, 0):
+    sel = dict(ms=0.0, dms=0.0, plain_ms=0.0, moved=0, ops=0)
+    ref = dict(sel)
+    for o in range(len(dogs) - 1, -1, -1):
         dog = dogs[o].contiguous()
         score = dog_extrema_scores_cuda(dog, ct, et)["score"]
         budget = _octave_budget(fc.max_keypoints, o)
-        ck = select_octave_candidates_cuda({"score": score}, budget)
+        select = lambda: select_octave_candidates_cuda({"score": score}, budget)
+        ck = select()
         cp = select_octave_candidates_plain({"score": score}, budget)
         rargs = lambda c: (dog, c["layer"], c["y"], c["x"], c["score"], ct, et)
-        rk, rp = dog_refine_cuda(*rargs(ck)), dog_refine_plain(*rargs(cp))
+        refine = lambda: dog_refine_cuda(*rargs(ck))
+        rk, rp = refine(), dog_refine_plain(*rargs(cp))
         torch.cuda.synchronize()
         # Tolerance: the candidates (layer, y, x, score) identical and in the
         # same order; the refined offsets and gated scores bit-identical (every
-        # operation rounded as the twin rounds it), or else the largest
-        # difference is printed and the gated sets must be equal.
+        # operation rounded as the twin rounds it); both the same bits on a
+        # second launch.
         for key in ("layer", "y", "x", "score"):
             check(torch.equal(ck[key], cp[key]), f"K4 dog_select octave {o - 1}: {key} differs")
-        exact = all(torch.equal(a, b) for a, b in zip(rk, rp))
-        diff = max(float((a - b).abs().max()) for a, b in zip(rk, rp))
-        if not exact:
-            check(torch.equal(rk[3] > 0, rp[3] > 0), f"K4 dog_refine octave {o - 1}: gated sets")
+        check(all(torch.equal(a, b) for a, b in zip(rk, rp)),
+              f"K4 dog_refine octave {o - 1}: not bit-identical to the twin (max difference "
+              f"{max(float((a - b).abs().max()) for a, b in zip(rk, rp)):.3g})")
+        check_repeatable(torch, f"K4 dog_select octave {o - 1}", select, ck)
+        check_repeatable(torch, f"K4 dog_refine octave {o - 1}", refine, rk)
         log(f"K4 dog_select octave {o - 1} {tuple(score.shape)}: {budget} candidates "
             f"identical in order ({int((ck['score'] > 0).sum())} nonzero); dog_refine "
-            f"{'bit-identical' if exact else f'max difference {diff:.3g}, equal gated sets'} "
-            f"({int((rk[3] > 0).sum())} kept)")
-        worst = max(worst, diff)
-        sk = time_ms(torch, lambda: select_octave_candidates_cuda({"score": score}, budget))
-        rkm = time_ms(torch, lambda: dog_refine_cuda(*rargs(ck)))
-        sp = time_ms(torch, lambda: select_octave_candidates_plain({"score": score}, budget))
-        rpm = time_ms(torch, lambda: dog_refine_plain(*rargs(cp)))
-        log(f"  octave {o - 1}: dog_select {sk:.4f} ms (plain torch {sp:.4f} ms); dog_refine "
-            f"{rkm:.4f} ms (plain torch {rpm:.4f} ms)")
-        ms, plain_ms = ms + sk + rkm, plain_ms + sp + rpm
+            f"bit-identical ({int((rk[3] > 0).sum())} kept); both repeatable")
+        if o > 1:
+            continue
+        times = {}
+        for name, fn, plain, acc in (
+                ("dog_select", select,
+                 lambda: select_octave_candidates_plain({"score": score}, budget), sel),
+                ("dog_refine", refine, lambda: dog_refine_plain(*rargs(cp)), ref)):
+            times[name] = (median_ms(torch, fn), device_ms(torch, fn),
+                           time_ms(torch, plain, reps=3, warmup=1))
+            acc["ms"] += times[name][0]
+            acc["dms"] = None if None in (acc["dms"], times[name][1]) else (
+                acc["dms"] + times[name][1])
+            acc["plain_ms"] += times[name][2]
+        log(f"  octave {o - 1}: " + "; ".join(
+            f"{k} wrapper {w:.4f} ms, device {fmt_ms(d)} (plain torch {p:.4f} ms)"
+            for k, (w, d, p) in times.items()))
         # Selection: every score read once, the candidates written; a compare
-        # per pixel for the block maxima and 5 passes over them. Refinement:
-        # 27 values gathered and ~120 FLOP per candidate.
+        # per pixel for the block maxima and up to 6 passes over them.
+        # Refinement: 27 values gathered and ~120 FLOP per candidate.
         n1 = score.numel() // 16
         K = ck["score"].numel()
-        moved += nbytes(score, *ck.values()) + K * (27 * 4 + 28) + nbytes(*rk)
-        ops += score.numel() + 5 * n1 + 120 * K
-    return result(worst, ms, plain_ms, moved, ops)
+        sel["moved"] += nbytes(score, *ck.values())
+        sel["ops"] += score.numel() + 6 * n1
+        ref["moved"] += K * (27 * 4 + 28) + nbytes(*rk)
+        ref["ops"] += 120 * K
+    return tuple(result(0.0, r["ms"], r["plain_ms"], r["moved"], r["ops"], device_ms=r["dms"])
+                 for r in (sel, ref))
 
 
 def phase_topk(torch, dev, cfg, merge_key):
@@ -3303,6 +3362,26 @@ def check_path_i(runs: dict, counts: dict, views: dict, ref_metrics: dict) -> li
     return out
 
 
+# The kernels of each entry the path-d trace is read for, by name.
+PATH_D_TRACED = {
+    "build_pyramid": ("blur_layer_kernel",),
+    "dog_extrema": ("dog_extrema",),
+    "dog_select": ("select_pass_kernel", "select_cand_kernel", "select_count_kernel",
+                   "select_write_kernel", "rank_sort_kernel", "cell_gather_kernel",
+                   "select_final_kernel", "topk_block_kernel<1>"),
+    "dog_refine": ("dog_refine_kernel",),
+    "sift_describe": ("sift_describe",),
+}
+
+
+def path_d_kernel_totals(by_name) -> dict:
+    """{entry: (kernels, device ms)} of PATH_D_TRACED from a trace's
+    ``by_name`` rows."""
+    return {entry: (sum(c for n, c, _ in by_name if any(k in n for k in keys)),
+                    sum(ms for n, _, ms in by_name if any(k in n for k in keys)))
+            for entry, keys in PATH_D_TRACED.items()}
+
+
 def log_model(name: str, out: Path):
     """Print a run's model as soon as it is written (path h's readings stay in
     the log whatever a later check finds), beside the model it read before
@@ -3435,6 +3514,7 @@ def main(argv=None) -> int:
         results["fmat_score_select"], results["fmat_solve"] = phase_fmat(torch, np, dev)
         results["ba_linearize"], results["schur_coupling"] = phase_ba(torch, np, dev)
         results["schur_damp"] = phase_schur_damp(torch, np, dev)
+        dense_solve = phase_dense_solve(torch, np, dev)
         results["schur_block_jacobi"], results["schur_matvec"], results["pcg"] = phase_pcg(
             torch, np, dev)
         phase_run_ba_pcg(torch, np, dev)
@@ -3456,7 +3536,8 @@ def main(argv=None) -> int:
         results["pyramid"] = phase_pyramid(torch, dev, images, cfg)
         results["dog_extrema"] = phase_dog_extrema(torch, dev, images[:1], cfg)
         results["sift_describe"] = phase_describe(torch, dev, images[:1], cfg)
-        results["dog_select"] = phase_dog_select(torch, dev, images, cfg)
+        results["dog_select"], results["dog_refine"] = phase_dog_select(torch, dev, images,
+                                                                        cfg)
         levels = orb_levels(torch, images, cfg)
         results["orb_fast_nms"] = phase_orb_fast_nms(torch, dev, levels)
         results["orb_blur"] = phase_orb_blur(torch, dev, levels)
@@ -3538,6 +3619,16 @@ def main(argv=None) -> int:
         large_metrics = stage_seconds(out_large)
         large_peak = torch.cuda.max_memory_allocated()
         log_model("pipeline", out_large)
+        # Path d's preprocess once more, traced (the CLI's torch.profiler
+        # capture): the device time of K3's and K4's kernels in its detect.
+        traced = work / f"traced_{args.large_views}"
+        check(cli.main(["--log_level", "WARNING", "--log_dir", str(work / "logs"), "preprocess",
+                        "--data_dir", str(large), "--output_dir", str(traced), "--device",
+                        "cuda", "--no_mask", "--trace_dir", str(traced / "trace")]) == 0,
+              "the traced preprocess failed")
+        from sfm_tpu_torch.profile_stage import trace_summary
+
+        detect_trace = trace_summary(traced / "trace" / "trace.json")
 
         # ---- path e: reconstruct --global_init on path a's 36-view artifacts
         glob = work / f"global_{args.views}"
@@ -3569,7 +3660,7 @@ def main(argv=None) -> int:
         c, orb_wall = run_path("orb", ["pipeline", "--data_dir", str(scene), "--output_dir",
                                        str(orb), "--feature_kind", "orb", "--config",
                                        str(orb / "config.json")],
-                               ORB_KERNELS, entries=ORB_ENTRIES, forbidden=SIFT_ONLY_ENTRIES)
+                               ORB_KERNELS, forbidden=SIFT_ONLY_ENTRIES)
         add(c, "orb")
         orb_metrics = stage_seconds(orb)
         log_model("orb", orb)
@@ -3773,6 +3864,14 @@ def main(argv=None) -> int:
         f"18,587 points, 0.5564 px, 22.6208 deg); "
         f"{tracks.num_tracks} tracks x {tracks.max_views} view slots = "
         f"{tracks.view_img.size} BA table rows before compaction")
+    log(f"pipeline at {L} views: stage/detect {large_metrics['stage/detect']:.3f} s (PR 15's "
+        f"warm median: 1.10 s); traced preprocess: detect span "
+        f"{detect_trace['detect']['span_s']:.4f} s, device busy "
+        f"{detect_trace['detect']['device_busy_s']:.4f} s; device ms by kernel (launches): "
+        + "; ".join(f"{name} {ms:.3f} ({c})" for name, (c, ms) in
+                    path_d_kernel_totals(detect_trace["by_name"]).items()))
+    log(f"dense solve on path d: {by_path['pipeline']['schur_coupling']} launches (one a dense "
+        f"BA step, as schur_coupling's); device {fmt_ms(dense_solve.get('device_ms'))} a call")
     log(f"pipeline at {L} views: cli wall {large_wall:.3f} s | peak device memory "
         f"{large_peak / 2**30:.2f} GiB | " + ", ".join(
             f"{k} {v:.3f} s" for k, v in sorted(large_metrics.items())))

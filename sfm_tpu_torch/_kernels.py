@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+_P, _I, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                      ctypes.c_double)
 # C signature of each kernel entry point (all return int = cudaError_t);
 # the last argument is always the cudaStream_t.
 SIGNATURES = {
@@ -50,21 +51,21 @@ SIGNATURES = {
     "sfm_pnp_score_select": [_P] * 7 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
     "sfm_retrieval_score": [_P] * 3 + [_I] * 4 + [_F, _P] + [_P],
     "sfm_guided_match": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
-    "sfm_build_pyramid": [_P] + [_I] * 6 + [_P] * 5 + [_P],
+    "sfm_build_pyramid": [_P] + [_I] * 6 + [_P] * 4 + [_P],
     "sfm_seed_score": [_P] * 5 + [_I] * 2 + [_P] * 5 + [_P],
     "sfm_pnp_refine": [_P] * 7 + [_I, _I, _F, _P, _I] + [_P] * 7 + [_P],
     "sfm_schur_damp": [_P] * 12 + [_I] * 6 + [_F] + [_P] * 9 + [_P],
     "sfm_schur_back_substitute": [_P] * 11 + [_I] * 3 + [_P] + [_P],
     "sfm_fmat_hypotheses": [_P] * 3 + [_I] * 3 + [_P] + [_P],
     "sfm_fmat_refit_verify": [_P] * 5 + [_I] * 3 + [_F, _I, _F, _F, _F] + [_P] * 10 + [_P],
-    "sfm_dog_select": [_P] + [_I] * 5 + [_P] * 10 + [_P],
+    "sfm_dog_select": [_P] + [_I] * 5 + [_P, _L] + [_P] * 4 + [_P],
     "sfm_dog_refine": [_P] + [_I] * 4 + [_P] * 4 + [_I] + [_F] * 3 + [_P] * 4 + [_P],
     "sfm_topk_rows": [_P] + [_I] * 3 + [_P] * 2 + [_P],
     "sfm_relpose": [_P] * 3 + [_I] * 3 + [_P] * 3 + [_P],
     "sfm_rotation_average": [_P] * 4 + [_I] * 4 + [_P] * 5 + [_P],
     "sfm_translation_average": [_P] * 4 + [_I] * 5 + [_P] * 5 + [_P],
     "sfm_orb_fast_nms": [_P, _P] + [_I] * 3 + [_F, _P] + [_P],
-    "sfm_orb_blur": [_P] + [_I] * 3 + [_P, _I, _P, _P] + [_P],
+    "sfm_orb_blur": [_P] + [_I] * 3 + [_P, _I, _P] + [_P],
     "sfm_orb_describe": [_P] + [_I] * 3 + [_P] * 3 + [_I, _P, _F, _P, _P] + [_P],
     "sfm_schur_block_jacobi": [_P] * 4 + [_I] + [_P] * 2 + [_P],
     "sfm_schur_matvec": [_P] * 14 + [_I] * 5 + [_P] * 6 + [_P],

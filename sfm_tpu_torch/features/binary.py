@@ -9,7 +9,7 @@ retrieval and guided rescue run unchanged (squared-L2 = Hamming / 64).
 Three CUDA kernels carry the per-pixel and per-keypoint work: ``fast_nms``
 (arc test, score, border and mask gates, NMS) and ``orb_describe`` (patch,
 intensity-centroid angle, steering bin, the 256 tests) in ``csrc/orb.cu``,
-and ``orb_blur`` (kernel K3's separable blur, rounded to bf16) as a second
+and ``orb_blur`` (kernel K3's tiled blur, stored as bf16) as a second
 entry of ``csrc/pyramid.cu``. Each has a
 plain PyTorch twin here that runs on CPU tensors; a CUDA tensor launches
 the kernel or raises. Candidate selection is kernel K4's ``dog_select``
@@ -32,7 +32,7 @@ from sfm_tpu_torch import _kernels
 from sfm_tpu_torch.config import FeatureConfig
 from sfm_tpu_torch.estimators.ransac import top_k
 from sfm_tpu_torch.features.detect import select_octave_candidates
-from sfm_tpu_torch.features.pyramid import _blur_radius, _gaussian_taps, gaussian_blur
+from sfm_tpu_torch.features.pyramid import gaussian_blur, k3_blur_plan
 
 PATCH = 33          # descriptor/orientation patch edge (center at 16)
 HALF = PATCH // 2
@@ -196,11 +196,10 @@ def orb_blur_cuda(image: torch.Tensor) -> torch.Tensor:
     B, h, w = image.shape
     dev = image.device
     _kernels.check_tensor(image, "image", torch.float32, (B, h, w), dev)
-    r = _blur_radius(BLUR_SIGMA)
-    scratch = torch.empty((B, h, w), dtype=torch.float32, device=dev)
+    taps, radii = k3_blur_plan([BLUR_SIGMA])
     out = torch.empty((B, h, w), dtype=torch.bfloat16, device=dev)
-    _kernels.launch("orb_blur", dev, image, B, h, w,
-                    torch.from_numpy(_gaussian_taps(BLUR_SIGMA, r)), r, scratch, out)
+    _kernels.launch("orb_blur", dev, image, B, h, w, torch.from_numpy(taps[0]), int(radii[0]),
+                    out)
     return out
 
 

@@ -246,8 +246,31 @@ def select_octave_candidates_plain(fields, budget: int):
     }
 
 
-# dog_select sorts each image's top-k survivors in shared memory (8 bytes each).
+# dog_select sorts each image's top-k2 cells in shared memory (8 bytes each).
 _K4_MAX_BUDGET = 16384
+# dog_select's passes over an image's block maxima cut them into blocks of
+# this many keys; an image keeps this many control words (for each of the two
+# passes over all of them a 256-bin histogram and each bin's largest and
+# smallest key; the selection's state).
+_K4_KEYS_A_BLOCK = 4096
+_K4_CONTROL_WORDS = 2 * 3 * 256 + 9
+
+
+def dog_select_plan(B: int, S: int, h: int, w: int, budget: int) -> dict:
+    """What ``sfm_dog_select`` is given for a (B, S, h, w) score grid: the
+    block maxima an image (n1), the two levels' k (k1, k2), the blocks of
+    keys an image (blocks) and its workspace in 32-bit words (words): the
+    keys and room for as many candidates, the control words, a count a
+    block, seven words a survivor (its value and index, the selected block
+    in its place, its four cells), one a top cell, then, 8-byte aligned, the
+    top cells' int64 positions."""
+    n1 = S * ((h + 3) // 4) * ((w + 3) // 4)
+    k1 = min(budget, n1)
+    k2 = min(budget, 4 * k1)
+    blocks = -(-n1 // _K4_KEYS_A_BLOCK)
+    words = B * (2 * n1 + _K4_CONTROL_WORDS + blocks + 7 * k1 + k2)
+    words += words % 2
+    return {"n1": n1, "k1": k1, "k2": k2, "blocks": blocks, "words": words + 2 * B * k2}
 
 
 def select_octave_candidates_cuda(fields, budget: int):
@@ -257,15 +280,11 @@ def select_octave_candidates_cuda(fields, budget: int):
     if not 1 <= budget <= _K4_MAX_BUDGET:
         raise ValueError(f"dog_select: budget {budget} outside [1, {_K4_MAX_BUDGET}]")
     _kernels.check_tensor(score, "score", torch.float32, (B, S, h, w), dev)
-    n1 = S * ((h + 3) // 4) * ((w + 3) // 4)
-    k1 = min(budget, n1)
-    k2 = min(budget, 4 * k1)
-    e = lambda dt, *s: torch.empty(s, dtype=dt, device=dev)
-    f32, i32, i64 = torch.float32, torch.int32, torch.int64
-    scratch = (e(f32, B, n1), e(i32, B, k1), e(f32, B, k1), e(f32, B, 4 * k1), e(i32, B, k2),
-               e(f32, B, k2))
-    layer, y, x, top = e(i64, B, budget), e(i64, B, budget), e(i64, B, budget), e(f32, B, budget)
-    _kernels.launch("dog_select", dev, score, B, S, h, w, budget, *scratch, layer, y, x, top)
+    words = dog_select_plan(B, S, h, w, budget)["words"]
+    work = torch.empty(words, dtype=torch.int32, device=dev)
+    e = lambda dt: torch.empty((B, budget), dtype=dt, device=dev)
+    layer, y, x, top = e(torch.int64), e(torch.int64), e(torch.int64), e(torch.float32)
+    _kernels.launch("dog_select", dev, score, B, S, h, w, budget, work, words, layer, y, x, top)
     return {"layer": layer, "y": y, "x": x, "score": top}
 
 

@@ -20,9 +20,12 @@ import torch.nn.functional as F
 
 from sfm_tpu_torch import _kernels
 
-# The kernel takes at most 21 taps per blur (radius 10) and 16 blurs.
+# The kernel takes at most 21 taps per blur (radius 10) and 16 blurs, and is
+# instantiated for these radii: the default configuration's (the SIFT
+# pyramid's 4, 5, 6, 8 and 10 with and without the upsample; K12's 6).
 _K3_MAX_TAPS = 21
 _K3_MAX_LAYERS = 16
+K3_RADII = (4, 5, 6, 8, 10)
 
 
 def _blur_radius(sigma: float) -> int:
@@ -114,6 +117,28 @@ def build_pyramid_plain(image: torch.Tensor, num_octaves: int = 4, scales_per_oc
     return gaussians, dogs
 
 
+def k3_blur_plan(sigmas):
+    """Each blur's kernel radius and taps, as ``sfm_build_pyramid`` and
+    ``sfm_orb_blur`` take them: (taps (L, 21) float32, radii (L,) int32).
+
+    The kernel is instantiated for the radii of :data:`K3_RADII`; a blur of
+    radius r runs at the first of them >= r, its 2 r + 1 taps centred in
+    that radius's 2 R + 1 slots, zeros around them (which leave every sum's
+    bits as they are on finite images). Raises past radius 10.
+    """
+    taps = np.zeros((len(sigmas), _K3_MAX_TAPS), np.float32)
+    radii = np.zeros(len(sigmas), np.int32)
+    for layer, sigma in enumerate(sigmas):
+        r = _blur_radius(sigma)
+        if r > K3_RADII[-1]:
+            raise ValueError(f"build_pyramid: blur sigma {sigma:.3f} needs radius {r} > "
+                             f"{K3_RADII[-1]}")
+        R = next(q for q in K3_RADII if q >= r)
+        taps[layer, R - r:R + r + 1] = _gaussian_taps(sigma, r)
+        radii[layer] = R
+    return taps, radii
+
+
 def build_pyramid_cuda(image: torch.Tensor, num_octaves: int = 4, scales_per_octave: int = 3,
                        sigma0: float = 1.6, assumed_blur: float = 0.5,
                        upsample: bool = False):
@@ -125,15 +150,7 @@ def build_pyramid_cuda(image: torch.Tensor, num_octaves: int = 4, scales_per_oct
     _kernels.check_tensor(image, "image", torch.float32, (B, H, W), dev)
     if L > _K3_MAX_LAYERS:
         raise ValueError(f"build_pyramid: {L} layers per octave exceed {_K3_MAX_LAYERS}")
-    taps = np.zeros((L, _K3_MAX_TAPS), np.float32)
-    radii = np.zeros(L, np.int32)
-    for layer, sigma in enumerate(_blur_sigmas(S, sigma0, assumed_blur, upsample)):
-        r = _blur_radius(sigma)
-        if 2 * r + 1 > _K3_MAX_TAPS:
-            raise ValueError(f"build_pyramid: blur sigma {sigma:.3f} needs radius {r} > "
-                             f"{(_K3_MAX_TAPS - 1) // 2}")
-        taps[layer, :2 * r + 1] = _gaussian_taps(sigma, r)
-        radii[layer] = r
+    taps, radii = k3_blur_plan(_blur_sigmas(S, sigma0, assumed_blur, upsample))
     sizes = [(2 * H, 2 * W) if upsample else (H, W)]
     for _ in range(num_octaves - 1):
         h, w = sizes[-1]
@@ -141,10 +158,8 @@ def build_pyramid_cuda(image: torch.Tensor, num_octaves: int = 4, scales_per_oct
     g_flat = torch.empty(sum(B * L * h * w for h, w in sizes), dtype=torch.float32, device=dev)
     d_flat = torch.empty(sum(B * (L - 1) * h * w for h, w in sizes), dtype=torch.float32,
                          device=dev)
-    h0, w0 = sizes[0]
-    scratch = torch.empty(2 * B * h0 * w0, dtype=torch.float32, device=dev)
     _kernels.launch("build_pyramid", dev, image, B, H, W, int(upsample), num_octaves, S,
-                    torch.from_numpy(taps), torch.from_numpy(radii), g_flat, d_flat, scratch)
+                    torch.from_numpy(taps), torch.from_numpy(radii), g_flat, d_flat)
     gaussians, dogs, go, do = [], [], 0, 0
     for h, w in sizes:
         gaussians.append(g_flat[go:go + B * L * h * w].view(B, L, h, w))

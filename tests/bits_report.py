@@ -1,11 +1,12 @@
 """Kernels of one checkout against another's, bit for bit, on the card: K11's
-matvec and PCG, K10's coupling, K7's triangulation, K8+K9's linearization
-and K1's top-2.
+matvec and PCG, K10's coupling, K7's triangulation, K8+K9's linearization,
+K1's top-2, K3's pyramid and K4's candidate selection.
 
     python tests/bits_report.py dump --scene D --pipeline P [--orb G] --out DIR
     python tests/bits_report.py run --repo REPO
-                                    [--cases matvec,coupling,triangulate,linearize,match]
-                                    [--inputs DIR] [--vectors 8] --out FILE.pt
+                                    [--cases matvec,coupling,triangulate,linearize,match,
+                                             pyramid,select]
+                                    [--inputs DIR] [--scene DIR] [--vectors 8] --out FILE.pt
     python tests/bits_report.py compare A.pt B.pt
 
 ``dump`` runs this checkout's ``reconstruct`` on path d's artifacts (``P``,
@@ -43,6 +44,17 @@ and saves, for each case, its outputs, a digest of its inputs and its times:
   ``phase_match_top2``'s chunk and tie-heavy input, ``phase_match_binary``'s
   D = 256 chunk, ragged shapes (K1 != K2, neither a multiple of 128; D = 96
   and 384) and (with ``--inputs``) the dumped chunks of paths d and g.
+- ``pyramid``: ``build_pyramid_cuda``'s Gaussian and DoG stacks (a digest
+  of each octave's) on the smoke's 12 rendered images (the first of
+  ``--scene``'s 36 views, rendered there first where it holds none) with the
+  default configuration's -1 octave, and on the first three cut to 301 x 517
+  (tiles cut by the border) with and without it; wrapper, device and the
+  pyramid kernels' own device time, and (printed) each kernel's.
+- ``select``: ``select_octave_candidates_cuda``'s layer, y, x and score on
+  octaves -1 and 0 of those pyramids' score grids (``dog_extrema_scores_cuda``),
+  on an all-zero grid, on a grid with fewer positives than the budget and on
+  path g's three FAST planes of the 12 images (``orb_levels``,
+  ``fast_nms_cuda`` at ``ORB_FAST_THRESHOLD``); the same times.
 - ``triangulate``: ``triangulate_tracks_cuda``'s points and flags on
   ``phase_triangulate``'s two buckets and (with ``--inputs``) on the dumped
   table: its first 2,048 to 16,384 rows, all of it and the table tiled to
@@ -67,11 +79,12 @@ import importlib.util
 import inspect
 import json
 import pickle
+import re
 import shutil
 import sys
 from pathlib import Path
 
-CASES = ("matvec", "coupling", "triangulate", "linearize", "match")
+CASES = ("matvec", "coupling", "triangulate", "linearize", "match", "pyramid", "select")
 # The BAProblem fields the dump keeps of the largest run_ba call.
 BA_FIELDS = ("rvec", "tvec", "cam_valid", "cam_fixed", "intr", "points", "point_valid",
              "obs_cam", "obs_point", "obs_xy", "obs_valid", "intr_c")
@@ -210,6 +223,24 @@ class Runner:
                             "names": names}
         shown = ", ".join(f"{k} {self.cs.fmt_ms(v)}" for k, v in times.items())
         print(f"{name}: {shape}; {shown}", flush=True)
+
+    def breakdown(self, fn, names, reps=10):
+        """Prints the device time a call of each kernel whose name holds one of
+        ``names`` (one torch.profiler trace)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        self.torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            self.torch.cuda.synchronize()
+        rows = sorted(((e.device_time_total / 1e3 / reps, e.count // reps, e.key)
+                       for e in prof.key_averages() if any(k in e.key for k in names)),
+                      reverse=True)
+        for ms, count, key in rows:
+            name = re.search(r"::(\w+(?:<[^>]*>)?)\(", key)
+            print(f"    {ms:.4f} ms x{count} {name.group(1) if name else key[:60]}", flush=True)
 
     def timed(self, fn, names):
         cs, torch = self.cs, self.torch
@@ -518,6 +549,104 @@ def run_match(r: Runner, args):
     torch.cuda.empty_cache()
 
 
+def smoke_images(torch, scene):
+    """The smoke's detection sub-batch (its first 12 rendered 1024 x 768
+    views, float in [0, 1]) from ``scene``, rendered there first if needed."""
+    from sfm_tpu_torch.io.images import load_image_gray_u8
+    from sfm_tpu_torch.render_scene import render_dataset
+
+    scene = Path(scene)
+    if not (scene / ".render_meta").exists():
+        render_dataset(str(scene), 36, supersample=1, log=print, workers=6)
+    paths = sorted((scene / "images").glob("*.pgm"))[:12]
+    return torch.stack([torch.as_tensor(load_image_gray_u8(p), device="cuda")
+                        for p in paths]).float() / 255.0
+
+
+def _digests(torch, tensors):
+    """Each tensor's sha256 as bytes: the outputs too large to keep."""
+    return [torch.tensor(list(bytes.fromhex(hashlib.sha256(
+        t.contiguous().cpu().numpy().tobytes()).hexdigest())), dtype=torch.uint8)
+            for t in tensors]
+
+
+def pyramid_inputs(torch, images):
+    """(name, images, upsample): the smoke's batch with the -1 octave, and its
+    first three cut to 301 x 517 with and without it."""
+    ragged = images[:3, :301, :517].contiguous()
+    return [("smoke_12", images, True), ("ragged_3x301x517_up", ragged, True),
+            ("ragged_3x301x517", ragged, False)]
+
+
+def run_pyramid(r: Runner, args):
+    torch = r.torch
+    from sfm_tpu_torch.features.pyramid import build_pyramid_cuda
+
+    for name, images, up in pyramid_inputs(torch, smoke_images(torch, args.scene)):
+        fn = lambda: build_pyramid_cuda(images, num_octaves=4, upsample=up)
+        g, d = fn()
+        torch.cuda.synchronize()
+        r.add(f"pyramid/{name}", _digest(images), _digests(torch, g + d),
+              f"B={images.shape[0]}, {images.shape[1]}x{images.shape[2]}, upsample {up}",
+              r.timed(fn, ("blur", "upsample", "subsample")),
+              names=tuple(f"{k} octave {o - up}" for k in ("gaussian", "dog")
+                          for o in range(len(g))))
+        r.breakdown(fn, ("blur", "upsample", "subsample"))
+        del g, d
+        torch.cuda.empty_cache()
+
+
+SELECT_KERNELS = ("block_max", "topk_rows_kernel", "cell_gather", "select_", "rank_sort",
+                  "topk_block_kernel<1>")
+
+
+def run_select(r: Runner, args):
+    torch, cs = r.torch, r.cs
+    from sfm_tpu_torch.config import SfMConfig
+    from sfm_tpu_torch.features.binary import fast_nms_cuda
+    from sfm_tpu_torch.features.detect import dog_extrema_scores_cuda, select_octave_candidates_cuda
+    from sfm_tpu_torch.features.frontend import _octave_budget
+    from sfm_tpu_torch.features.pyramid import build_pyramid_cuda
+
+    fc = SfMConfig().features
+
+    def select(name, score, budget):
+        fn = lambda: select_octave_candidates_cuda({"score": score}, budget)
+        c = fn()
+        torch.cuda.synchronize()
+        r.add(f"select/{name}", _digest(score), [c[k] for k in ("layer", "y", "x", "score")],
+              f"{tuple(score.shape)}, budget {budget}, {int((c['score'] > 0).sum())} nonzero",
+              r.timed(fn, SELECT_KERNELS), names=("layer", "y", "x", "score"))
+        r.breakdown(fn, SELECT_KERNELS)
+
+    images = smoke_images(torch, args.scene)
+    for name, ims, up in pyramid_inputs(torch, images):
+        if not up:
+            continue
+        _, dogs = build_pyramid_cuda(ims, num_octaves=4, upsample=up)
+        for o in (0, 1):
+            score = dog_extrema_scores_cuda(dogs[o].contiguous(), fc.contrast_threshold,
+                                            fc.edge_threshold)["score"]
+            select(f"{name}/octave_{o - 1}", score, _octave_budget(fc.max_keypoints, o))
+        del dogs
+    shape = (12, 3, 1536, 2048)
+    select("all_zero", torch.zeros(shape, device="cuda"), 2048)
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    n = shape[1] * shape[2] * shape[3]
+    flat = np.concatenate([b * n + rng.choice(n, 500, replace=False) for b in range(12)])
+    few = torch.zeros(shape, device="cuda")
+    few.view(-1)[torch.as_tensor(flat, device="cuda")] = torch.as_tensor(
+        rng.uniform(0.01, 1.0, flat.size).astype(np.float32), device="cuda")
+    select("few_positives", few, 2048)
+    del few
+    t = cs.ORB_FAST_THRESHOLD / 255.0
+    for lvl, im, budget in cs.orb_levels(torch, images, SfMConfig()):
+        select(f"path_g_fast/level_{lvl}", fast_nms_cuda(im, t)[:, None].contiguous(), budget)
+    torch.cuda.empty_cache()
+
+
 def run(args) -> int:
     repo = Path(args.repo).resolve()
     sys.path.insert(0, str(repo))
@@ -535,7 +664,7 @@ def run(args) -> int:
     r = Runner(torch, cs, S, inc)
     for case, fn in (("matvec", run_matvec), ("coupling", run_coupling),
                      ("triangulate", run_triangulate), ("linearize", run_linearize),
-                     ("match", run_match)):
+                     ("match", run_match), ("pyramid", run_pyramid), ("select", run_select)):
         if case in cases:
             fn(r, args)
     torch.save({"repo": str(repo), "card": cs.card_line(), "cases": r.cases,
@@ -598,6 +727,8 @@ def main(argv=None) -> int:
     r.add_argument("--inputs", default=None,
                    help="what dump wrote (without it, the kernel phases' scenes only)")
     r.add_argument("--vectors", type=int, default=8, help="the matvec's random x")
+    r.add_argument("--scene", default=".chip_smoke/scene_36",
+                   help="the smoke's 36 rendered views (rendered there if missing)")
     r.add_argument("--out", required=True)
     c = sub.add_parser("compare")
     c.add_argument("a")
