@@ -18,9 +18,14 @@
    one detection sub-batch, ``dog_select`` also on path g's FAST planes) must
    be bit-identical to their twins and repeat bit for bit; each prints its
    wrapper and device time (``dog_select`` and ``dog_refine`` on rows of
-   their own). The dense BA route's Cholesky factorization and solve
-   (``torch.linalg.cholesky_ex`` + ``cholesky_solve``, a library call) is
-   timed at path d's largest S (``DENSE_SOLVE_N``) beside its bound.
+   their own). K10's dense solve (``schur_cholesky_solve`` / ``_f64``, one
+   cooperative launch that factors S and solves) is held against its twin,
+   cuSOLVER (``torch.linalg.cholesky_ex`` + ``cholesky_solve``, timed as the
+   library call) and a float64 solve on thirteen S: path d's largest
+   (``DENSE_SOLVE_N``), the BA phases' real S, the dense route's cap sizes
+   (``DENSE_CAP_N``) and two sizes past the kernel's one row group a block
+   and its shared-memory z (``DENSE_PAST_N``) in both types, with the
+   all-NaN rule for an S that is not positive definite.
    K10's coupling runs with its layout made once, as ``run_ba`` makes it,
    and prints its wrapper and device time on every route; K7 runs its two
    buckets, a bucket of the shape path d's engine launches most
@@ -81,7 +86,8 @@
       ``PATH_D_MAX_GT_DEG`` (both from the JAX reference's seeds on the
       card's own table); then its preprocess once more with the CLI's
       ``torch.profiler`` trace, whose device time of K3's and K4's kernels
-      (``PATH_D_TRACED``) is printed beside ``stage/detect``;
+      (``PATH_D_TRACED``) is printed beside ``stage/detect``, and its
+      reconstruct once more, traced, for the dense solve's device total;
    e. ``reconstruct --global_init`` on path a's artifacts (global SfM):
       kernel K13 launched, all but at most one camera, > 1,000 points,
       < 0.6 px, the global model kept (median pair-rotation residual < 1 deg,
@@ -101,7 +107,7 @@
       gated;
    h. ``pipeline`` on the ``--huge_views`` scene, more images than
       ``ba.use_dense_schur_below``: K11 launched and no dense S assembled
-      (``schur_coupling``, whose S the Cholesky factorizes) in the whole
+      or solved (``DENSE_ENTRIES``) in the whole
       pipeline; every BA call a PCG call, its final cost finite and no
       higher than its initial one; every image in an accepted pair, the
       ground-truth epipolar check, > 1,000 points, < 0.6 px and the camera
@@ -122,7 +128,9 @@
       of ``PATH_I_GATED`` held to path d's model gates, the others checked
       finite and printed; each run's ``engine/ba`` seconds beside path d's
       and path h's. Every path prints its model beside the one it read
-      before K10's coupling and K7 were redesigned (``MODELS_BEFORE``);
+      with cuSOLVER's dense solve (``MODELS_BEFORE``), and the runs that
+      take no dense step (``PCG_ONLY_RUNS``) must read it exactly; on every
+      path the dense solves equal the assembled S;
    j. ``reconstruct`` on path a's artifacts with ``PATH_J_CONFIG``
       (``pnp.sample_size`` 6, PnP's DLT branch): ``pnp_dlt_solve``,
       ``pnp_score_select`` and ``pnp_refine`` launched and ``p3p_solve``
@@ -214,6 +222,12 @@ KERNELS = {
                      "sfm_tpu/ba/schur.py:232"),
     "pcg": (("pcg_init", "pcg_step"), "sfm_tpu_torch/csrc/schur_pcg.cu",
             "sfm_tpu/ba/schur.py:261"),
+    # The dense step's Cholesky factorization and solve, one entry a scalar
+    # type (both camera blocks); the f64 row is the f64 island's.
+    "schur_cholesky": (("schur_cholesky_solve",), "sfm_tpu_torch/csrc/schur_cholesky.cu",
+                       "sfm_tpu/ba/schur.py:420"),
+    "schur_cholesky_f64": (("schur_cholesky_solve_f64",), "sfm_tpu_torch/csrc/schur_cholesky.cu",
+                           "sfm_tpu/ba/schur.py:420"),
 }
 # The BA island's other routes, one row a kernel and route: per-camera
 # intrinsics ("b10", the 10-parameter camera block), the f64 island ("f64")
@@ -243,12 +257,12 @@ PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_de
                       "pyramid", "fmat_solve", "dog_select", "dog_refine", "topk_rows",
                       "match_epilogue")
 RECONSTRUCT_KERNELS = ("pnp_ransac", "triangulate_tracks", "ba_linearize", "schur_coupling",
-                       "seed_score", "pnp_refine", "schur_damp")
+                       "seed_score", "pnp_refine", "schur_damp", "schur_cholesky")
 RESCUE_KERNELS = RECONSTRUCT_KERNELS + ("guided_match",)
 LARGE_KERNELS = PREPROCESS_KERNELS + RECONSTRUCT_KERNELS + ("retrieval_score",)
 K13_KERNELS = ("relpose", "rotation_average", "translation_average")
 GLOBAL_KERNELS = K13_KERNELS + ("triangulate_tracks", "ba_linearize", "schur_coupling",
-                                "schur_damp")
+                                "schur_damp", "schur_cholesky")
 POLISH_KERNELS = RECONSTRUCT_KERNELS + K13_KERNELS
 K12_KERNELS = ("orb_fast_nms", "orb_blur", "orb_describe")
 ORB_KERNELS = K12_KERNELS + ("dog_select", "topk_rows", "match_top2", "match_epilogue",
@@ -262,7 +276,12 @@ K11_KERNELS = ("schur_block_jacobi", "schur_matvec", "pcg")
 HUGE_KERNELS = PREPROCESS_KERNELS + ("retrieval_score", "pnp_ransac", "triangulate_tracks",
                                      "ba_linearize", "seed_score", "pnp_refine",
                                      "schur_damp") + K11_KERNELS
-DENSE_ENTRIES = ("schur_coupling",)
+DENSE_ENTRIES = ("schur_coupling", "schur_cholesky_solve", "schur_cholesky_solve_f64")
+# A dense BA step assembles S (the coupling, on its route) and solves it
+# (the Cholesky, by type): on every path the two launch counts agree.
+COUPLING_ENTRIES = tuple(e for k, (es, _, _) in KERNELS.items()
+                         if k.startswith("schur_coupling") for e in es)
+CHOLESKY_ENTRIES = ("schur_cholesky_solve", "schur_cholesky_solve_f64")
 WINDOW_KERNELS = RECONSTRUCT_KERNELS + K11_KERNELS
 # Path h's two windowed runs on the pipeline's artifacts: the window of 16
 # alone (the rest of the default config: shared intrinsics optimized), and
@@ -329,12 +348,15 @@ PATH_J_MIN_CAMERAS = 36 - 1
 # cameras less 5%, and its worst median plus 10%.
 PATH_D_MIN_CAMERAS = 140 - 7
 PATH_D_MAX_GT_DEG = 1.1 * 78.52
-# The models every path read on the tree before K10's coupling and K7 were
-# redesigned (cameras, points, mean reprojection px, GT rotation median deg,
-# None where that run does not print it; one smoke on an NVIDIA H100 80GB
-# HBM3 at 700 W, PERF.md section 6). The redesigns keep
-# every term, shift, rounding and first-best rule, so a run must read the
-# same; each run prints its model beside these, and the gates decide.
+# The models every path read while the dense BA step was solved by cuSOLVER
+# (cameras, points, mean reprojection px, GT rotation median deg, None where
+# that run does not print it; one smoke on an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md section 6), the same since K10's coupling and K7 were redesigned.
+# K10's own Cholesky kernel rounds otherwise than cuSOLVER, so a run that
+# takes a dense step reads a new model, and the gates decide; the runs that
+# take none (PCG_ONLY_RUNS: PCG throughout) must read these exactly, which
+# shows that nothing but the dense step moved. Each run prints its model
+# beside these.
 MODELS_BEFORE = {
     "reconstruct": (36, 5138, 0.1318, 0.9620),
     "rescue": (36, None, 0.1309, None),
@@ -353,6 +375,7 @@ MODELS_BEFORE = {
     "f64_pcg_36": (36, 5140, 0.1322, 0.7697),
     "dlt": (36, 5137, 0.1312, 0.9771),
 }
+PCG_ONLY_RUNS = ("pipeline_huge", "both_pcg_36", "f64_pcg_36")
 # The shape path d's engine launches K7 at most often: (rows, view slots,
 # cameras, seed pairs on); 548 of its 660 launches on the card's table
 # (PERF.md section 5).
@@ -433,11 +456,11 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int = 10, warmup: int = 2, tries: int = 3):
+def device_ms(torch, fn, reps: int = 10, warmup: int = 2, tries: int = 3, name: str = None):
     """The device time of ``fn`` a call: its kernels' durations summed over one
     ``torch.profiler`` trace of ``reps`` calls (the host's launch work left
-    out, as ``time_ms`` keeps it in); None when ``tries`` traces hold no
-    device time."""
+    out, as ``time_ms`` keeps it in; only the kernels whose name holds
+    ``name``, when given); None when ``tries`` traces hold no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -453,7 +476,8 @@ def device_ms(torch, fn, reps: int = 10, warmup: int = 2, tries: int = 3):
             prof.export_chrome_trace(str(path))
             events = json.loads(path.read_text())["traceEvents"]
         us = sum(e["dur"] for e in events if e.get("ph") == "X"
-                 and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
+                 and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
+                 and (name is None or name in e.get("name", "")))
         if us > 0:
             return us / 1e3 / reps
     return None
@@ -1206,8 +1230,9 @@ def cost_result(torch, what, call, plain, cargs, err):
     return out
 
 
-def phase_ba(torch, np, dev):
-    """K8+K9 (linearize + cost) and K10 (Schur coupling) on the 100-camera scene."""
+def phase_ba(torch, np, dev, systems: dict):
+    """K8+K9 (linearize + cost) and K10 (Schur coupling) on the 100-camera scene;
+    its S and right-hand side go to ``systems`` for the dense solve's phase."""
     from sfm_tpu_torch.ba.residuals import total_huber_cost_cuda, total_huber_cost_plain
     from sfm_tpu_torch.ba.schur import (
         coobs_pairs, coupling_workspace, damp_operator, linearize_cuda, linearize_plain,
@@ -1288,6 +1313,7 @@ def phase_ba(torch, np, dev):
                  coupling_ops(6, pvm), device_ms=dev_ms)
     log(f"K10 schur_coupling: wrapper {ms:.4f} ms, device {fmt_ms(dev_ms)}, bound "
         f"{bound(out)[0]:.4f} ms by {bound(out)[1]}")
+    systems["phase_ba"] = (Sk, rhs_c, rhs_k)
     return k89, out
 
 
@@ -1813,36 +1839,145 @@ def phase_pnp_refine(torch, np, dev):
 # Path d's largest reduced camera system: 150 cameras of 6 parameters and the
 # 4 shared intrinsics.
 DENSE_SOLVE_N = 6 * 150 + 4
+# The largest S the dense route can see: ba.use_dense_schur_below (256)
+# cameras at B = 6 and B = 10.
+DENSE_CAP_N = (6 * 256 + 4, 10 * 256 + 4)
+# Two n past the default cap (a larger ba.use_dense_schur_below): past 24
+# rows a block on 132 SMs (3,167), where a block runs several row groups,
+# and past the kernel's shared-memory z (5,376).
+DENSE_PAST_N = (10 * 400 + 4, 6 * 900 + 4)
+# The H100 SXM's float64 peak on the tensor cores (DMMA, full IEEE double;
+# NVIDIA's data sheet): a Cholesky's n^3 / 3 is rank-k products, which run
+# there (as cuSOLVER's dpotrf does), so the f64 solve's bound takes this rate.
+PEAK_F64_TC_PER_S = 67e12
 
 
-def phase_dense_solve(torch, np, dev):
-    """The dense route's factorization and solve of S x = rhs
-    (``ba/schur.py::dense_schur_direct``: ``torch.linalg.cholesky_ex``, then
-    ``torch.cholesky_solve``), a library call and no kernel of the port, at
-    path d's largest S: its wrapper and device time and its bound (n^3 / 3
-    operations of the factorization and 2 n^2 of the two triangular solves,
-    against S and rhs read and x written once)."""
-    n = DENSE_SOLVE_N
-    rng = np.random.default_rng(16)
-    a = torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32), device=dev) / n ** 0.5
-    S = (a @ a.T + torch.eye(n, device=dev)).contiguous()
-    rhs = torch.as_tensor(rng.standard_normal((n, 1)).astype(np.float32), device=dev)
+def synthetic_spd(torch, np, dev, n, dt, seed):
+    """An exactly symmetric positive definite S (DENSE_SOLVE_N's generator:
+    a a^T / n + I, eigenvalues in [1, 5]) and a right-hand side as (C, B)
+    and (4,)."""
+    rng = np.random.default_rng(seed)
+    a = torch.as_tensor(rng.standard_normal((n, n)), dtype=dt, device=dev) / n ** 0.5
+    M = a @ a.T
+    S = ((M + M.T) / 2 + torch.eye(n, dtype=dt, device=dev)).contiguous()
+    rhs = torch.as_tensor(rng.standard_normal(n), dtype=dt, device=dev)
+    return S, rhs[:-4].reshape(-1, 2 if (n - 4) % 6 else 6), rhs[-4:]
 
-    def solve():
-        L, info = torch.linalg.cholesky_ex(S)
-        return torch.cholesky_solve(rhs, L), info
 
-    x, info = solve()
+# The kernel against its twin: eps of the type (section above).
+TWIN_ULPS = 4
+
+
+def dense_solve_case(torch, np, dev, tag, S, rhs_c, rhs_k):
+    """K10's ``schur_cholesky_solve`` on one S (a copy a call: the float64
+    route factors in place) against its twin, cuSOLVER and a float64 solve;
+    bitwise repeats; the wrapper's, the kernel's device, the twin's and
+    cuSOLVER's times.
+    Tolerances: the kernel's error against the float64 solve of S's lower
+    triangle (the part both factorizations read) at most twice cuSOLVER's,
+    plus 1e-6 in float32 and 1e-12 in float64: S's condition number
+    multiplies both solves' rounding, so an absolute bound would not hold
+    (on an H100 a 5e-6 change in phase_ba's S moved its step by 1.1e-3).
+    And the kernel against its twin: in float32 both round a float64
+    solution once, so they differ only where the two straddle a rounding
+    boundary, at most ``TWIN_ULPS`` float32 eps of the largest entry (a
+    float32 factor would be off by cuSOLVER's error, 7e-7 to 5e-5 here); in
+    float64 their sums' orders differ, which the condition number
+    magnifies as it does any float64 solve: at most twice cuSOLVER's error
+    against the float64 solve plus ``TWIN_ULPS`` float64 eps."""
+    from sfm_tpu_torch.ba.schur import _EPS, dense_solve_cuda, dense_solve_plain
+
+    n, dt = S.shape[0], S.dtype
+    f64 = dt == torch.float64
+    cat = lambda xc, xk: torch.cat([xc.reshape(-1), xk])
+    rhs = cat(rhs_c, rhs_k)
+    kernel = lambda: dense_solve_cuda(S.clone(), rhs_c, rhs_k)
+    eye = torch.eye(n, dtype=dt, device=dev)
+
+    def cusolver():
+        L, info = torch.linalg.cholesky_ex(S + _EPS * eye)
+        return torch.cholesky_solve(rhs[:, None], L)[:, 0], info
+
+    xk_ = kernel()
+    x_k = cat(*xk_)
+    x_t = cat(*dense_solve_plain(S, rhs_c, rhs_k))
+    x_l, info = cusolver()
     torch.cuda.synchronize()
-    res = float((S @ x - rhs).abs().max() / rhs.abs().max())
-    check(int(info) == 0 and res < 1e-4, f"dense solve: info {int(info)}, residual {res:.3g}")
-    ms, dms = median_ms(torch, solve), device_ms(torch, solve)
-    r = result(res, ms, None, nbytes(S, rhs, x), n ** 3 // 3 + 2 * n * n, device_ms=dms)
-    r["bound_ms"], r["bound_by"] = bound(r)
-    log(f"dense solve (cholesky_ex + cholesky_solve, n = {n}, f32; a library call): wrapper "
-        f"{ms:.4f} ms, device {fmt_ms(dms)}, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-        f"({r['ops']} op, {r['bytes']} B), relative residual {res:.3g}")
+    check_repeatable(torch, f"K10 schur_cholesky_solve {tag}", kernel, xk_)
+    low = torch.tril(S).double()
+    Se = low + torch.tril(low, -1).mT + float(torch.tensor(_EPS, dtype=dt)) * eye.double()
+    ref = torch.linalg.solve(Se, rhs.double())
+    err = lambda x: float((x.double() - ref).abs().max() / ref.abs().max())
+    e_k, e_t, e_l = err(x_k), err(x_t), err(x_l)
+    e_kt = _rel(x_k, x_t)
+    check(int(info) == 0 and bool(torch.isfinite(x_k).all())
+          and e_k <= 2 * e_l + (1e-12 if f64 else 1e-6),
+          f"K10 schur_cholesky_solve {tag}: error {e_k:.3g} against the float64 solve, "
+          f"cuSOLVER's {e_l:.3g} (info {int(info)}), the twin's {e_t:.3g}")
+    kt_bound = TWIN_ULPS * torch.finfo(dt).eps + (2 * e_l if f64 else 0.0)
+    check(e_kt <= kt_bound,
+          f"K10 schur_cholesky_solve {tag}: the kernel is {e_kt:.3g} off its twin "
+          f"(bound {kt_bound:.3g})")
+    ms = median_ms(torch, kernel)
+    clone_ms = median_ms(torch, lambda: S.clone())
+    dms = device_ms(torch, kernel, name="cholesky_kernel")
+    plain_ms = time_ms(torch, lambda: dense_solve_plain(S, rhs_c, rhs_k), reps=1, warmup=0)
+    lib_ms = median_ms(torch, cusolver)
+    r = result(e_k, ms, plain_ms, nbytes(S, rhs_c, rhs_k, x_k), n ** 3 // 3 + 2 * n * n,
+               library_ms=lib_ms, peak=PEAK_F64_TC_PER_S if f64 else PEAK_F32_PER_S,
+               device_ms=dms)
+    r.update(n=n, dtype=str(dt)[6:], err_cusolver=e_l, err_twin=e_t, kernel_vs_twin=e_kt,
+             clone_ms=clone_ms)
+    b_ms, b_by = bound(r)
+    log(f"K10 schur_cholesky_solve {tag} (n = {n}, {str(dt)[6:]}): error against the float64 "
+        f"solve {e_k:.3g} (cuSOLVER {e_l:.3g}, twin {e_t:.3g}; kernel to twin {e_kt:.3g}); "
+        f"wrapper {ms:.4f} ms (the copy of S it factors included: {clone_ms:.4f} ms), device "
+        f"{fmt_ms(dms)}, twin {plain_ms:.4f} ms, cuSOLVER (cholesky_ex + cholesky_solve) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
     return r
+
+
+def dense_solve_nan(torch, np, dev, dt):
+    """A non-positive-definite S (a negative pivot in the last panel) gives
+    an all-NaN step from the kernel and from the twin."""
+    from sfm_tpu_torch.ba.schur import dense_solve_cuda, dense_solve_plain
+
+    S, rhs_c, rhs_k = synthetic_spd(torch, np, dev, DENSE_SOLVE_N, dt, 17)
+    S[DENSE_SOLVE_N - 3, DENSE_SOLVE_N - 3] = -5.0
+    for name, fn in (("kernel", lambda: dense_solve_cuda(S.clone(), rhs_c, rhs_k)),
+                     ("twin", lambda: dense_solve_plain(S, rhs_c, rhs_k))):
+        xc, xk = fn()
+        check(bool(xc.isnan().all()) and bool(xk.isnan().all()),
+              f"K10 schur_cholesky_solve, {str(dt)[6:]}: the {name} gave a step for an S "
+              f"that is not positive definite")
+
+
+def phase_dense_solve(torch, np, dev, systems: dict):
+    """K10's dense solve (``ba/schur.py::dense_solve``: the kernel
+    ``schur_cholesky_solve`` / ``_f64``) on four kinds of S: the synthetic S
+    at path d's largest size (``DENSE_SOLVE_N``), the real S that
+    ``phase_ba`` assembles (n = 604), the real S of ``phase_island`` on each
+    route (``systems``), and synthetic S at the dense route's cap sizes
+    (``DENSE_CAP_N``) and past them (``DENSE_PAST_N``) in both types; then
+    the NaN rule in both. Returns the
+    two rows' results (the float row at ``DENSE_SOLVE_N``, the double row on
+    the f64 route's real S), each with every case."""
+    cases = {"synthetic": synthetic_spd(torch, np, dev, DENSE_SOLVE_N, torch.float32, 16)}
+    cases.update(systems)
+    for n in DENSE_CAP_N + DENSE_PAST_N:
+        for dt in (torch.float32, torch.float64):
+            tag = f"{'cap' if n in DENSE_CAP_N else 'past'}_{n}_{str(dt)[6:]}"
+            cases[tag] = synthetic_spd(torch, np, dev, n, dt, n)
+    out = {tag: dense_solve_case(torch, np, dev, tag, *sys_) for tag, sys_ in cases.items()}
+    for dt in (torch.float32, torch.float64):
+        dense_solve_nan(torch, np, dev, dt)
+    log("K10 schur_cholesky_solve: a non-positive-definite S gives an all-NaN step from the "
+        "kernel and the twin, float and double")
+    torch.cuda.empty_cache()
+    f32, f64 = dict(out["synthetic"]), dict(out["f64"])
+    f32["cases"] = {k: v for k, v in out.items() if v["dtype"] == "float32"}
+    f64["cases"] = {k: v for k, v in out.items() if v["dtype"] == "float64"}
+    return f32, f64
 
 
 def phase_schur_damp(torch, np, dev):
@@ -2263,13 +2398,14 @@ def island_system(torch, np, dev, B, dt, n_cams, n_pts, obs_per_cam, seed, pinne
     return args, kw
 
 
-def phase_island(torch, np, dev, route):
+def phase_island(torch, np, dev, route, systems: dict):
     """One route of the BA island (``ISLAND_ROUTES``): K8+K9's linearize and
     K10's coupling and damping / back-substitution on ``ba_scene`` (100
     cameras, 200k observations), K10's block-Jacobi inverses and K11's
     matvec and PCG on the 300-camera / 600k-observation scene with 20
     cameras pinned; each against its twin, with a second launch that must
-    give the same bits. Returns the six rows' results."""
+    give the same bits. Returns the six rows' results; the coupling's S and
+    right-hand side go to ``systems[route]`` for the dense solve's phase."""
     from sfm_tpu_torch.ba import schur as S
 
     B, dname = ISLAND_ROUTES[route]
@@ -2373,6 +2509,7 @@ def phase_island(torch, np, dev, route):
     b_ms, b_by = bound(out["schur_coupling"])
     log(f"K10 schur_coupling {tag}: wrapper {ms:.4f} ms, device {fmt_ms(dev_ms)}, bound "
         f"{b_ms:.4f} ms by {b_by}")
+    systems[route] = (Sk, rhs_c, rhs_k)
 
     (opk, rck, rkk), (opp, rcp, rkp) = (S.schur_damp_cuda(lk, lam, perm, pvm),
                                         S.schur_damp_plain(lk, lam))
@@ -3362,7 +3499,8 @@ def check_path_i(runs: dict, counts: dict, views: dict, ref_metrics: dict) -> li
     return out
 
 
-# The kernels of each entry the path-d trace is read for, by name.
+# The kernels of each entry path d's traces (its preprocess and its
+# reconstruct, each run once more) are read for, by name.
 PATH_D_TRACED = {
     "build_pyramid": ("blur_layer_kernel",),
     "dog_extrema": ("dog_extrema",),
@@ -3371,6 +3509,7 @@ PATH_D_TRACED = {
                    "select_final_kernel", "topk_block_kernel<1>"),
     "dog_refine": ("dog_refine_kernel",),
     "sift_describe": ("sift_describe",),
+    "schur_cholesky_solve": ("cholesky_kernel",),
 }
 
 
@@ -3382,20 +3521,32 @@ def path_d_kernel_totals(by_name) -> dict:
             for entry, keys in PATH_D_TRACED.items()}
 
 
+def model_of(out: Path) -> tuple:
+    """A run's model as ``MODELS_BEFORE`` holds it."""
+    st = json.loads((out / "reconstruction" / "stats.json").read_text())
+    return (st["num_cameras"], st["num_points"], round(st["mean_reprojection_error"], 4),
+            round(st.get("gt_rot_err_deg_median", float("nan")), 4))
+
+
+def same_model(name: str, out: Path) -> bool:
+    """The run read the model of ``MODELS_BEFORE``."""
+    before = MODELS_BEFORE.get(name)
+    return before is not None and all(b is None or a == b
+                                      for a, b in zip(model_of(out), before))
+
+
 def log_model(name: str, out: Path):
     """Print a run's model as soon as it is written (path h's readings stay in
-    the log whatever a later check finds), beside the model it read before
-    the coupling's and K7's redesign (``MODELS_BEFORE``)."""
+    the log whatever a later check finds), beside the model it read with
+    cuSOLVER's dense solve (``MODELS_BEFORE``)."""
     st = json.loads((out / "reconstruction" / "stats.json").read_text())
     intr = json.loads((out / "reconstruction" / "intrinsics.json").read_text())
-    now = (st["num_cameras"], st["num_points"], round(st["mean_reprojection_error"], 4),
-           round(st.get("gt_rot_err_deg_median", float("nan")), 4))
     before = MODELS_BEFORE.get(name)
     fmt = lambda x, f: "-" if x is None else format(x, f)
     was = ("" if before is None else
-           f" | before the coupling's and K7's redesign: {before[0]} cameras, "
+           f" | with cuSOLVER's dense solve: {before[0]} cameras, "
            f"{fmt(before[1], 'd')} points, {fmt(before[2], '.4f')} px, {fmt(before[3], '.4f')} "
-           f"deg: {'the same' if all(b is None or a == b for a, b in zip(now, before)) else 'OTHER'}")
+           f"deg: {'the same' if same_model(name, out) else 'OTHER'}")
     log(f"{name}: {st['num_cameras']} cameras, {st['num_points']} points, mean reprojection "
         f"{st['mean_reprojection_error']:.4f} px, GT rotation median "
         f"{st.get('gt_rot_err_deg_median', float('nan')):.4f} deg, ATE "
@@ -3481,6 +3632,9 @@ def main(argv=None) -> int:
             check(counts[entry] > 0, f"kernel {entry} was not launched by {name}")
         for entry in forbidden:
             check(counts[entry] == 0, f"kernel {entry} was launched by {name}")
+        n_chol = sum(counts[e] for e in CHOLESKY_ENTRIES)
+        n_coup = sum(counts[e] for e in COUPLING_ENTRIES)
+        check(n_chol == n_coup, f"{name}: {n_chol} dense solves for {n_coup} assembled S")
         log(f"{name} (done at {time.perf_counter() - t_start:.1f} s): cli wall {wall:.3f} s, "
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
@@ -3512,15 +3666,18 @@ def main(argv=None) -> int:
                    "guided_match": phase_guided_match(torch, dev),
                    "seed_score": phase_seed_score(torch, np, dev)}
         results["fmat_score_select"], results["fmat_solve"] = phase_fmat(torch, np, dev)
-        results["ba_linearize"], results["schur_coupling"] = phase_ba(torch, np, dev)
+        systems = {}   # the real S of the BA phases, for the dense solve's phase
+        results["ba_linearize"], results["schur_coupling"] = phase_ba(torch, np, dev, systems)
         results["schur_damp"] = phase_schur_damp(torch, np, dev)
-        dense_solve = phase_dense_solve(torch, np, dev)
         results["schur_block_jacobi"], results["schur_matvec"], results["pcg"] = phase_pcg(
             torch, np, dev)
         phase_run_ba_pcg(torch, np, dev)
         for route in ISLAND_ROUTES:
-            results.update(phase_island(torch, np, dev, route))
+            results.update(phase_island(torch, np, dev, route, systems))
             torch.cuda.empty_cache()
+        results["schur_cholesky"], results["schur_cholesky_f64"] = phase_dense_solve(
+            torch, np, dev, systems)
+        del systems
         phase_run_ba_island(torch, np, dev)
         torch.cuda.empty_cache()
         for name, big in phase_ba_above_cap(torch, np, dev).items():
@@ -3626,9 +3783,18 @@ def main(argv=None) -> int:
                         "--data_dir", str(large), "--output_dir", str(traced), "--device",
                         "cuda", "--no_mask", "--trace_dir", str(traced / "trace")]) == 0,
               "the traced preprocess failed")
-        from sfm_tpu_torch.profile_stage import trace_summary
+        from sfm_tpu_torch.profile_stage import SPANS, trace_summary
 
         detect_trace = trace_summary(traced / "trace" / "trace.json")
+        # And its reconstruct, traced: the dense solve's device time.
+        traced_rec = work / f"traced_rec_{args.large_views}"
+        traced_rec.mkdir(parents=True, exist_ok=True)
+        (traced_rec / "pair_table.pkl").write_bytes((out_large / "pair_table.pkl").read_bytes())
+        check(cli.main(["--log_level", "WARNING", "--log_dir", str(work / "logs"), "reconstruct",
+                        "--data_dir", str(large), "--output_dir", str(traced_rec), "--device",
+                        "cuda", "--no_mask", "--trace_dir", str(traced_rec / "trace")]) == 0,
+              "the traced reconstruct failed")
+        rec_trace = trace_summary(traced_rec / "trace" / "trace.json", SPANS["reconstruct"])
 
         # ---- path e: reconstruct --global_init on path a's 36-view artifacts
         glob = work / f"global_{args.views}"
@@ -3721,6 +3887,12 @@ def main(argv=None) -> int:
         if render.poll() is None:   # the renderer and its pool workers
             os.killpg(render.pid, signal.SIGKILL)
             render.wait()
+
+    # ---- the runs without a dense step read the models they read before
+    run_dirs = {"pipeline_huge": out_huge, **{k: v[0] for k, v in island_runs.items()}}
+    moved = [r for r in PCG_ONLY_RUNS if not same_model(r, run_dirs[r])]
+    check(not moved, f"runs without a dense BA step read another model than MODELS_BEFORE: "
+                     f"{', '.join(moved)}")
 
     # ---- path a's checks: the verified pairs
     blob = pickle.loads((out / "pair_table.pkl").read_bytes())
@@ -3859,19 +4031,25 @@ def main(argv=None) -> int:
         f"mean reprojection {ls['mean_reprojection_error']:.4f} px, GT rotation median "
         f"{ls.get('gt_rot_err_deg_median', float('nan')):.4f} deg, ATE "
         f"{100 * ls.get('gt_ate_rel', float('nan')):.3f}% of the scene (gates: >= "
-        f"{PATH_D_MIN_CAMERAS} cameras, < {PATH_D_MAX_GT_DEG:.2f} deg; read since the order-free "
-        f"sums: 150 cameras, "
+        f"{PATH_D_MIN_CAMERAS} cameras, < {PATH_D_MAX_GT_DEG:.2f} deg; read with cuSOLVER's "
+        f"dense solve: 150 cameras, "
         f"18,587 points, 0.5564 px, 22.6208 deg); "
         f"{tracks.num_tracks} tracks x {tracks.max_views} view slots = "
         f"{tracks.view_img.size} BA table rows before compaction")
     log(f"pipeline at {L} views: stage/detect {large_metrics['stage/detect']:.3f} s (PR 15's "
         f"warm median: 1.10 s); traced preprocess: detect span "
         f"{detect_trace['detect']['span_s']:.4f} s, device busy "
-        f"{detect_trace['detect']['device_busy_s']:.4f} s; device ms by kernel (launches): "
+        f"{detect_trace['detect']['device_busy_s']:.4f} s; device ms by kernel (launches; "
+        f"the dense solve's from the traced reconstruct): "
         + "; ".join(f"{name} {ms:.3f} ({c})" for name, (c, ms) in
-                    path_d_kernel_totals(detect_trace["by_name"]).items()))
-    log(f"dense solve on path d: {by_path['pipeline']['schur_coupling']} launches (one a dense "
-        f"BA step, as schur_coupling's); device {fmt_ms(dense_solve.get('device_ms'))} a call")
+                    path_d_kernel_totals(detect_trace["by_name"]
+                                         + rec_trace["by_name"]).items()))
+    log(f"dense solve on path d: {by_path['pipeline']['schur_cholesky_solve']} launches (one a "
+        f"dense BA step, as schur_coupling's {by_path['pipeline']['schur_coupling']}); the "
+        f"kernel's device {fmt_ms(results['schur_cholesky'].get('device_ms'))} a call at n = "
+        f"{DENSE_SOLVE_N}; traced reconstruct: sfm/ba span "
+        f"{rec_trace.get('sfm/ba', {}).get('span_s', float('nan')):.4f} s, device busy "
+        f"{rec_trace.get('sfm/ba', {}).get('device_busy_s', float('nan')):.4f} s")
     log(f"pipeline at {L} views: cli wall {large_wall:.3f} s | peak device memory "
         f"{large_peak / 2**30:.2f} GiB | " + ", ".join(
             f"{k} {v:.3f} s" for k, v in sorted(large_metrics.items())))

@@ -104,11 +104,16 @@ for _route in ROUTES:
 # The cost at each camera's own intrinsics (the B = 10 routes).
 SIGNATURES["sfm_ba_cost_b10"] = SIGNATURES["sfm_ba_cost"]
 KERNELS += ("ba_cost_b10",)
+# K10's dense solve, one entry a scalar type (any camera block).
+SIGNATURES["sfm_schur_cholesky_solve"] = [_P] * 3 + [_I] * 2 + [_D] + [_P] * 6 + [_P]
+SIGNATURES["sfm_schur_cholesky_solve_f64"] = SIGNATURES["sfm_schur_cholesky_solve"]
+KERNELS += ("schur_cholesky_solve", "schur_cholesky_solve_f64")
 
 # Called once, on the first launch, on that device's stream: per-function
-# attributes (the opt-in shared memory of K10's staged walk, K4's topk_rows
-# and K1's resident rows).
-SETUP = ("sfm_schur_damp_setup", "sfm_topk_setup", "sfm_match_setup")
+# attributes (the opt-in shared memory of K10's staged walk and dense solve,
+# K4's topk_rows and K1's resident rows).
+SETUP = ("sfm_schur_damp_setup", "sfm_schur_cholesky_setup", "sfm_topk_setup",
+         "sfm_match_setup")
 SIGNATURES.update({name: [_P] for name in SETUP})
 
 _launches = {k: 0 for k in KERNELS}

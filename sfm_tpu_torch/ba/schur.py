@@ -24,7 +24,10 @@ its tensors; each kernel entry below has one instantiation a route
   coupling, the camera blocks U_c + diag(lambda D_c) and the intrinsics
   row and column, walking the :func:`coupling_layout` of the grouping,
   built once a problem), its twin :func:`schur_matrix_plain` -- and
-  solves it by Cholesky (``torch.linalg.cholesky_ex``, a library call);
+  solves it by Cholesky (:func:`dense_solve`: K10's
+  ``schur_cholesky_solve``, ``csrc/schur_cholesky.cu``, one cooperative
+  launch that factors S in float64 and solves; its twin
+  :func:`dense_solve_plain`, the same panels in plain PyTorch);
 * :func:`back_substitute` recovers the point step -- K10's
   ``schur_back_substitute``, its twin :func:`schur_back_substitute_plain`;
 * past ``BAConfig.use_dense_schur_below`` cameras S is never formed:
@@ -697,6 +700,7 @@ class CouplingWork(NamedTuple):
     kk: torch.Tensor         # (16 WORDS,) int64 fixed-point sums of S_kk's coupling
     ctrl: torch.Tensor       # (2,) int32: the walk's blocks arrived, a term out of bounds
     er: torch.Tensor         # (BC + 4,) int32: each row's exponent, written a call
+    dense: torch.Tensor      # float64: the dense solve's workspace (dense_scratch_numel)
 
 
 def coupling_workspace(lin: Linearization, perm, perm_valid, grouping=None) -> CouplingWork:
@@ -711,7 +715,9 @@ def coupling_workspace(lin: Linearization, perm, perm_valid, grouping=None) -> C
                         terms=torch.empty(12 * B * len(cam_slots), dtype=dt, device=dev),
                         kk=torch.zeros(16 * _words(dt), dtype=torch.int64, device=dev),
                         ctrl=torch.zeros(2, dtype=torch.int32, device=dev),
-                        er=torch.empty(B * C + 4, dtype=torch.int32, device=dev))
+                        er=torch.empty(B * C + 4, dtype=torch.int32, device=dev),
+                        dense=torch.empty(dense_scratch_numel(B * C + 4, dt),
+                                          dtype=torch.float64, device=dev))
 
 
 def schur_matrix_cuda(lin: Linearization, op: Damped, perm, perm_valid,
@@ -758,21 +764,136 @@ def schur_matrix(lin: Linearization, op: Damped, perm, perm_valid,
     raise ValueError(f"schur_matrix: unsupported device {dev}")
 
 
+# K10's dense solve (csrc/schur_cholesky.cu): the panel width (W, a warp's
+# lanes) and the most rows a row group holds (RMAX).
+_PANEL = 32
+_GROUP_ROWS = 24
+
+
+def dense_scratch_numel(n: int, dtype) -> int:
+    """The float64 workspace of K10's ``schur_cholesky_solve`` for an n x n S:
+    the next diagonal tile's sums (2 x 32 x 32), the row groups' sums and
+    entries (3 x 24 x 32 for each of ceil((n + 1) / 24) groups; read only
+    when a group a block is not enough) and z (n; read only past the
+    kernel's shared memory), then in float32 the factor (n x n) and y (n)."""
+    groups = (n + _GROUP_ROWS) // _GROUP_ROWS
+    size = 2 * _PANEL * _PANEL + 3 * _GROUP_ROWS * _PANEL * groups + n
+    return size + (n * n + n if dtype == torch.float32 else 0)
+
+
+def dense_solve_plain(S, rhs_c, rhs_k):
+    """x = (S + _EPS I)^-1 [rhs_c; rhs_k] as (C, B) and (4,): the plain twin
+    of K10's ``schur_cholesky_solve``, the reference's ``cho_solve(cho_factor(
+    S + _EPS I), rhs)`` (``sfm_tpu/ba/schur.py:420-423``).
+
+    The kernel's algorithm, not a library call: a left-looking Cholesky of
+    the lower triangle over panels of ``_PANEL`` columns, the right-hand side
+    riding along as row n (its entries are y = L^-1 rhs), then L^T x = y a
+    panel at a time from the last. _EPS is added to the diagonal in S's dtype
+    T. L, y and the back-substitution are float64 for both dtypes; x alone is
+    rounded to T, once (in float32 nearly the correctly rounded solution).
+    Below a pivot d, L[i, t] = a rsqrt(d); the stored pivot is sqrt(d),
+    which the back-substitution divides by. If a pivot is not > 0 (or NaN)
+    every entry of x is NaN. S is left as it is (the kernel's float64 route
+    factors in place)."""
+    n, (C, B) = S.shape[0], rhs_c.shape
+    T, f64, dev = S.dtype, torch.float64, S.device
+    Se = S.clone()
+    Se.diagonal().add_(_EPS)
+    M = torch.cat([Se, torch.cat([rhs_c.reshape(-1), rhs_k])[None]]).to(f64)  # (n + 1, n)
+    L = torch.zeros((n + 1, n), dtype=f64, device=dev)   # the factor, y in row n
+    r = torch.zeros(n, dtype=f64, device=dev)
+    pivots = torch.zeros(n, dtype=f64, device=dev)
+    for j0 in range(0, n, _PANEL):
+        w = min(_PANEL, n - j0)
+        A = M[j0:, j0:j0 + w] - L[j0:, :j0] @ L[j0:j0 + w, :j0].T
+        D = A[:w]
+        for t in range(w):       # the tile, column by column
+            d = D[t, t].clone()
+            pivots[j0 + t] = d
+            r[j0 + t] = torch.rsqrt(d)
+            L[j0 + t, j0 + t] = torch.sqrt(d)
+            col = D[t + 1:, t] * r[j0 + t]
+            L[j0 + t + 1:j0 + w, j0 + t] = col
+            D[t + 1:, t + 1:] -= col[:, None] * col[None, :]
+        R = A[w:]                # the rows below the tile and the rhs row
+        for t in range(w):
+            col = R[:, t] * r[j0 + t]
+            L[j0 + w:, j0 + t] = col
+            R[:, t + 1:] -= col[:, None] * L[j0 + t + 1:j0 + w, j0 + t][None, :]
+    z = L[n].clone()
+    x = torch.zeros(n, dtype=f64, device=dev)
+    for j0 in reversed(range(0, n, _PANEL)):
+        w = min(_PANEL, n - j0)
+        Lkk = L[j0:j0 + w, j0:j0 + w]
+        rb = 1.0 / torch.diagonal(Lkk)
+        zp = z[j0:j0 + w].clone()
+        for t in reversed(range(w)):
+            x[j0 + t] = zp[t] * rb[t]
+            zp[:t] -= Lkk[t, :t] * x[j0 + t]
+        z[:j0] -= L[j0:j0 + w, :j0].T @ x[j0:j0 + w]
+    x = torch.where((pivots > 0).all(), x, torch.nan).to(T)
+    return x[: B * C].reshape(C, B), x[B * C:]
+
+
+def dense_solve_cuda(S, rhs_c, rhs_k, scratch=None):
+    """K10's ``schur_cholesky_solve`` (``_f64`` in the f64 island): one
+    cooperative launch that factors S and writes x; returns views of x as
+    (C, B) and (4,). The float64 route factors S in place (S is
+    overwritten); the float32 route keeps its float64 factor in
+    ``scratch`` and only reads S. ``scratch``: a float64 tensor of at least
+    :func:`dense_scratch_numel` entries (a :class:`CouplingWork`'s
+    ``dense``), made here when None; the kernel leaves nothing in it that a
+    later call reads."""
+    n, (C, B), dt, dev = S.shape[0], rhs_c.shape, S.dtype, S.device
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"K10 schur_cholesky_solve: no route for {dt}")
+    for name, x, shape in (("S", S, (B * C + 4, B * C + 4)), ("rhs_c", rhs_c, (C, B)),
+                           ("rhs_k", rhs_k, (4,))):
+        _kernels.check_tensor(x, name, dt, shape, dev)
+    need = dense_scratch_numel(n, dt)
+    if scratch is None:
+        scratch = torch.empty(need, dtype=torch.float64, device=dev)
+    elif scratch.dtype != torch.float64 or scratch.device != dev or scratch.numel() < need:
+        raise ValueError(f"K10 schur_cholesky_solve: the workspace needs {need} float64 entries "
+                         f"on {dev}, got {scratch.numel()} {scratch.dtype} on {scratch.device}")
+    x = torch.empty(n, dtype=dt, device=dev)
+    tile = 2 * _PANEL * _PANEL
+    state = 3 * _GROUP_ROWS * _PANEL * ((n + _GROUP_ROWS) // _GROUP_ROWS)
+    parts = torch.split(scratch[:need], [tile, state, n, need - tile - state - n])
+    if dt == torch.float64:
+        factor, y = S, x
+    else:
+        factor, y = parts[3][:n * n], parts[3][n * n:]
+    _kernels.launch("schur_cholesky_solve" + ("_f64" if dt == torch.float64 else ""), dev, S,
+                    rhs_c, rhs_k, n, B * C, _EPS, x, factor, y, *parts[:3])
+    return x[: B * C].view(C, B), x[B * C:]
+
+
+def dense_solve(S, rhs_c, rhs_k, scratch=None):
+    """x = (S + _EPS I)^-1 [rhs_c; rhs_k] as (C, B) and (4,): K10's
+    ``schur_cholesky_solve`` on CUDA tensors (a float64 S is factored in
+    place; ``scratch``: :func:`dense_solve_cuda`'s), its plain twin
+    :func:`dense_solve_plain` on CPU tensors. A factorization that fails
+    (S not positive definite) yields an all-NaN step, which LM rejects."""
+    dev = S.device
+    if dev.type == "cuda":
+        return dense_solve_cuda(S, rhs_c.contiguous(), rhs_k.contiguous(), scratch)
+    if dev.type == "cpu":
+        return dense_solve_plain(S, rhs_c, rhs_k)
+    raise ValueError(f"dense_solve: unsupported device {dev}")
+
+
 def dense_schur_direct(op: Damped, lin: Linearization, rhs_c, rhs_k, perm, perm_valid,
                        work: Optional[CouplingWork] = None):
-    """Assemble S and solve S x = rhs by Cholesky (cuSOLVER on the card, in
-    the island's dtype). A factorization that fails (S not positive
-    definite) yields a NaN step, which LM rejects. ``work``: the coupling's
-    :func:`coupling_workspace`, reused across an LM loop."""
-    C, B = rhs_c.shape
-    S = schur_matrix(lin, op, perm, perm_valid, work)
-    n = S.shape[0]
-    S = S + _EPS * torch.eye(n, dtype=S.dtype, device=S.device)
-    L, info = torch.linalg.cholesky_ex(S)
-    rhs = torch.cat([rhs_c.reshape(-1), rhs_k])[:, None]
-    x = torch.cholesky_solve(rhs, L)[:, 0]
-    x = torch.where(info == 0, x, torch.nan)
-    return x[: B * C].reshape(C, B), x[B * C:]
+    """Assemble S and solve S x = rhs by Cholesky (:func:`dense_solve`, in
+    the island's dtype; on the card K10's kernel, whose float64 route
+    factors the fresh S in place). A factorization that fails (S not
+    positive definite) yields a NaN step, which LM rejects. ``work``: the
+    coupling's :func:`coupling_workspace` (the solve's too), reused across
+    an LM loop."""
+    return dense_solve(schur_matrix(lin, op, perm, perm_valid, work), rhs_c, rhs_k,
+                       None if work is None else work.dense)
 
 
 def schur_back_substitute_plain(lin: Linearization, op: Damped, xc, xk, perm=None,

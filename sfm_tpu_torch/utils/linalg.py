@@ -7,8 +7,8 @@ triangulation: inverse iteration with the explicit adjugate) and its
 inverse iteration on a Cholesky factor whose nonpositive pivots are clamped
 to ``eps`` instead of failing. The clamp matters: with a rank-8 normal
 matrix the last pivot is the null direction, and a clamped tiny pivot still
-steers inverse iteration onto the null vector, where a failing library
-factorization (``torch.linalg.cholesky_ex``) would leave garbage. The
+steers inverse iteration onto the null vector, where a library
+factorization that stops at the failing pivot would leave garbage. The
 factorization runs column by column over the whole batch; the triangular
 solves are ``torch.linalg.solve_triangular``.
 """
