@@ -376,6 +376,30 @@ MODELS_BEFORE = {
     "dlt": (36, 5137, 0.1312, 0.9771),
 }
 PCG_ONLY_RUNS = ("pipeline_huge", "both_pcg_36", "f64_pcg_36")
+# The models every run read with the first design of K10's Cholesky kernel
+# (left-looking, its products on the CUDA cores, the back-substitution on
+# one SM; one smoke of that design on an NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md section 6). The redesign sums the products on the float64 tensor
+# cores, in another order, so the runs with a dense BA step may read new
+# models; each run prints its model beside these too.
+MODELS_FIRST_CHOLESKY = {
+    "reconstruct": (36, 5140, 0.1322, 0.9501),
+    "rescue": (36, None, 0.1305, None),
+    "pipeline": (150, 19633, 0.4484, 62.8108),
+    "global": (36, 4817, 0.2267, 1.5463),
+    "polish": (150, 20165, 0.1518, 18.2821),
+    "orb": (36, 19316, 0.4208, 0.4525),
+    "pipeline_huge": (235, 29097, 0.3227, 123.0414),
+    "local_window": (168, 1017, 2.0439, 46.7649),
+    "long_sequence": (194, 23976, 0.4610, 25.4052),
+    "percam_150": (21, 8, 0.2599, 16.6162),
+    "f64_150": (150, 19939, 0.1340, 2.3412),
+    "percam_300": (21, 31, 0.9718, 101.8903),
+    "both_36": (14, 351, 1.7838, 40.5339),
+    "both_pcg_36": (14, 356, 1.8879, 65.1932),
+    "f64_pcg_36": (36, 5140, 0.1322, 0.7697),
+    "dlt": (36, 5129, 0.1313, 0.9669),
+}
 # The shape path d's engine launches K7 at most often: (rows, view slots,
 # cameras, seed pairs on); 548 of its 660 launches on the card's table
 # (PERF.md section 5).
@@ -1739,11 +1763,49 @@ def phase_pyramid(torch, dev, images, cfg):
     ms = median_ms(torch, call)
     dms = device_ms(torch, call)
     plain_ms = time_ms(torch, lambda: build_pyramid_plain(images, **kw), reps=3, warmup=1)
-    log(f"  K3 pyramid: wrapper {ms:.4f} ms, device {fmt_ms(dms)} (plain torch {plain_ms:.4f} ms)")
+    lib_ms = median_ms(torch, lambda: pyramid_conv2d(torch, images, **kw))
+    log(f"  K3 pyramid: wrapper {ms:.4f} ms, device {fmt_ms(dms)} (plain torch {plain_ms:.4f} ms, "
+        f"the same layers as F.conv2d calls {lib_ms:.4f} ms)")
     # The images in, every Gaussian and DoG layer out; ~76 FLOP per Gaussian
     # pixel (two separable passes of ~19 taps, a multiply and an add each).
     return result(0.0, ms, plain_ms, nbytes(images, *gk, *dk),
-                  76 * sum(g.numel() for g in gk), device_ms=dms)
+                  76 * sum(g.numel() for g in gk), library_ms=lib_ms, device_ms=dms)
+
+
+def pyramid_conv2d(torch, image, num_octaves, scales_per_octave, sigma0, assumed_blur, upsample):
+    """K3's pyramid with every Gaussian layer as library convolutions: each
+    separable blur as two float32 ``F.conv2d`` calls (a row and a column of
+    taps, zero padding), the octaves' decimation and the DoG differences as
+    the twin takes them. Timed as K3's library call; its sums run in
+    cuDNN's order, so it is not the twin's bits."""
+    import torch.nn.functional as F
+
+    from sfm_tpu_torch.features.pyramid import (_blur_radius, _blur_sigmas, _gaussian_taps,
+                                                upsample2x)
+
+    def blur(x, sigma):
+        r = _blur_radius(sigma)
+        k = torch.as_tensor(_gaussian_taps(sigma, r), device=x.device)
+        B, H, Wd = x.shape
+        x = F.conv2d(x.reshape(B, 1, H, Wd), k.reshape(1, 1, 1, -1), padding=(0, r))
+        return F.conv2d(x, k.reshape(1, 1, -1, 1), padding=(r, 0)).reshape(B, H, Wd)
+
+    S = scales_per_octave
+    blurs = _blur_sigmas(S, sigma0, assumed_blur, upsample)
+    img = image.to(torch.float32)
+    if upsample:
+        img = upsample2x(img)
+    base = blur(img, blurs[0])
+    gaussians, dogs = [], []
+    for _ in range(num_octaves):
+        layers = [base]
+        for i in range(1, S + 3):
+            layers.append(blur(layers[-1], blurs[i]))
+        g = torch.stack(layers, dim=1)
+        gaussians.append(g)
+        dogs.append(g[:, 1:] - g[:, :-1])
+        base = layers[S][..., ::2, ::2].contiguous()
+    return gaussians, dogs
 
 
 def phase_seed_score(torch, np, dev):
@@ -3528,25 +3590,29 @@ def model_of(out: Path) -> tuple:
             round(st.get("gt_rot_err_deg_median", float("nan")), 4))
 
 
-def same_model(name: str, out: Path) -> bool:
-    """The run read the model of ``MODELS_BEFORE``."""
-    before = MODELS_BEFORE.get(name)
+def same_model(name: str, out: Path, models: dict = MODELS_BEFORE) -> bool:
+    """The run read the model of ``models`` (``MODELS_BEFORE`` by default)."""
+    before = models.get(name)
     return before is not None and all(b is None or a == b
                                       for a, b in zip(model_of(out), before))
 
 
 def log_model(name: str, out: Path):
     """Print a run's model as soon as it is written (path h's readings stay in
-    the log whatever a later check finds), beside the model it read with
-    cuSOLVER's dense solve (``MODELS_BEFORE``)."""
+    the log whatever a later check finds), beside the models it read with
+    cuSOLVER's dense solve (``MODELS_BEFORE``) and with the first design of
+    K10's Cholesky kernel (``MODELS_FIRST_CHOLESKY``)."""
     st = json.loads((out / "reconstruction" / "stats.json").read_text())
     intr = json.loads((out / "reconstruction" / "intrinsics.json").read_text())
-    before = MODELS_BEFORE.get(name)
     fmt = lambda x, f: "-" if x is None else format(x, f)
-    was = ("" if before is None else
-           f" | with cuSOLVER's dense solve: {before[0]} cameras, "
-           f"{fmt(before[1], 'd')} points, {fmt(before[2], '.4f')} px, {fmt(before[3], '.4f')} "
-           f"deg: {'the same' if same_model(name, out) else 'OTHER'}")
+    was = ""
+    for what, models in (("cuSOLVER's dense solve", MODELS_BEFORE),
+                         ("the first Cholesky kernel", MODELS_FIRST_CHOLESKY)):
+        before = models.get(name)
+        if before is not None:
+            was += (f" | with {what}: {before[0]} cameras, {fmt(before[1], 'd')} points, "
+                    f"{fmt(before[2], '.4f')} px, {fmt(before[3], '.4f')} deg: "
+                    f"{'the same' if same_model(name, out, models) else 'OTHER'}")
     log(f"{name}: {st['num_cameras']} cameras, {st['num_points']} points, mean reprojection "
         f"{st['mean_reprojection_error']:.4f} px, GT rotation median "
         f"{st.get('gt_rot_err_deg_median', float('nan')):.4f} deg, ATE "

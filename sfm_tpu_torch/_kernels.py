@@ -105,7 +105,7 @@ for _route in ROUTES:
 SIGNATURES["sfm_ba_cost_b10"] = SIGNATURES["sfm_ba_cost"]
 KERNELS += ("ba_cost_b10",)
 # K10's dense solve, one entry a scalar type (any camera block).
-SIGNATURES["sfm_schur_cholesky_solve"] = [_P] * 3 + [_I] * 2 + [_D] + [_P] * 6 + [_P]
+SIGNATURES["sfm_schur_cholesky_solve"] = [_P] * 3 + [_I] * 2 + [_D] + [_P] * 5 + [_P]
 SIGNATURES["sfm_schur_cholesky_solve_f64"] = SIGNATURES["sfm_schur_cholesky_solve"]
 KERNELS += ("schur_cholesky_solve", "schur_cholesky_solve_f64")
 

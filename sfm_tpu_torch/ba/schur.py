@@ -765,19 +765,19 @@ def schur_matrix(lin: Linearization, op: Damped, perm, perm_valid,
 
 
 # K10's dense solve (csrc/schur_cholesky.cu): the panel width (W, a warp's
-# lanes) and the most rows a row group holds (RMAX).
+# lanes) and the most column slices of a row block's next-panel products
+# (QMAX: the partial sums a row).
 _PANEL = 32
-_GROUP_ROWS = 24
+_SLICES = 8
 
 
 def dense_scratch_numel(n: int, dtype) -> int:
     """The float64 workspace of K10's ``schur_cholesky_solve`` for an n x n S:
-    the next diagonal tile's sums (2 x 32 x 32), the row groups' sums and
-    entries (3 x 24 x 32 for each of ceil((n + 1) / 24) groups; read only
-    when a group a block is not enough) and z (n; read only past the
-    kernel's shared memory), then in float32 the factor (n x n) and y (n)."""
-    groups = (n + _GROUP_ROWS) // _GROUP_ROWS
-    size = 2 * _PANEL * _PANEL + 3 * _GROUP_ROWS * _PANEL * groups + n
+    the next panel's partial sums (2 x 8 x (n + 1) x 32: two steps' worth, up
+    to eight column slices a row), x as the back-substitution hands it
+    between blocks (n, rounded up to even), then in float32 the factor (n x
+    n) and y (n). Every part starts at an even entry (16-byte copies)."""
+    size = 2 * _SLICES * (n + 1) * _PANEL + n + n % 2
     return size + (n * n + n if dtype == torch.float32 else 0)
 
 
@@ -788,9 +788,17 @@ def dense_solve_plain(S, rhs_c, rhs_k):
 
     The kernel's algorithm, not a library call: a left-looking Cholesky of
     the lower triangle over panels of ``_PANEL`` columns, the right-hand side
-    riding along as row n (its entries are y = L^-1 rhs), then L^T x = y a
-    panel at a time from the last. _EPS is added to the diagonal in S's dtype
-    T. L, y and the back-substitution are float64 for both dtypes; x alone is
+    riding along as row n (its entries are y = L^-1 rhs). A panel's sums are
+    the input less the products over the panels before the last (the
+    kernel's next-panel products, summed a step ahead) less the last panel's
+    terms; its tile is factored column by column (the kernel's sub-panels of
+    8 keep each entry's terms in column order), then the rows
+    below it are solved against it. The back-substitution is left-looking
+    too, split as the kernel splits it: x_k = u - M x_{k+1}, with u the
+    tile's triangle (from its last row) applied to y_k less the later
+    panels' L_jk^T x_j but the next one's, and M the same triangle applied
+    to L_{k+1,k}^T. _EPS is added to the diagonal in S's dtype T.
+    L, y and the back-substitution are float64 for both dtypes; x alone is
     rounded to T, once (in float32 nearly the correctly rounded solution).
     Below a pivot d, L[i, t] = a rsqrt(d); the stored pivot is sqrt(d),
     which the back-substitution divides by. If a pivot is not > 0 (or NaN)
@@ -806,7 +814,9 @@ def dense_solve_plain(S, rhs_c, rhs_k):
     pivots = torch.zeros(n, dtype=f64, device=dev)
     for j0 in range(0, n, _PANEL):
         w = min(_PANEL, n - j0)
-        A = M[j0:, j0:j0 + w] - L[j0:, :j0] @ L[j0:j0 + w, :j0].T
+        jp = max(j0 - _PANEL, 0)     # the last panel's first column
+        A = M[j0:, j0:j0 + w] - L[j0:, :jp] @ L[j0:j0 + w, :jp].T
+        A = A - L[j0:, jp:j0] @ L[j0:j0 + w, jp:j0].T
         D = A[:w]
         for t in range(w):       # the tile, column by column
             d = D[t, t].clone()
@@ -821,17 +831,21 @@ def dense_solve_plain(S, rhs_c, rhs_k):
             col = R[:, t] * r[j0 + t]
             L[j0 + w:, j0 + t] = col
             R[:, t + 1:] -= col[:, None] * L[j0 + t + 1:j0 + w, j0 + t][None, :]
-    z = L[n].clone()
     x = torch.zeros(n, dtype=f64, device=dev)
     for j0 in reversed(range(0, n, _PANEL)):
         w = min(_PANEL, n - j0)
+        i1, w1 = j0 + w, min(_PANEL, n - j0 - w)    # the next panel
         Lkk = L[j0:j0 + w, j0:j0 + w]
         rb = 1.0 / torch.diagonal(Lkk)
-        zp = z[j0:j0 + w].clone()
+        # x_k = u - M x_{k+1}: u = L_kk^-T (y_k - the later panels' terms but
+        # the next one's), M = L_kk^-T L_{k+1,k}^T (the kernel forms both
+        # while x_{k+1} is on its way).
+        U = torch.cat([(L[n, j0:j0 + w] - L[i1 + w1:n, j0:j0 + w].T @ x[i1 + w1:])[:, None],
+                       L[i1:i1 + w1, j0:j0 + w].T], dim=1)
         for t in reversed(range(w)):
-            x[j0 + t] = zp[t] * rb[t]
-            zp[:t] -= Lkk[t, :t] * x[j0 + t]
-        z[:j0] -= L[j0:j0 + w, :j0].T @ x[j0:j0 + w]
+            U[t] = U[t] * rb[t]
+            U[:t] -= Lkk[t, :t, None] * U[t]
+        x[j0:j0 + w] = U[:, 0] - U[:, 1:] @ x[i1:i1 + w1]
     x = torch.where((pivots > 0).all(), x, torch.nan).to(T)
     return x[: B * C].reshape(C, B), x[B * C:]
 
@@ -851,6 +865,8 @@ def dense_solve_cuda(S, rhs_c, rhs_k, scratch=None):
     for name, x, shape in (("S", S, (B * C + 4, B * C + 4)), ("rhs_c", rhs_c, (C, B)),
                            ("rhs_k", rhs_k, (4,))):
         _kernels.check_tensor(x, name, dt, shape, dev)
+    if S.data_ptr() % 16:   # the kernel reads S's rows as 16-byte (f64) or 8-byte pairs
+        raise ValueError("K10 schur_cholesky_solve: S must start 16-byte aligned")
     need = dense_scratch_numel(n, dt)
     if scratch is None:
         scratch = torch.empty(need, dtype=torch.float64, device=dev)
@@ -858,15 +874,14 @@ def dense_solve_cuda(S, rhs_c, rhs_k, scratch=None):
         raise ValueError(f"K10 schur_cholesky_solve: the workspace needs {need} float64 entries "
                          f"on {dev}, got {scratch.numel()} {scratch.dtype} on {scratch.device}")
     x = torch.empty(n, dtype=dt, device=dev)
-    tile = 2 * _PANEL * _PANEL
-    state = 3 * _GROUP_ROWS * _PANEL * ((n + _GROUP_ROWS) // _GROUP_ROWS)
-    parts = torch.split(scratch[:need], [tile, state, n, need - tile - state - n])
+    sums = 2 * _SLICES * (n + 1) * _PANEL
+    part, xs, rest = torch.split(scratch[:need], [sums, n + n % 2, need - sums - n - n % 2])
     if dt == torch.float64:
         factor, y = S, x
     else:
-        factor, y = parts[3][:n * n], parts[3][n * n:]
+        factor, y = rest[:n * n], rest[n * n:]
     _kernels.launch("schur_cholesky_solve" + ("_f64" if dt == torch.float64 else ""), dev, S,
-                    rhs_c, rhs_k, n, B * C, _EPS, x, factor, y, *parts[:3])
+                    rhs_c, rhs_k, n, B * C, _EPS, x, factor, y, part, xs[:n])
     return x[: B * C].view(C, B), x[B * C:]
 
 

@@ -5,7 +5,7 @@ engine seeds through each solver.
 
     python tests/dense_solve_report.py [--cases sizes,pathb,residuals,sweep]
         [--seeds 0,1,...] [--solvers A,B,...] [--work DIR] [--out F.json]
-    python tests/dense_solve_report.py --compare F.json [G.json ...]
+    python tests/dense_solve_report.py --compare [LABEL=]F.json [[LABEL=]G.json ...]
         [--extra NAME:PATH=v,v,... ...]
 
 Runs on a card, from the root of a checkout (it imports the checkout's
@@ -34,7 +34,8 @@ into ``--work`` (default ``.chip_smoke``, the smoke's own scenes if present):
   variants); each model printed, then each path's and solver's cameras and
   GT rotation medians over the seeds.
 
-``--compare`` (no card) reads the sweeps' ``--out`` files, and ``--extra``
+``--compare`` (no card) reads the sweeps' ``--out`` files (``LABEL=F.json``
+names that file's solvers ``LABEL:solver``, e.g. two checkouts' kernels), and ``--extra``
 samples (e.g. another package's GT medians on path d), and prints for each
 path every pair of solvers' Mann-Whitney U on the GT medians with its exact
 two-sided p (no ties assumed).
@@ -310,8 +311,10 @@ def rank_sum_p(a, b) -> tuple:
 def compare(files, extra) -> int:
     gt = {}
     for f in files:
+        label, _, f = f.rpartition("=")   # LABEL=F.json names its solvers LABEL:solver
         for r in json.loads(Path(f).read_text())["sweep"]["runs"]:
-            gt.setdefault(r["path"], {}).setdefault(r["solver"], []).append(r["gt_deg"])
+            name = f"{label}:{r['solver']}" if label else r["solver"]
+            gt.setdefault(r["path"], {}).setdefault(name, []).append(r["gt_deg"])
     for item in extra:
         name, vals = item.split("=")
         name, path = name.split(":")

@@ -3,9 +3,11 @@
 ``cho_solve(cho_factor(S + _EPS I), rhs)`` (``sfm_tpu/ba/schur.py:420-423``).
 
 The twin is the kernel's algorithm in plain PyTorch: a left-looking Cholesky
-over panels of 32 columns, the right-hand side riding along as one more row,
-the factor and the back-substitution in float64 for both dtypes and the
-solution rounded once to S's dtype. Inputs are made with numpy from a seed.
+over panels of 32 columns (a panel's sums: the products over the panels
+before the last, then the last panel's terms), the right-hand side riding
+along as one more row, a left-looking back-substitution, the factor and the
+back-substitution in float64 for both dtypes and the solution rounded once
+to S's dtype. Inputs are made with numpy from a seed.
 
 Tolerances: the twin and JAX round differently, so both are held to a float64
 numpy solve of the same matrix, and the twin's error may be at most twice
@@ -81,8 +83,13 @@ def rel(x, ref):
     return float(np.abs(x.astype(np.float64) - ref).max() / np.abs(ref).max())
 
 
-# n below the panel width, one panel, a ragged last panel, and 6 x 100 + 4.
-@pytest.mark.parametrize("size", [4, 31, 32, 33, 65, 604])
+# Both sides of the kernel's boundaries: a sub-panel of the tile's
+# factorization (8 columns), a panel (32), the first panel whose sums take
+# the products of an earlier one (65: panel 2), the first whose products
+# fill a 64-column row block of slices (97), a staged chunk of products
+# (160 columns: the panels at 161 and 193), and 6 x 100 + 4.
+@pytest.mark.parametrize("size", [4, 7, 8, 9, 31, 32, 33, 63, 64, 65, 97, 128, 129, 161, 193,
+                                  604])
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_twin_matches_the_reference_solve(size, dt):
     np_dt, torch_dt = DTYPES[dt]
@@ -109,7 +116,8 @@ def test_float_twin_hardly_depends_on_the_panel_width(monkeypatch, size):
     assert (np.abs(x8 - x32) <= np.spacing(np.abs(x32))).all()
 
 
-@pytest.mark.parametrize("case", ["negative_last_pivot", "nan_entry"])
+@pytest.mark.parametrize("case", ["negative_last_pivot", "nan_entry", "negative_first_pivot",
+                                  "negative_pivot_at_a_sub_panel"])
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_failure_gives_an_all_nan_step(case, dt):
     np_dt, torch_dt = DTYPES[dt]
@@ -117,8 +125,12 @@ def test_failure_gives_an_all_nan_step(case, dt):
     S = spd(rng, 100, np_dt)
     if case == "negative_last_pivot":   # the last panel is columns 96-99
         S[97, 97] = -5.0
-    else:                               # a NaN below the diagonal, early on
+    elif case == "nan_entry":           # a NaN below the diagonal, early on
         S[50, 3] = S[3, 50] = np.nan
+    elif case == "negative_first_pivot":
+        S[0, 0] = -1.0
+    else:                               # the first column of panel 1's second sub-panel
+        S[40, 40] = -5.0
     x = twin_solve(S, rng.standard_normal(100).astype(np_dt), torch_dt)
     assert np.isnan(x).all()
     # The same matrix without the fault solves.
@@ -193,7 +205,8 @@ def test_dense_schur_direct_matches_jax_on_a_ba_system(rng, B, dt):
 def launch_of(monkeypatch, S, rhs_c, rhs_k, scratch=None):
     """The wrapper's one launch, recorded by a monkeypatched _kernels.launch
     on CPU tensors: (name, dev, S, rhs_c, rhs_k, n, B C, eps, x, factor, y,
-    tile sums, row groups' state, z), and the wrapper's (xc, xk)."""
+    the next panel's partial sums, x as the back-substitution hands it
+    between blocks), and the wrapper's (xc, xk)."""
     seen = []
     monkeypatch.setattr(_kernels, "launch", lambda *a: seen.append(a))
     out = tschur.dense_solve_cuda(S, rhs_c, rhs_k, scratch)
@@ -210,36 +223,44 @@ def test_wrapper_launches_one_entry_a_dtype(monkeypatch, dt):
     # On a CUDA tensor the wrapper launches schur_cholesky_solve(_f64) once
     # with S, rhs_c and rhs_k where they lie, n, B C, _EPS, a fresh x, the
     # float64 factor and y (S and x themselves in float64, where the factor
-    # overwrites S; views of the float64 workspace in float32), the tile
-    # sums, the row groups' state and z; nothing is concatenated around it.
+    # overwrites S; views of the float64 workspace in float32), the next
+    # panel's partial sums (two steps x eight column slices x (n + 1) rows x
+    # 32) and x as the back-substitution hands it between blocks (n entries,
+    # an even count reserved); nothing is concatenated around it, and every
+    # part starts 16 bytes aligned (the kernel stages rows with 16-byte
+    # copies).
     _, torch_dt = DTYPES[dt]
     C, B = 5, 10
     n = B * C + 4
     S = torch.eye(n, dtype=torch_dt)
     rhs_c, rhs_k = torch.ones((C, B), dtype=torch_dt), torch.ones(4, dtype=torch_dt)
     args, (xc, xk) = launch_of(monkeypatch, S, rhs_c, rhs_k)
-    (name, dev, S_, rc_, rk_, size, bc, eps, x, factor, y, tile, state, z) = args
+    (name, dev, S_, rc_, rk_, size, bc, eps, x, factor, y, part, xs) = args
     assert name == "schur_cholesky_solve" + ("_f64" if dt == "f64" else "")
     assert S_ is S and rc_ is rhs_c and rk_ is rhs_k and dev == S.device
     assert (size, bc, eps) == (n, B * C, tschur._EPS)
     assert x.shape == (n,) and x.dtype == torch_dt
-    groups = -(-(n + 1) // 24)
-    assert [a.numel() for a in (tile, state, z)] == [2 * 32 * 32, 3 * 24 * 32 * groups, n]
-    assert all(a.dtype == torch.float64 for a in (tile, state, z))
+    assert [a.numel() for a in (part, xs)] == [2 * 8 * (n + 1) * 32, n]
+    assert all(a.dtype == torch.float64 for a in (part, xs))
     if dt == "f64":
         assert factor is S and y is x
-        scratch = (tile, state, z)
+        scratch = (part, xs)
     else:
         assert factor.dtype == torch.float64 and factor.numel() == n * n
         assert y.dtype == torch.float64 and y.numel() == n
-        scratch = (tile, state, z, factor, y)
+        scratch = (part, xs, factor, y)
+    assert all(a.data_ptr() % 16 == 0 for a in scratch)
     spans = ends(*scratch)
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))   # disjoint
-    assert spans[-1][1] - spans[0][0] == 8 * tschur.dense_scratch_numel(n, torch_dt)
+    reserved = 8 * (n % 2) if dt == "f64" else 0   # xs's even count, when it ends the span
+    assert spans[-1][1] - spans[0][0] + reserved == 8 * tschur.dense_scratch_numel(n, torch_dt)
     assert xc.shape == (C, B) and xk.shape == (4,)
     assert xc.data_ptr() == x.data_ptr() and xk.data_ptr() == x.data_ptr() + B * C * x.itemsize
     with pytest.raises(ValueError):   # S of the wrong size
         tschur.dense_solve_cuda(torch.eye(7, dtype=torch_dt), rhs_c, rhs_k)
+    with pytest.raises(ValueError):   # S off the 16-byte alignment its rows are read at
+        tschur.dense_solve_cuda(torch.zeros(n * n + 1, dtype=torch_dt)[1:].view(n, n), rhs_c,
+                                rhs_k)
 
 
 @pytest.mark.parametrize("dt", ["f32", "f64"])
@@ -264,16 +285,18 @@ def test_wrapper_takes_the_given_workspace(monkeypatch, dt):
 @pytest.mark.parametrize("C,B", [(256, 10), (400, 10), (600, 6), (900, 6)])
 def test_wrapper_sizes_the_row_groups_past_the_old_cap(monkeypatch, C, B):
     # The dense route takes any n (ba.use_dense_schur_below is the user's):
-    # past 24 rows a block the kernel runs several row groups a block and
-    # keeps their state in the workspace, past 5,376 its z too. The wrapper
-    # sizes both for ceil((n + 1) / 24) groups and n entries, at every n.
+    # past 32 rows a block (n >= 4,224 on 132 SMs) the kernel runs several
+    # row groups a block, each group's sums in the partial sums and its
+    # entries in L, so nothing in the workspace depends on the grid: the
+    # wrapper sizes the partial sums by n + 1 rows and the handed-over x by
+    # n, at every n.
     n = B * C + 4
     S = torch.empty((n, n), dtype=torch.float32)
     rhs_c, rhs_k = torch.ones((C, B)), torch.ones(4)
     args, _ = launch_of(monkeypatch, S, rhs_c, rhs_k)
-    tile, state, z = args[11:]
+    part, xs = args[11:]
     assert args[5] == n
-    assert state.numel() == 3 * 24 * 32 * -(-(n + 1) // 24) and z.numel() == n
+    assert part.numel() == 2 * 8 * (n + 1) * 32 and xs.numel() == n
 
 
 @pytest.mark.parametrize("B,dtype", [(6, torch.float32), (10, torch.float64)])
