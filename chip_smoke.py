@@ -129,8 +129,10 @@
       finite and printed; each run's ``engine/ba`` seconds beside path d's
       and path h's. Every path prints its model beside the one it read
       with cuSOLVER's dense solve (``MODELS_BEFORE``), and the runs that
-      take no dense step (``PCG_ONLY_RUNS``) must read it exactly; on every
-      path the dense solves equal the assembled S;
+      take no dense step (``PCG_ONLY_RUNS``) must read it exactly; every run
+      must read ``MODELS_PINNED`` (the models of K10's redesigned Cholesky
+      kernel: the redesigns since keep every kernel's bits) exactly; on every path the dense solves
+      equal the assembled S;
    j. ``reconstruct`` on path a's artifacts with ``PATH_J_CONFIG``
       (``pnp.sample_size`` 6, PnP's DLT branch): ``pnp_dlt_solve``,
       ``pnp_score_select`` and ``pnp_refine`` launched and ``p3p_solve``
@@ -164,8 +166,8 @@ KERNELS = {
     # name: (C entry points, source, the JAX program it replaces)
     "match_top2": (("match_top2",), "sfm_tpu_torch/csrc/match_top2.cu",
                    "sfm_tpu/matching/core.py:51"),
-    "fmat_score_select": (("fmat_score_select",), "sfm_tpu_torch/csrc/fmat_ransac.cu",
-                          "sfm_tpu/estimators/fundamental.py:20"),
+    "fmat_ransac": (("fmat_ransac",), "sfm_tpu_torch/csrc/fmat_ransac.cu",
+                    "sfm_tpu/estimators/fundamental.py:20"),
     "dog_extrema": (("dog_extrema",), "sfm_tpu_torch/csrc/dog_extrema.cu",
                     "sfm_tpu/features/detect.py:23"),
     "sift_describe": (("sift_describe",), "sfm_tpu_torch/csrc/sift_describe.cu",
@@ -193,8 +195,6 @@ KERNELS = {
                 "sfm_tpu/estimators/pnp.py:27"),
     "schur_damp": (("schur_damp", "schur_back_substitute"), "sfm_tpu_torch/csrc/schur_damp.cu",
                    "sfm_tpu/ba/schur.py:174"),
-    "fmat_solve": (("fmat_hypotheses", "fmat_refit_verify"), "sfm_tpu_torch/csrc/fmat_solve.cu",
-                   "sfm_tpu/estimators/fundamental.py:20"),
     "dog_select": (("dog_select",), "sfm_tpu_torch/csrc/dog_select.cu",
                    "sfm_tpu/features/detect.py:230"),
     "dog_refine": (("dog_refine",), "sfm_tpu_torch/csrc/dog_select.cu",
@@ -253,8 +253,8 @@ for _r in ("b10", "f64", "b10_f64"):
     })
 ISLAND_ROWS = tuple(k for k in KERNELS if k.endswith(("_b10", "_f64")))
 # The kernels each path must launch.
-PREPROCESS_KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
-                      "pyramid", "fmat_solve", "dog_select", "dog_refine", "topk_rows",
+PREPROCESS_KERNELS = ("match_top2", "fmat_ransac", "dog_extrema", "sift_describe",
+                      "pyramid", "dog_select", "dog_refine", "topk_rows",
                       "match_epilogue")
 RECONSTRUCT_KERNELS = ("pnp_ransac", "triangulate_tracks", "ba_linearize", "schur_coupling",
                        "seed_score", "pnp_refine", "schur_damp", "schur_cholesky")
@@ -266,7 +266,7 @@ GLOBAL_KERNELS = K13_KERNELS + ("triangulate_tracks", "ba_linearize", "schur_cou
 POLISH_KERNELS = RECONSTRUCT_KERNELS + K13_KERNELS
 K12_KERNELS = ("orb_fast_nms", "orb_blur", "orb_describe")
 ORB_KERNELS = K12_KERNELS + ("dog_select", "topk_rows", "match_top2", "match_epilogue",
-                             "fmat_score_select", "fmat_solve") + RECONSTRUCT_KERNELS
+                             "fmat_ransac") + RECONSTRUCT_KERNELS
 SIFT_ONLY_ENTRIES = ("build_pyramid", "dog_extrema", "dog_refine", "sift_describe")
 # Path h: more images than ba.use_dense_schur_below, so every BA call of the
 # pipeline is a PCG call (K11 and K10's block-Jacobi inverses) and no dense S
@@ -400,6 +400,31 @@ MODELS_FIRST_CHOLESKY = {
     "f64_pcg_36": (36, 5140, 0.1322, 0.7697),
     "dlt": (36, 5129, 0.1313, 0.9669),
 }
+# The models every run reads with K10's redesigned Cholesky kernel (two
+# smokes of that tree on an NVIDIA H100 80GB HBM3 at 700 W read them to the
+# digit, PERF.md section 6). The redesigns since (K2, K6's pnp_refine) keep
+# every kernel's bits, so every run must read these exactly: a run that reads
+# another fails the smoke.
+MODELS_PINNED = {
+    "reconstruct": (36, 5141, 0.1325, 0.7708),
+    "rescue": (36, 5089, 0.1308, 0.8375),
+    "pipeline": (150, 18529, 0.5724, 42.3094),
+    "global": (36, 4817, 0.2267, 1.5463),
+    "polish": (150, 19735, 0.1491, 47.3371),
+    "orb": (36, 19316, 0.4208, 0.4525),
+    "pipeline_huge": (235, 29097, 0.3227, 123.0414),
+    "local_window": (168, 1017, 2.0439, 46.7649),
+    "long_sequence": (300, 39093, 0.3736, 32.5732),
+    "percam_150": (21, 8, 0.2638, 16.6172),
+    "f64_150": (150, 18339, 0.2697, 10.4629),
+    "percam_300": (21, 31, 0.9718, 101.8903),
+    "both_36": (14, 352, 1.8564, 48.2575),
+    "both_pcg_36": (14, 356, 1.8879, 65.1932),
+    "f64_pcg_36": (36, 5140, 0.1322, 0.7697),
+    "dlt": (36, 5121, 0.1307, 0.9704),
+}
+# The output directory of every run whose model log_model printed.
+MODEL_DIRS: dict = {}
 # The shape path d's engine launches K7 at most often: (rows, view slots,
 # cameras, seed pairs on); 548 of its 660 launches on the card's table
 # (PERF.md section 5).
@@ -707,12 +732,15 @@ def phase_match_epilogue(torch, dev):
 
 
 def phase_fmat(torch, np, dev):
-    """K2 at 32 pairs x 512 hypotheses x 1,024 rows (one sweep chunk):
-    fmat_hypotheses, fmat_score_select on the first 256 rows, then
-    fmat_refit_verify on all rows. Returns (score_select, fmat_solve)."""
+    """K2 at 32 pairs x 512 hypotheses x 1,024 rows (one sweep chunk), scored
+    on the first 256 rows: ``fmat_ransac`` (one launch) against its twins'
+    composition -- the hypotheses against ``fmat_hypotheses_plain``, the
+    winner against ``fmat_score_select_plain`` on the kernel's hypotheses,
+    the refit and gates against ``fmat_refit_verify_plain`` from the kernel's
+    winner and, both, against the float64 refit."""
     from sfm_tpu_torch.estimators.fundamental import (
-        fmat_hypotheses_cuda, fmat_hypotheses_plain, fmat_refit_verify_cuda,
-        fmat_refit_verify_plain, fmat_score_select_cuda, fmat_score_select_plain)
+        fmat_hypotheses_plain, fmat_ransac_cuda, fmat_ransac_plain, fmat_refit_verify_plain,
+        fmat_score_select_plain)
     from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
     from sfm_tpu_torch.geometry.epipolar import normalize_points, symmetric_epipolar_distance
 
@@ -720,9 +748,10 @@ def phase_fmat(torch, np, dev):
     p1, p2, valid = (torch.as_tensor(a, device=dev) for a in two_view_batch(np, B, M)[:3])
     g = torch.Generator(device=dev).manual_seed(2)
     idx = ransac_sample_indices(valid, H, 8, g, prefix=True).contiguous()
-    hargs = (p1, p2, idx)
-    Fs_k = fmat_hypotheses_cuda(*hargs)
-    Fs = fmat_hypotheses_plain(*hargs).contiguous()
+    kargs = (p1, p2, valid, idx, thr, N)
+    k = fmat_ransac_cuda(*kargs)
+    Fs_k = k["Fs"]
+    Fs = fmat_hypotheses_plain(p1, p2, idx).contiguous()
     torch.cuda.synchronize()
     # Tolerance, hypotheses: sign-aligned within 1e-4 on >= 99% of the
     # well-conditioned samples: the second-smallest eigenvalue of the
@@ -742,39 +771,31 @@ def phase_fmat(torch, np, dev):
                           (Fs_k + Fs).flatten(-2).abs().amax(-1))
     frac_h = float((d_hyp[well] <= 1e-4).float().mean())
     fair = lam[..., 1] >= 1e-4 * lam[..., -1]
-    log(f"  fmat_hypotheses at lambda_2 >= 1e-4 lambda_max: "
+    log(f"  fmat_ransac's hypotheses at lambda_2 >= 1e-4 lambda_max: "
         f"{float((d_hyp[fair] <= 1e-4).float().mean()):.4%} of {int(fair.sum())} within 1e-4")
     check(int(well.sum()) >= 1000 and frac_h >= 0.99,
-          f"K2 fmat_hypotheses: {frac_h:.4f} of {int(well.sum())} well-conditioned samples "
+          f"K2 hypotheses: {frac_h:.4f} of {int(well.sum())} well-conditioned samples "
           "within 1e-4")
-    log(f"K2 fmat_hypotheses: {frac_h:.4%} of {int(well.sum())}/{B * H} well-conditioned "
+    log(f"K2 hypotheses: {frac_h:.4%} of {int(well.sum())}/{B * H} well-conditioned "
         f"samples within 1e-4, max difference there {float(d_hyp[well].max()):.3g}")
-    args = (Fs, p1[:, :N].contiguous(), p2[:, :N].contiguous(), valid[:, :N].contiguous(), thr)
-    best_k, count_k = fmat_score_select_cuda(*args)
-    best_p, count_p = fmat_score_select_plain(*args)
-    torch.cuda.synchronize()
-    # Tolerance: the same winner, or one whose score is within 1e-4 of the
-    # plain winner's (a tie under another summation order of the error sum).
-    errs = symmetric_epipolar_distance(Fs, args[1][:, None], args[2][:, None])
-    inl = (errs < thr) & args[3][:, None]
+    # The winner, on the kernel's own hypotheses. Tolerance: the same winner,
+    # or one whose score is within 1e-4 of the plain winner's (a tie under
+    # another summation order of the error sum); the winner's count exact.
+    sc = (p1[:, :N].contiguous(), p2[:, :N].contiguous(), valid[:, :N].contiguous())
+    best_p, _ = fmat_score_select_plain(Fs_k, *sc, thr)
+    errs = symmetric_epipolar_distance(Fs_k, sc[0][:, None], sc[1][:, None])
+    inl = (errs < thr) & sc[2][:, None]
     counts = inl.sum(-1)
     score = counts.float() - torch.where(inl, errs, 0.0).sum(-1) / counts.clamp(min=1) / thr
     pick = lambda h: score.gather(1, h[:, None])[:, 0]
-    gap = float((pick(best_p) - pick(best_k)).abs().max())
+    gap = float((pick(best_p) - pick(k["best"])).abs().max())
     check(gap <= 1e-4, f"K2: winner score gap {gap}")
-    check(torch.equal(count_k, counts.gather(1, best_k[:, None])[:, 0]), "K2: count")
-    log(f"K2 fmat_score_select: same winner in {int((best_k == best_p).sum())}/{B} pairs, "
+    check(torch.equal(k["count"], counts.gather(1, k["best"][:, None])[:, 0]), "K2: count")
+    log(f"K2 winner: the same as the twin's in {int((k['best'] == best_p).sum())}/{B} pairs, "
         f"max score gap {gap:.3g}")
-    ms = time_ms(torch, lambda: fmat_score_select_cuda(*args))
-    plain_ms = time_ms(torch, lambda: fmat_score_select_plain(*args))
-    # ~45 FLOP per (hypothesis, row): two lines, two distances.
-    score = result(gap, ms, plain_ms, nbytes(*args[:4], best_k, count_k), 45 * B * H * N)
-
-    # The refit from the kernel pipeline's winner, both sides on the same input.
-    best = fmat_score_select_cuda(Fs_k, *args[1:])[0].contiguous()
-    rargs = (Fs_k, best, p1, p2, valid, thr)
-    rk, rp = fmat_refit_verify_cuda(*rargs), fmat_refit_verify_plain(*rargs)
-    rd = fmat_refit_verify_plain(Fs_k.double(), best, p1.double(), p2.double(), valid, thr)
+    # The refit from the kernel's winner, both sides on the same input.
+    rp = fmat_refit_verify_plain(Fs_k, k["best"], p1, p2, valid, thr)
+    rd = fmat_refit_verify_plain(Fs_k.double(), k["best"], p1.double(), p2.double(), valid, thr)
     torch.cuda.synchronize()
     # Tolerance, refit: the refit's f32 null vector moves by ~eps lambda_max /
     # lambda_2 of its 9x9 normal matrix (~3e-4 at 0.5 px noise, more once
@@ -786,37 +807,39 @@ def phase_fmat(torch, np, dev):
     # row on the threshold may flip); accept equal on every pair.
     dist = lambda a, b: torch.minimum((a - b).flatten(-2).abs().amax(-1),
                                       (a + b).flatten(-2).abs().amax(-1))
-    d_f = float(dist(rk["F"], rp["F"]).max())
-    ek, ep = dist(rk["F"].double(), rd["F"]), dist(rp["F"].double(), rd["F"])
-    both = rk["inliers"] & rp["inliers"]
+    d_f = float(dist(k["F"], rp["F"]).max())
+    ek, ep = dist(k["F"].double(), rd["F"]), dist(rp["F"].double(), rd["F"])
+    both = k["inliers"] & rp["inliers"]
     px = lambda r: float((r["errors"].double() - rd["errors"]).abs()[both].max())
-    pk_, pp_ = px(rk), px(rp)
-    inl_eq = float((rk["inliers"] == rp["inliers"]).float().mean())
+    pk_, pp_ = px(k), px(rp)
+    inl_eq = float((k["inliers"] == rp["inliers"]).float().mean())
     check(bool((ek <= torch.clamp(3 * ep, min=1e-4)).all()) and pk_ <= max(1e-2, 3 * pp_)
-          and inl_eq >= 0.999, f"K2 fmat_refit_verify: F to f64: kernel {float(ek.max())}, "
+          and inl_eq >= 0.999, f"K2 refit: F to f64: kernel {float(ek.max())}, "
           f"twin {float(ep.max())}; inlier distances to f64: kernel {pk_} px, twin {pp_} px; "
           f"inliers equal on {inl_eq:.5f} of rows")
-    check(torch.equal(rk["accept"], rp["accept"]) and torch.equal(rk["ok"], rp["ok"]),
-          "K2 fmat_refit_verify: accept differs")
-    check(bool(rk["accept"].any()), "K2 fmat_refit_verify: no pair accepted")
-    log(f"K2 fmat_refit_verify: F max difference {d_f:.3g} (to the f64 refit: kernel "
+    check(torch.equal(k["accept"], rp["accept"]) and torch.equal(k["ok"], rp["ok"]),
+          "K2 refit: accept differs")
+    check(bool(k["accept"].any()), "K2 refit: no pair accepted")
+    log(f"K2 refit: F max difference {d_f:.3g} (to the f64 refit: kernel "
         f"{float(ek.max()):.3g}, twin {float(ep.max()):.3g}); inlier rows' distances to the "
         f"f64 F's: kernel {pk_:.3g} px, twin {pp_:.3g} px; inliers equal on {inl_eq:.4%} of "
-        f"{B * M} rows, accept equal on all {B} pairs ({int(rk['accept'].sum())} accepted)")
-    hyp_ms = time_ms(torch, lambda: fmat_hypotheses_cuda(*hargs))
-    hyp_plain = time_ms(torch, lambda: fmat_hypotheses_plain(*hargs))
-    ref_ms = time_ms(torch, lambda: fmat_refit_verify_cuda(*rargs))
-    ref_plain = time_ms(torch, lambda: fmat_refit_verify_plain(*rargs))
-    log(f"  fmat_hypotheses {hyp_ms:.4f} ms (plain torch {hyp_plain:.4f} ms); "
-        f"fmat_refit_verify {ref_ms:.4f} ms (plain torch {ref_plain:.4f} ms)")
-    # Hypotheses: ~1.7 kFLOP a sample (A^T A 720, Cholesky ~330, 3 solves ~490,
-    # normalization and denormalization ~150). Refit: ~300 FLOP a row over its
-    # five passes, ~3 kFLOP of thread 0's solve per pair.
-    solve = result(max(float(d_hyp[well].max()), d_f), hyp_ms + ref_ms, hyp_plain + ref_plain,
-                   nbytes(p1, p2, idx, Fs_k, valid, best) + 36 * B
-                   + sum(nbytes(v) for v in rk.values()),
-                   1700 * B * H + 300 * B * M + 3000 * B)
-    return score, solve
+        f"{B * M} rows, accept equal on all {B} pairs ({int(k['accept'].sum())} accepted)")
+    check_repeatable(torch, "K2 fmat_ransac", lambda: list(fmat_ransac_cuda(*kargs).values()),
+                     list(k.values()))
+    fn = lambda: fmat_ransac_cuda(*kargs)
+    ms = median_ms(torch, fn)
+    dev_ms = device_ms(torch, fn, name="fmat_ransac")
+    plain_ms = time_ms(torch, lambda: fmat_ransac_plain(*kargs), reps=3, warmup=1)
+    log(f"  fmat_ransac: wrapper {ms:.4f} ms, device {fmt_ms(dev_ms)} (plain torch "
+        f"{plain_ms:.4f} ms)")
+    # ~45 FLOP per (hypothesis, scored row): two lines, two distances; ~1.7
+    # kFLOP a sample (A^T A 720, Cholesky ~330, 3 solves ~490, normalization
+    # and denormalization ~150); the refit ~300 FLOP a row over its five
+    # passes and ~3 kFLOP of thread 0's solve a pair.
+    err = max(float(d_hyp[well].max()), d_f, gap)
+    moved = nbytes(p1, p2, valid, idx) + sum(nbytes(v) for v in k.values())
+    return result(err, ms, plain_ms, moved, 45 * B * H * N + 1700 * B * H + 300 * B * M + 3000 * B,
+                  device_ms=dev_ms)
 
 
 def phase_dog_extrema(torch, dev, image, cfg):
@@ -1860,7 +1883,7 @@ def phase_pnp_refine(torch, np, dev):
     from sfm_tpu_torch.estimators.pnp import pnp_refine_cuda, pnp_refine_plain
     from sfm_tpu_torch.geometry.rotations import rodrigues
 
-    worst, ms, plain_ms, moved, ops = 0.0, 0.0, 0.0, 0, 0
+    worst, ms, plain_ms, moved, ops, dms = 0.0, 0.0, 0.0, 0, 0, []
     for B, N in ((8, 2048), (1, 8192)):
         p3, p2, valid, K, R, t, rng = pnp_scene(torch, np, dev, B, N, seed=10 + B)
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -1889,13 +1912,18 @@ def phase_pnp_refine(torch, np, dev):
             f"inliers equal on {inl_eq:.4%} of rows, ok {k['ok'].tolist()}")
         worst = max(worst, float((k["R"] - pl["R"]).abs().max()),
                     float((k["t"] - pl["t"]).abs().max()))
+        check_repeatable(torch, f"K6 pnp_refine B={B}",
+                         lambda: list(pnp_refine_cuda(*args).values()), list(k.values()))
         ms += time_ms(torch, lambda: pnp_refine_cuda(*args))
+        dms.append(device_ms(torch, lambda: pnp_refine_cuda(*args), name="pnp_refine"))
+        log(f"  pnp_refine B={B} N={N}: device {fmt_ms(dms[-1])}")
         plain_ms += time_ms(torch, lambda: pnp_refine_plain(*args))
         # 20 steps of ~250 FLOP per weighted row (6 tangents, 27 sums), three
         # passes of ~30 FLOP per row for the weights and the final errors.
         moved += nbytes(*args[:6]) + sum(nbytes(v) for v in k.values())
         ops += 20 * 250 * int(k["num_inliers"].sum()) + 3 * 30 * B * N
-    return result(worst, ms, plain_ms, moved, ops)
+    return result(worst, ms, plain_ms, moved, ops,
+                  device_ms=None if None in dms else sum(dms))
 
 
 # Path d's largest reduced camera system: 150 cameras of 6 parameters and the
@@ -3600,14 +3628,18 @@ def same_model(name: str, out: Path, models: dict = MODELS_BEFORE) -> bool:
 def log_model(name: str, out: Path):
     """Print a run's model as soon as it is written (path h's readings stay in
     the log whatever a later check finds), beside the models it read with
-    cuSOLVER's dense solve (``MODELS_BEFORE``) and with the first design of
-    K10's Cholesky kernel (``MODELS_FIRST_CHOLESKY``)."""
+    cuSOLVER's dense solve (``MODELS_BEFORE``), with the first design of
+    K10's Cholesky kernel (``MODELS_FIRST_CHOLESKY``) and with its redesign
+    (``MODELS_PINNED``, which every run must read); ``MODEL_DIRS`` keeps the
+    run's directory for that check."""
+    MODEL_DIRS[name] = out
     st = json.loads((out / "reconstruction" / "stats.json").read_text())
     intr = json.loads((out / "reconstruction" / "intrinsics.json").read_text())
     fmt = lambda x, f: "-" if x is None else format(x, f)
     was = ""
     for what, models in (("cuSOLVER's dense solve", MODELS_BEFORE),
-                         ("the first Cholesky kernel", MODELS_FIRST_CHOLESKY)):
+                         ("the first Cholesky kernel", MODELS_FIRST_CHOLESKY),
+                         ("the pinned models", MODELS_PINNED)):
         before = models.get(name)
         if before is not None:
             was += (f" | with {what}: {before[0]} cameras, {fmt(before[1], 'd')} points, "
@@ -3642,6 +3674,7 @@ def main(argv=None) -> int:
                     help="views of the PCG-scale pipeline run (path h)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    MODEL_DIRS.clear()
 
     import torch
 
@@ -3731,7 +3764,7 @@ def main(argv=None) -> int:
                    "retrieval_score": phase_retrieval_score(torch, np, dev),
                    "guided_match": phase_guided_match(torch, dev),
                    "seed_score": phase_seed_score(torch, np, dev)}
-        results["fmat_score_select"], results["fmat_solve"] = phase_fmat(torch, np, dev)
+        results["fmat_ransac"] = phase_fmat(torch, np, dev)
         systems = {}   # the real S of the BA phases, for the dense solve's phase
         results["ba_linearize"], results["schur_coupling"] = phase_ba(torch, np, dev, systems)
         results["schur_damp"] = phase_schur_damp(torch, np, dev)
@@ -3958,6 +3991,12 @@ def main(argv=None) -> int:
     run_dirs = {"pipeline_huge": out_huge, **{k: v[0] for k, v in island_runs.items()}}
     moved = [r for r in PCG_ONLY_RUNS if not same_model(r, run_dirs[r])]
     check(not moved, f"runs without a dense BA step read another model than MODELS_BEFORE: "
+                     f"{', '.join(moved)}")
+
+    # ---- every run reads the pinned model
+    moved = [r for r in MODELS_PINNED if r not in MODEL_DIRS
+             or not same_model(r, MODEL_DIRS[r], MODELS_PINNED)]
+    check(not moved, f"runs that read another model than MODELS_PINNED (or none): "
                      f"{', '.join(moved)}")
 
     # ---- path a's checks: the verified pairs

@@ -38,7 +38,7 @@ SIGNATURES = {
     "sfm_match_top2": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "sfm_match_epilogue": [_P] * 5 + [_I] * 3 + [_F, _P] + [_P],
     "sfm_match_compact": [_P] * 3 + [_I] * 4 + [_P] * 4 + [_P],
-    "sfm_fmat_score_select": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "sfm_fmat_ransac": [_P] * 4 + [_I] * 5 + [_F, _I, _F, _F, _F] + [_P] * 14 + [_P],
     "sfm_dog_extrema": [_P, _I, _I, _I, _I, _F, _P, _P],
     "sfm_sift_describe": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                           _I, _P, _F, _F, _P, _P, _P],
@@ -56,8 +56,6 @@ SIGNATURES = {
     "sfm_pnp_refine": [_P] * 7 + [_I, _I, _F, _P, _I] + [_P] * 7 + [_P],
     "sfm_schur_damp": [_P] * 12 + [_I] * 6 + [_F] + [_P] * 9 + [_P],
     "sfm_schur_back_substitute": [_P] * 11 + [_I] * 3 + [_P] + [_P],
-    "sfm_fmat_hypotheses": [_P] * 3 + [_I] * 3 + [_P] + [_P],
-    "sfm_fmat_refit_verify": [_P] * 5 + [_I] * 3 + [_F, _I, _F, _F, _F] + [_P] * 10 + [_P],
     "sfm_dog_select": [_P] + [_I] * 5 + [_P, _L] + [_P] * 4 + [_P],
     "sfm_dog_refine": [_P] + [_I] * 4 + [_P] * 4 + [_I] + [_F] * 3 + [_P] * 4 + [_P],
     "sfm_topk_rows": [_P] + [_I] * 3 + [_P] * 2 + [_P],
@@ -73,11 +71,11 @@ SIGNATURES = {
     "sfm_pcg_step": [_P] * 3 + [_I] * 2 + [_F] + [_P] * 5 + [_P],
     "sfm_pnp_dlt_solve": [_P] * 5 + [_I] * 4 + [_P] * 2 + [_P],
 }
-KERNELS = ("match_top2", "fmat_score_select", "dog_extrema", "sift_describe",
+KERNELS = ("match_top2", "fmat_ransac", "dog_extrema", "sift_describe",
            "ba_linearize", "ba_cost", "schur_coupling", "triangulate_tracks",
            "reproj_stats", "p3p_solve", "pnp_score_select", "retrieval_score",
            "guided_match", "build_pyramid", "seed_score", "pnp_refine", "schur_damp",
-           "schur_back_substitute", "fmat_hypotheses", "fmat_refit_verify", "dog_select",
+           "schur_back_substitute", "dog_select",
            "dog_refine", "topk_rows", "match_epilogue", "match_compact", "relpose",
            "rotation_average", "translation_average", "orb_fast_nms", "orb_blur",
            "orb_describe", "schur_block_jacobi", "schur_matvec", "pcg_init", "pcg_step",
@@ -111,9 +109,9 @@ KERNELS += ("schur_cholesky_solve", "schur_cholesky_solve_f64")
 
 # Called once, on the first launch, on that device's stream: per-function
 # attributes (the opt-in shared memory of K10's staged walk and dense solve,
-# K4's topk_rows and K1's resident rows).
+# K4's topk_rows, K1's resident rows and K6's pnp_refine).
 SETUP = ("sfm_schur_damp_setup", "sfm_schur_cholesky_setup", "sfm_topk_setup",
-         "sfm_match_setup")
+         "sfm_match_setup", "sfm_pnp_refine_setup")
 SIGNATURES.update({name: [_P] for name in SETUP})
 
 _launches = {k: 0 for k in KERNELS}

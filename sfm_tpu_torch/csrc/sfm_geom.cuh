@@ -384,6 +384,30 @@ __device__ void sfm_eight_point_block(const float* x1, const float* y1, const fl
   __syncthreads();
 }
 
+// ------------------------------------------------------------ a warp's divisions
+// An IEEE division's slow-path branch keeps a thread's independent divisions
+// from overlapping. A warp that runs one serial solve in every lane (the same
+// operations, the same bits) spreads such a step's divisions over its lanes.
+
+constexpr unsigned SFM_FULL_MASK = 0xffffffffu;
+
+// x[lane] of x[0..n), n <= MAXV, without a local array (lanes >= n get x[0]).
+template <int MAXV>
+__device__ __forceinline__ float sfm_lane_pick(const float* x, int n, int lane) {
+  float v = x[0];
+#pragma unroll
+  for (int i = 1; i < MAXV; ++i) v = (i < n && lane == i) ? x[i] : v;
+  return v;
+}
+
+// x[i] = x[i] / d for i < n: lane i divides, every lane gets all of them.
+template <int n>
+__device__ __forceinline__ void sfm_warp_divide(float* x, float d, int lane) {
+  const float q = sfm_lane_pick<n>(x, n, lane) / d;
+#pragma unroll
+  for (int i = 0; i < n; ++i) x[i] = __shfl_sync(SFM_FULL_MASK, q, i);
+}
+
 // ------------------------------------------------------------ rotations, GN
 
 // R = I + a K + b K^2 (rotations.py::rodrigues, row-major 9) and, when

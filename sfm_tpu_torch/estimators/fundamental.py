@@ -2,12 +2,11 @@
 
 Counterpart of ``sfm_tpu/estimators/fundamental.py`` (and of the gates of
 ``sfm_tpu/matching/verify.py::verify_pair``). Kernel K2 runs every device
-step in three launches: ``fmat_hypotheses`` (``csrc/fmat_solve.cu``: the
-eight-point solve of every RANSAC sample), ``fmat_score_select``
-(``csrc/fmat_ransac.cu``: every hypothesis scored on the scoring subset, the
-winner picked) and ``fmat_refit_verify`` (``csrc/fmat_solve.cu``: the
-winner's consensus over all rows, the weighted rank-2 refit, the final
-inliers and the verify gates). Their plain twins are
+step in one launch, ``fmat_ransac`` (``csrc/fmat_ransac.cu``): the
+eight-point solve of every RANSAC sample, every hypothesis scored on the
+scoring subset, the winner, the winner's consensus over all rows, the
+weighted rank-2 refit, the final inliers and the verify gates. Its plain
+twin :func:`fmat_ransac_plain` is the composition of
 :func:`fmat_hypotheses_plain`, :func:`fmat_score_select_plain` and
 :func:`fmat_refit_verify_plain`.
 """
@@ -19,10 +18,11 @@ from sfm_tpu_torch import _kernels
 from sfm_tpu_torch.geometry.epipolar import eight_point, symmetric_epipolar_distance
 from sfm_tpu_torch.estimators.ransac import ransac_sample_indices, ransac_select
 
-# One thread block holds the scoring subset in shared memory (5 floats a row).
-_K2_MAX_POINTS = 2048
-# fmat_refit_verify: one thread block holds a pair's rows in shared memory.
+# fmat_ransac: a thread block holds a pair's rows in shared memory.
 _K2_MAX_ROWS = 1024
+# fmat_ransac: hypotheses a thread block (csrc/fmat_ransac.cu's HT; the
+# entry refuses another tile count).
+_K2_TILE = 64
 _EPS = 1e-12
 
 
@@ -38,58 +38,11 @@ def fmat_hypotheses_plain(pts1, pts2, indices):
                        null_fallback=False)
 
 
-def fmat_hypotheses_cuda(pts1, pts2, indices):
-    B, N = pts1.shape[:2]
-    H = indices.shape[1]
-    dev = pts1.device
-    _kernels.check_tensor(pts1, "pts1", torch.float32, (B, N, 2), dev)
-    _kernels.check_tensor(pts2, "pts2", torch.float32, (B, N, 2), dev)
-    _kernels.check_tensor(indices, "indices", torch.int64, (B, H, 8), dev)
-    Fs = torch.empty((B, H, 3, 3), dtype=torch.float32, device=dev)
-    _kernels.launch("fmat_hypotheses", dev, pts1, pts2, indices, B, H, N, Fs)
-    return Fs
-
-
-def fmat_hypotheses(pts1, pts2, indices):
-    """Kernel K2 ``fmat_hypotheses`` on CUDA tensors, its plain twin on CPU."""
-    if pts1.is_cuda:
-        return fmat_hypotheses_cuda(pts1, pts2, indices)
-    if pts1.device.type == "cpu":
-        return fmat_hypotheses_plain(pts1, pts2, indices)
-    raise ValueError(f"fmat_hypotheses: unsupported device {pts1.device}")
-
-
 def fmat_score_select_plain(Fs, pts1, pts2, valid, threshold: float):
     """Score (B, H, 3, 3) hypotheses on (B, N) points; returns (best_h, count)."""
     errors = symmetric_epipolar_distance(Fs, pts1[:, None], pts2[:, None])
     best, _, count = ransac_select(errors, valid, threshold)
     return best, count
-
-
-def fmat_score_select_cuda(Fs, pts1, pts2, valid, threshold: float):
-    B, H = Fs.shape[:2]
-    N = pts1.shape[1]
-    dev = Fs.device
-    if N > _K2_MAX_POINTS:
-        raise ValueError(f"fmat_score_select: N={N} exceeds {_K2_MAX_POINTS}")
-    _kernels.check_tensor(Fs, "Fs", torch.float32, (B, H, 3, 3), dev)
-    _kernels.check_tensor(pts1, "pts1", torch.float32, (B, N, 2), dev)
-    _kernels.check_tensor(pts2, "pts2", torch.float32, (B, N, 2), dev)
-    _kernels.check_tensor(valid, "valid", torch.bool, (B, N), dev)
-    best = torch.empty((B,), dtype=torch.int32, device=dev)
-    count = torch.empty((B,), dtype=torch.int32, device=dev)
-    _kernels.launch("fmat_score_select", dev, Fs, pts1, pts2, valid,
-                    B, H, N, float(threshold), best, count)
-    return best.long(), count.long()
-
-
-def fmat_score_select(Fs, pts1, pts2, valid, threshold: float):
-    """Kernel K2 on a CUDA tensor, its plain twin on a CPU tensor."""
-    if Fs.is_cuda:
-        return fmat_score_select_cuda(Fs, pts1, pts2, valid, threshold)
-    if Fs.device.type == "cpu":
-        return fmat_score_select_plain(Fs, pts1, pts2, valid, threshold)
-    raise ValueError(f"fmat_score_select: unsupported device {Fs.device}")
 
 
 def _masked_std(x, w):
@@ -137,42 +90,64 @@ def fmat_refit_verify_plain(Fs, best, pts1, pts2, valid, threshold: float,
             "well_distributed": spread_ok, "accept": accept, "ok": ok}
 
 
-def fmat_refit_verify_cuda(Fs, best, pts1, pts2, valid, threshold: float,
-                           min_inliers: int = 15, min_inlier_ratio: float = 0.3,
-                           max_reproj_error: float = 2.0, min_spread: float = 20.0):
-    B, H = Fs.shape[:2]
-    N = pts1.shape[1]
-    dev = Fs.device
+def fmat_ransac_plain(pts1, pts2, valid, indices, threshold: float, score_budget: int = 0,
+                      min_inliers: int = 15, min_inlier_ratio: float = 0.3,
+                      max_reproj_error: float = 2.0, min_spread: float = 20.0):
+    """K2 from the drawn samples on, in plain PyTorch: the hypotheses
+    (:func:`fmat_hypotheses_plain`), the winner on the first ``score_budget``
+    rows (:func:`fmat_score_select_plain`; all rows when 0 or >= N) and the
+    refit with the gates (:func:`fmat_refit_verify_plain`). Returns the refit's
+    dict with ``Fs`` (B, H, 3, 3), ``best`` and ``count`` (B,) added."""
+    N = valid.shape[1]
+    Fs = fmat_hypotheses_plain(pts1, pts2, indices)
+    n = score_budget if score_budget and score_budget < N else N
+    best, count = fmat_score_select_plain(Fs, pts1[:, :n].contiguous(), pts2[:, :n].contiguous(),
+                                          valid[:, :n].contiguous(), threshold)
+    out = fmat_refit_verify_plain(Fs, best, pts1, pts2, valid, threshold, min_inliers,
+                                  min_inlier_ratio, max_reproj_error, min_spread)
+    return {"Fs": Fs, "best": best, "count": count, **out}
+
+
+def fmat_ransac_cuda(pts1, pts2, valid, indices, threshold: float, score_budget: int = 0,
+                     min_inliers: int = 15, min_inlier_ratio: float = 0.3,
+                     max_reproj_error: float = 2.0, min_spread: float = 20.0):
+    B, N = valid.shape
+    H = indices.shape[1]
+    dev = pts1.device
     if N > _K2_MAX_ROWS:
-        raise ValueError(f"fmat_refit_verify: N={N} exceeds {_K2_MAX_ROWS}")
-    _kernels.check_tensor(Fs, "Fs", torch.float32, (B, H, 3, 3), dev)
-    _kernels.check_tensor(best, "best", torch.int64, (B,), dev)
+        raise ValueError(f"fmat_ransac: N={N} exceeds {_K2_MAX_ROWS}")
     _kernels.check_tensor(pts1, "pts1", torch.float32, (B, N, 2), dev)
     _kernels.check_tensor(pts2, "pts2", torch.float32, (B, N, 2), dev)
     _kernels.check_tensor(valid, "valid", torch.bool, (B, N), dev)
-    e = lambda dt, *s: torch.empty(s, dtype=dt, device=dev)
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    out = {"F": e(f32, B, 3, 3), "inliers": e(b8, B, N), "errors": e(f32, B, N),
+    _kernels.check_tensor(indices, "indices", torch.int64, (B, H, 8), dev)
+    n = score_budget if score_budget and score_budget < N else N
+    tiles = -(-H // _K2_TILE)
+    # Per pair a ticket and each tile's best; the kernel needs it zero.
+    work = torch.zeros((B, 1 + 3 * tiles), dtype=torch.int32, device=dev)
+    e = lambda dt, *sh: torch.empty(sh, dtype=dt, device=dev)
+    f32, i32, i64, b8 = torch.float32, torch.int32, torch.int64, torch.bool
+    out = {"Fs": e(f32, B, H, 3, 3), "best": e(i64, B), "count": e(i64, B),
+           "F": e(f32, B, 3, 3), "inliers": e(b8, B, N), "errors": e(f32, B, N),
            "num_matches": e(i32, B), "num_inliers": e(i32, B), "inlier_ratio": e(f32, B),
            "reprojection_error": e(f32, B), "well_distributed": e(b8, B), "accept": e(b8, B),
            "ok": e(b8, B)}
-    _kernels.launch("fmat_refit_verify", dev, Fs, best, pts1, pts2, valid, B, H, N,
+    _kernels.launch("fmat_ransac", dev, pts1, pts2, valid, indices, B, H, N, n, tiles,
                     float(threshold), int(min_inliers), float(min_inlier_ratio),
-                    float(max_reproj_error), float(min_spread), *out.values())
+                    float(max_reproj_error), float(min_spread), work, *out.values())
     return out
 
 
-def fmat_refit_verify(Fs, best, pts1, pts2, valid, threshold: float, min_inliers: int = 15,
-                      min_inlier_ratio: float = 0.3, max_reproj_error: float = 2.0,
-                      min_spread: float = 20.0):
-    """Kernel K2 ``fmat_refit_verify`` on CUDA tensors, its plain twin on CPU."""
-    args = (Fs, best, pts1, pts2, valid, threshold, min_inliers, min_inlier_ratio,
-            max_reproj_error, min_spread)
-    if Fs.is_cuda:
-        return fmat_refit_verify_cuda(*args)
-    if Fs.device.type == "cpu":
-        return fmat_refit_verify_plain(*args)
-    raise ValueError(f"fmat_refit_verify: unsupported device {Fs.device}")
+def fmat_ransac(pts1, pts2, valid, indices, threshold: float, score_budget: int = 0,
+                min_inliers: int = 15, min_inlier_ratio: float = 0.3,
+                max_reproj_error: float = 2.0, min_spread: float = 20.0):
+    """Kernel K2 ``fmat_ransac`` on CUDA tensors, :func:`fmat_ransac_plain` on CPU."""
+    args = (pts1, pts2, valid, indices, threshold, score_budget, min_inliers,
+            min_inlier_ratio, max_reproj_error, min_spread)
+    if pts1.is_cuda:
+        return fmat_ransac_cuda(*args)
+    if pts1.device.type == "cpu":
+        return fmat_ransac_plain(*args)
+    raise ValueError(f"fmat_ransac: unsupported device {pts1.device}")
 
 
 def estimate_fundamental_ransac(
@@ -202,18 +177,10 @@ def estimate_fundamental_ransac(
     pts1 = pts1.to(torch.float32).contiguous()
     pts2 = pts2.to(torch.float32).contiguous()
     valid = valid.to(torch.bool).contiguous()
-    N = valid.shape[1]
     if indices is None:
         if generator is None:
             raise ValueError("estimate_fundamental_ransac needs a generator or indices")
         indices = ransac_sample_indices(valid, iters, 8, generator, prefix=prefix_valid)
-    Fs = fmat_hypotheses(pts1, pts2, indices.to(torch.int64).contiguous())
-
-    if score_budget and score_budget < N:
-        sc1, sc2, scv = pts1[:, :score_budget], pts2[:, :score_budget], valid[:, :score_budget]
-    else:
-        sc1, sc2, scv = pts1, pts2, valid
-    best_h, _ = fmat_score_select(Fs.contiguous(), sc1.contiguous(), sc2.contiguous(),
-                                  scv.contiguous(), threshold)
-    return fmat_refit_verify(Fs.contiguous(), best_h.contiguous(), pts1, pts2, valid, threshold,
-                             min_inliers, min_inlier_ratio, max_reproj_error, min_spread)
+    out = fmat_ransac(pts1, pts2, valid, indices.to(torch.int64).contiguous(), threshold,
+                      score_budget, min_inliers, min_inlier_ratio, max_reproj_error, min_spread)
+    return {k: v for k, v in out.items() if k not in ("Fs", "best", "count")}

@@ -3,8 +3,8 @@
 Counterpart of ``sfm_tpu/matching/verify.py``, batched over pairs. Gates:
 num_inliers >= 15, inlier_ratio >= 0.3, mean inlier symmetric-epipolar
 error <= 2.0 px, and point spread (std) > 20 px on both axes of both images.
-The gates are computed with the refit, in kernel K2's ``fmat_refit_verify``
-(:mod:`sfm_tpu_torch.estimators.fundamental`).
+The gates are computed with the refit, in kernel K2's one launch,
+``fmat_ransac`` (:mod:`sfm_tpu_torch.estimators.fundamental`).
 """
 from __future__ import annotations
 

@@ -1,17 +1,22 @@
 """Kernels of one checkout against another's, bit for bit, on the card: K11's
 matvec and PCG, K10's coupling, K7's triangulation, K8+K9's linearization,
-K1's top-2, K3's pyramid and K4's candidate selection.
+K1's top-2, K3's pyramid, K4's candidate selection, K2's F-RANSAC and K6's
+``pnp_refine``.
 
-    python tests/bits_report.py dump --scene D --pipeline P [--orb G] --out DIR
+    python tests/bits_report.py dump --scene D [--pipeline P] [--orb G] --out DIR
     python tests/bits_report.py run --repo REPO
                                     [--cases matvec,coupling,triangulate,linearize,match,
-                                             pyramid,select]
+                                             pyramid,select,fmat,pnp]
                                     [--inputs DIR] [--scene DIR] [--vectors 8] --out FILE.pt
     python tests/bits_report.py compare A.pt B.pt
 
-``dump`` runs this checkout's ``reconstruct`` on path d's artifacts (``P``,
-the 150-view ``pipeline`` output of ``chip_smoke.py``, on its scene ``D``)
-and writes to ``DIR`` the inputs of the largest dense BA call's S (the
+``dump`` first runs path d's ``pipeline`` on ``D`` (the smoke's 150-view
+scene) and writes the inputs of every K2 launch of its sweep (``fmat.pt``:
+each chunk's points, valid rows, drawn sample indices, threshold, scoring
+budget and gates) and of every ``pnp_refine`` launch of its engine
+(``pnp.pt``). Then it runs this checkout's ``reconstruct`` on path d's
+artifacts (``P``, by default that pipeline's output; the smoke's is the
+same) and writes to ``DIR`` the inputs of the largest dense BA call's S (the
 linearized system, its damping and grouping), the engine's whole track
 table with its final poses (``_triangulate``'s inputs for every row) and
 the inputs of its largest ``run_ba`` call (the problem and its config);
@@ -62,10 +67,30 @@ and saves, for each case, its outputs, a digest of its inputs and its times:
   with seed pairs on. Where the checkout's wrapper takes a ``layout``, each
   of these also runs a warp a row and a thread a row, held against the
   other checkout's own choice.
+- ``fmat``: K2 from the drawn samples on: every hypothesis F, the winner and
+  its count, and the refit's F, inliers, errors and every gate field, on
+  ``phase_fmat``'s chunk, on a tie-heavy chunk (samples copied 128 or 256
+  hypotheses apart, so that equal scores meet in different tiles of one pair
+  of the redesign's 64-hypothesis tiles, and pairs whose hypotheses are all
+  one sample), on ragged shapes (a partial last tile, fewer rows than the
+  scoring budget, 9 rows) and
+  (with ``--inputs``) on every chunk of path d's sweep; the wrapper
+  (``estimate_fundamental_ransac`` with the samples given) and the K2
+  kernels' device time a chunk.
+- ``pnp``: ``pnp_refine_cuda``'s R, rvec, t, inliers, count, errors and ok on
+  ``phase_pnp_refine``'s two scenes, on a degenerate batch (a candidate with
+  no valid row, so both refits see all-zero weights; one with a NaN
+  rotation; one gated off; one with an infinite point), on ragged shapes
+  (257, 300 and 1 rows, 12 candidates) and (with
+  ``--inputs``) on every launch of path d's engine; wrapper and kernel
+  times.
 
 Wrapper times are the median of five means of 10 calls (the workspaces and
 K7's camera tensors made once where the wrapper takes them, as ``run_ba``
-and the engine make them), device times one ``torch.profiler`` trace.
+and the engine make them), device times one ``torch.profiler`` trace; K2's
+and ``pnp_refine``'s cases also time 10 calls on a stream held while the
+host enqueues them (``stream_ms``: the device's time a call, the gaps
+between a call's kernels included, the host's left out).
 ``compare`` prints, for each case, whether the two checkouts' inputs and
 outputs are identical, and both checkouts' times, then one JSON line. Two
 processes, since both checkouts' packages share a name. Needs a card.
@@ -84,7 +109,12 @@ import shutil
 import sys
 from pathlib import Path
 
-CASES = ("matvec", "coupling", "triangulate", "linearize", "match", "pyramid", "select")
+CASES = ("matvec", "coupling", "triangulate", "linearize", "match", "pyramid", "select", "fmat",
+         "pnp")
+# K2's outputs, in the order the cases keep them.
+FMAT_OUTPUTS = ("Fs", "best", "count", "F", "inliers", "errors", "num_matches", "num_inliers",
+                "inlier_ratio", "reprojection_error", "well_distributed", "accept", "ok")
+PNP_OUTPUTS = ("R", "rvec", "t", "inliers", "num_inliers", "errors", "ok")
 # The BAProblem fields the dump keeps of the largest run_ba call.
 BA_FIELDS = ("rvec", "tvec", "cam_valid", "cam_fixed", "intr", "points", "point_valid",
              "obs_cam", "obs_point", "obs_xy", "obs_valid", "intr_c")
@@ -114,9 +144,11 @@ def dump(args) -> int:
     from sfm_tpu_torch.reconstruction import incremental as inc
 
     out = Path(args.out)
+    ransac_inputs(args, out)
+    pipeline = Path(args.pipeline) if args.pipeline else out / "pipeline"
     run_dir = out / "reconstruct"
     run_dir.mkdir(parents=True, exist_ok=True)
-    shutil.copy(Path(args.pipeline) / "pair_table.pkl", run_dir / "pair_table.pkl")
+    shutil.copy(pipeline / "pair_table.pkl", run_dir / "pair_table.pkl")
     seen = {"ba": None, "engine": None, "run_ba": None}
     real_s, real_t, real_run = S.schur_matrix_cuda, inc.StructureFromMotion._triangulate, inc.run_ba
 
@@ -159,8 +191,7 @@ def dump(args) -> int:
                out / "tracks.pt")
     prob, config, a, kw = seen["run_ba"]
     torch.save({"problem": prob, "config": config, "args": a, "kwargs": kw}, out / "run_ba.pt")
-    chunks = [("match_d", Path(args.pipeline))] + ([("match_g", Path(args.orb))]
-                                                   if args.orb else [])
+    chunks = [("match_d", pipeline)] + ([("match_g", Path(args.orb))] if args.orb else [])
     for name, where in chunks:
         blob = pickle.loads((where / "pair_table.pkl").read_bytes())
         ij = blob["table"].pairs[:32]
@@ -176,6 +207,55 @@ def dump(args) -> int:
           f"registered cameras; the largest run_ba call: {prob['rvec'].shape[0]} cameras, "
           f"{prob['obs_cam'].shape[0]} observations", flush=True)
     return 0
+
+
+def ransac_inputs(args, out: Path):
+    """Path d's ``pipeline`` once more on ``args.scene``, recording the inputs
+    of every K2 launch of its sweep (the samples drawn here, as
+    ``estimate_fundamental_ransac`` draws them, then handed to it) and of
+    every ``pnp_refine`` launch of its engine."""
+    import torch
+
+    from sfm_tpu_torch import cli
+    from sfm_tpu_torch.estimators import pnp
+    from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
+    from sfm_tpu_torch.matching import verify
+
+    chunks, refits = [], []
+    real_est, real_refine = verify.estimate_fundamental_ransac, pnp.pnp_refine
+    cpu = lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+    def estimate(pts1, pts2, valid, iters=2048, threshold=3.0, prefix_valid=False,
+                 score_budget=0, generator=None, indices=None, **gates):
+        if indices is None:
+            indices = ransac_sample_indices(valid.to(torch.bool).contiguous(), iters, 8,
+                                            generator, prefix=prefix_valid)
+        chunks.append({"pts1": cpu(pts1).float(), "pts2": cpu(pts2).float(),
+                       "valid": cpu(valid).bool(), "indices": cpu(indices).to(torch.int16),
+                       "threshold": float(threshold), "score_budget": int(score_budget),
+                       "gates": {k: float(v) for k, v in gates.items()}})
+        return real_est(pts1, pts2, valid, iters=iters, threshold=threshold,
+                        prefix_valid=prefix_valid, score_budget=score_budget,
+                        generator=generator, indices=indices, **gates)
+
+    def refine(*a, **kw):
+        refits.append(([cpu(x) for x in a], {k: cpu(v) for k, v in kw.items()}))
+        return real_refine(*a, **kw)
+
+    verify.estimate_fundamental_ransac, pnp.pnp_refine = estimate, refine
+    try:
+        rc = cli.main(["--log_level", "WARNING", "pipeline", "--data_dir", str(args.scene),
+                       "--output_dir", str(out / "pipeline"), "--device", "cuda", "--no_mask"])
+    finally:
+        verify.estimate_fundamental_ransac, pnp.pnp_refine = real_est, real_refine
+    if rc != 0 or not chunks or not refits:
+        raise SystemExit(f"bits_report dump: pipeline rc {rc}, {len(chunks)} K2 chunks, "
+                         f"{len(refits)} pnp_refine launches")
+    torch.save(chunks, out / "fmat.pt")
+    torch.save(refits, out / "pnp.pt")
+    print(f"dumped: {len(chunks)} K2 chunks of path d's sweep "
+          f"({sum(c['valid'].shape[0] for c in chunks)} pairs), {len(refits)} pnp_refine "
+          f"launches of its engine", flush=True)
 
 
 def _point_major():
@@ -213,6 +293,33 @@ class Runner:
         us = sum(e.device_time_total for e in prof.key_averages()
                  if any(k in e.key for k in names))
         return us / 1e3 / reps if us > 0 else None
+
+    def stream_ms(self, fn, reps=10, sleep_ms=10.0):
+        """The device time a call, host left out: the stream is held by a
+        ``torch.cuda._sleep`` while the host enqueues ``reps`` calls between
+        two events, so the device runs them back to back (the gaps between a
+        call's own kernels included); the sleep is doubled until it outlasts
+        the enqueueing."""
+        import time
+
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(4):
+            torch.cuda._sleep(int(sleep_ms * 2e6))   # ~1 ms a 2e6 cycles at ~2 GHz
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            if host_ms < 0.5 * sleep_ms:
+                return start.elapsed_time(end) / reps
+            sleep_ms *= 2
+        return None
 
     def add(self, name, digest_in, outs, shape, times, ref=None, names=None):
         """Records a case; ``ref`` names the other checkout's case that its
@@ -647,6 +754,152 @@ def run_select(r: Runner, args):
     torch.cuda.empty_cache()
 
 
+def k2_outputs(torch, fm, p1, p2, valid, idx, thr, budget, gates):
+    """This checkout's K2 from the samples on: the redesign's one entry, or the
+    first design's three (the scoring subset sliced as
+    ``estimate_fundamental_ransac`` slices it)."""
+    if hasattr(fm, "fmat_ransac_cuda"):
+        out = fm.fmat_ransac_cuda(p1, p2, valid, idx, thr, budget, **gates)
+        return [out[k] for k in FMAT_OUTPUTS]
+    Fs = fm.fmat_hypotheses_cuda(p1, p2, idx)
+    n = budget if budget and budget < p1.shape[1] else p1.shape[1]
+    best, count = fm.fmat_score_select_cuda(Fs, p1[:, :n].contiguous(), p2[:, :n].contiguous(),
+                                            valid[:, :n].contiguous(), thr)
+    out = fm.fmat_refit_verify_cuda(Fs, best.contiguous(), p1, p2, valid, thr, **gates)
+    return [Fs, best, count] + [out[k] for k in FMAT_OUTPUTS[3:]]
+
+
+def tie_heavy_samples(torch, idx):
+    """``idx`` (B, 512, 8) with equal hypotheses planted in different tiles (of
+    64 or 128): pairs 0-7 copy hypotheses 0-127 to 128-255, 256-383 and
+    384-511 (each ties with three copies), pairs 8-15 copy 384-511 to 128-255
+    (a later tile's best ties with an earlier one), pairs 16-19 hold one
+    sample 512 times (the winner is hypothesis 0)."""
+    idx = idx.clone()
+    for b in range(8):
+        idx[b, 128:] = idx[b, :128].repeat(3, 1)
+    for b in range(8, 16):
+        idx[b, 128:256] = idx[b, 384:512]
+    for b in range(16, 20):
+        idx[b] = idx[b, 5]
+    return idx.contiguous()
+
+
+def run_fmat(r: Runner, args):
+    torch, cs = r.torch, r.cs
+    import numpy as np
+
+    from sfm_tpu_torch.estimators import fundamental as fm
+    from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
+
+    dev = torch.device("cuda")
+    gates_default = dict(min_inliers=15, min_inlier_ratio=0.3, max_reproj_error=2.0,
+                         min_spread=20.0)
+
+    def k2(name, p1, p2, valid, idx, thr, budget, gates, full_times=False):
+        gates = {k: (int(v) if k == "min_inliers" else float(v)) for k, v in gates.items()}
+        outs = k2_outputs(torch, fm, p1, p2, valid, idx, thr, budget, gates)
+        torch.cuda.synchronize()
+        fn = lambda: fm.estimate_fundamental_ransac(p1, p2, valid, threshold=thr,
+                                                    score_budget=budget, indices=idx, **gates)
+        times = {"wrapper_ms": cs.median_ms(torch, fn), "stream_ms": r.stream_ms(fn),
+                 "kernel_ms": r.kernel_ms(fn, ("fmat",))}
+        if full_times:
+            times["device_ms"] = cs.device_ms(torch, fn)
+        r.add(name, _digest(p1, p2, valid, idx), [o.long() if o.dtype == torch.int32 else o
+                                                  for o in outs],
+              f"B={p1.shape[0]}, N={p1.shape[1]}, H={idx.shape[1]}, scored on {budget}, "
+              f"{int(outs[11].sum())} accepted", times, names=FMAT_OUTPUTS)
+
+    B, M, H = 32, 1024, 512
+    p1, p2, valid = (torch.as_tensor(a, device=dev) for a in cs.two_view_batch(np, B, M)[:3])
+    g = torch.Generator(device=dev).manual_seed(2)
+    idx = ransac_sample_indices(valid, H, 8, g, prefix=True).contiguous()
+    k2("fmat/phase_fmat", p1, p2, valid, idx, 3.0, 256, gates_default, full_times=True)
+    k2("fmat/tie_heavy", p1, p2, valid, tie_heavy_samples(torch, idx), 3.0, 256, gates_default)
+    # Ragged shapes: a partial last tile, fewer rows than the scoring budget,
+    # a scoring budget off the walk's chunks, a pair of 9 rows.
+    for Bq, Mq, Hq, budget in ((3, 100, 130, 50), (1, 9, 16, 0), (5, 1024, 64, 1000),
+                               (2, 777, 512, 256)):
+        q1, q2, qv = (torch.as_tensor(a, device=dev) for a in cs.two_view_batch(np, Bq, Mq,
+                                                                                 seed=Mq)[:3])
+        gq = torch.Generator(device=dev).manual_seed(Mq)
+        qi = ransac_sample_indices(qv, Hq, 8, gq, prefix=True).contiguous()
+        k2(f"fmat/ragged/{Bq}x{Mq}x{Hq}_scored_{budget}", q1, q2, qv, qi, 3.0, budget,
+           gates_default)
+    f = Path(args.inputs or "") / "fmat.pt"
+    if args.inputs and f.exists():
+        for i, c in enumerate(torch.load(f, weights_only=False)):
+            to = lambda x: x.to(dev).contiguous()
+            k2(f"fmat/path_d/chunk_{i:03d}", to(c["pts1"]), to(c["pts2"]), to(c["valid"]),
+               to(c["indices"].long()), c["threshold"], c["score_budget"], c["gates"],
+               full_times=i == 0)
+    torch.cuda.empty_cache()
+
+
+def degenerate_candidates(torch, a):
+    """``phase_pnp_refine``'s 8-candidate batch made degenerate: candidate 1
+    has no valid row (both refits see all-zero weights), 3 a NaN rotation, 5
+    is gated off (ok0), 7 has an infinite point among its valid rows."""
+    R0, t0, ok0, p3, p2, valid = (x.clone() for x in a[:6])
+    valid[1] = False
+    R0[3, 0, 0] = float("nan")
+    ok0[5] = False
+    p3[7, 3] = float("inf")
+    return (R0, t0, ok0, p3, p2, valid) + tuple(a[6:])
+
+
+def run_pnp(r: Runner, args):
+    torch, cs = r.torch, r.cs
+    import numpy as np
+
+    from sfm_tpu_torch.estimators import pnp
+    from sfm_tpu_torch.geometry.rotations import rodrigues
+
+    dev = torch.device("cuda")
+
+    def refine(name, a, kw):
+        fn = lambda: pnp.pnp_refine_cuda(*a, **kw)
+        out = fn()
+        torch.cuda.synchronize()
+        r.add(name, _digest(*(x for x in a if isinstance(x, torch.Tensor))),
+              [out[k] for k in PNP_OUTPUTS],
+              f"B={a[3].shape[0]}, N={a[3].shape[1]}, {int(out['ok'].sum())} ok",
+              {"wrapper_ms": cs.median_ms(torch, fn), "stream_ms": r.stream_ms(fn),
+               "kernel_ms": r.kernel_ms(fn, ("pnp_refine",))},
+              names=PNP_OUTPUTS)
+
+    for B, N in ((8, 2048), (1, 8192)):
+        p3, p2, valid, K, R, t, rng = cs.pnp_scene(torch, np, dev, B, N, seed=10 + B)
+        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        R0 = (rodrigues(f32(rng.normal(0, 0.006, (B, 3)))) @ R).contiguous()
+        t0 = (t * f32(1 + rng.normal(0, 0.01, (B, 3)))).contiguous()
+        ok0 = torch.ones(B, dtype=torch.bool, device=dev)
+        ok0[B // 2] = B == 1
+        a = (R0, t0, ok0, p3, p2, valid, K, 8.0, torch.full((B,), 15, device=dev), 10)
+        refine(f"pnp/phase_pnp_refine/B{B}_N{N}", a, {})
+        if B == 8:
+            refine("pnp/degenerate", degenerate_candidates(torch, a), {})
+    # Ragged shapes: rows off the 256-row stride, fewer rows than a block's
+    # warps, one row; 12 candidates.
+    for B, N in ((3, 257), (2, 300), (12, 2048), (1, 1)):
+        p3, p2, valid, K, R, t, rng = cs.pnp_scene(torch, np, dev, B, max(N, 300), seed=N)
+        p3, p2, valid = (x[:, :N].contiguous() for x in (p3, p2, valid))
+        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        R0 = (rodrigues(f32(rng.normal(0, 0.006, (B, 3)))) @ R).contiguous()
+        t0 = (t * f32(1 + rng.normal(0, 0.01, (B, 3)))).contiguous()
+        ok0 = torch.ones(B, dtype=torch.bool, device=dev)
+        refine(f"pnp/ragged/B{B}_N{N}", (R0, t0, ok0, p3, p2, valid, K, 8.0,
+                                          torch.full((B,), 15, device=dev), 10), {})
+    f = Path(args.inputs or "") / "pnp.pt"
+    if args.inputs and f.exists():
+        for i, (a, kw) in enumerate(torch.load(f, weights_only=False)):
+            to = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x
+            refine(f"pnp/path_d/launch_{i:03d}", [to(x) for x in a],
+                   {k: to(v) for k, v in kw.items()})
+    torch.cuda.empty_cache()
+
+
 def run(args) -> int:
     repo = Path(args.repo).resolve()
     sys.path.insert(0, str(repo))
@@ -664,7 +917,8 @@ def run(args) -> int:
     r = Runner(torch, cs, S, inc)
     for case, fn in (("matvec", run_matvec), ("coupling", run_coupling),
                      ("triangulate", run_triangulate), ("linearize", run_linearize),
-                     ("match", run_match), ("pyramid", run_pyramid), ("select", run_select)):
+                     ("match", run_match), ("pyramid", run_pyramid), ("select", run_select),
+                     ("fmat", run_fmat), ("pnp", run_pnp)):
         if case in cases:
             fn(r, args)
     torch.save({"repo": str(repo), "card": cs.card_line(), "cases": r.cases,
@@ -708,7 +962,23 @@ def compare(args) -> int:
         if name not in matched:
             same = False
             print(f"{name}: only in A")
-    print(json.dumps({"identical": same, "same_failures": same_failures, "cases": rows}))
+    # Each group's totals (the cases named group/...): path d's sums over its launches.
+    groups = {}
+    for r_ in rows:
+        g = groups.setdefault(r_["case"].rsplit("/", 1)[0], {"cases": 0, "identical": 0})
+        g["cases"] += 1
+        g["identical"] += r_["identical"]
+        for k, (ta, tb) in r_["times"].items():
+            if ta is not None and tb is not None:
+                g.setdefault(k, [0.0, 0.0])
+                g[k] = [g[k][0] + ta, g[k][1] + tb]
+    for gname, g in groups.items():
+        if g["cases"] > 1:
+            print(f"{gname}: {g['identical']}/{g['cases']} identical; totals "
+                  + "; ".join(f"{k} A {v[0]:.4f} / B {v[1]:.4f} ms" for k, v in g.items()
+                              if isinstance(v, list)))
+    print(json.dumps({"identical": same, "same_failures": same_failures, "groups": groups,
+                      "cases": rows}))
     return 0 if same else 1
 
 
@@ -717,7 +987,9 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     d = sub.add_parser("dump")
     d.add_argument("--scene", required=True, help="path d's rendered scene")
-    d.add_argument("--pipeline", required=True, help="path d's pipeline output (pair_table.pkl)")
+    d.add_argument("--pipeline", default=None,
+                   help="path d's pipeline output (pair_table.pkl); by default the pipeline "
+                        "that dump runs on --scene for K2's and pnp_refine's inputs")
     d.add_argument("--orb", default=None, help="path g's pipeline output (pair_table.pkl)")
     d.add_argument("--out", required=True)
     r = sub.add_parser("run")

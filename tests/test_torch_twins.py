@@ -322,9 +322,8 @@ def test_new_wrappers_run_their_twin_on_cpu_and_refuse_other_devices():
     cases = [
         lambda: tpnp.pnp_refine(m(2, 3, 3), m(2, 3), m(2, dtype=b), m(2, 9, 3), m(2, 9, 2),
                                 m(2, 9, dtype=b), m(3, 3), 8.0, 15),
-        lambda: tfm.fmat_hypotheses(m(2, 9, 2), m(2, 9, 2), m(2, 4, 8, dtype=torch.int64)),
-        lambda: tfm.fmat_refit_verify(m(2, 4, 3, 3), m(2, dtype=torch.int64), m(2, 9, 2),
-                                      m(2, 9, 2), m(2, 9, dtype=b), 3.0),
+        lambda: tfm.fmat_ransac(m(2, 9, 2), m(2, 9, 2), m(2, 9, dtype=b),
+                                m(2, 4, 8, dtype=torch.int64), 3.0),
         lambda: tdet.select_octave_candidates({"score": m(1, 3, 16, 16)}, 8),
         lambda: tdet.dog_refine(m(1, 5, 16, 16), *(m(1, 8, dtype=torch.int64),) * 3,
                                 m(1, 8), 0.01, 10.0),
@@ -344,13 +343,10 @@ def test_new_wrappers_run_their_twin_on_cpu_and_refuse_other_devices():
     p1, p2 = two_view(rng, n_pts=64)
     idx = torch.as_tensor(rng.integers(0, 64, (1, 16, 8)))
     P1, P2 = t(p1)[None], t(p2)[None]
-    Fs = tfm.fmat_hypotheses(P1, P2, idx)
-    assert torch.equal(Fs, tfm.fmat_hypotheses_plain(P1, P2, idx))
     v = torch.ones(1, 64, dtype=b)
-    best = torch.tensor([3])
-    a, c = tfm.fmat_refit_verify(Fs, best, P1, P2, v, 3.0), \
-        tfm.fmat_refit_verify_plain(Fs, best, P1, P2, v, 3.0)
+    a, c = tfm.fmat_ransac(P1, P2, v, idx, 3.0, 32), tfm.fmat_ransac_plain(P1, P2, v, idx, 3.0, 32)
     assert all(torch.equal(a[k], c[k]) for k in c)
+    assert torch.equal(a["Fs"], tfm.fmat_hypotheses_plain(P1, P2, idx))
     score = t(rng.random((2, 3, 20, 24)).astype(np.float32))
     a, c = tdet.select_octave_candidates({"score": score}, 30), \
         tdet.select_octave_candidates_plain({"score": score}, 30)
@@ -363,8 +359,8 @@ def test_new_kernel_wrappers_refuse_shapes_beyond_their_limits():
         tpnp.pnp_refine_cuda(m(1, 3, 3), m(1, 3), m(1, dtype=b), m(1, 8193, 3), m(1, 8193, 2),
                              m(1, 8193, dtype=b), m(3, 3), 8.0, 15)
     with pytest.raises(ValueError, match="exceeds"):
-        tfm.fmat_refit_verify_cuda(m(1, 4, 3, 3), m(1, dtype=torch.int64), m(1, 1025, 2),
-                                   m(1, 1025, 2), m(1, 1025, dtype=b), 3.0)
+        tfm.fmat_ransac_cuda(m(1, 1025, 2), m(1, 1025, 2), m(1, 1025, dtype=b),
+                             m(1, 4, 8, dtype=torch.int64), 3.0)
     with pytest.raises(ValueError, match="budget"):
         tdet.select_octave_candidates_cuda({"score": m(1, 3, 16, 16)}, 20000)
     with pytest.raises(ValueError, match="exceeds"):
