@@ -48,9 +48,14 @@
    300 cameras through PCG and 200 through the dense path, PCG against
    dense with the per-camera regularization, and the f64 island ending
    below 0.75x the f32 cost on the reference's ill-conditioned
-   1,000-camera scene. K6's DLT branch (``pnp_dlt_solve``) runs on the P3P
-   phase's scene at sample size 6 against its twin, hypothesis by
-   hypothesis and through the whole branch to the refined winner. Past the
+   1,000-camera scene. K6's P3P round (``p3p_ransac``: the samples' solve,
+   the scoring and the winner in one launch) runs at 8 candidates x 2,048
+   samples x 2,048 rows beside its two halves alone (``p3p_solve``,
+   ``pnp_score_select``), each against its twin and repeating bit for bit,
+   the round bit for bit its halves' outputs. K6's DLT branch
+   (``pnp_dlt_solve``) runs on the P3P phase's scene at sample size 6
+   against its twin, hypothesis by hypothesis and through the whole branch
+   to the refined winner. Past the
    old shared-memory caps: K13-b/c at 2,000 cameras (their state in global
    memory), and K10's damping and K11's matvec on every route at 5,000
    cameras (the camera sums straight into global memory), each against
@@ -135,8 +140,8 @@
       equal the assembled S;
    j. ``reconstruct`` on path a's artifacts with ``PATH_J_CONFIG``
       (``pnp.sample_size`` 6, PnP's DLT branch): ``pnp_dlt_solve``,
-      ``pnp_score_select`` and ``pnp_refine`` launched and ``p3p_solve``
-      not, every BA call's cost finite and down, at least
+      ``pnp_score_select`` and ``pnp_refine`` launched and ``p3p_ransac``
+      and ``p3p_solve`` not, every BA call's cost finite and down, at least
       ``PATH_J_MIN_CAMERAS`` cameras, < 0.6 px; ground-truth pose printed,
       not gated.
 
@@ -172,8 +177,13 @@ KERNELS = {
                     "sfm_tpu/features/detect.py:23"),
     "sift_describe": (("sift_describe",), "sfm_tpu_torch/csrc/sift_describe.cu",
                       "sfm_tpu/features/descriptor.py:371"),
-    "pnp_ransac": (("p3p_solve", "pnp_score_select"), "sfm_tpu_torch/csrc/pnp_ransac.cu",
+    # The P3P round in one launch (p3p_ransac); p3p_solve, its solve alone on
+    # gathered samples, is held in phase_pnp and launched by no path.
+    "pnp_ransac": (("p3p_ransac", "p3p_solve"), "sfm_tpu_torch/csrc/pnp_ransac.cu",
                    "sfm_tpu/estimators/pnp.py:228"),
+    # The same scoring and winner for hypotheses given: the DLT branch's.
+    "pnp_score_select": (("pnp_score_select",), "sfm_tpu_torch/csrc/pnp_ransac.cu",
+                         "sfm_tpu/estimators/pnp.py:322"),
     "triangulate_tracks": (("triangulate_tracks", "reproj_stats"),
                            "sfm_tpu_torch/csrc/triangulate_tracks.cu",
                            "sfm_tpu/reconstruction/incremental.py:48"),
@@ -332,9 +342,13 @@ PATH_I_GATED = {"f64_150": 0.95 * 140 / 150}
 DLT_SAMPLE = 6        # pnp.sample_size of the DLT branch's phase and of path j
 DLT_MIN_INLIERS = 15  # PnPConfig.min_inliers: below it a hypothesis is no consensus
 # Path j: reconstruct on path a's 36-view artifacts with PnP's DLT branch
-# (pnp.sample_size 6: kernel pnp_dlt_solve, never p3p_solve).
+# (pnp.sample_size 6: kernels pnp_dlt_solve and pnp_score_select, never the P3P
+# round's p3p_ransac).
 PATH_J_CONFIG = {"pnp": {"sample_size": DLT_SAMPLE}}
-DLT_KERNELS = tuple(k for k in RECONSTRUCT_KERNELS if k != "pnp_ransac") + ("pnp_dlt",)
+DLT_KERNELS = tuple(k for k in RECONSTRUCT_KERNELS if k != "pnp_ransac") + ("pnp_dlt",
+                                                                          "pnp_score_select")
+# Entries of a path's kernel rows that only the phases launch.
+PHASE_ONLY_ENTRIES = ("p3p_solve",)
 # The JAX reference's camera count less one: its reconstruct stage with
 # PATH_J_CONFIG, on the CPU, on the card's path a table kept 36 of 36
 # cameras (5,135 points, 0.1308 px, GT rotation median 0.9821 deg;
@@ -861,8 +875,10 @@ def phase_dog_extrema(torch, dev, image, cfg):
         torch.cuda.synchronize()
         # Tolerance: bit-exact (the kernel only compares).
         check(torch.equal(got, ref), f"K4: differs on octave {tuple(d.shape)}")
+    octave = lambda: dog_extrema_scores_cuda(dogs[0], ct, et)["score"]
+    check_repeatable(torch, "K4 dog_extrema", octave, octave())
     n = sum(int((dog_extrema_scores_cuda(d, ct, et)["score"] > 0).sum()) for d in dogs)
-    log(f"K4 dog_extrema: bit-exact on {len(dogs)} octaves, {n} extrema")
+    log(f"K4 dog_extrema: bit-exact on {len(dogs)} octaves and repeatable, {n} extrema")
     ms = time_ms(torch, lambda: [dog_extrema_scores_cuda(d, ct, et) for d in dogs])
     plain_ms = time_ms(torch, lambda: [dog_extrema_scores_plain(d, ct, et) for d in dogs])
     # 26 compares per interior-layer pixel; the DoG read, the scores written.
@@ -1489,9 +1505,15 @@ def phase_triangulate(torch, np, dev):
 
 
 def phase_pnp(torch, np, dev):
-    """K6 at B = 8 candidates x 2048 P3P samples (8192 hypotheses) x N = 2048."""
+    """K6's P3P round at B = 8 candidates x 2048 samples (8192 hypotheses) x N =
+    2048: ``p3p_ransac`` (the samples' solve, the scoring and the winner in one
+    launch) and its two halves alone, ``p3p_solve`` on gathered samples and
+    ``pnp_score_select`` on given hypotheses, each against its twin and
+    repeating bit for bit. Returns the rows ``pnp_ransac`` and
+    ``pnp_score_select``."""
     from sfm_tpu_torch.estimators.pnp import (
-        p3p_candidates, p3p_solve_cuda, pnp_score_select_cuda, pnp_score_select_plain)
+        p3p_candidates, p3p_ransac_cuda, p3p_ransac_plain, p3p_solve_cuda, pnp_score_select_cuda,
+        pnp_score_select_plain)
     from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
     from sfm_tpu_torch.geometry.projection import project
     from sfm_tpu_torch.geometry.rotations import rodrigues
@@ -1509,44 +1531,60 @@ def phase_pnp(torch, np, dev):
     p2 = torch.where(out[..., None], f32(rng.uniform([0, 0], [1024, 768], (B, N, 2))), p2)
     valid = torch.as_tensor(np.arange(N)[None] < rng.integers(300, N + 1, (B, 1)), device=dev)
     g = torch.Generator(device=dev).manual_seed(4)
-    idx = ransac_sample_indices(valid, iters, 3, g, prefix=True).reshape(B, -1)
+    idx3 = ransac_sample_indices(valid, iters, 3, g, prefix=True).contiguous()
+    idx = idx3.reshape(B, -1)
     pn = (torch.cat([p2, torch.ones_like(p2[..., :1])], -1) @ torch.linalg.inv(K).mT)[..., :2]
+    pn = pn.contiguous()
     take = lambda x: torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1])).reshape(
         B, iters, 3, x.shape[-1]).contiguous()
     s3, s2n = take(p3), take(pn)
     Rk, tk, okk = p3p_solve_cuda(s3, s2n)
     Rp, tp, okp = p3p_candidates(s3, s2n)
+    rnd = lambda: p3p_ransac_cuda(p3, pn, p2, valid, idx3, K, thr)
+    rk = rnd()
+    rp = p3p_ransac_plain(p3, pn, p2, valid, idx3, K, thr)
     torch.cuda.synchronize()
+    check_repeatable(torch, "K6 p3p_solve", lambda: p3p_solve_cuda(s3, s2n), (Rk, tk, okk))
+    check_repeatable(torch, "K6 p3p_ransac", lambda: list(rnd().values()), list(rk.values()))
     # P3P in f32: the Durand-Kerner roots may come out in another order and
     # an ill-conditioned sample's poses move with rounding, so the candidate
-    # slots are not compared one to one. Held: the count of valid candidates
-    # within 1% of the twin's; each side's valid candidates interpolate their
-    # own sample (max reprojection error of the 3 points <= 1 px) as often as
-    # the twin's do, within 1 point of percentage; in >= 90% of the samples,
-    # every valid pose of either side has one on the other within 1e-2; and
-    # below, the selected pose and its inlier count.
+    # slots are not compared one to one. Held, for p3p_solve and for the
+    # round's poses: the count of valid candidates within 1% of the twin's;
+    # each side's valid candidates interpolate their own sample (max
+    # reprojection error of the 3 points <= 1 px) as often as the twin's do,
+    # within 1 point of percentage; in >= 90% of the samples, every valid
+    # pose of either side has one on the other within 1e-2; and below, the
+    # selected pose and its inlier count.
     def interp_ok(Rc, tc, okc):
         pr, dep = project(s3[:, :, None], Rc[:, :, :, None], tc[:, :, :, None], K)
         px = take(p2)[:, :, None]                                     # (B, S, 1, 3, 2)
         e = ((pr - px).norm(dim=-1).amax(-1))                         # (B, S, 4)
         return float((e[okc] <= 1.0).float().mean()), int(okc.sum())
 
-    (fk, nk_ok), (fp, np_ok) = interp_ok(Rk, tk, okk), interp_ok(Rp, tp, okp)
-    check(fk >= fp - 0.01, f"K6 p3p_solve: {fk:.4f} of kernel candidates interpolate their "
-          f"sample, twin {fp:.4f}")
-    d = ((Rk[:, :, :, None] - Rp[:, :, None]).flatten(-2).norm(dim=-1)
-         + (tk[:, :, :, None] - tp[:, :, None]).norm(dim=-1)
-         / tp[:, :, None].norm(dim=-1).clamp(min=1.0))              # (B, S, 4k, 4p)
-    big = torch.full_like(d, float("inf"))
-    dk = torch.where(okp[:, :, None], d, big).amin(-1)
-    dp = torch.where(okk[..., None], d, big).amin(-2)
-    agree = {tol: float((torch.where(okk, dk <= tol, True).all(-1)
-                         & torch.where(okp, dp <= tol, True).all(-1)).float().mean())
-             for tol in (1e-3, 1e-2)}
-    check(abs(nk_ok - np_ok) <= 0.01 * np_ok,
-          f"K6 p3p_solve: {nk_ok} valid candidates, twin {np_ok}")
-    check(agree[1e-2] >= 0.9, f"K6 p3p_solve: candidate sets agree within 1e-2 in "
-          f"{agree[1e-2]:.4f} of the samples")
+    def pose_checks(what, Rk, tk, okk):
+        (fk, nk_ok), (fp, np_ok) = interp_ok(Rk, tk, okk), interp_ok(Rp, tp, okp)
+        check(fk >= fp - 0.01, f"K6 {what}: {fk:.4f} of kernel candidates interpolate their "
+              f"sample, twin {fp:.4f}")
+        d = ((Rk[:, :, :, None] - Rp[:, :, None]).flatten(-2).norm(dim=-1)
+             + (tk[:, :, :, None] - tp[:, :, None]).norm(dim=-1)
+             / tp[:, :, None].norm(dim=-1).clamp(min=1.0))          # (B, S, 4k, 4p)
+        big = torch.full_like(d, float("inf"))
+        dk = torch.where(okp[:, :, None], d, big).amin(-1)
+        dp = torch.where(okk[..., None], d, big).amin(-2)
+        agree = {tol: float((torch.where(okk, dk <= tol, True).all(-1)
+                             & torch.where(okp, dp <= tol, True).all(-1)).float().mean())
+                 for tol in (1e-3, 1e-2)}
+        check(abs(nk_ok - np_ok) <= 0.01 * np_ok,
+              f"K6 {what}: {nk_ok} valid candidates, twin {np_ok}")
+        check(agree[1e-2] >= 0.9, f"K6 {what}: candidate sets agree within 1e-2 in "
+              f"{agree[1e-2]:.4f} of the samples")
+        return (f"valid candidates kernel {nk_ok} / twin {np_ok}, interpolating their sample "
+                f"{fk:.4%} / {fp:.4%}; candidate sets agree in {agree[1e-3]:.2%} (1e-3) / "
+                f"{agree[1e-2]:.2%} (1e-2) of {B * iters} samples")
+
+    solve_note = pose_checks("p3p_solve", Rk, tk, okk)
+    round_note = pose_checks("p3p_ransac", rk["Rs"].reshape(Rk.shape), rk["ts"].reshape(tk.shape),
+                             rk["ok"].reshape(okk.shape))
     # Tolerance, scoring (on the twin's hypotheses): the same winner, or one
     # whose score is within 1e-3 of the plain winner's (a tie up to the error
     # sum's order).
@@ -1555,6 +1593,8 @@ def phase_pnp(torch, np, dev):
     sargs = (*hyp, p3, p2, valid, K, thr)
     bk, ck = pnp_score_select_cuda(*sargs)
     bp, cp = pnp_score_select_plain(*sargs)
+    check_repeatable(torch, "K6 pnp_score_select", lambda: pnp_score_select_cuda(*sargs),
+                     (bk, ck))
     pick = lambda h: (hyp[0][torch.arange(B), h], hyp[1][torch.arange(B), h])
 
     def score(h):
@@ -1579,18 +1619,41 @@ def phase_pnp(torch, np, dev):
     ang = float(torch.arccos(cos.clamp(-1.0, 1.0)).max())
     dn = float(((ck2 - cp).abs().float() / cp.float().clamp(min=1)).max())
     check(ang <= 1e-2 and dn <= 0.01, f"K6 end to end: rotation {ang} rad, count {dn}")
-    log(f"K6 pnp_ransac: p3p valid candidates kernel {nk_ok} / twin {np_ok}, interpolating "
-        f"their sample {fk:.4%} / {fp:.4%}; candidate sets agree in {agree[1e-3]:.2%} (1e-3) / "
-        f"{agree[1e-2]:.2%} (1e-2) of {B * iters} samples; scoring: same winner "
-        f"in {int((bk == bp).sum())}/{B} candidates, max score gap {gap:.3g}; end to end: "
-        f"selected rotations within {ang:.3g} rad, inlier counts within {100 * dn:.3g}%")
-    ms = time_ms(torch, lambda: (p3p_solve_cuda(s3, s2n), pnp_score_select_cuda(*sargs)))
-    plain_ms = time_ms(torch, lambda: (p3p_candidates(s3, s2n), pnp_score_select_plain(*sargs)))
-    # P3P: ~6 kFLOP a sample (30 Durand-Kerner steps on 4 roots, the poses);
-    # scoring: ~25 FLOP per (hypothesis, correspondence).
-    return result(gap, ms, plain_ms,
-                  nbytes(s3, s2n, Rk, tk, okk, p3, p2, valid) + 16 * B,
-                  6000 * B * iters + 25 * B * H * N)
+    # The round end to end against its twin, as its halves are held above.
+    Rsel_k = rk["Rs"][torch.arange(B), rk["best"]]
+    Rsel_p = rp["Rs"][torch.arange(B), rp["best"]]
+    cos = ((Rsel_k * Rsel_p).sum((-2, -1)) - 1.0) / 2.0
+    ang_r = float(torch.arccos(cos.clamp(-1.0, 1.0)).max())
+    dn_r = float(((rk["count"] - rp["count"]).abs().float() / rp["count"].float().clamp(min=1))
+                 .max())
+    check(ang_r <= 1e-2 and dn_r <= 0.01,
+          f"K6 p3p_ransac end to end: rotation {ang_r} rad, count {dn_r}")
+    log(f"K6 pnp_ransac: p3p_solve: {solve_note}; scoring: same winner in "
+        f"{int((bk == bp).sum())}/{B} candidates, max score gap {gap:.3g}; end to end: selected "
+        f"rotations within {ang:.3g} rad, inlier counts within {100 * dn:.3g}%; p3p_ransac: "
+        f"{round_note}; its winner within {ang_r:.3g} rad of the twin's, inlier counts within "
+        f"{100 * dn_r:.3g}%; all three repeat bit for bit")
+    # Bounds. P3P: ~6 kFLOP a sample (30 Durand-Kerner steps on 4 roots, the
+    # poses); scoring: ~25 FLOP per (hypothesis, valid correspondence), the
+    # rows past a candidate's valid prefix left out (the function does not
+    # score them).
+    n_valid = int(valid.sum())
+    round_ms = time_ms(torch, rnd)
+    round_dev = device_ms(torch, rnd)
+    round_plain = time_ms(torch, lambda: p3p_ransac_plain(p3, pn, p2, valid, idx3, K, thr))
+    score_ms = time_ms(torch, lambda: pnp_score_select_cuda(*sargs))
+    score_dev = device_ms(torch, lambda: pnp_score_select_cuda(*sargs))
+    score_plain = time_ms(torch, lambda: pnp_score_select_plain(*sargs))
+    log(f"K6 p3p_ransac: {round_ms:.4f} ms, device {fmt_ms(round_dev)}; pnp_score_select "
+        f"{score_ms:.4f} ms, device {fmt_ms(score_dev)} ({n_valid} valid rows of {B * N})")
+    small = 16 * B   # best and count
+    return {
+        "pnp_ransac": result(gap, round_ms, round_plain,
+                             nbytes(idx3, p3, pn, p2, valid) + nbytes(*rk.values()),
+                             6000 * B * iters + 25 * H * n_valid, device_ms=round_dev),
+        "pnp_score_select": result(gap, score_ms, score_plain,
+                                   nbytes(*hyp, p3, p2, valid) + small, 25 * H * n_valid,
+                                   device_ms=score_dev)}
 
 
 def phase_pnp_dlt(torch, np, dev):
@@ -3727,7 +3790,8 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
         counts = _kernels.launch_counts()
         check(rc == 0, f"{name} returned {rc}")
-        for entry in [e for k in required for e in KERNELS[k][0]] + list(entries):
+        for entry in [e for k in required for e in KERNELS[k][0]
+                      if e not in PHASE_ONLY_ENTRIES] + list(entries):
             check(counts[entry] > 0, f"kernel {entry} was not launched by {name}")
         for entry in forbidden:
             check(counts[entry] == 0, f"kernel {entry} was launched by {name}")
@@ -3757,7 +3821,7 @@ def main(argv=None) -> int:
         results = {"match_top2": phase_match_top2(torch, dev),
                    "match_epilogue": phase_match_epilogue(torch, dev),
                    "relpose": phase_relpose(torch, np, dev),
-                   "pnp_ransac": phase_pnp(torch, np, dev),
+                   **phase_pnp(torch, np, dev),
                    "pnp_refine": phase_pnp_refine(torch, np, dev),
                    "pnp_dlt": phase_pnp_dlt(torch, np, dev),
                    "triangulate_tracks": phase_triangulate(torch, np, dev),
@@ -3977,8 +4041,7 @@ def main(argv=None) -> int:
         (dlt / "pair_table.pkl").write_bytes((out / "pair_table.pkl").read_bytes())
         c, dlt_wall = run_path("dlt", ["reconstruct", "--data_dir", str(scene), "--output_dir",
                                        str(dlt), "--config", json.dumps(PATH_J_CONFIG)],
-                               DLT_KERNELS, entries=("pnp_score_select",),
-                               forbidden=("p3p_solve",))
+                               DLT_KERNELS, forbidden=("p3p_ransac", "p3p_solve"))
         add(c, "dlt")
         dlt_metrics = stage_seconds(dlt)
         log_model("dlt", dlt)

@@ -48,7 +48,8 @@ SIGNATURES = {
     "sfm_triangulate_tracks": [_P] * 9 + [_I] * 3 + [_F, _F] + [_I] * 4 + [_P, _P] + [_P],
     "sfm_reproj_stats": [_P] * 9 + [_I] * 3 + [_P, _P] + [_P],
     "sfm_p3p_solve": [_P, _P, _I, _P, _P, _P] + [_P],
-    "sfm_pnp_score_select": [_P] * 7 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
+    "sfm_pnp_score_select": [_P] * 7 + [_I] * 3 + [_F] * 3 + [_P] * 4 + [_P],
+    "sfm_p3p_ransac": [_P] * 6 + [_I] * 3 + [_F] * 3 + [_P] * 7 + [_P],
     "sfm_retrieval_score": [_P] * 3 + [_I] * 4 + [_F, _P] + [_P],
     "sfm_guided_match": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
     "sfm_build_pyramid": [_P] + [_I] * 6 + [_P] * 4 + [_P],
@@ -79,7 +80,7 @@ KERNELS = ("match_top2", "fmat_ransac", "dog_extrema", "sift_describe",
            "dog_refine", "topk_rows", "match_epilogue", "match_compact", "relpose",
            "rotation_average", "translation_average", "orb_fast_nms", "orb_blur",
            "orb_describe", "schur_block_jacobi", "schur_matvec", "pcg_init", "pcg_step",
-           "pnp_dlt_solve")
+           "pnp_dlt_solve", "p3p_ransac")
 # The BA island's other routes (ba/schur.py::variant): per-camera intrinsics
 # (B = 10), the f64 island, and both. Each entry of K8-K11 has one C entry
 # point a route, the same arguments as the default one's but for the ones
@@ -109,9 +110,11 @@ KERNELS += ("schur_cholesky_solve", "schur_cholesky_solve_f64")
 
 # Called once, on the first launch, on that device's stream: per-function
 # attributes (the opt-in shared memory of K10's staged walk and dense solve,
-# K4's topk_rows, K1's resident rows and K6's pnp_refine).
+# K4's topk_rows and dog_extrema, K1's resident rows, K6's pnp_refine and its
+# P3P round's rows).
 SETUP = ("sfm_schur_damp_setup", "sfm_schur_cholesky_setup", "sfm_topk_setup",
-         "sfm_match_setup", "sfm_pnp_refine_setup")
+         "sfm_match_setup", "sfm_pnp_refine_setup", "sfm_pnp_ransac_setup",
+         "sfm_dog_extrema_setup")
 SIGNATURES.update({name: [_P] for name in SETUP})
 
 _launches = {k: 0 for k in KERNELS}

@@ -2,28 +2,33 @@
 polish, batched over candidates.
 
 Counterpart of ``sfm_tpu/estimators/pnp.py``, both of its hypothesis
-branches. ``PnPConfig.sample_size = 3`` (the default) is minimal P3P:
-kernel K6 (``csrc/pnp_ransac.cu``) entry ``p3p_solve`` (Grunert's quartic by
-Durand-Kerner, up to 4 poses per sample). Any other sample size (>= 6) is
-the linear DLT branch (6 or more rows to determine P; fewer give junk that
-scores no consensus, as in the reference): ``csrc/pnp_dlt.cu`` entry
-``pnp_dlt_solve`` solves
-each sample's 12 x 12 DLT normal matrix, projects P onto SO(3) x R^3 and
-polishes the pose by two Gauss-Newton steps on its own sample, one thread a
-hypothesis. Both branches then run ``pnp_score_select`` (reprojection error
-+ cheirality of every hypothesis over every correspondence, then
-``ransac_select``'s winner) and ``csrc/pnp_refine.cu`` (entry
+branches. ``PnPConfig.sample_size = 3`` (the default) is minimal P3P: kernel
+K6 (``csrc/pnp_ransac.cu``) entry ``p3p_ransac`` runs the round from the drawn
+sample indices on in one launch -- each sample's Grunert quartic by
+Durand-Kerner (up to 4 poses a sample), the reprojection error + cheirality
+of every hypothesis over every correspondence and ``ransac_select``'s
+winner. Any other sample size (>= 6) is the linear DLT branch (6 or more
+rows to determine P; fewer give junk that scores no consensus, as in the
+reference): ``csrc/pnp_dlt.cu`` entry ``pnp_dlt_solve`` solves each
+sample's 12 x 12 DLT normal matrix, projects P onto SO(3) x R^3 and polishes
+the pose by two Gauss-Newton steps on its own sample, one thread a
+hypothesis; then ``pnp_score_select`` (``pnp_ransac.cu``'s scoring and winner
+for hypotheses given). Both branches end in ``csrc/pnp_refine.cu`` (entry
 ``pnp_refine``): everything from the winner on in one launch, the two
 10-step Gauss-Newton refits on the consensus set, the re-derived weights,
-the final inliers and gates. Their plain twins are :func:`p3p_candidates`,
-:func:`pnp_dlt_solve_plain` (:func:`pnp_dlt` and :func:`_gn_sample_step`),
-:func:`pnp_score_select_plain` and :func:`pnp_refine_plain` (which, like
-the DLT polish, keeps ``torch.func.jacfwd``, the reference's Jacobian).
+the final inliers and gates. ``p3p_solve`` is the round's solve alone, on
+samples gathered by the caller. Their plain twins are
+:func:`p3p_ransac_plain` (:func:`p3p_candidates` and
+:func:`pnp_score_select_plain`), :func:`pnp_dlt_solve_plain`
+(:func:`pnp_dlt` and :func:`_gn_sample_step`) and :func:`pnp_refine_plain`
+(which, like the DLT polish, keeps ``torch.func.jacfwd``, the reference's
+Jacobian).
 Samples come from a ``torch.Generator`` or are injected (``indices``), so a
 test can hand both packages the same draws.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from sfm_tpu_torch import _kernels
@@ -33,8 +38,15 @@ from sfm_tpu_torch.geometry.rotations import rodrigues, rotation_to_rvec
 from sfm_tpu_torch.utils.linalg import smallest_eigvec
 
 _EPS = 1e-12
-# One block holds a candidate's correspondences in shared memory (6 floats a row).
+# A block holds a candidate's correspondences in shared memory (the P3P
+# round's and the scoring's 5 floats a row, pnp_refine's cluster).
 _K6_MAX_POINTS = 8192
+# Hypotheses a block of the round's and the scoring's kernel (pnp_ransac.cu's HT).
+_K6_TILE = 256
+# The scoring's pre-test margin (see pretest_margin): 2^-20 = 16 float32 units
+# of roundoff.
+_K6_KAPPA = 2.0 ** -20
+_K6_TICKETS: dict = {}
 # Hypotheses scored at once by the plain twin: bounds its (B, chunk, N) errors.
 _SCORE_CHUNK = 1024
 
@@ -275,6 +287,39 @@ def pnp_score_select_plain(Rs, ts, cand_ok, pts3d, pts2d, valid, K, threshold: f
     return best, torch.gather(count, 1, best[:, None])[:, 0]
 
 
+def pretest_margin(threshold: float):
+    """(thr_pre, kap) of the scoring's exact pre-test for ``threshold``.
+
+    The kernel skips a row's two divisions and square root when
+    |fx x + (cx - u) z| > thr_pre z + kap |fx x| (or the same for v), where
+    x, z are the row's camera coordinates and fx x, cx - u and the sums are
+    float32 (thr_pre z + kap |fx x| as fma(kap, |fx x|, (thr_pre + kap (|cx|
+    + |u|)) z)). With kap = 2^-20 (16 units of roundoff) and thr_pre the
+    float32 at or above thr (1 + 2^-20), a rejected row has |du| >= thr under
+    every rounding of the exact path, fused or not (its relative errors total
+    < 8 units), so its error sqrt(du^2 + dv^2) >= thr: it does not count.
+    ``tests/test_torch_pnp_layout.py`` holds this in emulation. Outside
+    1e-6 <= thr <= 1e30 (where a subnormal or an overflow could beat the
+    margin) thr_pre is inf, which rejects nothing."""
+    thr = np.float32(threshold)
+    if not 1e-6 <= float(thr) <= 1e30:
+        return float("inf"), _K6_KAPPA
+    want = float(thr) * (1.0 + _K6_KAPPA)
+    pre = np.float32(want)
+    if float(pre) < want:
+        pre = np.nextafter(pre, np.float32(np.inf))
+    return float(pre), _K6_KAPPA
+
+
+def _k6_tickets(dev, B: int):
+    """The per-candidate tickets of the round's and the scoring's kernel: int32
+    zeros, one buffer a device, which each launch leaves at zero."""
+    t = _K6_TICKETS.get(dev)
+    if t is None or t.numel() < B:
+        t = _K6_TICKETS[dev] = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
+    return t
+
+
 def pnp_score_select_cuda(Rs, ts, cand_ok, pts3d, pts2d, valid, K, threshold: float):
     B, H = Rs.shape[:2]
     N = pts3d.shape[1]
@@ -287,12 +332,13 @@ def pnp_score_select_cuda(Rs, ts, cand_ok, pts3d, pts2d, valid, K, threshold: fl
     _kernels.check_tensor(pts3d, "pts3d", torch.float32, (B, N, 3), dev)
     _kernels.check_tensor(pts2d, "pts2d", torch.float32, (B, N, 2), dev)
     _kernels.check_tensor(valid, "valid", torch.bool, (B, N), dev)
-    nblk = (H + 255) // 256
-    part = torch.empty((B, nblk, 3), dtype=torch.float32, device=dev)
+    tiles = (H + _K6_TILE - 1) // _K6_TILE
+    part = torch.empty((B, tiles, 3), dtype=torch.int32, device=dev)
     best = torch.empty((B,), dtype=torch.int32, device=dev)
     count = torch.empty((B,), dtype=torch.int32, device=dev)
     _kernels.launch("pnp_score_select", dev, Rs, ts, cand_ok, pts3d, pts2d, valid,
-                    intrinsics_vector(K), B, H, N, float(threshold), part, best, count)
+                    intrinsics_vector(K), B, H, N, float(threshold), *pretest_margin(threshold),
+                    part, _k6_tickets(dev, B), best, count)
     return best.long(), count.long()
 
 
@@ -304,6 +350,59 @@ def pnp_score_select(Rs, ts, cand_ok, pts3d, pts2d, valid, K, threshold: float):
     if Rs.device.type == "cpu":
         return pnp_score_select_plain(*args)
     raise ValueError(f"pnp_score_select: unsupported device {Rs.device}")
+
+
+def p3p_ransac_plain(pts3d, pn, pts2d, valid, idx, K, threshold: float):
+    """Plain twin of K6's ``p3p_ransac``: the P3P round from the drawn samples
+    idx (B, S, 3) on. The samples' rows of pts3d (B, N, 3) and pn (B, N, 2)
+    through :func:`p3p_candidates`, then :func:`pnp_score_select_plain` over
+    pts3d, pts2d (B, N, 2) pixels and valid (B, N). Returns a dict of Rs
+    (B, 4S, 3, 3), ts (B, 4S, 3), ok (B, 4S) -- hypothesis 4s + k is root k
+    of sample s -- best (B,) and count (B,)."""
+    B = idx.shape[0]
+    flat = idx.reshape(B, -1).long()
+    take = lambda p: torch.gather(p, 1, flat[..., None].expand(-1, -1, p.shape[-1])).reshape(
+        idx.shape + p.shape[-1:])
+    Rs, ts, ok = p3p_candidates(take(pts3d), take(pn))
+    H = Rs.shape[1] * 4
+    Rs, ts, ok = Rs.reshape(B, H, 3, 3), ts.reshape(B, H, 3), ok.reshape(B, H)
+    best, count = pnp_score_select_plain(Rs, ts, ok, pts3d, pts2d, valid, K, threshold)
+    return {"Rs": Rs, "ts": ts, "ok": ok, "best": best, "count": count}
+
+
+def p3p_ransac_cuda(pts3d, pn, pts2d, valid, idx, K, threshold: float):
+    B, N = valid.shape
+    S = idx.shape[1]
+    dev = pts3d.device
+    if N > _K6_MAX_POINTS:
+        raise ValueError(f"p3p_ransac: N={N} exceeds {_K6_MAX_POINTS}")
+    _kernels.check_tensor(idx, "indices", torch.int64, (B, S, 3), dev)
+    _kernels.check_tensor(pts3d, "pts3d", torch.float32, (B, N, 3), dev)
+    _kernels.check_tensor(pn, "pn", torch.float32, (B, N, 2), dev)
+    _kernels.check_tensor(pts2d, "pts2d", torch.float32, (B, N, 2), dev)
+    _kernels.check_tensor(valid, "valid", torch.bool, (B, N), dev)
+    H = 4 * S
+    tiles = (H + _K6_TILE - 1) // _K6_TILE
+    Rs = torch.empty((B, H, 3, 3), dtype=torch.float32, device=dev)
+    ts = torch.empty((B, H, 3), dtype=torch.float32, device=dev)
+    ok = torch.empty((B, H), dtype=torch.bool, device=dev)
+    part = torch.empty((B, tiles, 3), dtype=torch.int32, device=dev)
+    best = torch.empty((B,), dtype=torch.int32, device=dev)
+    count = torch.empty((B,), dtype=torch.int32, device=dev)
+    _kernels.launch("p3p_ransac", dev, idx, pts3d, pn, pts2d, valid, intrinsics_vector(K), B, S,
+                    N, float(threshold), *pretest_margin(threshold), Rs, ts, ok, part,
+                    _k6_tickets(dev, B), best, count)
+    return {"Rs": Rs, "ts": ts, "ok": ok, "best": best.long(), "count": count.long()}
+
+
+def p3p_ransac(pts3d, pn, pts2d, valid, idx, K, threshold: float):
+    """Kernel K6 ``p3p_ransac`` on CUDA tensors, :func:`p3p_ransac_plain` on CPU."""
+    args = (pts3d, pn, pts2d, valid, idx, K, threshold)
+    if pts3d.is_cuda:
+        return p3p_ransac_cuda(*args)
+    if pts3d.device.type == "cpu":
+        return p3p_ransac_plain(*args)
+    raise ValueError(f"p3p_ransac: unsupported device {pts3d.device}")
 
 
 def refine_pose_gn(R, t, pts3d, pts2d, K, weights, iters: int = 10):
@@ -354,20 +453,17 @@ def pnp_ransac_batch(pts3d, pts2d, valid, K, min_inliers, iters: int = 1024,
             raise ValueError("pnp_ransac_batch needs a generator or indices")
         indices = ransac_sample_indices(valid, iters, sample_size, generator, prefix=True)
     if sample_size == 3:
-        flat = indices.reshape(B, -1).long()
-        take = lambda p: torch.gather(p, 1, flat[..., None].expand(-1, -1, p.shape[-1])).reshape(
-            indices.shape + p.shape[-1:])
-        Rs, ts, cand_ok = p3p_solve(take(pts3d).contiguous(), take(pn).contiguous())
-        H = Rs.shape[1] * 4
-        Rs, ts, cand_ok = Rs.reshape(B, H, 3, 3), ts.reshape(B, H, 3), cand_ok.reshape(B, H)
+        rnd = p3p_ransac(pts3d.contiguous(), pn.contiguous(), pts2d.contiguous(),
+                         valid.contiguous(), indices.long().contiguous(), K, threshold)
+        Rs, ts, cand_ok, best = rnd["Rs"], rnd["ts"], rnd["ok"], rnd["best"]
     else:
         # The reference masks no DLT hypothesis: a degenerate sample's junk
         # pose simply scores no consensus.
         Rs, ts = pnp_dlt_solve(pts3d.contiguous(), pn.contiguous(), pts2d.contiguous(),
                                indices, K)
         cand_ok = torch.ones(Rs.shape[:2], dtype=torch.bool, device=dev)
-    best, _ = pnp_score_select(Rs, ts, cand_ok, pts3d.contiguous(), pts2d.contiguous(),
-                               valid.contiguous(), K, threshold)
+        best, _ = pnp_score_select(Rs, ts, cand_ok, pts3d.contiguous(), pts2d.contiguous(),
+                                   valid.contiguous(), K, threshold)
 
     ar = torch.arange(B, device=dev)
     min_inliers = torch.as_tensor(min_inliers, device=dev).expand(B)

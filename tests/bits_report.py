@@ -1,20 +1,26 @@
 """Kernels of one checkout against another's, bit for bit, on the card: K11's
 matvec and PCG, K10's coupling, K7's triangulation, K8+K9's linearization,
-K1's top-2, K3's pyramid, K4's candidate selection, K2's F-RANSAC and K6's
-``pnp_refine``.
+K1's top-2, K3's pyramid, K4's candidate selection and extrema grid, K2's
+F-RANSAC and K6's P3P round and ``pnp_refine``.
 
-    python tests/bits_report.py dump --scene D [--pipeline P] [--orb G] --out DIR
+    python tests/bits_report.py dump --scene D [--pipeline P] [--orb G] [--dlt_scene D36]
+                                     --out DIR
     python tests/bits_report.py run --repo REPO
                                     [--cases matvec,coupling,triangulate,linearize,match,
-                                             pyramid,select,fmat,pnp]
+                                             pyramid,select,fmat,pnp,p3p,extrema]
                                     [--inputs DIR] [--scene DIR] [--vectors 8] --out FILE.pt
     python tests/bits_report.py compare A.pt B.pt
 
 ``dump`` first runs path d's ``pipeline`` on ``D`` (the smoke's 150-view
 scene) and writes the inputs of every K2 launch of its sweep (``fmat.pt``:
 each chunk's points, valid rows, drawn sample indices, threshold, scoring
-budget and gates) and of every ``pnp_refine`` launch of its engine
-(``pnp.pt``). Then it runs this checkout's ``reconstruct`` on path d's
+budget and gates), of every P3P round of its engine (``p3p.pt``: the
+correspondences, K, the indices drawn where ``pnp_ransac_batch`` draws them,
+the threshold and the gates), of every ``pnp_refine`` launch (``pnp.pt``)
+and the DoG stacks of every octave of its first detection batch
+(``extrema.pt``); with ``--dlt_scene`` (the smoke's 36 views) path j's
+``pipeline`` (PnP's DLT branch) runs there and its rounds go to
+``dlt.pt``. Then it runs this checkout's ``reconstruct`` on path d's
 artifacts (``P``, by default that pipeline's output; the smoke's is the
 same) and writes to ``DIR`` the inputs of the largest dense BA call's S (the
 linearized system, its damping and grouping), the engine's whole track
@@ -77,6 +83,19 @@ and saves, for each case, its outputs, a digest of its inputs and its times:
   (with ``--inputs``) on every chunk of path d's sweep; the wrapper
   (``estimate_fundamental_ransac`` with the samples given) and the K2
   kernels' device time a chunk.
+- ``p3p``: K6's P3P round from the drawn samples on (``p3p_round``: the
+  redesign's ``p3p_ransac``, or the first design's torch gathers,
+  ``p3p_solve`` and ``pnp_score_select``): every hypothesis's R, t and mask,
+  the winner and its count, on ``phase_pnp``'s scene, on samples copied
+  across the redesign's tiles (``planted_ties``), a slate of 1, valid
+  prefixes of 1, 31, 33 and 2,048 rows, a budget of 777 rows, a candidate
+  with no valid row and ones with NaN and infinite points, and (with
+  ``--inputs``) every round of path d's engine; then ``pnp_score_select``'s
+  winner on the DLT hypotheses of ``phase_pnp_dlt``'s scene and of every
+  dumped round of path j.
+- ``extrema``: ``dog_extrema_scores_cuda``'s score grid (a digest) on every
+  octave of path d's dumped first batch and of the ``pyramid`` case's
+  pyramids.
 - ``pnp``: ``pnp_refine_cuda``'s R, rvec, t, inliers, count, errors and ok on
   ``phase_pnp_refine``'s two scenes, on a degenerate batch (a candidate with
   no valid row, so both refits see all-zero weights; one with a NaN
@@ -110,7 +129,7 @@ import sys
 from pathlib import Path
 
 CASES = ("matvec", "coupling", "triangulate", "linearize", "match", "pyramid", "select", "fmat",
-         "pnp")
+         "pnp", "p3p", "extrema")
 # K2's outputs, in the order the cases keep them.
 FMAT_OUTPUTS = ("Fs", "best", "count", "F", "inliers", "errors", "num_matches", "num_inliers",
                 "inlier_ratio", "reprojection_error", "well_distributed", "accept", "ok")
@@ -209,21 +228,62 @@ def dump(args) -> int:
     return 0
 
 
+def pnp_rounds_recorder(torch, rounds: list, recorded_size: int):
+    """A stand-in for ``pnp_ransac_batch`` that draws the samples as it
+    draws them, records each round whose sample size is ``recorded_size``
+    (its correspondences, K, the drawn indices, the threshold and the gates)
+    and hands the samples on; with the real function to restore."""
+    from sfm_tpu_torch.estimators import pnp
+    from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
+
+    real = pnp.pnp_ransac_batch
+    cpu = lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+    def batch(pts3d, pts2d, valid, K, min_inliers, iters=1024, threshold=8.0, refine_iters=10,
+              sample_size=3, generator=None, indices=None):
+        size = sample_size
+        if indices is None:
+            indices = ransac_sample_indices(valid.to(torch.bool), iters, size, generator,
+                                            prefix=True)
+        if size == recorded_size:
+            rounds.append({"pts3d": cpu(pts3d).float(), "pts2d": cpu(pts2d).float(),
+                           "valid": cpu(valid).bool(), "K": cpu(K).float(),
+                           "indices": cpu(indices).to(torch.int16), "threshold": float(threshold),
+                           "min_inliers": cpu(torch.as_tensor(min_inliers)),
+                           "refine_iters": int(refine_iters)})
+        return real(pts3d, pts2d, valid, K, min_inliers, iters=iters, threshold=threshold,
+                    refine_iters=refine_iters, sample_size=size, generator=generator,
+                    indices=indices)
+
+    return batch, real
+
+
 def ransac_inputs(args, out: Path):
     """Path d's ``pipeline`` once more on ``args.scene``, recording the inputs
     of every K2 launch of its sweep (the samples drawn here, as
-    ``estimate_fundamental_ransac`` draws them, then handed to it) and of
-    every ``pnp_refine`` launch of its engine."""
+    ``estimate_fundamental_ransac`` draws them, then handed to it), of every
+    P3P round and ``pnp_refine`` launch of its engine, and the DoG stacks of
+    every octave of its first detection batch."""
     import torch
 
     from sfm_tpu_torch import cli
     from sfm_tpu_torch.estimators import pnp
     from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
+    from sfm_tpu_torch.features import frontend
     from sfm_tpu_torch.matching import verify
+    from sfm_tpu_torch.reconstruction import incremental as inc
 
-    chunks, refits = [], []
+    chunks, refits, rounds, stacks = [], [], [], []
     real_est, real_refine = verify.estimate_fundamental_ransac, pnp.pnp_refine
+    real_extrema = frontend.dog_extrema_scores
+    batch, real_batch = pnp_rounds_recorder(torch, rounds, 3)
     cpu = lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+    def extrema(dog, contrast_threshold, edge_threshold):
+        if len(stacks) < frontend.FeatureConfig().num_octaves:
+            stacks.append({"dog": cpu(dog), "contrast_threshold": float(contrast_threshold),
+                           "edge_threshold": float(edge_threshold)})
+        return real_extrema(dog, contrast_threshold, edge_threshold)
 
     def estimate(pts1, pts2, valid, iters=2048, threshold=3.0, prefix_valid=False,
                  score_budget=0, generator=None, indices=None, **gates):
@@ -243,19 +303,58 @@ def ransac_inputs(args, out: Path):
         return real_refine(*a, **kw)
 
     verify.estimate_fundamental_ransac, pnp.pnp_refine = estimate, refine
+    pnp.pnp_ransac_batch = inc.pnp_ransac_batch = batch
+    frontend.dog_extrema_scores = extrema
     try:
         rc = cli.main(["--log_level", "WARNING", "pipeline", "--data_dir", str(args.scene),
                        "--output_dir", str(out / "pipeline"), "--device", "cuda", "--no_mask"])
     finally:
         verify.estimate_fundamental_ransac, pnp.pnp_refine = real_est, real_refine
-    if rc != 0 or not chunks or not refits:
+        pnp.pnp_ransac_batch = inc.pnp_ransac_batch = real_batch
+        frontend.dog_extrema_scores = real_extrema
+    if rc != 0 or not chunks or not refits or not rounds or not stacks:
         raise SystemExit(f"bits_report dump: pipeline rc {rc}, {len(chunks)} K2 chunks, "
-                         f"{len(refits)} pnp_refine launches")
+                         f"{len(refits)} pnp_refine launches, {len(rounds)} P3P rounds, "
+                         f"{len(stacks)} DoG stacks")
     torch.save(chunks, out / "fmat.pt")
     torch.save(refits, out / "pnp.pt")
+    torch.save(rounds, out / "p3p.pt")
+    torch.save(stacks, out / "extrema.pt")
     print(f"dumped: {len(chunks)} K2 chunks of path d's sweep "
           f"({sum(c['valid'].shape[0] for c in chunks)} pairs), {len(refits)} pnp_refine "
-          f"launches of its engine", flush=True)
+          f"launches and {len(rounds)} P3P rounds of its engine (candidates "
+          f"{[r['valid'].shape[0] for r in rounds]}, valid rows a round "
+          f"{[int(r['valid'].sum()) for r in rounds]}), the DoG stacks of "
+          f"{[tuple(st['dog'].shape) for st in stacks]}", flush=True)
+    if args.dlt_scene:
+        dlt_rounds(args, out)
+
+
+def dlt_rounds(args, out: Path):
+    """Path j's ``pipeline`` on ``args.dlt_scene`` (the smoke's 36 views, PnP's
+    DLT branch), recording the inputs of every DLT round of its engine."""
+    import json
+
+    import torch
+
+    import chip_smoke as cs
+    from sfm_tpu_torch import cli
+    from sfm_tpu_torch.estimators import pnp
+    from sfm_tpu_torch.reconstruction import incremental as inc
+
+    rounds = []
+    batch, real = pnp_rounds_recorder(torch, rounds, cs.DLT_SAMPLE)
+    pnp.pnp_ransac_batch = inc.pnp_ransac_batch = batch
+    try:
+        rc = cli.main(["--log_level", "WARNING", "pipeline", "--data_dir", str(args.dlt_scene),
+                       "--output_dir", str(out / "pipeline_dlt"), "--device", "cuda",
+                       "--no_mask", "--config", json.dumps(cs.PATH_J_CONFIG)])
+    finally:
+        pnp.pnp_ransac_batch = inc.pnp_ransac_batch = real
+    if rc != 0 or not rounds:
+        raise SystemExit(f"bits_report dump: path j's pipeline rc {rc}, {len(rounds)} rounds")
+    torch.save(rounds, out / "dlt.pt")
+    print(f"dumped: {len(rounds)} DLT rounds of path j's engine", flush=True)
 
 
 def _point_major():
@@ -900,6 +999,173 @@ def run_pnp(r: Runner, args):
     torch.cuda.empty_cache()
 
 
+P3P_OUTPUTS = ("Rs", "ts", "ok", "best", "count")
+# The K6 round's kernels by name, both designs (the profiler's kernel time).
+P3P_KERNELS = ("p3p_", "pnp_score", "pnp_select", "pnp_round")
+
+
+def normalized(torch, p2, K):
+    """``pnp_ransac_batch``'s normalized image coordinates of pixels p2."""
+    return ((torch.cat([p2, torch.ones_like(p2[..., :1])], dim=-1) @ torch.linalg.inv(K).mT)
+            [..., :2]).contiguous()
+
+
+def p3p_round(torch, pnp, p3, pn, p2, valid, K, idx, thr):
+    """This checkout's P3P round from the drawn samples on, as
+    ``pnp_ransac_batch`` runs it on the card: (Rs, ts, ok, best, count) of
+    every hypothesis (B, 4 x samples). The redesign's one entry, or the first
+    design's torch gathers, ``p3p_solve`` and ``pnp_score_select``."""
+    B = p3.shape[0]
+    if hasattr(pnp, "p3p_ransac_cuda"):
+        out = pnp.p3p_ransac_cuda(p3, pn, p2, valid, idx, K, thr)
+        return [out[k] for k in P3P_OUTPUTS]
+    flat = idx.reshape(B, -1).long()
+    take = lambda x: torch.gather(x, 1, flat[..., None].expand(-1, -1, x.shape[-1])).reshape(
+        idx.shape + x.shape[-1:])
+    Rs, ts, ok = pnp.p3p_solve_cuda(take(p3).contiguous(), take(pn).contiguous())
+    H = Rs.shape[1] * 4
+    Rs, ts, ok = Rs.reshape(B, H, 3, 3), ts.reshape(B, H, 3), ok.reshape(B, H)
+    best, count = pnp.pnp_score_select_cuda(Rs, ts, ok, p3, p2, valid, K, thr)
+    return [Rs, ts, ok, best, count]
+
+
+def planted_ties(torch, idx):
+    """``idx`` (B, S, 3) with equal samples planted across the redesign's
+    tiles (32 or 64 samples a block): candidate 0 copies samples 0-63 over
+    every later 64, candidate 1 copies samples 192-255 into 64-127 (a later
+    tile's best ties with an earlier one), candidate 2 holds one sample
+    throughout (hypotheses 0-3 tie with all their copies)."""
+    idx = idx.clone()
+    S = idx.shape[1]
+    idx[0] = idx[0, :64].repeat(S // 64, 1)
+    idx[1, 64:128] = idx[1, 192:256]
+    idx[2] = idx[2, 5]
+    return idx.contiguous()
+
+
+def run_p3p(r: Runner, args):
+    """K6's P3P round (and the DLT branch's scoring) on the phase scene, the
+    edge cases and the dumped rounds of paths d and j."""
+    torch, cs = r.torch, r.cs
+    import numpy as np
+
+    from sfm_tpu_torch.estimators import pnp
+    from sfm_tpu_torch.estimators.ransac import ransac_sample_indices
+
+    dev = torch.device("cuda")
+
+    def round_(name, p3, p2, valid, K, idx, thr, full_times=False):
+        pn = normalized(torch, p2, K)
+        fn = lambda: p3p_round(torch, pnp, p3, pn, p2, valid, K, idx, thr)
+        outs = fn()
+        torch.cuda.synchronize()
+        times = {"wrapper_ms": cs.median_ms(torch, fn), "stream_ms": r.stream_ms(fn),
+                 "kernel_ms": r.kernel_ms(fn, P3P_KERNELS)}
+        if full_times:
+            times["device_ms"] = cs.device_ms(torch, fn)
+            r.breakdown(fn, P3P_KERNELS + ("gather", "elementwise", "reduce", "copy"))
+        r.add(name, _digest(p3, p2, valid, K, idx), [o.long() if o.dtype == torch.int32 else o
+                                                      for o in outs],
+              f"B={p3.shape[0]}, N={p3.shape[1]}, samples={idx.shape[1]}, valid rows "
+              f"{valid.sum(1).tolist()}, {int(outs[2].sum())} poses ok, counts "
+              f"{outs[4].tolist()}", times, names=P3P_OUTPUTS)
+
+    def draw(valid, S, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return ransac_sample_indices(valid, S, 3, g, prefix=True).contiguous()
+
+    # phase_pnp's scene (8 candidates x 2,048 samples x 2,048 rows).
+    p3, p2, valid, K, _, _, _ = cs.pnp_scene(torch, np, dev, 8, 2048, seed=3)
+    idx = draw(valid, 2048, 4)
+    round_("p3p/phase_pnp", p3, p2, valid, K, idx, 8.0, full_times=True)
+    round_("p3p/planted_ties", p3, p2, valid, K, planted_ties(torch, idx), 8.0)
+    # A slate of 1; ragged valid prefixes (1, 31, 33 and 2,048 rows) and a
+    # budget off the 32-row step; a candidate with no valid row, one with a
+    # NaN and one with an infinite point among its sampled valid rows.
+    q3, q2, qv, qK, _, _, _ = cs.pnp_scene(torch, np, dev, 1, 2048, seed=21)
+    round_("p3p/slate_of_1", q3, q2, qv, qK, draw(qv, 2048, 22), 8.0)
+    q3, q2, qv, qK, _, _, _ = cs.pnp_scene(torch, np, dev, 4, 2048, seed=23)
+    qv = torch.arange(2048, device=dev)[None] < torch.tensor([1, 31, 33, 2048], device=dev)[:, None]
+    round_("p3p/ragged_prefixes", q3, q2, qv, qK, draw(qv, 2048, 24), 8.0)
+    q3, q2, qv, qK, _, _, _ = cs.pnp_scene(torch, np, dev, 3, 777, seed=25)
+    round_("p3p/budget_777", q3, q2, qv, qK, draw(qv, 300, 26), 8.0)
+    q3, q2, qv, qK, _, _, _ = cs.pnp_scene(torch, np, dev, 4, 2048, seed=27)
+    qi = draw(qv, 512, 28)
+    qv[1] = False
+    q3[2, int(qi[2, 0, 0])] = float("nan")
+    q3[3, int(qi[3, 1, 1])] = float("inf")
+    q3[3, 7] = float("-inf")
+    round_("p3p/degenerate", q3, q2, qv, qK, qi, 8.0)
+    # Path j's DLT hypotheses (phase_pnp_dlt's scene and the dumped rounds),
+    # scored by pnp_score_select.
+
+    def dlt(name, p3, p2, valid, K, idx, thr):
+        pn = normalized(torch, p2, K)
+        i32 = idx.to(torch.int32).contiguous()
+        Rs, ts = pnp.pnp_dlt_solve_cuda(p3, pn, p2, i32, K)
+        ok = torch.ones(Rs.shape[:2], dtype=torch.bool, device=dev)
+        fn = lambda: pnp.pnp_score_select_cuda(Rs, ts, ok, p3, p2, valid, K, thr)
+        best, count = fn()
+        torch.cuda.synchronize()
+        r.add(name, _digest(p3, p2, valid, K, idx), [Rs, ts, best.long(), count.long()],
+              f"B={p3.shape[0]}, N={p3.shape[1]}, H={Rs.shape[1]}, counts {count.tolist()}",
+              {"wrapper_ms": cs.median_ms(torch, fn), "stream_ms": r.stream_ms(fn),
+               "kernel_ms": r.kernel_ms(fn, P3P_KERNELS)}, names=("Rs", "ts", "best", "count"))
+
+    p3, p2, valid, K, _, _, _ = cs.pnp_scene(torch, np, dev, 8, 2048, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    dlt("p3p/dlt_phase", p3, p2, valid, K,
+        ransac_sample_indices(valid, 2048, cs.DLT_SAMPLE, g, prefix=True), 8.0)
+    to = lambda x: x.to(dev).contiguous()
+    for fname, kind in (("p3p.pt", "path_d"), ("dlt.pt", "path_j_dlt")):
+        f = Path(args.inputs or "") / fname
+        if not (args.inputs and f.exists()):
+            continue
+        for i, c in enumerate(torch.load(f, weights_only=False)):
+            a = (to(c["pts3d"]), to(c["pts2d"]), to(c["valid"]), to(c["K"]),
+                 to(c["indices"].long()), c["threshold"])
+            if kind == "path_d":
+                round_(f"p3p/{kind}/round_{i:03d}", *a)
+            else:
+                dlt(f"p3p/{kind}/round_{i:03d}", *a)
+    torch.cuda.empty_cache()
+
+
+def run_extrema(r: Runner, args):
+    """K4's ``dog_extrema`` on every octave of path d's dumped first batch and
+    of the smoke's pyramids (12 images with the -1 octave; 3 cut to 301 x
+    517 with and without it)."""
+    torch = r.torch
+    from sfm_tpu_torch.config import SfMConfig
+    from sfm_tpu_torch.features.detect import dog_extrema_scores_cuda
+    from sfm_tpu_torch.features.pyramid import build_pyramid_cuda
+
+    fc = SfMConfig().features
+
+    def extrema(name, dog, ct, et):
+        fn = lambda: dog_extrema_scores_cuda(dog, ct, et)["score"]
+        score = fn()
+        torch.cuda.synchronize()
+        r.add(name, _digest(dog), _digests(torch, [score]),
+              f"{tuple(dog.shape)}, {int((score > 0).sum())} extrema",
+              {"wrapper_ms": r.cs.median_ms(torch, fn), "stream_ms": r.stream_ms(fn),
+               "kernel_ms": r.kernel_ms(fn, ("dog_extrema",))}, names=("score",))
+
+    f = Path(args.inputs or "") / "extrema.pt"
+    if args.inputs and f.exists():
+        for o, st in enumerate(torch.load(f, weights_only=False)):
+            extrema(f"extrema/path_d_batch/octave_{o - 1}", st["dog"].cuda().contiguous(),
+                    st["contrast_threshold"], st["edge_threshold"])
+            torch.cuda.empty_cache()
+    for name, ims, up in pyramid_inputs(torch, smoke_images(torch, args.scene)):
+        _, dogs = build_pyramid_cuda(ims, num_octaves=4, upsample=up)
+        for o, d in enumerate(dogs):
+            extrema(f"extrema/{name}/octave_{o - up}", d.contiguous(), fc.contrast_threshold,
+                    fc.edge_threshold)
+        del dogs
+        torch.cuda.empty_cache()
+
+
 def run(args) -> int:
     repo = Path(args.repo).resolve()
     sys.path.insert(0, str(repo))
@@ -918,7 +1184,8 @@ def run(args) -> int:
     for case, fn in (("matvec", run_matvec), ("coupling", run_coupling),
                      ("triangulate", run_triangulate), ("linearize", run_linearize),
                      ("match", run_match), ("pyramid", run_pyramid), ("select", run_select),
-                     ("fmat", run_fmat), ("pnp", run_pnp)):
+                     ("fmat", run_fmat), ("pnp", run_pnp), ("p3p", run_p3p),
+                     ("extrema", run_extrema)):
         if case in cases:
             fn(r, args)
     torch.save({"repo": str(repo), "card": cs.card_line(), "cases": r.cases,
@@ -991,6 +1258,9 @@ def main(argv=None) -> int:
                    help="path d's pipeline output (pair_table.pkl); by default the pipeline "
                         "that dump runs on --scene for K2's and pnp_refine's inputs")
     d.add_argument("--orb", default=None, help="path g's pipeline output (pair_table.pkl)")
+    d.add_argument("--dlt_scene", default=None,
+                   help="the smoke's 36 rendered views: path j's pipeline runs there and its "
+                        "DLT rounds are dumped")
     d.add_argument("--out", required=True)
     r = sub.add_parser("run")
     r.add_argument("--repo", required=True, help="the checkout whose kernels run")
