@@ -886,45 +886,91 @@ def phase_dog_extrema(torch, dev, image, cfg):
     return result(0.0, ms, plain_ms, sum(nbytes(d) for d in dogs) + 4 * interior, 26 * interior)
 
 
-def phase_describe(torch, dev, image, cfg):
-    """K5 on the 2048 selected keypoints and the canvas of one rendered image."""
+def k5_moved_bytes(torch, canvas, grad_layer, x, y, sigma_rel, row_off, w_o, h_o) -> int:
+    """The bytes K5's function must move on these inputs: each canvas element
+    that the union of the keypoints' clamped 66 x 66 patches covers, read once
+    (patches of nearby keypoints on one layer overlap), each keypoint's 7
+    parameters read and its angle and 128-float descriptor written."""
+    from sfm_tpu_torch.features.descriptor import _GPATCH, _patch_origin
+
+    B, S, sumH, W = canvas.shape
+    g0x, g0y = _patch_origin(x, y, w_o, h_o)
+    r0 = torch.clamp(row_off + g0y, 0, sumH - _GPATCH)
+    c0 = torch.clamp(g0x, 0, W - _GPATCH)
+    lay = torch.clamp(grad_layer, 0, S - 1).to(torch.int64)
+    b = torch.arange(B, device=canvas.device)[:, None].expand_as(r0)
+    # A patch adds 1 over its rectangle as four corners of a difference array;
+    # two prefix sums give each element's cover count.
+    diff = torch.zeros((B, S, sumH + 1, W + 1), dtype=torch.int32, device=canvas.device)
+    for dr, dc, sign in ((0, 0, 1), (0, _GPATCH, -1), (_GPATCH, 0, -1), (_GPATCH, _GPATCH, 1)):
+        diff.index_put_((b, lay, r0 + dr, c0 + dc),
+                        torch.full(r0.shape, sign, dtype=torch.int32, device=canvas.device),
+                        accumulate=True)
+    covered = int((diff.cumsum(2, dtype=torch.int32).cumsum(3, dtype=torch.int32) > 0).sum())
+    return covered * canvas.element_size() + x.numel() * (7 * 4 + 129 * 4)
+
+
+def phase_describe(torch, dev, images, cfg):
+    """K5 on the selected keypoints and the canvas of one rendered image, and of
+    the smoke's 12-image detection batch (path d's launch shape: 12 x 2,048
+    keypoints); the batch's numbers are the row's, the one image's a case."""
     from sfm_tpu_torch.features.descriptor import (
         orientation_and_descriptor_canvas_cuda, orientation_and_descriptor_canvas_plain,
         orientation_near_tie)
     from sfm_tpu_torch.features.frontend import select_keypoints
 
     fc = cfg.features
-    kp = select_keypoints(image, None, fc)
-    args = kp["describe"]
     kw = dict(descriptor_scale=fc.descriptor_scale, clip=fc.descriptor_clip)
-    ang_k, desc_k = orientation_and_descriptor_canvas_cuda(*args, **kw)
-    ang_p, desc_p = orientation_and_descriptor_canvas_plain(*args, **kw)
-    torch.cuda.synchronize()
-    check_repeatable(torch, "K5 sift_describe",
-                     lambda: orientation_and_descriptor_canvas_cuda(*args, **kw), (ang_k, desc_k))
-    # Tolerance: >= 99.5% of valid keypoints within 1e-3 rad and 1e-3 L2
-    # (the kernel's histograms are fixed-point sums, the twin's sequential
-    # float sums); the rest must be orientation near-ties (the two largest
-    # smoothed bins within 1%).
-    valid = kp["valid"]
-    d_ang = (ang_k - ang_p).abs() % (2 * math.pi)
-    d_ang = torch.minimum(d_ang, 2 * math.pi - d_ang)
-    ok = (d_ang <= 1e-3) & (torch.linalg.vector_norm(desc_k - desc_p, dim=-1) <= 1e-3)
-    ties = orientation_near_tie(*args)
-    nv = int(valid.sum())
-    frac = float(ok[valid].float().mean())
-    off = valid & ~ok
-    check(nv >= 500 and frac >= 0.995, f"K5: {frac:.4f} of {nv} keypoints in tolerance")
-    check(int((off & ~ties).sum()) == 0, "K5: a keypoint outside tolerance is no near-tie")
-    err = float((desc_k - desc_p).abs()[valid & ok].max())
-    log(f"K5 sift_describe: {frac:.4%} of {nv} valid keypoints in tolerance, "
-        f"{int(off.sum())} outside (all orientation near-ties)")
-    ms = time_ms(torch, lambda: orientation_and_descriptor_canvas_cuda(*args, **kw))
-    plain_ms = time_ms(torch, lambda: orientation_and_descriptor_canvas_plain(*args, **kw))
-    # Per keypoint: its 66 x 66 f16 patch and 7 parameters in, 129 floats out;
-    # ~512 samples of ~40 FLOP for the orientation and again for the descriptor.
-    K = valid.numel()
-    return result(err, ms, plain_ms, K * (66 * 66 * 2 + 7 * 4 + 129 * 4), K * 512 * 80)
+    rows = {}
+    for what, ims in (("one image", images[:1]), (f"{images.shape[0]} images", images)):
+        kp = select_keypoints(ims, None, fc)
+        args = kp["describe"]
+        kernel = lambda: orientation_and_descriptor_canvas_cuda(*args, **kw)
+        ang_k, desc_k = kernel()
+        ang_p, desc_p = orientation_and_descriptor_canvas_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check_repeatable(torch, f"K5 sift_describe ({what})", kernel, (ang_k, desc_k))
+        # Tolerance: >= 99.5% of valid keypoints within 1e-3 rad and 1e-3 L2
+        # (the kernel's histograms are fixed-point sums, the twin's sequential
+        # float sums); the rest must be orientation near-ties (the two largest
+        # smoothed bins within 1%).
+        valid = kp["valid"]
+        d_ang = (ang_k - ang_p).abs() % (2 * math.pi)
+        d_ang = torch.minimum(d_ang, 2 * math.pi - d_ang)
+        ok = (d_ang <= 1e-3) & (torch.linalg.vector_norm(desc_k - desc_p, dim=-1) <= 1e-3)
+        ties = orientation_near_tie(*args)
+        nv = int(valid.sum())
+        frac = float(ok[valid].float().mean())
+        off = valid & ~ok
+        check(nv >= 500 * ims.shape[0] and frac >= 0.995,
+              f"K5 ({what}): {frac:.4f} of {nv} keypoints in tolerance")
+        check(int((off & ~ties).sum()) == 0,
+              f"K5 ({what}): a keypoint outside tolerance is no near-tie")
+        err = float((desc_k - desc_p).abs()[valid & ok].max())
+        log(f"K5 sift_describe ({what}): {frac:.4%} of {nv} valid keypoints in tolerance, "
+            f"{int(off.sum())} outside (all orientation near-ties); a second launch "
+            f"bit-identical")
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, lambda: orientation_and_descriptor_canvas_plain(*args, **kw))
+        # Bytes: the union of the keypoints' patches, their parameters and
+        # outputs (k5_moved_bytes); operations: per keypoint ~512 samples of
+        # ~40 FLOP for the orientation and again for the descriptor.
+        K = valid.numel()
+        moved = k5_moved_bytes(torch, *args)
+        rows[what] = result(err, ms, plain_ms, moved, K * 512 * 80,
+                            device_ms=device_ms(torch, kernel, name="sift_describe"))
+        rows[what]["keypoints"] = K
+        log(f"K5 sift_describe ({what}): {moved} bytes to move (the patches' union), "
+            f"{K * (66 * 66 * 2 + 7 * 4 + 129 * 4)} counted a patch a keypoint")
+        del kp, args, ang_k, desc_k, ang_p, desc_p
+        torch.cuda.empty_cache()
+    one, batch = rows.values()
+    log(f"K5 sift_describe: {images.shape[0]} images ({batch['keypoints']} keypoints) "
+        f"{batch['ms']:.4f} ms, device {fmt_ms(batch['device_ms'])}; one image "
+        f"{one['ms']:.4f} ms, device {fmt_ms(one['device_ms'])}")
+    batch["cases"] = {"one_image": {k: one[k] for k in ("ms", "plain_ms", "device_ms",
+                                                        "keypoints", "max_abs_err")}}
+    return batch
 
 
 def orb_levels(torch, images, cfg):
@@ -1206,8 +1252,10 @@ def phase_retrieval_binary(torch, dev):
     # Tolerance: none -- the dot products are exact, so the counts are equal.
     check(torch.equal(got, ref), f"K1-r D=256: counts differ on "
           f"{int((got != ref).sum())} of {pairs.shape[0]} pairs")
+    check_repeatable(torch, "K1-r retrieval_score (D=256)", lambda: score_chunk_cuda(*args),
+                     got)
     log(f"K1-r retrieval_score at D=256: counts identical on all {pairs.shape[0]} pairs; "
-        f"counts {int(ref.min())}..{int(ref.max())}")
+        f"counts {int(ref.min())}..{int(ref.max())}; a second launch bit-identical")
     return {"ms": time_ms(torch, lambda: score_chunk_cuda(*args)),
             "plain_ms": time_ms(torch, lambda: score_chunk_plain(*args)),
             "bytes": nbytes(pairs, desc, valid, got), "ops": 2 * pairs.shape[0] * S * S * 256,
@@ -1782,13 +1830,46 @@ def phase_retrieval_score(torch, np, dev):
     frac = float((diff == 0).float().mean())
     check(frac >= 0.99 and int(diff.max()) <= 2,
           f"K1-r: counts equal on {frac:.4f} of pairs, max difference {int(diff.max())}")
+    check_repeatable(torch, "K1-r retrieval_score", lambda: score_chunk_cuda(*args), got)
     log(f"K1-r retrieval_score: counts equal on {frac:.2%} of {pairs.shape[0]} pairs, max "
-        f"difference {int(diff.max())}; counts {int(ref.min())}..{int(ref.max())}")
-    ms = time_ms(torch, lambda: score_chunk_cuda(*args))
+        f"difference {int(diff.max())}; counts {int(ref.min())}..{int(ref.max())}; a second "
+        f"launch bit-identical")
+    # Tie-heavy: +-1/16 descriptors (every dot product exact, so the counts are
+    # the twin's exactly) with rows repeated across the kernels' tile edges.
+    t_desc, t_valid = tie_heavy_table(torch, dev, N, S)
+    t_args = (pairs, t_desc, t_valid, 0.75)
+    t_got, t_ref = score_chunk_cuda(*t_args), score_chunk_plain(*t_args)
+    torch.cuda.synchronize()
+    check(torch.equal(t_got, t_ref), f"K1-r tie-heavy: counts differ on "
+          f"{int((t_got != t_ref).sum())} of {pairs.shape[0]} pairs")
+    check_repeatable(torch, "K1-r retrieval_score (tie-heavy)",
+                     lambda: score_chunk_cuda(*t_args), t_got)
+    log(f"K1-r retrieval_score, tie-heavy: counts identical on all {pairs.shape[0]} pairs; "
+        f"counts {int(t_ref.min())}..{int(t_ref.max())}")
+    kernel = lambda: score_chunk_cuda(*args)
+    ms = time_ms(torch, kernel)
     plain_ms = time_ms(torch, lambda: score_chunk_plain(*args))
     # 2 S^2 D FMA-FLOP per pair; the descriptor table read once.
     return result(float(diff.max()), ms, plain_ms, nbytes(pairs, desc, valid, got),
-                  2 * pairs.shape[0] * S * S * desc.shape[-1])
+                  2 * pairs.shape[0] * S * S * desc.shape[-1],
+                  device_ms=device_ms(torch, kernel, name="retrieval_"))
+
+
+def tie_heavy_table(torch, dev, N: int, S: int, D: int = 128, step: int = 40, seed: int = 7):
+    """(N, S, D) +-1/16 descriptors along a strip, as :func:`corridor_descriptors`
+    (image k draws rows step*k .. step*k + S - 1 of one table in a shuffled
+    order), with rows repeated across the tile edges of both K1-r designs
+    (63 / 64, 127 / 128, 191 / 192, and 255 / 0); 10% invalid. Every dot
+    product is a multiple of 1/256, exact in float32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.where(torch.rand(step * N + S, D, generator=g, device=dev) < 0.5, -1.0,
+                       1.0) / 16.0
+    ids = torch.arange(S, device=dev)[None] + step * torch.arange(N, device=dev)[:, None]
+    ids = torch.gather(ids, 1, torch.argsort(torch.rand(N, S, generator=g, device=dev), dim=1))
+    for a, b in ((63, 64), (127, 128), (191, 192), (0, 255)):
+        if b < S:
+            ids[::2, b] = ids[::2, a]
+    return base[ids].contiguous(), torch.rand(N, S, generator=g, device=dev) > 0.1
 
 
 def phase_guided_match(torch, dev):
@@ -3662,6 +3743,7 @@ PATH_D_TRACED = {
                    "select_final_kernel", "topk_block_kernel<1>"),
     "dog_refine": ("dog_refine_kernel",),
     "sift_describe": ("sift_describe",),
+    "retrieval_score": ("retrieval_score_kernel", "retrieval_resident_kernel"),
     "schur_cholesky_solve": ("cholesky_kernel",),
 }
 
@@ -3855,7 +3937,7 @@ def main(argv=None) -> int:
                               for p in paths[:cfg.features.detect_batch]]).float() / 255.0
         results["pyramid"] = phase_pyramid(torch, dev, images, cfg)
         results["dog_extrema"] = phase_dog_extrema(torch, dev, images[:1], cfg)
-        results["sift_describe"] = phase_describe(torch, dev, images[:1], cfg)
+        results["sift_describe"] = phase_describe(torch, dev, images, cfg)
         results["dog_select"], results["dog_refine"] = phase_dog_select(torch, dev, images,
                                                                         cfg)
         levels = orb_levels(torch, images, cfg)

@@ -110,11 +110,11 @@ KERNELS += ("schur_cholesky_solve", "schur_cholesky_solve_f64")
 
 # Called once, on the first launch, on that device's stream: per-function
 # attributes (the opt-in shared memory of K10's staged walk and dense solve,
-# K4's topk_rows and dog_extrema, K1's resident rows, K6's pnp_refine and its
-# P3P round's rows).
+# K4's topk_rows and dog_extrema, K1's and K1-r's resident rows, K6's
+# pnp_refine and its P3P round's rows; K5's shared-memory carveout).
 SETUP = ("sfm_schur_damp_setup", "sfm_schur_cholesky_setup", "sfm_topk_setup",
          "sfm_match_setup", "sfm_pnp_refine_setup", "sfm_pnp_ransac_setup",
-         "sfm_dog_extrema_setup")
+         "sfm_dog_extrema_setup", "sfm_sift_describe_setup", "sfm_retrieval_setup")
 SIGNATURES.update({name: [_P] for name in SETUP})
 
 _launches = {k: 0 for k in KERNELS}

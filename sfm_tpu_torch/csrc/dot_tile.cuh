@@ -10,6 +10,7 @@
 
 #include <climits>
 
+#include "cp_async.cuh"
 #include "sfm_common.cuh"
 
 namespace sfm_tile {
@@ -107,6 +108,27 @@ __device__ __forceinline__ void top2_merge_lanes(Top2 top[4]) {
       top[i] = top2_merge(top[i], o);
     }
   }
+}
+
+// ---- Shared by the resident-rows designs (match_top2.cu, retrieval_score.cu) --
+
+// A column's (distance, row) as one u64 (float bits << 32 | row): distances are
+// >= 0 or +inf, so the keys order as (distance, row), and their minimum is
+// jnp.argmin's lowest-row tie.
+constexpr unsigned long long kKeyMax = ~0ull;
+
+__device__ __forceinline__ unsigned long long col_key(float d, int row) {
+  return ((unsigned long long)__float_as_uint(d) << 32) | (unsigned)row;
+}
+
+// top2_push for a thread whose columns come in increasing order: a tie never
+// goes to the new column, so the push needs no branch. A row whose every
+// distance is +inf keeps idx INT_MAX (top2_push would take its first column).
+__device__ __forceinline__ void top2_push_ascending(Top2& t, float d, int j) {
+  const bool nb = d < t.best;
+  t.second = nb ? t.best : fminf(t.second, d);
+  t.idx = nb ? j : t.idx;
+  t.best = nb ? d : t.best;
 }
 
 }  // namespace sfm_tile

@@ -52,12 +52,6 @@ namespace {
 
 using namespace sfm_tile;
 
-constexpr unsigned long long kKeyMax = ~0ull;
-
-__device__ __forceinline__ unsigned long long col_key(float d, int row) {
-  return ((unsigned long long)__float_as_uint(d) << 32) | (unsigned)row;
-}
-
 __global__ void __launch_bounds__(NT) match_top2_kernel(
     const float* __restrict__ d1, const uint8_t* __restrict__ v1,
     const float* __restrict__ d2, const uint8_t* __restrict__ v2,
@@ -144,28 +138,6 @@ constexpr int kResidentMaxD = 320;  // 128 x (D + 4) floats + the ring + the key
 
 size_t resident_smem(int D) {
   return (size_t)RR * (D + 4) * sizeof(float) + kRingBytes + kKeyBytes;
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool ok) {
-  const unsigned int dst = static_cast<unsigned int>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// top2_push for a thread whose columns come in increasing order (each
-// thread's do here): a tie never goes to the new column, so the push needs no
-// branch. A row whose every distance is +inf keeps idx INT_MAX (top2_push
-// would take its first column); both are written out as index 0.
-__device__ __forceinline__ void top2_push_ascending(Top2& t, float d, int j) {
-  const bool nb = d < t.best;
-  t.second = nb ? t.best : fminf(t.second, d);
-  t.idx = nb ? j : t.idx;
-  t.best = nb ? d : t.best;
 }
 
 __global__ void __launch_bounds__(RNT, 1) match_top2_resident_kernel(

@@ -12,13 +12,6 @@
 
 #define SFM_API extern "C" __attribute__((visibility("default")))
 
-// Python's / jnp.remainder's float modulo: the result takes the divisor's sign.
-__device__ __forceinline__ float sfm_pos_mod(float a, float b) {
-  float r = fmodf(a, b);
-  if (r != 0.f && ((r < 0.f) != (b < 0.f))) r += b;
-  return r;
-}
-
 __device__ __forceinline__ int sfm_pos_mod(int a, int b) {
   int r = a % b;
   return r < 0 ? r + b : r;
@@ -88,12 +81,6 @@ __device__ __forceinline__ int sfm_fx_shift(double bound) {
 
 __device__ __forceinline__ long long sfm_fx_of(float x, int sh) {
   return __double2ll_rn(ldexp((double)x, sh));
-}
-
-__device__ __forceinline__ void sfm_fx_add(unsigned long long* acc, float x, int sh) {
-  if (sh == SFM_FX_BAD) return;
-  const long long v = sfm_fx_of(x, sh);
-  if (v != 0) atomicAdd(acc, static_cast<unsigned long long>(v));
 }
 
 // The sum (NaN for a non-finite bound).

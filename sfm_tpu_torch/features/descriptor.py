@@ -63,6 +63,18 @@ def _t(a, device):
     return torch.as_tensor(a, device=device)
 
 
+_TABLES_ON: dict = {}  # device -> _K5_TABLES there
+
+
+def _k5_tables(device):
+    """The kernel's tables on ``device``, uploaded once: a copy from pageable
+    host memory holds the host until the device has run every kernel before it."""
+    t = _TABLES_ON.get(device)
+    if t is None:
+        t = _TABLES_ON[device] = _t(_K5_TABLES, device)
+    return t
+
+
 def _patch_origin(x, y, w_o, h_o):
     """Patch corner (g0x, g0y) in octave coordinates, as the reference clips it."""
     cx = torch.round(x).to(torch.int64)
@@ -229,7 +241,7 @@ def orientation_and_descriptor_canvas_cuda(
     for name, t in zip(("grad_layer", "row_off", "w_o", "h_o", "x", "y", "sigma_rel"),
                        ints + flts):
         _kernels.check_tensor(t, name, t.dtype, (B, K), dev)
-    tables = _t(_K5_TABLES, dev)
+    tables = _k5_tables(dev)
     angle = torch.empty((B, K), dtype=torch.float32, device=dev)
     desc = torch.empty((B, K, 128), dtype=torch.float32, device=dev)
     gl, ro, wo, ho = ints

@@ -5,9 +5,10 @@ scored by its mutual ratio-test match count over both images' top-S
 keypoints (``desc[:, :S]``: the frontend orders keypoints by response); the
 full match + verify sweep then runs only on the pairs that clear the score
 bar or rank among an image's top-k neighbours. The count is kernel K1-r
-(``csrc/retrieval_score.cu``): one block per pair finishes both directions
-of the S x S distance matrix inside the block and writes one int32;
-:func:`score_chunk_plain` is its twin. Scores are computed in float32 (the
+(``csrc/retrieval_score.cu``): a block finishes both directions of a pair's
+S x S distance matrix inside the block and writes one int32 (at S <= 256,
+D <= 128 a persistent block an SM walks its pairs with their rows resident;
+past that, a block a pair); :func:`score_chunk_plain` is its twin. Scores are computed in float32 (the
 reference allows bf16 on the TPU). The selection rules run on the host.
 """
 from __future__ import annotations
@@ -22,7 +23,8 @@ from sfm_tpu_torch import _kernels
 from sfm_tpu_torch.config import RetrievalConfig
 
 # The kernel keeps per-row and per-column state for S rows in shared memory
-# and stages descriptors in chunks of 32 floats.
+# and stages descriptors in chunks of 32 floats (csrc/retrieval_score.cu's
+# header: which shapes take which of its two designs).
 _K1R_MAX_S = 1024
 _K1R_D_MULTIPLE = 32
 

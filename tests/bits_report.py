@@ -1,14 +1,17 @@
 """Kernels of one checkout against another's, bit for bit, on the card: K11's
 matvec and PCG, K10's coupling, K7's triangulation, K8+K9's linearization,
 K1's top-2, K3's pyramid, K4's candidate selection and extrema grid, K2's
-F-RANSAC and K6's P3P round and ``pnp_refine``.
+F-RANSAC, K6's P3P round and ``pnp_refine``, K5's descriptors and K1-r's
+retrieval counts.
 
     python tests/bits_report.py dump --scene D [--pipeline P] [--orb G] [--dlt_scene D36]
                                      --out DIR
     python tests/bits_report.py run --repo REPO
                                     [--cases matvec,coupling,triangulate,linearize,match,
-                                             pyramid,select,fmat,pnp,p3p,extrema]
-                                    [--inputs DIR] [--scene DIR] [--vectors 8] --out FILE.pt
+                                             pyramid,select,fmat,pnp,p3p,extrema,describe,
+                                             retrieval]
+                                    [--inputs DIR] [--scene DIR] [--large_scene DIR]
+                                    [--vectors 8] --out FILE.pt
     python tests/bits_report.py compare A.pt B.pt
 
 ``dump`` first runs path d's ``pipeline`` on ``D`` (the smoke's 150-view
@@ -16,9 +19,10 @@ scene) and writes the inputs of every K2 launch of its sweep (``fmat.pt``:
 each chunk's points, valid rows, drawn sample indices, threshold, scoring
 budget and gates), of every P3P round of its engine (``p3p.pt``: the
 correspondences, K, the indices drawn where ``pnp_ransac_batch`` draws them,
-the threshold and the gates), of every ``pnp_refine`` launch (``pnp.pt``)
-and the DoG stacks of every octave of its first detection batch
-(``extrema.pt``); with ``--dlt_scene`` (the smoke's 36 views) path j's
+the threshold and the gates), of every ``pnp_refine`` launch (``pnp.pt``),
+the DoG stacks of every octave of its first detection batch
+(``extrema.pt``) and its retrieval's table (``retrieval.pt``: ``desc_s``,
+``valid_s``, the candidate pairs, the chunk size and the ratio); with ``--dlt_scene`` (the smoke's 36 views) path j's
 ``pipeline`` (PnP's DLT branch) runs there and its rounds go to
 ``dlt.pt``. Then it runs this checkout's ``reconstruct`` on path d's
 artifacts (``P``, by default that pipeline's output; the smoke's is the
@@ -96,6 +100,21 @@ and saves, for each case, its outputs, a digest of its inputs and its times:
 - ``extrema``: ``dog_extrema_scores_cuda``'s score grid (a digest) on every
   octave of path d's dumped first batch and of the ``pyramid`` case's
   pyramids.
+- ``describe``: K5's angle and descriptors (``orientation_and_descriptor_canvas_cuda``)
+  on the inputs of every K5 launch of path d's detection (its scene,
+  ``--large_scene``, in batches of ``detect_batch`` images, the last one 6;
+  rebuilt from the images by the checkout's own ``select_keypoints``, whose
+  inputs' digest the case keeps), on the first batch with keypoints moved to
+  every octave's borders (the patch clamps), on its canvas cut to an odd width
+  and shifted off 16- and 4-byte alignment (the narrower staging copies), and
+  on two images cut to 200 x 260 (the last octave padded to 66 rows); a
+  digest of each descriptor table, the angles whole; wrapper, device and
+  kernel times.
+- ``retrieval``: K1-r's counts (``score_chunk_cuda``) on every chunk of path
+  d's retrieval (with ``--inputs``), on ``phase_retrieval_score``'s chunk, on
+  a tie-heavy chunk (+-1/16 descriptors, rows repeated across the tile edges),
+  on path d's first chunk (or the phase's table) cut to S = 100 and 200, and on
+  ``phase_retrieval_binary``'s D = 256 chunk; the same times.
 - ``pnp``: ``pnp_refine_cuda``'s R, rvec, t, inliers, count, errors and ok on
   ``phase_pnp_refine``'s two scenes, on a degenerate batch (a candidate with
   no valid row, so both refits see all-zero weights; one with a NaN
@@ -129,7 +148,7 @@ import sys
 from pathlib import Path
 
 CASES = ("matvec", "coupling", "triangulate", "linearize", "match", "pyramid", "select", "fmat",
-         "pnp", "p3p", "extrema")
+         "pnp", "p3p", "extrema", "describe", "retrieval")
 # K2's outputs, in the order the cases keep them.
 FMAT_OUTPUTS = ("Fs", "best", "count", "F", "inliers", "errors", "num_matches", "num_inliers",
                 "inlier_ratio", "reprojection_error", "well_distributed", "accept", "ok")
@@ -264,6 +283,7 @@ def ransac_inputs(args, out: Path):
     ``estimate_fundamental_ransac`` draws them, then handed to it), of every
     P3P round and ``pnp_refine`` launch of its engine, and the DoG stacks of
     every octave of its first detection batch."""
+    import numpy as np
     import torch
 
     from sfm_tpu_torch import cli
@@ -273,9 +293,12 @@ def ransac_inputs(args, out: Path):
     from sfm_tpu_torch.matching import verify
     from sfm_tpu_torch.reconstruction import incremental as inc
 
-    chunks, refits, rounds, stacks = [], [], [], []
+    from sfm_tpu_torch.matching import retrieval
+
+    chunks, refits, rounds, stacks, tables = [], [], [], [], []
     real_est, real_refine = verify.estimate_fundamental_ransac, pnp.pnp_refine
     real_extrema = frontend.dog_extrema_scores
+    real_scores = retrieval.retrieval_scores
     batch, real_batch = pnp_rounds_recorder(torch, rounds, 3)
     cpu = lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x
 
@@ -302,9 +325,19 @@ def ransac_inputs(args, out: Path):
         refits.append(([cpu(x) for x in a], {k: cpu(v) for k, v in kw.items()}))
         return real_refine(*a, **kw)
 
+    def scores(desc, valid, pairs, config=retrieval.RetrievalConfig()):
+        S = min(config.subsample, desc.shape[1])
+        tables.append({"desc_s": cpu(torch.as_tensor(desc)[:, :S]).float().contiguous(),
+                       "valid_s": cpu(torch.as_tensor(valid)[:, :S]).bool().contiguous(),
+                       "pairs": torch.as_tensor(np.asarray(pairs, np.int32)),
+                       "chunk_size": int(config.chunk_size),
+                       "ratio": float(config.ratio_threshold)})
+        return real_scores(desc, valid, pairs, config)
+
     verify.estimate_fundamental_ransac, pnp.pnp_refine = estimate, refine
     pnp.pnp_ransac_batch = inc.pnp_ransac_batch = batch
     frontend.dog_extrema_scores = extrema
+    retrieval.retrieval_scores = scores
     try:
         rc = cli.main(["--log_level", "WARNING", "pipeline", "--data_dir", str(args.scene),
                        "--output_dir", str(out / "pipeline"), "--device", "cuda", "--no_mask"])
@@ -312,20 +345,24 @@ def ransac_inputs(args, out: Path):
         verify.estimate_fundamental_ransac, pnp.pnp_refine = real_est, real_refine
         pnp.pnp_ransac_batch = inc.pnp_ransac_batch = real_batch
         frontend.dog_extrema_scores = real_extrema
-    if rc != 0 or not chunks or not refits or not rounds or not stacks:
+        retrieval.retrieval_scores = real_scores
+    if rc != 0 or not chunks or not refits or not rounds or not stacks or len(tables) != 1:
         raise SystemExit(f"bits_report dump: pipeline rc {rc}, {len(chunks)} K2 chunks, "
                          f"{len(refits)} pnp_refine launches, {len(rounds)} P3P rounds, "
-                         f"{len(stacks)} DoG stacks")
+                         f"{len(stacks)} DoG stacks, {len(tables)} retrieval tables")
     torch.save(chunks, out / "fmat.pt")
     torch.save(refits, out / "pnp.pt")
     torch.save(rounds, out / "p3p.pt")
     torch.save(stacks, out / "extrema.pt")
+    torch.save(tables[0], out / "retrieval.pt")
     print(f"dumped: {len(chunks)} K2 chunks of path d's sweep "
           f"({sum(c['valid'].shape[0] for c in chunks)} pairs), {len(refits)} pnp_refine "
           f"launches and {len(rounds)} P3P rounds of its engine (candidates "
           f"{[r['valid'].shape[0] for r in rounds]}, valid rows a round "
           f"{[int(r['valid'].sum()) for r in rounds]}), the DoG stacks of "
-          f"{[tuple(st['dog'].shape) for st in stacks]}", flush=True)
+          f"{[tuple(st['dog'].shape) for st in stacks]}, the retrieval table "
+          f"{tuple(tables[0]['desc_s'].shape)} with {tables[0]['pairs'].shape[0]} pairs",
+          flush=True)
     if args.dlt_scene:
         dlt_rounds(args, out)
 
@@ -357,15 +394,19 @@ def dlt_rounds(args, out: Path):
     print(f"dumped: {len(rounds)} DLT rounds of path j's engine", flush=True)
 
 
-def _point_major():
-    """``chip_smoke.point_major`` of this checkout (the other checkout's
-    ``chip_smoke`` may predate it): it takes the package's ``schur`` module
-    as an argument, so it runs on either checkout's kernels."""
+def _here():
+    """This checkout's ``chip_smoke`` (the other checkout's may predate what a
+    case takes from it: ``point_major``, which takes the package's ``schur``
+    module as an argument, and the tie-heavy retrieval table, plain torch)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_here", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.point_major
+    return mod
+
+
+def _point_major():
+    return _here().point_major
 
 
 class Runner:
@@ -1166,6 +1207,110 @@ def run_extrema(r: Runner, args):
         torch.cuda.empty_cache()
 
 
+def run_describe(r: Runner, args):
+    """K5 on path d's every launch (its scene's images in detection batches,
+    through the checkout's select_keypoints), border keypoints, narrow staging
+    copies and padded octaves."""
+    torch = r.torch
+    import numpy as np
+
+    from sfm_tpu_torch.config import SfMConfig
+    from sfm_tpu_torch.features.descriptor import orientation_and_descriptor_canvas_cuda
+    from sfm_tpu_torch.features.frontend import select_keypoints
+    from sfm_tpu_torch.io.images import load_image_gray_u8
+    from sfm_tpu_torch.render_scene import render_dataset
+
+    from describe_inputs import describe_border
+
+    fc = SfMConfig().features
+    kw = dict(descriptor_scale=fc.descriptor_scale, clip=fc.descriptor_clip)
+    here = _here()
+
+    def describe(name, a, note=""):
+        fn = lambda: orientation_and_descriptor_canvas_cuda(*a, **kw)
+        angle, desc = fn()
+        torch.cuda.synchronize()
+        # The bound at these inputs, by this checkout's chip_smoke (both
+        # checkouts read the same number).
+        bound_ms = here.bound(here.result(0.0, 0.0, 0.0, here.k5_moved_bytes(torch, *a),
+                                          a[2].numel() * 512 * 80))[0]
+        r.add(name, _digest(*a), [angle] + _digests(torch, [desc]),
+              f"{tuple(a[0].shape)} canvas, {tuple(a[2].shape)} keypoints{note}",
+              {"wrapper_ms": r.cs.median_ms(torch, fn), "stream_ms": r.stream_ms(fn),
+               "kernel_ms": r.kernel_ms(fn, ("sift_describe",)), "bound_ms": bound_ms},
+              names=("angle", "desc"))
+
+    scene = Path(args.large_scene)
+    if not (scene / ".render_meta").exists():
+        render_dataset(str(scene), 150, supersample=1, log=print, workers=6)
+    imgs = [load_image_gray_u8(p) for p in sorted((scene / "images").glob("*.pgm"))]
+    first = None
+    for c in range(0, len(imgs), fc.detect_batch):
+        ims = torch.as_tensor(np.stack(imgs[c:c + fc.detect_batch]), device="cuda")
+        a = select_keypoints(ims, None, fc)["describe"]
+        describe(f"describe/path_d/batch_{c // fc.detect_batch:02d}", a,
+                 f", images {c}..{c + ims.shape[0] - 1}")
+        if first is None:
+            first = a
+        torch.cuda.empty_cache()
+    describe("describe/borders", describe_border(torch, first))
+    canvas = first[0]
+    odd = canvas[..., :canvas.shape[-1] - 1].contiguous()
+    describe("describe/odd_width", (odd,) + tuple(first[1:]))
+    for shift in (1, 2):   # halves: off 4-byte, then off 16-byte alignment
+        buf = torch.empty(canvas.numel() + 8, dtype=canvas.dtype, device=canvas.device)
+        moved = buf[shift:shift + canvas.numel()].view(canvas.shape)
+        moved.copy_(canvas)
+        describe(f"describe/offset_{2 * shift}_bytes", (moved,) + tuple(first[1:]))
+    small = torch.as_tensor(np.stack(imgs[:2]), device="cuda")[:, :200, :260].contiguous()
+    a = select_keypoints(small, None, fc)["describe"]
+    describe("describe/padded_octave", a, f", octave rows {[int(h) for h in a[7][0].unique()]}")
+    del first, canvas, odd
+    torch.cuda.empty_cache()
+
+
+def run_retrieval(r: Runner, args):
+    """K1-r on path d's every chunk, the phase's chunk, a tie-heavy chunk, S =
+    100 and 200, and D = 256."""
+    torch, cs = r.torch, r.cs
+    from sfm_tpu_torch.matching.retrieval import score_chunk_cuda
+
+    def score(name, pairs, desc, valid, ratio):
+        fn = lambda: score_chunk_cuda(pairs, desc, valid, ratio)
+        got = fn()
+        torch.cuda.synchronize()
+        r.add(name, _digest(pairs, desc, valid), [got],
+              f"{pairs.shape[0]} pairs, S {desc.shape[1]}, D {desc.shape[2]}, counts "
+              f"{int(got.min())}..{int(got.max())}",
+              {"wrapper_ms": cs.median_ms(torch, fn), "stream_ms": r.stream_ms(fn),
+               "kernel_ms": r.kernel_ms(fn, ("retrieval_",))}, names=("counts",))
+
+    dev = torch.device("cuda")
+    N, S = 150, 256
+    desc, valid = cs.corridor_descriptors(torch, dev, N, S)
+    pairs = [(k, k + d) for d in range(1, 8) for k in range(N - d)] + [(0, 149), (3, 90)]
+    pairs = torch.tensor(pairs, dtype=torch.int32, device=dev)
+    score("retrieval/phase", pairs, desc, valid, 0.75)
+    t_desc, t_valid = _here().tie_heavy_table(torch, dev, N, S)
+    score("retrieval/tie_heavy", pairs, t_desc, t_valid, 0.75)
+    cut, cut_valid, cut_pairs, ratio = desc, valid, pairs, 0.75
+    f = Path(args.inputs or "") / "retrieval.pt"
+    if args.inputs and f.exists():
+        blob = torch.load(f, weights_only=False)
+        d_s, v_s = blob["desc_s"].to(dev), blob["valid_s"].to(dev)
+        all_pairs, n = blob["pairs"].to(dev), blob["chunk_size"]
+        for i, c0 in enumerate(range(0, all_pairs.shape[0], n)):
+            score(f"retrieval/path_d/chunk_{i:02d}", all_pairs[c0:c0 + n].contiguous(), d_s,
+                  v_s, blob["ratio"])
+        cut, cut_valid, cut_pairs, ratio = d_s, v_s, all_pairs[:n].contiguous(), blob["ratio"]
+    for s_cut in (100, 200):
+        score(f"retrieval/s{s_cut}", cut_pairs, cut[:, :s_cut].contiguous(),
+              cut_valid[:, :s_cut].contiguous(), ratio)
+    b_desc, b_valid = cs.corridor_descriptors(torch, dev, N, S, D=256)
+    score("retrieval/d256", pairs, cs.binary_descriptors(torch, b_desc), b_valid, 0.75 ** 0.5)
+    torch.cuda.empty_cache()
+
+
 def run(args) -> int:
     repo = Path(args.repo).resolve()
     sys.path.insert(0, str(repo))
@@ -1185,7 +1330,8 @@ def run(args) -> int:
                      ("triangulate", run_triangulate), ("linearize", run_linearize),
                      ("match", run_match), ("pyramid", run_pyramid), ("select", run_select),
                      ("fmat", run_fmat), ("pnp", run_pnp), ("p3p", run_p3p),
-                     ("extrema", run_extrema)):
+                     ("extrema", run_extrema), ("describe", run_describe),
+                     ("retrieval", run_retrieval)):
         if case in cases:
             fn(r, args)
     torch.save({"repo": str(repo), "card": cs.card_line(), "cases": r.cases,
@@ -1271,6 +1417,8 @@ def main(argv=None) -> int:
     r.add_argument("--vectors", type=int, default=8, help="the matvec's random x")
     r.add_argument("--scene", default=".chip_smoke/scene_36",
                    help="the smoke's 36 rendered views (rendered there if missing)")
+    r.add_argument("--large_scene", default=".chip_smoke/scene_150",
+                   help="path d's 150 rendered views (rendered there if missing)")
     r.add_argument("--out", required=True)
     c = sub.add_parser("compare")
     c.add_argument("a")
